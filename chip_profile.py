@@ -1,4 +1,5 @@
-"""Where a cascade request's time goes in the PyTorch port, on one CUDA GPU.
+"""Where a cascade request's and a training step's time go in the PyTorch
+port, on one CUDA GPU.
 
     python3 chip_profile.py [--users 64,256,1024] [--requests 10]
 
@@ -18,6 +19,15 @@ over the same requests after two warm-up requests:
 The device-busy share is the traced device time per request over the
 plain run's ``recommend`` time, so neither the tracer's nor the wrappers'
 overhead enters it.
+
+Training: the full-width DCN of ``chip_smoke.py``'s training phase
+(``mind_config("dcn", embedding_optimizer="rowwise_adagrad")``, batch 512)
+under ``Trainer.train_epoch``, after a warm-up epoch, in the same three
+runs over epochs of TRAIN_STEPS (24) steps: plain (ms per step, nothing
+added), layers (gather, fields, forward, backward, dense AdamW, dedup,
+rowwise update + scatter, AUC, each wrapped with card syncs), traced
+(device time per step, top kernels). The device-busy share of a step is
+the traced device time per step over the plain run's.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import collections
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -36,6 +47,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402
 from news_recsys_tpu_torch.serving import _user_batch_from_json  # noqa: E402
+
+TRAIN_STEPS = 24            # steps in each profiled training epoch
 
 
 def plain_times(casc, reqs) -> dict:
@@ -58,6 +71,19 @@ def plain_times(casc, reqs) -> dict:
     return {k: v / len(reqs) * 1e3 for k, v in totals.items()}
 
 
+def sync_timer(fn, label, totals):
+    """``fn`` with the card synchronised around it and its wall time added
+    to ``totals[label]``."""
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        totals[label] += time.perf_counter() - t
+        return out
+    return timed
+
+
 def layer_times(casc, reqs) -> dict:
     """Mean wall ms per request of each layer, the card synchronised around each."""
     totals = collections.defaultdict(float)
@@ -65,19 +91,8 @@ def layer_times(casc, reqs) -> dict:
              (casc.recall.searcher, "search", "recall: matmul + topk + copy"),
              (casc.recall, "recommend", "recall: total (incl. dedup loop)"),
              (casc.ranker_model, "forward", "rank: DCN forward")]
-
-    def wrap(fn, label):
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            totals[label] += time.perf_counter() - t
-            return out
-        return timed
-
     for obj, name, label in spans:
-        setattr(obj, name, wrap(getattr(obj, name), label))
+        setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
     try:
         for req in reqs:
             casc.recommend(_user_batch_from_json(casc, req["users"]), k=chip_smoke.K,
@@ -95,7 +110,73 @@ def traced_kernels(casc, reqs) -> list:
             casc.recommend(_user_batch_from_json(casc, req["users"]), k=chip_smoke.K,
                            histories=req["histories"])
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return chip_smoke.device_events(prof)
+
+
+def train_layer_times(trainer, state, ds, epoch) -> dict:
+    """Mean wall ms per step of each layer of the sparse step, the card
+    synchronised around each."""
+    from news_recsys_tpu_torch.training import sparse_step
+
+    totals = collections.defaultdict(float)
+    spans = [(sparse_step, "gather_large_rows", "gather (large-table rows)"),
+             (sparse_step, "fields_from_rows", "fields (small-table gathers, masks)"),
+             (trainer.model, "forward_from_fields", "forward (cross kernel + MLP)"),
+             (torch.Tensor, "backward", "backward (incl. cross bwd kernel)"),
+             (state.dense_opt, "step", "dense AdamW"),
+             (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
+             (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel"),
+             (sparse_step, "binned_auc_update", "AUC histogram")]
+    saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in spans]
+    for obj, name, label in spans:
+        setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
+    try:
+        _, metrics = trainer.train_epoch(state, ds, epoch)
+    finally:
+        for obj, name, old in saved:
+            if old is None:
+                delattr(obj, name)          # back to the class's own method
+            else:
+                setattr(obj, name, old)
+    return {k: v / metrics["steps"] * 1e3 for k, v in totals.items()}
+
+
+def profile_training(smi: str) -> None:
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+    from news_recsys_tpu_torch.zoo import mind_config
+
+    bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
+    cfg = mind_config("dcn", batch_size=bs, embedding_optimizer="rowwise_adagrad")
+    ds = PackedDataset(chip_smoke.ranking_arrays(bs * steps, chip_smoke.SEED + 9))
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
+                          workdir=tmp, device=dev)
+        state = trainer.init_state()
+        state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
+        _, plain = trainer.train_epoch(state, ds, 1)
+        step_ms = bs / plain["examples_per_sec"] * 1e3
+        layers = train_layer_times(trainer, state, ds, 2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_epoch(state, ds, 3)
+            torch.cuda.synchronize()
+    kernels = chip_smoke.device_events(prof)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    print(f"\n== training, batch {bs}, epochs of {steps} steps ({smi})")
+    print(f"  {'plain: step (train_epoch wall / steps)':44s} {step_ms:9.3f} ms")
+    for k, v in layers.items():
+        print(f"  {'layers: ' + k:44s} {v:9.3f} ms")
+    print(f"  {'layers: sum of the spans above':44s} {sum(layers.values()):9.3f} ms")
+    print(f"  {'steps/s, examples/s (plain)':44s} {1e3 / step_ms:9.1f} "
+          f"{plain['examples_per_sec']:.0f}")
+    print(f"  device kernels (profiler, {steps} steps) {dev_ms:.3f} ms/step, {launches:.0f} "
+          f"kernels and copies/step -> device busy {dev_ms / step_ms * 100:.2f}% of the "
+          f"plain run's step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.key[:72]:72s} {e.self_device_time_total / steps:8.1f} us/step "
+              f"({e.count // steps} calls)")
 
 
 def main(argv=None) -> None:
@@ -130,6 +211,7 @@ def main(argv=None) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.key[:72]:72s} "
                   f"{e.self_device_time_total / len(traced):8.1f} us/request")
+    profile_training(smi)
     print(smi)
 
 

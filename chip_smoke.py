@@ -2,22 +2,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path once at the full width of the repo's MIND
-models, from seeded random weights, and fails (non-zero exit, no result
-line) if any phase fails:
+Drives the port's two paths once at the full width of the repo's MIND
+models, from seeded random weights: serving (the recall -> rank cascade)
+and training (the DCN ranker's sparse step under ``Trainer.fit``). Fails
+(non-zero exit, no result line) if any phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a);
-3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and times both (device time from CUDA graph
-   replays, and wall time per call with host overhead);
-4. builds the recall -> rank cascade (DSSM of configs/dssm.yaml, DCN of
+2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
+   one nvcc per source in parallel);
+3. holds each kernel against its plain PyTorch version on the card at its
+   path's shapes, and times both (device time from CUDA graph replays, or
+   from a profiler trace where the plain version synchronises, and wall
+   time per call with host overhead);
+4. serving: builds the cascade (DSSM of configs/dssm.yaml, DCN of
    zoo.mind_config("dcn"), 65,238 items, fetch 100) on the card, saves it
    as a bundle, loads it back and serves it over HTTP on a thread; sends
    requests of 64 users with histories (k=10) and checks every answer;
-5. loads the same bundle on the CPU (plain PyTorch ops) and checks that it
+   loads the same bundle on the CPU (plain PyTorch ops) and checks that it
    agrees with the card's answers;
-6. checks that the requests launched both kernels.
+5. training: the DCN of zoo.mind_config("dcn",
+   embedding_optimizer="rowwise_adagrad") (arena 159,360 x 32, batch 512)
+   on a synthetic dataset of 64 batches shaped like bench.py's; 4 steps on
+   the card and on the CPU from the same state and batches must agree;
+   then ``Trainer.fit`` for one epoch on the card (loss finite), and a
+   second, warm epoch timed for steps/s and examples/s;
+6. checks that each path launched the kernels it runs: the counts are set
+   to 0 just before a path is driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times, and ``{"ok": true, "device": {...}}``.
@@ -25,7 +35,9 @@ times, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import os
 import re
 import subprocess
@@ -49,6 +61,17 @@ DCN_TOL = dict(rtol=1e-5, atol=1e-4)
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 # card vs CPU answers: sigmoid scores and user embeddings
 ANSWER_TOL = 1e-5
+# training: batch 512, one epoch of 64 steps over a synthetic dataset
+TRAIN_BATCH = 512
+TRAIN_STEPS = 64
+CHECK_STEPS = 4
+# card vs CPU training state after CHECK_STEPS steps: cuBLAS and the CPU sum
+# the matmuls in other orders, and Adam divides each step by |g| + 1e-8,
+# which amplifies those differences in weights whose gradient cancels there
+TRAIN_TOL = dict(rtol=1e-5, atol=5e-5)
+# the cross stack's backward sums 512 terms per weight in per-block
+# partials: rtol 1e-5 and an atol of 1e-5 of the largest gradient
+BWD_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -106,6 +129,46 @@ def device_ms(fn, rounds: int = 21, inner: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_events(prof) -> list:
+    """A ``torch.profiler`` trace's device kernels and copies, by name; user
+    annotations (``Optimizer.step#...`` ranges), which span other kernels,
+    are left out so that nothing is counted twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def traced_ms(fn, calls: int = 50) -> float:
+    """Device time per call from a ``torch.profiler`` trace of ``calls``
+    eager calls: the kernels' own time, without the gaps between them. For
+    a function that synchronises (a CUDA graph cannot capture it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / calls
+
+
+def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
+                  **extra) -> dict:
+    """Log a kernel's check and times, and return its entry of the
+    ``kernels`` line. ``times``: device ms of plain, kernel, kernel, plain
+    (the two orders average out drift); ``calls``: ms per call with host
+    overhead of kernel and plain."""
+    ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    log(f"kernel {name} [{shape}]: max_abs_err {err:.3e} ({tol}); device time ({timing}) "
+        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; per call with host "
+        f"overhead kernel {calls[0] * 1e3:.2f} us, plain {calls[1] * 1e3:.2f} us")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "timing": timing, "call_ms": calls[0], "plain_call_ms": calls[1], **extra}
+
+
 def check_kernels(dev) -> list:
     from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
     from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
@@ -144,18 +207,85 @@ def check_kernels(dev) -> list:
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, **tol)
-            # plain, kernel, kernel, plain: the two orders average out drift
             t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
-            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
-            log(f"kernel {name} [{shape}]: max_abs_err {err:.3e} (tol {tol}); device time "
-                f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; per call with "
-                f"host overhead kernel {calls[0] * 1e3:.2f} us, plain {calls[1] * 1e3:.2f} us")
-            out.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms,
-                        "call_ms": calls[0], "plain_call_ms": calls[1]})
+            out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
+                                     "cuda_graph", shape))
     return out
+
+
+def check_training_kernels(dev) -> list:
+    """The training path's kernels at its shapes: the cross stack's forward
+    in the mode that writes the backward's residuals and its backward fed
+    those residuals (batch 512, D 112, 3 layers), and the row scatter
+    (arena 159,360 x 32, 1,024 sorted slots with duplicates, as the dedup
+    gives them)."""
+    from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_plain,
+                                                      cross_fwd_plain, dcn_cross_bwd)
+    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+
+    rng = np.random.default_rng(SEED + 7)
+    B, D, NL = TRAIN_BATCH, 112, 3
+    bound = np.sqrt(6 / (D + 1))
+    x0 = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+    ws = torch.from_numpy(rng.uniform(-bound, bound, (NL, D)).astype(np.float32)).to(dev)
+    bs = torch.from_numpy(0.1 * rng.standard_normal((NL, D), np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+    with torch.no_grad():
+        fwd = _cross_fwd_kernel(x0, ws, bs, residuals=True)
+        fwd_want = cross_fwd_plain(x0, ws, bs)
+    torch.cuda.synchronize()
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(fwd, fwd_want))
+    for part, a, b in zip(("out", "xs", "ss"), fwd, fwd_want):
+        torch.testing.assert_close(a, b, msg=lambda m: f"cross forward {part}: {m}", **DCN_TOL)
+    log(f"kernel dcn_cross_stack with residuals [B={B} D={D} NL={NL}]: out, xs, ss "
+        f"max_abs_err {fwd_err:.3e} (tol {DCN_TOL})")
+    bwd_args = (x0, ws, fwd[1], fwd[2], g)          # the forward kernel's own xs, ss
+    with torch.no_grad():
+        got, want = dcn_cross_bwd(*bwd_args), cross_bwd_plain(*bwd_args)
+        again = dcn_cross_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    bwd_scale = max(float(b.abs().max()) for b in want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("dcn_cross_bwd: two runs gave different bits")
+
+    V, Ds, S = 159360, 32, 2 * TRAIN_BATCH
+    table = torch.from_numpy(rng.standard_normal((V, Ds), np.float32)).to(dev)
+    rows = np.sort(rng.integers(1, V, S)).astype(np.int32)
+    rows[1::7] = rows[0::7][: len(rows[1::7])]          # duplicates, still sorted
+    rows.sort()
+    vals = rng.standard_normal((S, Ds)).astype(np.float32)[np.searchsorted(rows, rows)]
+    rows, vals = torch.from_numpy(rows).to(dev), torch.from_numpy(vals).to(dev)
+    with torch.no_grad():
+        t_kernel, t_plain = table.clone(), table.clone()
+        scatter_rows_set(t_kernel, rows, vals)
+        scatter_rows_plain(t_plain, rows, vals)
+    torch.cuda.synchronize()
+    scatter_err = float((t_kernel - t_plain).abs().max())
+    if not torch.equal(t_kernel, t_plain):
+        raise AssertionError("scatter_rows_set: the table differs from the plain version's")
+
+    with torch.no_grad():
+        t = [device_ms(lambda: f(*bwd_args))
+             for f in (cross_bwd_plain, dcn_cross_bwd, dcn_cross_bwd, cross_bwd_plain)]
+        calls = [call_ms(lambda: f(*bwd_args)) for f in (dcn_cross_bwd, cross_bwd_plain)]
+        bwd = report_kernel(
+            "dcn_cross_bwd", "news_recsys_tpu_torch/csrc/dcn_cross_bwd.cu",
+            "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
+            f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
+            f"bit-identical", t, calls, "cuda_graph", f"B={B} D={D} NL={NL}",
+            fwd_residuals_max_abs_err=fwd_err)
+        scatter = (lambda: scatter_rows_set(t_kernel, rows, vals),
+                   lambda: scatter_rows_plain(t_plain, rows, vals))
+        t = [traced_ms(scatter[i]) for i in (1, 0, 0, 1)]
+        calls = [call_ms(f) for f in scatter]
+        return [bwd, report_kernel(
+            "scatter_rows_set", "news_recsys_tpu_torch/csrc/scatter_rows.cu",
+            "news_recsys_tpu/ops/scatter_rows.py:68", scatter_err, "bit-identical", t, calls,
+            "profiler", f"V={V} D={Ds} S={S}")]
 
 
 def make_requests(n_requests: int) -> list:
@@ -283,16 +413,21 @@ def build_cascade(dev: torch.device):
                               items, fetch=FETCH)
 
 
-def run(dev: torch.device) -> None:
-    from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_stack
-    from news_recsys_tpu_torch.ops.fused_lookup_pool import fused_lookup_pool
-    from news_recsys_tpu_torch.serving import CascadeRecommender, serve_http
+def ranking_arrays(rows: int, seed: int) -> dict:
+    """Synthetic ranking rows shaped like ``bench.py:_ranking_arrays``: the
+    five MIND features drawn uniformly over their tables, 10% positives."""
+    from news_recsys_tpu_torch.zoo import MIND_FEATURES, MIND_TABLE_SIZE
+    rng = np.random.default_rng(seed)
+    arrays = {n: rng.integers(1, MIND_TABLE_SIZE[n], rows).astype(np.int32)
+              for n in MIND_FEATURES}
+    arrays["label"] = (rng.random(rows) < 0.1).astype(np.float32).reshape(-1, 1)
+    return arrays
 
-    name = torch.cuda.get_device_name(0)
-    smi = card()
-    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels()
-    kernels = check_kernels(dev)
+
+def serve_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """Serve the cascade over HTTP and check it; returns the kernel launches
+    of the served requests."""
+    from news_recsys_tpu_torch.serving import CascadeRecommender, serve_http
 
     t0 = time.perf_counter()
     casc = build_cascade(dev)
@@ -315,15 +450,13 @@ def run(dev: torch.device) -> None:
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             assert health["items"] == n_items and health["cascade"], health
-            dcn_cross_stack.launches = 0
-            fused_lookup_pool.launches = 0
+            reset_launches()
             answers, latency_ms = [], []
             for req in reqs:
                 t = time.perf_counter()
                 answers.append(post(url, req))
                 latency_ms.append((time.perf_counter() - t) * 1e3)
-            launches = {"dcn_cross_stack": dcn_cross_stack.launches,
-                        "fused_lookup_pool": fused_lookup_pool.launches}
+            launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
@@ -338,11 +471,126 @@ def run(dev: torch.device) -> None:
 
         cpu = CascadeRecommender.load(bundle, device="cpu")
         compare_with_cpu(gpu, cpu, reqs, answers)
+    return launches
 
+
+def compare_training_with_cpu(dev: torch.device, cfg, ds) -> None:
+    """CHECK_STEPS sparse steps on the card and on the CPU from the same
+    seeded state and the same batches: every parameter (both take the sorted
+    route, so every table row) and accumulator within TRAIN_TOL."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
+                                                            make_sparse_train_step)
+    from news_recsys_tpu_torch.training.trainer import AucHist, BatchPacker, unpack_batch
+
+    cpu_model = build_ranker(cfg, seed=SEED + 5)
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
+    packer = BatchPacker(ds)
+    idx = np.random.default_rng(SEED + 8).permutation(packer.n)[: CHECK_STEPS * TRAIN_BATCH]
+    losses = {"cpu": [], "cuda": []}
+    for rows in idx.reshape(CHECK_STEPS, TRAIN_BATCH):
+        for d, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(device),
+                                 torch.from_numpy(packer.float_mat[rows]).to(device),
+                                 torch.ones(TRAIN_BATCH, device=device), packer.layout_key())
+            loss, _ = steps[d](states[d], batch, AucHist.zeros(device))
+            losses[d].append(float(loss))
+    want = dict(models["cpu"].named_parameters())
+    err = {"params": 0.0, "accumulators": 0.0}
+    for n, p in models["cuda"].named_parameters():
+        err["params"] = max(err["params"], float((p.detach().cpu() - want[n].detach()).abs().max()))
+        torch.testing.assert_close(p.detach().cpu(), want[n].detach(), msg=n, **TRAIN_TOL)
+    for n, acc in states["cuda"].emb_acc.items():
+        err["accumulators"] = max(err["accumulators"],
+                                  float((acc.cpu() - states["cpu"].emb_acc[n]).abs().max()))
+        torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[n], msg=n, **TRAIN_TOL)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TRAIN_TOL)
+    log(f"training, card vs CPU after {CHECK_STEPS} steps at batch {TRAIN_BATCH}: max_abs_err "
+        f"tables + dense parameters {err['params']:.3e}, AdaGrad accumulators "
+        f"{err['accumulators']:.3e}, losses {losses['cuda']} vs {losses['cpu']} "
+        f"(tol {TRAIN_TOL}; TF32 off: allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+
+
+def train_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """Train the full-width DCN with ``Trainer.fit`` on the card; returns the
+    kernel launches of that epoch."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+    from news_recsys_tpu_torch.zoo import mind_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
+    cfg = mind_config("dcn", batch_size=TRAIN_BATCH, embedding_optimizer="rowwise_adagrad")
+    ds = PackedDataset(ranking_arrays(TRAIN_BATCH * TRAIN_STEPS, SEED + 9))
+    compare_training_with_cpu(dev, cfg, ds)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 6, device=dev), workdir=tmp,
+                          device=dev)
+        tables = {n: tuple(t.shape) for n, t in trainer.model.embedder.tables.items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit(ds, max_epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        with open(trainer.metrics_path) as f:
+            first = json.loads(f.readlines()[-1])
+        if first["steps"] != TRAIN_STEPS or not math.isfinite(first["train_loss"]):
+            raise AssertionError(f"Trainer.fit: {first}")
+        bad = [n for n, p in trainer.model.named_parameters() if not torch.isfinite(p).all()]
+        if bad:
+            raise AssertionError(f"Trainer.fit left non-finite parameters: {bad}")
+        log(f"Trainer.fit on {name}: tables {tables}; {TRAIN_STEPS} steps of batch "
+            f"{TRAIN_BATCH} in {fit_s:.2f} s (first epoch, warm-up included); train_loss "
+            f"{first['train_loss']:.6f}, train_auc {first['train_auc']:.4f}; launches in that "
+            f"epoch: {launches}")
+        _, warm = trainer.train_epoch(state, ds, epoch=1)
+        if not math.isfinite(warm["train_loss"]):
+            raise AssertionError(f"train_epoch: {warm}")
+    rate = warm["examples_per_sec"]
+    log(f"training throughput on {name} ({smi}): batch {TRAIN_BATCH}, a warm epoch of "
+        f"{warm['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s, {rate:.0f} examples/s")
+    return launches
+
+
+def counted_kernels() -> dict:
+    from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd, dcn_cross_stack
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import fused_lookup_pool
+    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_set
+    return {f.__name__: f for f in (dcn_cross_stack, fused_lookup_pool, dcn_cross_bwd,
+                                    scatter_rows_set)}
+
+
+def reset_launches() -> None:
+    for f in counted_kernels().values():
+        f.launches = 0
+
+
+def read_launches() -> dict:
+    return {n: f.launches for n, f in counted_kernels().items()}
+
+
+# the kernels each path must launch
+PATH_KERNELS = {"serve": ("dcn_cross_stack", "fused_lookup_pool"),
+                "train": ("dcn_cross_stack", "dcn_cross_bwd", "scatter_rows_set")}
+
+
+def run(dev: torch.device) -> None:
+    name = torch.cuda.get_device_name(0)
+    smi = card()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels()
+    kernels = check_kernels(dev) + check_training_kernels(dev)
+    paths = {"serve": serve_phase(dev, name, smi), "train": train_phase(dev, name, smi)}
+    for path, names in PATH_KERNELS.items():
+        for k in names:
+            if paths[path][k] <= 0:
+                raise AssertionError(f"{k}: the {path} path never launched it")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']}: the served requests never launched it")
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,6 +13,10 @@ flax path                                  port parameter
 ``<m>/Linear_<i>/Dense_0/bias``            ``<m>.layers.<i>.bias``
 ``cross/w_<l>`` (D, 1), ``cross/b_<l>``    row l of ``cross.ws``, ``cross.bs``
 =========================================  ==================================
+
+A sparse training state travels the same way (:func:`sparse_state_from_jax`,
+:func:`sparse_state_to_jax`): AdamW's moments are keyed by their
+parameter's flax path.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .training.sparse_step import dense_parameters, init_sparse_state
 
 _LINEAR = re.compile(r"^(.+)/Linear_(\d+)/Dense_0/(kernel|bias)$")
 _CROSS = re.compile(r"^cross/([wb])_(\d+)$")
@@ -44,12 +50,12 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def params_from_flax(tree: Mapping, model: nn.Module) -> nn.Module:
-    """Copy flax parameters into ``model`` in place (strict: every parameter
-    of the model must be given, and nothing else); returns ``model``."""
+def port_arrays(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """{flax path: array} -> {port parameter name: float32 array}: kernels
+    transposed, the per-layer cross vectors stacked."""
     state: Dict[str, np.ndarray] = {}
     cross: Dict[str, Dict[int, np.ndarray]] = {"w": {}, "b": {}}
-    for path, value in flatten(tree).items():
+    for path, value in flat.items():
         value = np.asarray(value, np.float32)
         if m := _LINEAR.match(path):
             module, i, kind = m.groups()
@@ -65,15 +71,14 @@ def params_from_flax(tree: Mapping, model: nn.Module) -> nn.Module:
     for kind, layers in cross.items():
         if layers:
             state[f"cross.{kind}s"] = np.stack([layers[i] for i in range(len(layers))])
-    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
-    return model
+    return state
 
 
-def params_to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`params_from_flax`: flat {flax path: array}."""
+def flax_arrays(named: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`port_arrays`: {port parameter name: array} ->
+    {flax path: array}."""
     flat: Dict[str, np.ndarray] = {}
-    for name, tensor in model.state_dict().items():
-        value = tensor.detach().cpu().numpy()
+    for name, value in named.items():
         if m := _LAYER.match(name):
             module, i, kind = m.groups()
             leaf = "kernel" if kind == "weight" else "bias"
@@ -88,3 +93,95 @@ def params_to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"no flax path for port parameter {name!r}")
     return flat
+
+
+def params_from_flax(tree: Mapping, model: nn.Module) -> nn.Module:
+    """Copy flax parameters into ``model`` in place (strict: every parameter
+    of the model must be given, and nothing else); returns ``model``."""
+    state = port_arrays(flatten(tree))
+    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
+    return model
+
+
+def params_to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`params_from_flax`: flat {flax path: array}."""
+    return flax_arrays({name: t.detach().cpu().numpy() for name, t in model.state_dict().items()})
+
+
+def flatten_sparse_state(state) -> Dict:
+    """The JAX package's ``SparseTrainState`` (numpy leaves, from
+    ``jax.device_get``) as the plain dict that :func:`sparse_state_to_jax`
+    gives; a dict of that form passes through as it is::
+
+        {"params": {flax path: array},
+         "dense_opt": {"count": (), "mu": {flax path: array}, "nu": {...}},
+         "emb_mu": {table: (V,)}, "step": ()}
+
+    ``dense_opt`` is optax's ``adamw`` state: the ``ScaleByAdamState`` of
+    the dense parameters and the small tables (its ``count`` also counts the
+    schedule), keyed by the parameters' flax paths."""
+    if isinstance(state, Mapping):
+        return state
+    if state.emb_nu:
+        raise NotImplementedError("sparse_adamw states are not ported yet: see ROADMAP.md, "
+                                  "queue 1, item 4 ('Optimizer variants')")
+    adam = state.dense_opt[0]
+
+    def moments(tree) -> Dict[str, np.ndarray]:
+        return flatten({**tree["dense"], "embedder": dict(tree["small"])})
+
+    return {"params": flatten(state.params),
+            "dense_opt": {"count": np.asarray(adam.count), "mu": moments(adam.mu),
+                          "nu": moments(adam.nu)},
+            "emb_mu": {k: np.asarray(v) for k, v in state.emb_mu.items()},
+            "step": np.asarray(state.step)}
+
+
+def sparse_state_from_jax(state, model: nn.Module, cfg):
+    """A JAX ``SparseTrainState`` (or :func:`flatten_sparse_state`'s dict)
+    as the port's: ``model`` takes the parameters in place, AdamW its
+    moments and step count per parameter (optax ``count`` / ``mu`` / ``nu``
+    -> torch ``step`` / ``exp_avg`` / ``exp_avg_sq``), the AdaGrad
+    accumulators and the step carry over. Training then continues as the
+    JAX state would."""
+    s = flatten_sparse_state(state)
+    params_from_flax(s["params"], model)
+    out = init_sparse_state(model, cfg)
+    params = dict(dense_parameters(model))
+    mu, nu = port_arrays(s["dense_opt"]["mu"]), port_arrays(s["dense_opt"]["nu"])
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise KeyError(f"AdamW moments {sorted(mu)} do not match the dense parameters "
+                       f"{sorted(params)}")
+    count = float(np.asarray(s["dense_opt"]["count"]))
+    for name, p in params.items():
+        out.dense_opt.state[p] = {
+            "step": torch.tensor(count),
+            "exp_avg": torch.tensor(mu[name], device=p.device),
+            "exp_avg_sq": torch.tensor(nu[name], device=p.device)}
+    if set(s["emb_mu"]) != set(out.emb_acc):
+        raise KeyError(f"accumulators {sorted(s['emb_mu'])} do not match the large tables "
+                       f"{sorted(out.emb_acc)}")
+    for name, acc in s["emb_mu"].items():
+        out.emb_acc[name].copy_(torch.as_tensor(np.asarray(acc, np.float32)))
+    out.step = int(np.asarray(s["step"]))
+    return out
+
+
+def sparse_state_to_jax(state) -> Dict:
+    """Inverse of :func:`sparse_state_from_jax`, as the dict of
+    :func:`flatten_sparse_state` (numpy leaves)."""
+    params = dense_parameters(state.model)
+    opt = [state.dense_opt.state.get(p, {}) for _, p in params]
+    steps = {float(o["step"]) for o in opt if o}
+    if len(steps) > 1:
+        raise ValueError(f"AdamW step counts differ between parameters: {sorted(steps)}")
+
+    def moments(key) -> Dict[str, np.ndarray]:
+        return flax_arrays({n: (o[key] if o else torch.zeros_like(p)).detach().cpu().numpy()
+                            for (n, p), o in zip(params, opt)})
+
+    return {"params": params_to_flax(state.model),
+            "dense_opt": {"count": np.asarray(int(steps.pop()) if steps else 0, np.int32),
+                          "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
+            "emb_mu": {k: v.detach().cpu().numpy() for k, v in state.emb_acc.items()},
+            "step": np.asarray(state.step, np.int32)}

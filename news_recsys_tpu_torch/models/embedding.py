@@ -29,6 +29,10 @@ from ..ops.fused_lookup_pool import fused_lookup_pool
 
 VOCAB_PAD_MULTIPLE = 128
 
+# Tables with vocab below this train with dense AdamW on the sparse step
+# path; the larger ones with a rowwise optimizer (``training/sparse_step.py``).
+SMALL_VOCAB_THRESHOLD = 4096
+
 
 def padded_vocab(vocab: int) -> int:
     """Round vocab+1 up to a multiple of 128 (leaves a spare row above all ids)."""
@@ -43,6 +47,14 @@ def offset_ids(spec, ids: torch.Tensor) -> torch.Tensor:
         ok = (ids > 0) & (ids < spec.member_vocab)
         return torch.where(ok, ids + spec.id_offset, torch.zeros_like(ids))
     return ids
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[ids]`` (..., D); ids outside [0, V) read NaN, as
+    ``jnp.take`` fills them."""
+    V = table.shape[0]
+    emb = table[ids.clamp(0, V - 1).long()]
+    return emb.masked_fill(((ids < 0) | (ids >= V))[..., None], float("nan"))
 
 
 class EmbeddingCollection(nn.Module):
@@ -62,10 +74,7 @@ class EmbeddingCollection(nn.Module):
 
     def lookup(self, table_name: str, ids: torch.Tensor) -> torch.Tensor:
         """Gather rows (..., D); id 0 reads zeros, ids outside [0, V) read NaN."""
-        table = self.tables[table_name]
-        V = table.shape[0]
-        emb = table[ids.clamp(0, V - 1).long()]
-        emb = emb.masked_fill(((ids < 0) | (ids >= V))[..., None], float("nan"))
+        emb = take(self.tables[table_name], ids)
         return emb * (ids != 0).to(emb.dtype)[..., None]
 
     @staticmethod

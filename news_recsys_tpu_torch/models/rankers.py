@@ -24,11 +24,14 @@ RANKER_NAMES = ("lr", "deep", "widedeep", "fm", "deepfm", "dcn", "attention")
 
 
 class RankerBase(nn.Module):
-    """Embedding collection + rank-feature schema."""
+    """Embedding collection + rank-feature schema. ``tables`` maps each
+    physical table to its (vocab, dim), as the JAX module's field does; the
+    sparse train step reads it."""
 
     def __init__(self, tables: Mapping[str, Tuple[int, int]], schema: FeatureSchema,
                  init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.tables = dict(tables)
         self.schema = schema
         self.embedder = EmbeddingCollection(tables, init_scale, generator)
 

@@ -5,9 +5,10 @@ the plain version, a CUDA tensor launches the kernel (built at first use,
 see :mod:`._build`) or raises. Each kernel wrapper carries ``launches``, a
 plain count of the kernel launches it made.
 
-The kernels are forward only: on CUDA the wrappers raise on inputs that
-require grad while autograd is on, so serving runs under
-``torch.inference_mode()``.
+The cross stack is a ``torch.autograd.Function`` whose backward is a kernel
+too. The fused lookup + pool has no backward kernel yet and the row
+scatter writes in place, so on CUDA those two wrappers raise on inputs that
+require grad while autograd is on (:func:`forward_only`).
 """
 
 from __future__ import annotations
@@ -32,18 +33,21 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> N
 
 
 def kernel_device(*tensors: torch.Tensor) -> str:
-    """'cpu' or 'cuda' for inputs that all lie on one device; raises otherwise,
-    and on CUDA inputs that would need a gradient."""
+    """'cpu' or 'cuda' for inputs that all lie on one device; raises otherwise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
     kind = devices.pop().type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device type {kind!r}")
-    if kind == "cuda" and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the CUDA kernels are forward only: call under "
-                           "torch.inference_mode() or torch.no_grad()")
     return kind
+
+
+def forward_only(*tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through a kernel that has none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("this CUDA kernel is forward only: call under "
+                           "torch.inference_mode() or torch.no_grad()")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

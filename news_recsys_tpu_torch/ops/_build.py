@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library, ``libnrt_kernels.so``, with a plain C interface that is
-bound through ``ctypes``. The build runs at first use, from the package's
-own sources, into ``news_recsys_tpu_torch/build/<digest>/``: the digest
-covers the sources and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded. Building needs no PyTorch headers, which
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
+into one shared library, ``libnrt_kernels.so``, with a plain C interface
+that is bound through ``ctypes``. The build runs at first use, from the
+package's own sources, into ``news_recsys_tpu_torch/build/<digest>/``: the
+digest covers the sources and the flags, so an edited kernel is rebuilt and
+a stale library is never loaded. Building needs no PyTorch headers, which
 keeps it to seconds.
 """
 
@@ -23,16 +24,20 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libnrt_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     # x0, ws, bs, out, xs, ss, B, D, NL, stream
     "nrt_dcn_cross_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x0, ws, xs, ss, g, dx0, dws, dbs, partial, B, D, NL, nblk, stream
+    "nrt_dcn_cross_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, ids, mask, out, B, L, D, V, stream
     "nrt_lookup_pool_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # table, rows, vals, S, D, V, stream
+    "nrt_scatter_rows_set": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -54,12 +59,17 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, output: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources())]
+def compile_command(nvcc: str, src: Path, obj: Path) -> list:
+    return [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def nvcc_command(nvcc: str, output: Path, objects) -> list:
+    """The link of the compiled ``objects`` into the shared library."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,11 +86,26 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(nvcc_path(), tmp), capture_output=True, text=True)
-    (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = nvcc_path(), f"{os.getpid()}.tmp"
+    objects = [lib.parent / f"{src.stem}.{tag}.o" for src in sources()]
+    procs = [subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objects)]
+    logs = [p.communicate()[0] for p in procs]      # waits for every nvcc
+    failed = [(src.name, p.returncode, log) for src, p, log in zip(sources(), procs, logs)
+              if p.returncode != 0]
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    link = None if failed else subprocess.run(nvcc_command(nvcc, tmp, objects),
+                                              capture_output=True, text=True)
+    (lib.parent / "build.log").write_text("".join(logs) + (link.stdout + link.stderr
+                                                           if link else ""))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        name, rc, log = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{log[-4000:]}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     return lib
 

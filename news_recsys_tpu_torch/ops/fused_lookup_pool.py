@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+from . import check_tensor, forward_only, kernel_device, launch_count_lock, stream_ptr
 
 EPS = 1e-8
 MAX_D = 256
@@ -50,6 +50,7 @@ def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
     (V, D), (B, L) = table.shape, ids.shape
     if kernel_device(table, ids, mask) == "cpu":
         return reference_lookup_pool(table, ids, mask)
+    forward_only(table, ids, mask)
     if not 1 <= D <= MAX_D or V >= 2 ** 31:
         raise ValueError(f"fused_lookup_pool kernel takes 1 <= D <= {MAX_D} and "
                          f"V < 2**31; got D={D}, V={V}")

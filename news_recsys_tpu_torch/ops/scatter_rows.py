@@ -1,0 +1,70 @@
+"""Sorted row scatter, ``table[rows] = vals`` in place: a CUDA kernel for
+Hopper and its plain PyTorch version.
+
+Port of :mod:`news_recsys_tpu.ops.scatter_rows`, with its contract: ``rows``
+are int32 and non-decreasing, and duplicate rows carry identical values (the
+sparse step's sorted dedup layout gives every duplicate of a row the same
+summed gradient, so their updated values are the same). Where the JAX
+function returns a new table (donated), this one writes ``table`` in place
+and returns it.
+
+Rows outside ``[0, V)`` are dropped, in the kernel and in the plain
+version, as XLA's scatter drops rows ``>= V``. (``jnp``'s ``.at[]`` wraps a
+negative row to the end of the table; the sorted dedup never emits one,
+and the port drops it.)
+
+The kernel (``csrc/scatter_rows.cu``, entry ``nrt_scatter_rows_set``)
+replaces the Pallas kernel
+``news_recsys_tpu/ops/scatter_rows.py::_scatter_pallas``. It is bound by
+memory latency: each slot's row is one coalesced write, 16 bytes a thread,
+and the table is never read. The plain version checks sortedness on the
+CPU, as the JAX interpret path does; the CUDA path does not synchronise to
+check it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import check_tensor, forward_only, kernel_device, launch_count_lock, stream_ptr
+
+
+def scatter_rows_plain(table: torch.Tensor, rows: torch.Tensor,
+                       vals: torch.Tensor) -> torch.Tensor:
+    """``table[rows] = vals`` in place in plain PyTorch, rows outside
+    ``[0, V)`` dropped: the CPU path and the kernel's oracle."""
+    rows = rows.long()
+    if rows.device.type == "cpu" and bool((rows[1:] < rows[:-1]).any()):
+        raise ValueError("scatter_rows_set: rows must be non-decreasing")
+    keep = (rows >= 0) & (rows < table.shape[0])
+    table[rows[keep]] = vals[keep]
+    return table
+
+
+def scatter_rows_set(table: torch.Tensor, rows: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """table (V, D) float32, rows (S,) int32 non-decreasing, vals (S, D)
+    float32: writes ``table[rows] = vals`` in place, returns ``table``."""
+    check_tensor(table, "table", torch.float32, 2)
+    check_tensor(rows, "rows", torch.int32, 1)
+    check_tensor(vals, "vals", torch.float32, 2)
+    (V, D), S = table.shape, rows.shape[0]
+    if vals.shape != (S, D):
+        raise ValueError(f"vals {tuple(vals.shape)} must be ({S}, {D})")
+    if kernel_device(table, rows, vals) == "cpu":
+        return scatter_rows_plain(table, rows, vals)
+    forward_only(table, vals)
+    if V >= 2 ** 31:
+        raise ValueError(f"scatter_rows_set kernel takes V < 2**31; got V={V}")
+    if S == 0 or D == 0:
+        return table
+    from ._build import launch
+
+    launch("nrt_scatter_rows_set", table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+           S, D, V, stream_ptr(table))
+    with launch_count_lock:
+        scatter_rows_set.launches += 1
+    return table
+
+
+scatter_rows_set.launches = 0

@@ -1,0 +1,161 @@
+"""Training runtime for the rankers: the binned train AUC and the epoch loop.
+
+Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
+(``embedding_optimizer="rowwise_adagrad"``) and its device-resident epoch:
+the packed dataset goes to the device once, and each step gathers its batch
+rows there. Steps run eagerly, one Python call each (JAX scanned them in
+one compiled chunk). ``train.log`` and ``metrics.jsonl`` keep the JAX
+package's format.
+
+Not ported yet (ROADMAP.md, queue 1, item 2): validation (``dev_ds``),
+``predict``, checkpoints and resume, TensorBoard, and the slab-streamed
+path for datasets larger than ``device_resident_bytes``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from news_recsys_tpu.config import Config
+from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
+from news_recsys_tpu.utils.logging import get_logger
+
+__all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
+           "binned_auc_update", "binned_auc_value", "unpack_batch"]
+
+logger = get_logger("trainer")
+
+AUC_BINS = 4096
+RUNTIME_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 2 "
+                      "('Training slice, runtime')")
+
+
+@dataclass
+class AucHist:
+    """Binned (pos, neg) score histograms for the streaming train AUC."""
+
+    pos: torch.Tensor
+    neg: torch.Tensor
+
+    @staticmethod
+    def zeros(device="cpu") -> "AucHist":
+        return AucHist(torch.zeros(AUC_BINS, device=device),
+                       torch.zeros(AUC_BINS, device=device))
+
+
+def binned_auc_update(hist: AucHist, probs, labels, weights) -> AucHist:
+    """Add a batch to ``hist`` in place (and return it): bin = floor(p * BINS)
+    clipped, weighted by ``weights * labels`` and ``weights * (1 - labels)``.
+    ``index_add_`` rather than ``torch.bincount``, whose CUDA path reads the
+    largest bin back to the host on every call."""
+    bins = (probs * AUC_BINS).to(torch.int32).clamp(0, AUC_BINS - 1)
+    hist.pos.index_add_(0, bins, weights * labels)
+    hist.neg.index_add_(0, bins, weights * (1.0 - labels))
+    return hist
+
+
+def binned_auc_value(hist: AucHist) -> float:
+    """AUC estimate: P(score_pos > score_neg) + 0.5 P(equal bin)."""
+    cum_neg = torch.cumsum(hist.neg, 0) - hist.neg      # negatives strictly below bin
+    wins = torch.sum(hist.pos * (cum_neg + 0.5 * hist.neg))
+    total = torch.sum(hist.pos) * torch.sum(hist.neg)
+    return float(wins / total) if float(total) > 0 else 0.0
+
+
+class Trainer:
+    """Epoch-driven trainer with the JAX package's experiment-dir logs.
+
+    ``model`` brings its parameters (seeded by ``build_ranker``, or converted
+    from the JAX package by :mod:`news_recsys_tpu_torch.convert`) and moves
+    to ``device``.
+    """
+
+    def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cpu"):
+        from .sparse_step import make_sparse_train_step
+
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.train_step = make_sparse_train_step(self.model, cfg)
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.train_log_path = os.path.join(self.log_dir, "train.log")
+        self.metrics_path = os.path.join(self.log_dir, "metrics.jsonl")
+        self.global_step = 0
+        self._packed: Dict[int, tuple] = {}
+
+    def init_state(self):
+        from .sparse_step import init_sparse_state
+
+        return init_sparse_state(self.model, self.cfg)
+
+    def _device_matrices(self, ds: PackedDataset):
+        """(packer, int matrix, float matrix) of ``ds``, the matrices uploaded
+        to the device once per dataset."""
+        if id(ds) not in self._packed:
+            packer = BatchPacker(ds)
+            if packer.int_mat.nbytes + packer.float_mat.nbytes > \
+                    self.cfg.train_hparams.device_resident_bytes:
+                raise NotImplementedError(
+                    "a dataset larger than train_hparams.device_resident_bytes (the "
+                    "slab-streamed path) " + RUNTIME_NOT_PORTED)
+            self._packed[id(ds)] = (ds, packer, torch.from_numpy(packer.int_mat).to(self.device),
+                                    torch.from_numpy(packer.float_mat).to(self.device))
+        return self._packed[id(ds)][1:]
+
+    def train_epoch(self, state, ds: PackedDataset, epoch: int):
+        """One epoch in the permutation the JAX trainer draws; returns
+        (state, metrics)."""
+        hp = self.cfg.train_hparams
+        bs = self.cfg.dataset.batch_size
+        packer, int_dev, float_dev = self._device_matrices(ds)
+        layout = packer.layout_key()
+        rng = np.random.default_rng(np.random.SeedSequence([self.cfg.dataset.shuffle_seed, epoch]))
+        order = rng.permutation(packer.n)
+        nb = max(0, min(packer.n // bs, hp.max_step - self.global_step))
+        idx = torch.from_numpy(order[: nb * bs].reshape(nb, bs)).to(self.device)  # one upload
+        ones = torch.ones(bs, device=self.device)
+        hist = AucHist.zeros(self.device)
+        t0 = time.perf_counter()
+        loss = None
+        for i in range(nb):
+            batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
+            loss, _ = self.train_step(state, batch, hist)
+            self.global_step += 1
+        loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
+        dt = time.perf_counter() - t0
+        metrics = {"train_loss": loss_val, "train_auc": binned_auc_value(hist),
+                   "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps({"step": self.global_step, "epoch": epoch, **metrics}) + "\n")
+        with open(self.train_log_path, "a") as f:
+            f.write(f"Epoch {epoch} Training Metrics:\n")
+            for k, v in metrics.items():
+                f.write(f"  {k}: {v:.4f}\n")
+            f.write("-" * 20 + "\n")
+        logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f} "
+                    f"auc~{metrics['train_auc']:.4f} ex/s={metrics['examples_per_sec']:.0f}")
+        return state, metrics
+
+    def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
+            max_epochs: Optional[int] = None):
+        """Train from the model's current parameters for ``max_epochs``
+        (default ``train_hparams.max_epoch``) or until ``max_step``."""
+        if dev_ds is not None:
+            raise NotImplementedError("validation (dev_ds) " + RUNTIME_NOT_PORTED)
+        hp = self.cfg.train_hparams
+        max_epochs = hp.max_epoch if max_epochs is None else max_epochs
+        state = self.init_state()
+        for epoch in range(max_epochs):
+            if self.global_step >= hp.max_step:
+                break
+            state, _ = self.train_epoch(state, train_ds, epoch)
+        return state

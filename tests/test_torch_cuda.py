@@ -7,21 +7,36 @@ no JAX, so it also runs where JAX is not installed:
 
 Tolerances: the kernels sum in another order than PyTorch's ops; the
 pooled mean of float32 rows holds to rtol = atol = 1e-5, the cross stack,
-whose values grow over the layers, to rtol 1e-5 and atol 1e-4.
+whose values grow over the layers, to rtol 1e-5 and atol 1e-4. Its
+backward sums the batch's terms (up to ~500 each at these inputs, cancelling
+to order 1 in places) in per-block partials, so it holds to rtol 1e-5 and an
+atol of 1e-5 of the largest gradient. The row scatter moves bits and is
+held to equality. Training on the card against the CPU: rtol 1e-5, atol 5e-5
+after 4 steps (cuBLAS and the CPU sum the matmuls in other orders, and Adam
+divides each step by ``|g| + 1e-8``, which amplifies those differences in
+weights whose gradient cancels near 1e-8).
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from news_recsys_tpu.config import config_from_dict
+from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from news_recsys_tpu_torch.models.rankers import build_ranker
-from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
+from news_recsys_tpu_torch.ops.dcn_kernel import (cross_bwd_plain, cross_fwd_plain, cross_plain,
+                                                  dcn_cross_bwd, dcn_cross_stack)
 from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                          reference_lookup_pool)
+from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+from news_recsys_tpu_torch.training.sparse_step import init_sparse_state, make_sparse_train_step
+from news_recsys_tpu_torch.training.trainer import AucHist
 
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 DCN_TOL = dict(rtol=1e-5, atol=1e-4)
+TRAIN_TOL = dict(rtol=1e-5, atol=5e-5)
 
 
 def cross_inputs(B, D, NL, seed=0):
@@ -44,6 +59,71 @@ def pool_inputs(V, D, B, L, seed=0):
     ids[1] = 0
     mask[2] = 0.0
     return table, ids, mask
+
+
+def scatter_inputs(V, D, S, seed=0):
+    """A table and S sorted rows with duplicates, equal rows carrying equal
+    values (the scatter's contract)."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    rows = np.sort(rng.integers(0, V, S)).astype(np.int32)
+    if S > 7:
+        rows[7] = rows[6]
+    vals = rng.standard_normal((S, D)).astype(np.float32)
+    return table, rows, vals[np.searchsorted(rows, rows)]
+
+
+def train_cfg(arena: bool, batch_size: int = 64, mesh=None, **train):
+    """A narrow DCN whose user and item tables (5,000 and 4,500 ids) are
+    large enough for the rowwise path; ``category`` stays on AdamW. With
+    ``arena`` the two pack into one ``arena_d16`` table; without, they are
+    two tables of different widths (the joint dedup) and a click history
+    ``hist`` of 5 is pooled over the item table. The lr is the MIND
+    recipe's 1e-3: Adam's first step divides by ``|g| + 1e-8``, so a
+    parameter whose gradient cancels to ~1e-8 moves by up to ``lr`` on a
+    1e-3 relative change of that gradient; at lr 1e-2 such a parameter
+    differed from the JAX package's by more than 1e-5."""
+    feats = ["user_id", "item_id", "category"]
+    raw = {
+        "name": "dcn",
+        "features": {"sparse_feature_names": feats,
+                     "item_feature_names": ["item_id", "category"],
+                     "user_feature_names": ["user_id"]},
+        "embeddings": {"embedding_size": {"user_id": 16, "item_id": 16 if arena else 8,
+                                          "category": 8},
+                       "embedding_table_size": {"user_id": 5000, "item_id": 4500,
+                                                "category": 10},
+                       "arena_tables": arena},
+        "dataset": {"batch_size": batch_size},
+        "mesh": mesh or {},
+        "train_hparams": {"lr": 1e-3, "min_lr": 1e-4, "lr_milestones": [2, 6],
+                          "max_step": 10000, "max_epoch": 2,
+                          "embedding_optimizer": "rowwise_adagrad", **train},
+        "dcn_cfg": {"num_layers": 2},
+    }
+    if not arena:
+        raw["features"].update(array_feature_names=["hist"], array_max_length={"hist": 5},
+                               user_feature_names=["user_id", "hist"])
+        raw["embeddings"]["share_emb_table_features"] = {"hist": "item_id"}
+    return config_from_dict(raw)
+
+
+def train_dataset(cfg, n: int, seed: int) -> PackedDataset:
+    rng = np.random.default_rng(seed)
+    sizes = cfg.embeddings.embedding_table_size
+    arrays = {f: rng.integers(1, sizes[f], n).astype(np.int32)
+              for f in cfg.features.sparse_feature_names}
+    if "hist" in cfg.features.array_feature_names:
+        hist = rng.integers(1, sizes["item_id"], (n, 5)).astype(np.int32)
+        hist[np.arange(5)[None, :] >= rng.integers(0, 6, n)[:, None]] = 0
+        arrays["hist"] = hist
+    arrays["label"] = (rng.random(n) < 0.3).astype(np.float32).reshape(-1, 1)
+    return PackedDataset(arrays)
+
+
+def assert_close_to_scale(got, want, name=""):
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(want.abs().max())), msg=name)
 
 
 @pytest.fixture
@@ -97,11 +177,20 @@ def test_pool_kernel_ids_out_of_range_give_nan(cuda):
 
 @pytest.mark.cuda
 def test_kernels_refuse_grad(cuda):
-    x0 = torch.zeros(4, 8, device=cuda, requires_grad=True)
+    """The pool and the scatter have no backward: on CUDA they refuse inputs
+    that need a gradient while autograd is on. (The cross stack trains.)"""
+    table = torch.zeros(10, 4, device=cuda, requires_grad=True)
+    ids = torch.ones(2, 3, dtype=torch.int32, device=cuda)
+    mask = torch.ones(2, 3, device=cuda)
     with pytest.raises(RuntimeError, match="forward only"):
-        dcn_cross_stack(x0, torch.zeros(2, 8, device=cuda), torch.zeros(2, 8, device=cuda))
+        fused_lookup_pool(table, ids, mask)
+    rows = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        scatter_rows_set(table, rows, torch.ones(2, 4, device=cuda))
     with torch.no_grad():
-        dcn_cross_stack(x0, torch.zeros(2, 8, device=cuda), torch.zeros(2, 8, device=cuda))
+        fused_lookup_pool(table, ids, mask)
+        scatter_rows_set(table, rows, torch.ones(2, 4, device=cuda))
+    assert (table[1:3] == 1).all() and (table[0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -134,3 +223,115 @@ def test_dcn_ranker_on_cuda_matches_cpu(cuda):
                          for k, v in batch.items()})
         assert dcn_cross_stack.launches == n + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,D,S", [(159360, 32, 1024), (5000, 16, 300), (700, 24, 100),
+                                   (500, 18, 64), (100, 5, 0)])
+def test_scatter_kernel_matches_plain(cuda, V, D, S):
+    """D = 32, 16 and 24 take the float4 path, D = 18 and 5 one float a
+    thread; every untouched row stays bit-identical."""
+    table, rows, vals = scatter_inputs(V, D, S)
+    got = torch.from_numpy(table).to(cuda)
+    n = scatter_rows_set.launches
+    assert scatter_rows_set(got, *on(cuda, rows, vals)) is got
+    assert scatter_rows_set.launches == n + (S > 0)
+    want = scatter_rows_plain(torch.from_numpy(table.copy()), *map(torch.from_numpy, (rows, vals)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_drops_out_of_range_rows(cuda):
+    table, rows, vals = scatter_inputs(300, 16, 40)
+    rows[:2] = -5
+    rows[-3:] = (300, 300, 2 ** 30)
+    got = torch.from_numpy(table).to(cuda)
+    scatter_rows_set(got, *on(cuda, rows, vals))
+    want = scatter_rows_plain(torch.from_numpy(table.copy()), *map(torch.from_numpy, (rows, vals)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_unaligned_table(cuda):
+    """A table view 4 bytes off a 16-byte boundary takes the float path."""
+    table, rows, vals = scatter_inputs(400, 32, 50)
+    base = torch.zeros(400 * 32 + 1, device=cuda)
+    got = base[1:].view(400, 32)
+    got.copy_(torch.from_numpy(table))
+    scatter_rows_set(got, *on(cuda, rows, vals))
+    want = scatter_rows_plain(torch.from_numpy(table.copy()), *map(torch.from_numpy, (rows, vals)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,NL", [(6400, 112, 3), (512, 112, 3), (1000, 24, 2),
+                                    (37, 200, 4), (5, 1, 1)])
+def test_dcn_bwd_kernel_matches_plain(cuda, B, D, NL):
+    x0, ws, bs = on(cuda, *cross_inputs(B, D, NL))
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((B, D), np.float32)).to(cuda)
+    _, xs, ss = cross_fwd_plain(x0, ws, bs)
+    n = dcn_cross_bwd.launches
+    got = dcn_cross_bwd(x0, ws, xs, ss, g)
+    assert dcn_cross_bwd.launches == n + 1
+    for name, a, b in zip(("dx0", "dws", "dbs"), got, cross_bwd_plain(x0, ws, xs, ss, g)):
+        assert_close_to_scale(a, b, name)
+
+
+@pytest.mark.cuda
+def test_dcn_bwd_kernel_is_deterministic(cuda):
+    x0, ws, bs = on(cuda, *cross_inputs(512, 112, 3))
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal((512, 112), np.float32)).to(cuda)
+    _, xs, ss = cross_fwd_plain(x0, ws, bs)
+    first, second = dcn_cross_bwd(x0, ws, xs, ss, g), dcn_cross_bwd(x0, ws, xs, ss, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cross_stack_autograd_on_cuda(cuda):
+    """The forward kernel writes the residuals the backward kernel reads;
+    the gradients equal the CPU path's."""
+    arrays = cross_inputs(512, 112, 3)
+    g = np.random.default_rng(3).standard_normal((512, 112)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+        n = dcn_cross_stack.launches, dcn_cross_bwd.launches
+        dcn_cross_stack(*args).backward(torch.from_numpy(g).to(dev))
+        launched = (dcn_cross_stack.launches - n[0], dcn_cross_bwd.launches - n[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [a.grad.cpu() for a in args]
+    for name, a, b in zip(("dx0", "dws", "dbs"), grads["cuda"], grads["cpu"]):
+        assert_close_to_scale(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", [True, False], ids=["arena", "tables"])
+def test_training_steps_on_cuda_match_cpu(cuda, arena):
+    """4 sparse steps on the card and on the CPU from the same state and
+    batches: tables (every row: both take the sorted route), accumulators
+    and dense parameters; the step goes through the backward and scatter
+    kernels."""
+    cfg = train_cfg(arena)
+    ds = train_dataset(cfg, 256, seed=3)
+    packer = BatchPacker(ds)
+    cpu_model = build_ranker(cfg, seed=0)
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
+    idx = np.random.default_rng(0).permutation(256).reshape(4, 64)
+    before = (dcn_cross_bwd.launches, scatter_rows_set.launches)
+    for rows in idx:
+        for d in ("cpu", "cuda"):
+            dev = torch.device(d)
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(dev),
+                                 torch.from_numpy(packer.float_mat[rows]).to(dev),
+                                 torch.ones(64, device=dev), packer.layout_key())
+            steps[d](states[d], batch, AucHist.zeros(dev))
+    assert dcn_cross_bwd.launches - before[0] == 4
+    assert scatter_rows_set.launches - before[1] >= 4
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **TRAIN_TOL)
+    for name, acc in states["cuda"].emb_acc.items():
+        torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[name], msg=name, **TRAIN_TOL)

@@ -14,14 +14,17 @@ import torch
 
 from news_recsys_tpu.ops import dcn_kernel as jdcn
 from news_recsys_tpu.ops import fused_lookup_pool as jpool
+from news_recsys_tpu.ops import scatter_rows as jscatter
 from news_recsys_tpu.ops.topk import TopKSearcher as JTopKSearcher
 from news_recsys_tpu_torch.ops import _build
 from news_recsys_tpu_torch.ops.dcn_kernel import (cross_plain, dcn_cross_stack,
                                                   reference_cross_stack)
+from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd
 from news_recsys_tpu_torch.ops.fused_lookup_pool import fused_lookup_pool
+from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
 from news_recsys_tpu_torch.ops.topk import TopKSearcher
 
-from tests.test_torch_cuda import cross_inputs, pool_inputs
+from tests.test_torch_cuda import cross_inputs, pool_inputs, scatter_inputs
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -87,19 +90,28 @@ def test_lookup_pool_ids_out_of_range_give_nan():
     (dcn_cross_stack, lambda: (torch.zeros(4, 8, device="meta"),
                                torch.zeros(2, 8, device="meta"),
                                torch.zeros(2, 8, device="meta")), ValueError),
+    (scatter_rows_set, lambda: (torch.zeros(10, 4), torch.zeros(3, dtype=torch.int64),
+                                torch.zeros(3, 4)), TypeError),
+    (scatter_rows_set, lambda: (torch.zeros(10, 4), torch.zeros(3, dtype=torch.int32),
+                                torch.zeros(3, 5)), ValueError),
+    (dcn_cross_bwd, lambda: (torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(2, 4, 7),
+                             torch.zeros(2, 4), torch.zeros(4, 8)), ValueError),
 ], ids=["dcn-dtype", "dcn-shape", "dcn-noncontiguous", "pool-ids-dtype",
-        "pool-mask-shape", "pool-ndim", "unsupported-device"])
+        "pool-mask-shape", "pool-ndim", "unsupported-device", "scatter-rows-dtype",
+        "scatter-vals-shape", "dcn-bwd-residual-shape"])
 def test_kernel_wrappers_reject_bad_inputs(fn, args, err):
     with pytest.raises(err):
         fn(*args())
 
 
 def test_cpu_path_launches_no_kernel():
-    before = (dcn_cross_stack.launches, fused_lookup_pool.launches)
-    x0, ws, bs = cross_inputs(8, 16, 2)
-    dcn_cross_stack(*map(torch.from_numpy, (x0, ws, bs)))
+    counted = (dcn_cross_stack, dcn_cross_bwd, fused_lookup_pool, scatter_rows_set)
+    before = [f.launches for f in counted]
+    x0, ws, bs = (torch.from_numpy(a).requires_grad_() for a in cross_inputs(8, 16, 2))
+    dcn_cross_stack(x0, ws, bs).sum().backward()
     fused_lookup_pool(*map(torch.from_numpy, pool_inputs(20, 4, 8, 3)))
-    assert (dcn_cross_stack.launches, fused_lookup_pool.launches) == before
+    scatter_rows_set(*map(torch.from_numpy, scatter_inputs(64, 8, 10)))
+    assert [f.launches for f in counted] == before
 
 
 def test_cross_plain_is_the_rank1_identity():
@@ -109,10 +121,12 @@ def test_cross_plain_is_the_rank1_identity():
 
 
 def test_build_command_targets_hopper(tmp_path):
-    cmd = _build.nvcc_command("nvcc", tmp_path / _build.LIB_NAME)
+    cmd = _build.nvcc_command("nvcc", tmp_path / _build.LIB_NAME, [tmp_path / "k.o"])
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    cmd = _build.compile_command("nvcc", _build.sources()[0], tmp_path / "k.o")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
     names = {p.name for p in _build.sources()}
-    assert {"dcn_cross.cu", "lookup_pool.cu"} <= names
+    assert {"dcn_cross.cu", "dcn_cross_bwd.cu", "lookup_pool.cu", "scatter_rows.cu"} <= names
     assert _build.library_path().parent.parent == _build.BUILD_DIR
 
 
@@ -123,6 +137,47 @@ def test_build_without_nvcc_fails_clearly(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_scatter_rows_matches_jax_pallas():
+    """Sorted rows with duplicates (identical values): the port's scatter
+    equals the Pallas kernel interpreted, bit for bit, and writes in place."""
+    table, rows, vals = scatter_inputs(256, 32, 40)
+    want = np.asarray(jscatter.scatter_rows_set(jnp.array(table), jnp.asarray(rows),
+                                                jnp.asarray(vals), use_pallas=True,
+                                                interpret=True))
+    t = torch.from_numpy(table.copy())
+    assert scatter_rows_set(t, torch.from_numpy(rows), torch.from_numpy(vals)) is t
+    np.testing.assert_array_equal(t.numpy(), want)
+    untouched = np.setdiff1d(np.arange(256), rows)
+    np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+
+
+def test_scatter_rows_drops_out_of_range_rows():
+    """Rows >= V are dropped, as XLA's ``.at[].set`` drops them. A negative
+    row is dropped too, where ``jnp`` wraps it to the end of the table (the
+    sorted dedup never emits one)."""
+    table, rows, vals = scatter_inputs(64, 8, 12)
+    rows[-3:] = (64, 64, 1000)
+    vals[-2] = vals[-3]
+    want = np.asarray(jscatter.scatter_rows_set(jnp.array(table), jnp.asarray(rows),
+                                                jnp.asarray(vals)))
+    got = scatter_rows_set(*map(torch.from_numpy, (table.copy(), rows, vals))).numpy()
+    np.testing.assert_array_equal(got, want)
+    rows = np.array([-1, 3], np.int32)
+    got = scatter_rows_plain(torch.from_numpy(table.copy()), torch.from_numpy(rows),
+                             torch.ones(2, 8)).numpy()
+    np.testing.assert_array_equal(got[-1], table[-1])
+    np.testing.assert_array_equal(got[3], 1.0)
+
+
+def test_scatter_rows_contract_on_the_cpu():
+    table = torch.zeros(64, 16)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        scatter_rows_set(table, torch.tensor([9, 3], dtype=torch.int32), torch.ones(2, 16))
+    assert not table.any()
+    out = scatter_rows_set(table, torch.zeros(0, dtype=torch.int32), torch.zeros(0, 16))
+    assert out is table and not table.any()                        # S = 0
 
 
 def test_topk_searcher_matches_jax():

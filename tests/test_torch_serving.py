@@ -6,6 +6,7 @@ wherever neighbouring scores differ by more than 1e-5, and the scores match
 within 1e-5.
 """
 
+import ast
 import importlib.util
 import json
 import os
@@ -238,6 +239,13 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # the chip scripts reach the shared modules only through the port
+    for script in ("chip_smoke.py", "chip_profile.py"):
+        with open(os.path.join(REPO, script)) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in names if m and m.split(".")[0] == "news_recsys_tpu"], script
 
 
 def test_serve_cli_refuses_missing_gpu(stacks, tmp_path):
