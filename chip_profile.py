@@ -20,14 +20,15 @@ The device-busy share is the traced device time per request over the
 plain run's ``recommend`` time, so neither the tracer's nor the wrappers'
 overhead enters it.
 
-Training: the full-width DCN of ``chip_smoke.py``'s training phase
-(``mind_config("dcn", embedding_optimizer="rowwise_adagrad")``, batch 512)
-under ``Trainer.train_epoch``, after a warm-up epoch, in the same three
-runs over epochs of TRAIN_STEPS (24) steps: plain (ms per step, nothing
-added), layers (gather, fields, forward, backward, dense AdamW, dedup,
-rowwise update + scatter, AUC, each wrapped with card syncs), traced
-(device time per step, top kernels). The device-busy share of a step is
-the traced device time per step over the plain run's.
+Training: the full-width DCN and DeepFM of ``chip_smoke.py``'s training
+phase (``mind_config("dcn", embedding_optimizer="rowwise_adagrad")`` and
+``mind_ranker_config("deepfm")``, batch 512) under ``Trainer.train_epoch``,
+after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
+(24) steps: plain (ms per step, nothing added), layers (gather, fields,
+forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
+wrapped with card syncs), traced (device time per step, top kernels). The
+device-busy share of a step is the traced device time per step over the
+plain run's.
 """
 
 from __future__ import annotations
@@ -113,16 +114,21 @@ def traced_kernels(casc, reqs) -> list:
     return chip_smoke.device_events(prof)
 
 
+# the kernel of each profiled ranker's forward (and backward)
+FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM"}
+
+
 def train_layer_times(trainer, state, ds, epoch) -> dict:
     """Mean wall ms per step of each layer of the sparse step, the card
     synchronised around each."""
     from news_recsys_tpu_torch.training import sparse_step
 
     totals = collections.defaultdict(float)
+    kernel = FORWARD_KERNELS[trainer.cfg.name]
     spans = [(sparse_step, "gather_large_rows", "gather (large-table rows)"),
              (sparse_step, "fields_from_rows", "fields (small-table gathers, masks)"),
-             (trainer.model, "forward_from_fields", "forward (cross kernel + MLP)"),
-             (torch.Tensor, "backward", "backward (incl. cross bwd kernel)"),
+             (trainer.model, "forward_from_fields", f"forward ({kernel} kernel + MLP)"),
+             (torch.Tensor, "backward", f"backward (incl. {kernel} bwd kernel)"),
              (state.dense_opt, "step", "dense AdamW"),
              (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
              (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel"),
@@ -141,13 +147,12 @@ def train_layer_times(trainer, state, ds, epoch) -> dict:
     return {k: v / metrics["steps"] * 1e3 for k, v in totals.items()}
 
 
-def profile_training(smi: str) -> None:
+def profile_training(smi: str, ranker: str = "dcn") -> None:
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
-    from news_recsys_tpu_torch.zoo import mind_config
 
     bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
-    cfg = mind_config("dcn", batch_size=bs, embedding_optimizer="rowwise_adagrad")
+    cfg = chip_smoke.train_config(ranker)
     ds = PackedDataset(chip_smoke.ranking_arrays(bs * steps, chip_smoke.SEED + 9))
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -164,7 +169,7 @@ def profile_training(smi: str) -> None:
     kernels = chip_smoke.device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    print(f"\n== training, batch {bs}, epochs of {steps} steps ({smi})")
+    print(f"\n== training {ranker}, batch {bs}, epochs of {steps} steps ({smi})")
     print(f"  {'plain: step (train_epoch wall / steps)':44s} {step_ms:9.3f} ms")
     for k, v in layers.items():
         print(f"  {'layers: ' + k:44s} {v:9.3f} ms")
@@ -211,7 +216,8 @@ def main(argv=None) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.key[:72]:72s} "
                   f"{e.self_device_time_total / len(traced):8.1f} us/request")
-    profile_training(smi)
+    for ranker in FORWARD_KERNELS:
+        profile_training(smi, ranker)
     print(smi)
 
 

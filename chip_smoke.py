@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths once at the full width of the repo's MIND
-models, from seeded random weights: serving (the recall -> rank cascade)
-and training (the DCN ranker's sparse step under ``Trainer.fit``). Fails
-(non-zero exit, no result line) if any phase fails:
+Drives the port's paths once at the full width of the repo's MIND
+models, from seeded random weights: serving (the recall -> rank cascade,
+with a DCN and with a DeepFM ranker), training (the DCN and DeepFM rankers'
+sparse step under ``Trainer.fit``, DeepFM's with validation) and a few
+steps of each other ranker of the zoo. Fails (non-zero exit, no result
+line) if any phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
@@ -14,19 +16,26 @@ and training (the DCN ranker's sparse step under ``Trainer.fit``). Fails
    path's shapes, and times both (device time from CUDA graph replays, or
    from a profiler trace where the plain version synchronises, and wall
    time per call with host overhead);
-4. serving: builds the cascade (DSSM of configs/dssm.yaml, DCN of
-   zoo.mind_config("dcn"), 65,238 items, fetch 100) on the card, saves it
-   as a bundle, loads it back and serves it over HTTP on a thread; sends
-   requests of 64 users with histories (k=10) and checks every answer;
-   loads the same bundle on the CPU (plain PyTorch ops) and checks that it
-   agrees with the card's answers;
+4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
+   fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
+   zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
+   loads it back and serves it over HTTP on a thread; sends requests of 64
+   users with histories (k=10) and checks every answer; loads the same
+   bundle on the CPU (plain PyTorch ops) and checks that it agrees with the
+   card's answers;
 5. training: the DCN of zoo.mind_config("dcn",
    embedding_optimizer="rowwise_adagrad") (arena 159,360 x 32, batch 512)
    on a synthetic dataset of 64 batches shaped like bench.py's; 4 steps on
    the card and on the CPU from the same state and batches must agree;
    then ``Trainer.fit`` for one epoch on the card (loss finite), and a
-   second, warm epoch timed for steps/s and examples/s;
-6. checks that each path launched the kernels it runs: the counts are set
+   second, warm epoch timed for steps/s and examples/s; the same for the
+   DeepFM of zoo.mind_ranker_config("deepfm") (arena 159,360 x 16), whose
+   ``Trainer.fit`` also validates on a dev set of 256 users x 32 rows (half
+   of them warm): the block must be finite and equal the CPU's
+   ``validate`` on the same state;
+6. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 of
+   zoo.mind_ranker_config): 2 steps each at full width, card against CPU;
+7. checks that each path launched the kernels it runs: the counts are set
    to 0 just before a path is driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
@@ -72,6 +81,14 @@ TRAIN_TOL = dict(rtol=1e-5, atol=5e-5)
 # the cross stack's backward sums 512 terms per weight in per-block
 # partials: rtol 1e-5 and an atol of 1e-5 of the largest gradient
 BWD_RTOL = 1e-5
+# the FM second order sums F products per column and D columns in another
+# order than PyTorch: rtol 1e-5 and an atol of 1e-5 of the largest value
+FM_F, FM_D = 5, 15              # DeepFM: 5 fields of 16, latent columns 1..15
+# DeepFM's dev set: users x rows each, half the users warm
+DEV_USERS, DEV_ROWS = 256, 32
+# card vs CPU validation metrics on the same state
+VAL_TOL = 1e-4
+ZOO_CHECK_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -169,8 +186,14 @@ def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
             "timing": timing, "call_ms": calls[0], "plain_call_ms": calls[1], **extra}
 
 
+def scaled_tol(want: torch.Tensor) -> dict:
+    """rtol 1e-5 and an atol of 1e-5 of the largest value."""
+    return dict(rtol=1e-5, atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
 def check_kernels(dev) -> list:
     from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
+    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order
     from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                              reference_lookup_pool)
     rng = np.random.default_rng(SEED)
@@ -190,6 +213,7 @@ def check_kernels(dev) -> list:
     ids[mask == 0] = 0
     ids[3, ::3] = 0                      # padding inside an unmasked row
     table, ids, mask = (torch.from_numpy(a).to(dev) for a in (table, ids, mask))
+    v = torch.from_numpy(rng.standard_normal((B, FM_F, FM_D), np.float32)).to(dev)
 
     cases = [
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
@@ -199,6 +223,9 @@ def check_kernels(dev) -> list:
          "news_recsys_tpu/ops/fused_lookup_pool.py:71", fused_lookup_pool,
          reference_lookup_pool, (table, ids, mask), POOL_TOL,
          f"V={V} D={Dp} B={Bp} L={L}"),
+        ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
+         "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
+         f"B={B} F={FM_F} D={FM_D}"),
     ]
     out = []
     with torch.inference_mode():
@@ -206,12 +233,52 @@ def check_kernels(dev) -> list:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
+            tol = tol(want) if callable(tol) else tol
             torch.testing.assert_close(got, want, **tol)
             t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
             out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
                                      "cuda_graph", shape))
     return out
+
+
+def check_fm_training_kernels(dev) -> tuple:
+    """The FM second order at the training shape (batch 512, 5 fields, 15
+    latent columns): the forward against ``fm_plain``, the backward against
+    ``fm_bwd_plain`` with two runs bit-identical. Returns (the forward's
+    error and times at this shape, the backward's entry)."""
+    from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
+                                                     fm_second_order_bwd)
+
+    rng = np.random.default_rng(SEED + 12)
+    B, shape = TRAIN_BATCH, f"B={TRAIN_BATCH} F={FM_F} D={FM_D}"
+    v = torch.from_numpy(rng.standard_normal((B, FM_F, FM_D), np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(B, np.float32)).to(dev)
+    with torch.no_grad():
+        out, out_want = fm_second_order(v), fm_plain(v)
+        dv, dv_want, again = fm_second_order_bwd(v, g), fm_bwd_plain(v, g), \
+            fm_second_order_bwd(v, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, out_want, **scaled_tol(out_want))
+    torch.testing.assert_close(dv, dv_want, **scaled_tol(dv_want))
+    if not torch.equal(dv, again):
+        raise AssertionError("fm_second_order_bwd: two runs gave different bits")
+    fwd_err, bwd_err = float((out - out_want).abs().max()), float((dv - dv_want).abs().max())
+    with torch.no_grad():
+        t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, fm_second_order,
+                                               fm_plain)]
+        fwd = {"shape": shape, "max_abs_err": fwd_err, "ms": (t[1] + t[2]) / 2,
+               "plain_ms": (t[0] + t[3]) / 2}
+        log(f"kernel fm_second_order [{shape}]: max_abs_err {fwd_err:.3e}; device time "
+            f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us")
+        t = [device_ms(lambda: f(v, g)) for f in (fm_bwd_plain, fm_second_order_bwd,
+                                                  fm_second_order_bwd, fm_bwd_plain)]
+        calls = [call_ms(lambda: f(v, g)) for f in (fm_second_order_bwd, fm_bwd_plain)]
+    return fwd, report_kernel(
+        "fm_second_order_bwd", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
+        "news_recsys_tpu/ops/fm_kernel.py:69", bwd_err,
+        "rtol 1e-5, atol 1e-5 of the largest value; two runs bit-identical", t, calls,
+        "cuda_graph", shape)
 
 
 def check_training_kernels(dev) -> list:
@@ -390,14 +457,33 @@ def build_kernels() -> None:
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
 
 
-def build_cascade(dev: torch.device):
+def ranker_config(ranker: str):
+    """The ranker's full-width MIND config: DCN as zoo.mind_config("dcn")
+    (the PR 1 cascade), the others as the scoreboard trains them."""
+    from news_recsys_tpu_torch.zoo import mind_config, mind_ranker_config
+
+    return mind_config("dcn") if ranker == "dcn" else mind_ranker_config(ranker)
+
+
+def train_config(ranker: str):
+    """The ranker's full-width MIND training config at batch TRAIN_BATCH: DCN
+    as bench.py trains it (``mind_config("dcn")`` with rowwise AdaGrad), the
+    others as the scoreboard trains them."""
+    from news_recsys_tpu_torch.zoo import mind_config, mind_ranker_config
+
+    if ranker == "dcn":
+        return mind_config("dcn", batch_size=TRAIN_BATCH, embedding_optimizer="rowwise_adagrad")
+    return mind_ranker_config(ranker)
+
+
+def build_cascade(dev: torch.device, ranker: str = "dcn"):
     """The full-width MIND cascade on ``dev`` from seeded weights: DSSM recall
-    of configs/dssm.yaml over 65,238 items, DCN ranker of
-    zoo.mind_config("dcn"), fetch 100."""
+    of configs/dssm.yaml over 65,238 items, the ranker of
+    :func:`ranker_config`, fetch 100."""
     from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.serving import CascadeRecommender, PackedDataset, Recommender
-    from news_recsys_tpu_torch.zoo import MIND_TABLE_SIZE, mind_config, mind_dssm_config
+    from news_recsys_tpu_torch.zoo import MIND_TABLE_SIZE, mind_dssm_config
 
     rng = np.random.default_rng(SEED + 2)
     n_items = MIND_TABLE_SIZE["item_id"] - 1
@@ -407,7 +493,7 @@ def build_cascade(dev: torch.device):
         "subcategory": rng.integers(1, MIND_TABLE_SIZE["subcategory"], n_items).astype(np.int32),
         "label": np.zeros((n_items, 1), np.float32),
     })
-    dcfg, rcfg = mind_dssm_config(), mind_config("dcn")
+    dcfg, rcfg = mind_dssm_config(), ranker_config(ranker)
     recall = Recommender(dcfg, build_dssm(dcfg, seed=SEED + 3, device=dev), items, device=dev)
     return CascadeRecommender(recall, rcfg, build_ranker(rcfg, seed=SEED + 4, device=dev),
                               items, fetch=FETCH)
@@ -424,18 +510,18 @@ def ranking_arrays(rows: int, seed: int) -> dict:
     return arrays
 
 
-def serve_phase(dev: torch.device, name: str, smi: str) -> dict:
+def serve_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> dict:
     """Serve the cascade over HTTP and check it; returns the kernel launches
     of the served requests."""
     from news_recsys_tpu_torch.serving import CascadeRecommender, serve_http
 
     t0 = time.perf_counter()
-    casc = build_cascade(dev)
+    casc = build_cascade(dev, ranker)
     n_items = len(casc.recall.item_ids)
     shapes = [{n: tuple(t.shape) for n, t in model.embedder.tables.items()}
               for model in (casc.recall.model, casc.ranker_model)]
-    log(f"cascade built on {name} in {time.perf_counter() - t0:.2f} s: {n_items} items; "
-        f"recall tables {shapes[0]}; ranker tables {shapes[1]}")
+    log(f"cascade ({ranker} ranker) built on {name} in {time.perf_counter() - t0:.2f} s: "
+        f"{n_items} items; recall tables {shapes[0]}; ranker tables {shapes[1]}")
 
     reqs = make_requests(1 + REQUESTS)
     with tempfile.TemporaryDirectory() as tmp:
@@ -465,17 +551,17 @@ def serve_phase(dev: torch.device, name: str, smi: str) -> dict:
             check_answer(ans, req, n_items)
         log(f"served {len(reqs)} requests x {USERS_PER_REQUEST} users (k={K}, fetch={FETCH}); "
             f"answers checked; launches in those requests: {launches}")
-        log(f"request latency on {name} ({smi}): first {latency_ms[0]:.1f} ms, then median "
-            f"{np.median(latency_ms[1:]):.1f} ms, max {max(latency_ms[1:]):.1f} ms over "
-            f"{REQUESTS} requests")
+        log(f"request latency ({ranker} ranker) on {name} ({smi}): first {latency_ms[0]:.1f} "
+            f"ms, then median {np.median(latency_ms[1:]):.1f} ms, max "
+            f"{max(latency_ms[1:]):.1f} ms over {REQUESTS} requests")
 
         cpu = CascadeRecommender.load(bundle, device="cpu")
         compare_with_cpu(gpu, cpu, reqs, answers)
     return launches
 
 
-def compare_training_with_cpu(dev: torch.device, cfg, ds) -> None:
-    """CHECK_STEPS sparse steps on the card and on the CPU from the same
+def compare_training_with_cpu(dev: torch.device, cfg, ds, n_steps: int = CHECK_STEPS) -> None:
+    """``n_steps`` sparse steps on the card and on the CPU from the same
     seeded state and the same batches: every parameter (both take the sorted
     route, so every table row) and accumulator within TRAIN_TOL."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
@@ -488,9 +574,9 @@ def compare_training_with_cpu(dev: torch.device, cfg, ds) -> None:
     states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
     steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
     packer = BatchPacker(ds)
-    idx = np.random.default_rng(SEED + 8).permutation(packer.n)[: CHECK_STEPS * TRAIN_BATCH]
+    idx = np.random.default_rng(SEED + 8).permutation(packer.n)[: n_steps * TRAIN_BATCH]
     losses = {"cpu": [], "cuda": []}
-    for rows in idx.reshape(CHECK_STEPS, TRAIN_BATCH):
+    for rows in idx.reshape(n_steps, TRAIN_BATCH):
         for d, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
             batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(device),
                                  torch.from_numpy(packer.float_mat[rows]).to(device),
@@ -507,60 +593,125 @@ def compare_training_with_cpu(dev: torch.device, cfg, ds) -> None:
                                   float((acc.cpu() - states["cpu"].emb_acc[n]).abs().max()))
         torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[n], msg=n, **TRAIN_TOL)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TRAIN_TOL)
-    log(f"training, card vs CPU after {CHECK_STEPS} steps at batch {TRAIN_BATCH}: max_abs_err "
+    log(f"training {cfg.name} ({cfg.extra('dcn_cfg', {}) or ''}), card vs CPU after {n_steps} "
+        f"steps at batch {TRAIN_BATCH}: tables {sorted(cpu_model.tables.items())}; max_abs_err "
         f"tables + dense parameters {err['params']:.3e}, AdaGrad accumulators "
         f"{err['accumulators']:.3e}, losses {losses['cuda']} vs {losses['cpu']} "
         f"(tol {TRAIN_TOL}; TF32 off: allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
 
 
-def train_phase(dev: torch.device, name: str, smi: str) -> dict:
-    """Train the full-width DCN with ``Trainer.fit`` on the card; returns the
-    kernel launches of that epoch."""
+def dev_arrays(train_users: np.ndarray, seed: int) -> dict:
+    """A dev set of DEV_USERS users with DEV_ROWS rows each, shaped like
+    :func:`ranking_arrays`; half of the users have training rows (warm),
+    half have none (cold)."""
+    from news_recsys_tpu_torch.zoo import MIND_TABLE_SIZE
+    rng = np.random.default_rng(seed)
+    seen = np.unique(train_users)
+    unseen = np.setdiff1d(np.arange(1, MIND_TABLE_SIZE["user_id"]), seen)
+    users = np.concatenate([rng.choice(seen, DEV_USERS // 2, replace=False),
+                            rng.choice(unseen, DEV_USERS // 2, replace=False)])
+    arrays = ranking_arrays(DEV_USERS * DEV_ROWS, seed)
+    arrays["user_id"] = np.repeat(users, DEV_ROWS).astype(np.int32)
+    return arrays
+
+
+def check_validation(trainer, state, dev_ds, warm: set, tmp: str) -> None:
+    """The block ``Trainer.fit`` wrote must be finite, and the card's metrics
+    on ``state`` must equal the CPU's ``validate`` on a copy of it."""
+    from news_recsys_tpu_torch.training.trainer import Trainer
+
+    block = open(trainer.val_log_path).read()
+    with open(trainer.metrics_path) as f:
+        logged = [json.loads(line) for line in f if "val_auc" in line]
+    if (block.count("Validation Results") != 1 or len(logged) != 1
+            or re.search(r"nan|inf", block, re.IGNORECASE)
+            or not all(math.isfinite(v) for v in logged[0].values())):
+        raise AssertionError(f"Trainer.fit's validation: {logged}\n{block}")
+    t0 = time.perf_counter()
+    card = trainer.validate(state, dev_ds, 0, warm)
+    val_s = time.perf_counter() - t0
+    cpu = Trainer(trainer.cfg, copy.deepcopy(trainer.model).to("cpu"),
+                  workdir=os.path.join(tmp, "cpu"))
+    want = cpu.validate(cpu.init_state(), dev_ds, 0, warm)
+    err = max(abs(card[c][k] - want[c][k]) for c in want for k in want[c])
+    if err > VAL_TOL or abs(card["Overall"]["AUC"] - logged[0]["val_auc"]) > VAL_TOL:
+        raise AssertionError(f"validation, card vs CPU: max_abs_err {err}: {card} vs {want}")
+    log(f"validation ({DEV_USERS} users x {DEV_ROWS} rows, {card['Warm_Start']['User_Count']} "
+        f"warm) on the card in {val_s * 1e3:.1f} ms: card vs CPU max_abs_err over every metric "
+        f"and cohort {err:.3e} (tol {VAL_TOL}); Overall AUC {card['Overall']['AUC']:.4f}, GAUC "
+        f"{card['Overall']['GAUC']:.4f}")
+
+
+def train_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> dict:
+    """Train the full-width ranker with ``Trainer.fit`` on the card; returns
+    the kernel launches of that epoch. DCN's epoch trains alone; DeepFM's
+    also validates on a dev set, checked against the CPU."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
-    from news_recsys_tpu_torch.zoo import mind_config
 
     torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
-    cfg = mind_config("dcn", batch_size=TRAIN_BATCH, embedding_optimizer="rowwise_adagrad")
-    ds = PackedDataset(ranking_arrays(TRAIN_BATCH * TRAIN_STEPS, SEED + 9))
+    cfg = train_config(ranker)
+    data_seed, seed = (SEED + 9, SEED + 6) if ranker == "dcn" else (SEED + 10, SEED + 11)
+    arrays = ranking_arrays(TRAIN_BATCH * TRAIN_STEPS, data_seed)
+    ds = PackedDataset(arrays)
+    validate = ranker != "dcn"
+    dev_ds = PackedDataset(dev_arrays(arrays["user_id"], SEED + 12)) if validate else None
+    warm = {int(u) for u in np.unique(arrays["user_id"])} if validate else None
     compare_training_with_cpu(dev, cfg, ds)
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 6, device=dev), workdir=tmp,
+        trainer = Trainer(cfg, build_ranker(cfg, seed=seed, device=dev), workdir=tmp,
                           device=dev)
         tables = {n: tuple(t.shape) for n, t in trainer.model.embedder.tables.items()}
         reset_launches()
         t0 = time.perf_counter()
-        state = trainer.fit(ds, max_epochs=1)
+        state = trainer.fit(ds, dev_ds, warm, max_epochs=1)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = read_launches()
         with open(trainer.metrics_path) as f:
-            first = json.loads(f.readlines()[-1])
+            first = next(json.loads(line) for line in f if "train_loss" in line)
         if first["steps"] != TRAIN_STEPS or not math.isfinite(first["train_loss"]):
             raise AssertionError(f"Trainer.fit: {first}")
         bad = [n for n, p in trainer.model.named_parameters() if not torch.isfinite(p).all()]
         if bad:
             raise AssertionError(f"Trainer.fit left non-finite parameters: {bad}")
-        log(f"Trainer.fit on {name}: tables {tables}; {TRAIN_STEPS} steps of batch "
-            f"{TRAIN_BATCH} in {fit_s:.2f} s (first epoch, warm-up included); train_loss "
-            f"{first['train_loss']:.6f}, train_auc {first['train_auc']:.4f}; launches in that "
-            f"epoch: {launches}")
-        _, warm = trainer.train_epoch(state, ds, epoch=1)
-        if not math.isfinite(warm["train_loss"]):
-            raise AssertionError(f"train_epoch: {warm}")
-    rate = warm["examples_per_sec"]
-    log(f"training throughput on {name} ({smi}): batch {TRAIN_BATCH}, a warm epoch of "
-        f"{warm['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s, {rate:.0f} examples/s")
+        log(f"Trainer.fit ({ranker}) on {name}: tables {tables}; {TRAIN_STEPS} steps of batch "
+            f"{TRAIN_BATCH}{' and a validation' if validate else ''} in {fit_s:.2f} s (first "
+            f"epoch, warm-up included); train_loss {first['train_loss']:.6f}, train_auc "
+            f"{first['train_auc']:.4f}; launches in that epoch: {launches}")
+        if validate:
+            check_validation(trainer, state, dev_ds, warm, tmp)
+        _, warm_epoch = trainer.train_epoch(state, ds, epoch=1)
+        if not math.isfinite(warm_epoch["train_loss"]):
+            raise AssertionError(f"train_epoch: {warm_epoch}")
+    rate = warm_epoch["examples_per_sec"]
+    log(f"training throughput ({ranker}) on {name} ({smi}): batch {TRAIN_BATCH}, a warm epoch "
+        f"of {warm_epoch['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s, {rate:.0f} "
+        f"examples/s")
     return launches
+
+
+def zoo_phase(dev: torch.device) -> dict:
+    """ZOO_CHECK_STEPS steps of each other ranker of the zoo at its full
+    width, card against CPU; returns the kernel launches of those steps."""
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+    from news_recsys_tpu_torch.zoo import mind_ranker_config
+
+    ds = PackedDataset(ranking_arrays(TRAIN_BATCH * ZOO_CHECK_STEPS, SEED + 13))
+    reset_launches()
+    for recipe in ("lr", "deep", "widedeep", "fm", "dcn@v2"):
+        compare_training_with_cpu(dev, mind_ranker_config(recipe), ds, n_steps=ZOO_CHECK_STEPS)
+    return read_launches()
 
 
 def counted_kernels() -> dict:
     from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd, dcn_cross_stack
+    from news_recsys_tpu_torch.ops.fm_kernel import fm_second_order, fm_second_order_bwd
     from news_recsys_tpu_torch.ops.fused_lookup_pool import fused_lookup_pool
     from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_set
     return {f.__name__: f for f in (dcn_cross_stack, fused_lookup_pool, dcn_cross_bwd,
-                                    scatter_rows_set)}
+                                    scatter_rows_set, fm_second_order, fm_second_order_bwd)}
 
 
 def reset_launches() -> None:
@@ -574,7 +725,10 @@ def read_launches() -> dict:
 
 # the kernels each path must launch
 PATH_KERNELS = {"serve": ("dcn_cross_stack", "fused_lookup_pool"),
-                "train": ("dcn_cross_stack", "dcn_cross_bwd", "scatter_rows_set")}
+                "train": ("dcn_cross_stack", "dcn_cross_bwd", "scatter_rows_set"),
+                "serve_deepfm": ("fm_second_order", "fused_lookup_pool"),
+                "train_deepfm": ("fm_second_order", "fm_second_order_bwd", "scatter_rows_set"),
+                "train_zoo": ("fm_second_order", "fm_second_order_bwd", "scatter_rows_set")}
 
 
 def run(dev: torch.device) -> None:
@@ -583,7 +737,14 @@ def run(dev: torch.device) -> None:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_kernels()
     kernels = check_kernels(dev) + check_training_kernels(dev)
-    paths = {"serve": serve_phase(dev, name, smi), "train": train_phase(dev, name, smi)}
+    fm_train_fwd, fm_bwd = check_fm_training_kernels(dev)
+    next(k for k in kernels if k["name"] == "fm_second_order")["at_train_shape"] = fm_train_fwd
+    kernels.append(fm_bwd)
+    paths = {"serve": serve_phase(dev, name, smi),
+             "train": train_phase(dev, name, smi),
+             "serve_deepfm": serve_phase(dev, name, smi, "deepfm"),
+             "train_deepfm": train_phase(dev, name, smi, "deepfm"),
+             "train_zoo": zoo_phase(dev)}
     for path, names in PATH_KERNELS.items():
         for k in names:
             if paths[path][k] <= 0:

@@ -12,7 +12,11 @@ flax path                                  port parameter
 ``<m>/Linear_<i>/Dense_0/kernel`` (in,out) ``<m>.layers.<i>.weight`` (out,in)
 ``<m>/Linear_<i>/Dense_0/bias``            ``<m>.layers.<i>.bias``
 ``cross/w_<l>`` (D, 1), ``cross/b_<l>``    row l of ``cross.ws``, ``cross.bs``
+``bias`` (1,)                              ``bias``
 =========================================  ==================================
+
+The ``Linear`` row covers the MLP towers (``tower``, ``user_fc``, ...) and
+DCN-v2's cross layers (``cross/Linear_<i>``); ``cross/w_<l>`` is DCN-v1's.
 
 A sparse training state travels the same way (:func:`sparse_state_from_jax`,
 :func:`sparse_state_to_jax`): AdamW's moments are keyed by their
@@ -66,6 +70,8 @@ def port_arrays(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
             cross[m.group(1)][int(m.group(2))] = value.reshape(-1)
         elif path.startswith("embedder/"):
             state[f"embedder.tables.{path[len('embedder/'):]}"] = value
+        elif path == "bias":
+            state["bias"] = value
         else:
             raise KeyError(f"no port parameter for flax path {path!r}")
     for kind, layers in cross.items():
@@ -90,6 +96,8 @@ def flax_arrays(named: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
                 flat[f"cross/{kind}_{l}"] = row[:, None] if kind == "w" else row
         elif name.startswith("embedder.tables."):
             flat[f"embedder/{name[len('embedder.tables.'):]}"] = value
+        elif name == "bias":
+            flat["bias"] = value
         else:
             raise KeyError(f"no flax path for port parameter {name!r}")
     return flat
@@ -162,7 +170,7 @@ def sparse_state_from_jax(state, model: nn.Module, cfg):
         raise KeyError(f"accumulators {sorted(s['emb_mu'])} do not match the large tables "
                        f"{sorted(out.emb_acc)}")
     for name, acc in s["emb_mu"].items():
-        out.emb_acc[name].copy_(torch.as_tensor(np.asarray(acc, np.float32)))
+        out.emb_acc[name].copy_(torch.from_numpy(np.array(acc, np.float32)))
     out.step = int(np.asarray(s["step"]))
     return out
 
@@ -175,6 +183,8 @@ def sparse_state_to_jax(state) -> Dict:
     steps = {float(o["step"]) for o in opt if o}
     if len(steps) > 1:
         raise ValueError(f"AdamW step counts differ between parameters: {sorted(steps)}")
+    if not params:
+        steps = {state.step}      # optax counts its updates of an empty tree too
 
     def moments(key) -> Dict[str, np.ndarray]:
         return flax_arrays({n: (o[key] if o else torch.zeros_like(p)).detach().cpu().numpy()

@@ -1,8 +1,19 @@
-"""Ranking models. Port of :mod:`news_recsys_tpu.models.rankers`; this slice
-carries DCN-v1, the ranker of the serving cascade.
+"""Ranking model zoo: LR, Deep, Wide&Deep, FM, DeepFM, DCN v1/v2. Port of
+:mod:`news_recsys_tpu.models.rankers`, with its slicing contracts:
+
+- FM and DeepFM: per field, column 0 of the embedding is the first-order
+  weight ``w``, columns 1..d the latent vector ``v``; the second order runs
+  in :func:`~news_recsys_tpu_torch.ops.fm_kernel.fm_second_order`;
+- Wide&Deep: for wide features, column 0 is the wide (linear) part,
+  columns 1..d the deep part;
+- DCN v1: ``x0 * (x_l . w) + b + x_l`` through the fused cross stack;
+  DCN v2: ``relu(x0 * Linear(x_l) + x_l)`` per layer.
 
 Every ranker returns **logits** (B,) and factors as
-``forward = forward_from_fields(embed_fields(batch))``.
+``forward = forward_from_fields(embed_fields(batch))``. Parameter names
+map one to one onto the JAX package's flax paths
+(:mod:`news_recsys_tpu_torch.convert`): ``tower.layers.<i>`` for an MLP,
+``cross.layers.<i>`` for DCN-v2's ``Linear``s, a top-level ``bias`` (1,).
 """
 
 from __future__ import annotations
@@ -16,8 +27,9 @@ from torch import nn
 from news_recsys_tpu.config import Config, FeatureSchema, build_schema, table_specs
 
 from ..ops.dcn_kernel import dcn_cross_stack
+from ..ops.fm_kernel import fm_second_order
 from .embedding import EmbeddingCollection
-from .layers import MLP
+from .layers import MLP, Linear
 
 DEFAULT_HIDDEN = (128, 128, 128, 64, 1)
 RANKER_NAMES = ("lr", "deep", "widedeep", "fm", "deepfm", "dcn", "attention")
@@ -42,6 +54,87 @@ class RankerBase(nn.Module):
         raise NotImplementedError
 
 
+class LRRanker(RankerBase):
+    """Logistic regression via dim-1 embeddings: logit = sum of the concat
+    (reference ``lr/model.py:17-27``)."""
+
+    def forward_from_fields(self, fields) -> torch.Tensor:
+        return torch.cat(fields, dim=1).sum(dim=1)
+
+
+class DeepRanker(RankerBase):
+    """Concat embeddings -> MLP [128,128,128,64,1] (``deep/model.py:12-29``)."""
+
+    def __init__(self, tables, schema: FeatureSchema, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__(tables, schema, init_scale, generator)
+        self.tower = MLP(schema.total_dim, hidden, generator)
+
+    def forward_from_fields(self, fields) -> torch.Tensor:
+        return self.tower(torch.cat(fields, dim=1))[:, 0]
+
+
+class WideDeepRanker(RankerBase):
+    """Wide (sum of the wide features' column 0 + bias) + deep MLP over the
+    rest (``widedeep/model.py``)."""
+
+    def __init__(self, tables, schema: FeatureSchema, wide_features: Sequence[str],
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, init_scale: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(tables, schema, init_scale, generator)
+        self.wide_features = tuple(wide_features)
+        n_wide = sum(spec.name in self.wide_features for spec in schema.specs)
+        self.tower = MLP(schema.total_dim - n_wide, hidden, generator)
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward_from_fields(self, fields) -> torch.Tensor:
+        wide_cols, deep_cols = [], []
+        for spec, emb in zip(self.schema.specs, fields):
+            if spec.name in self.wide_features:
+                wide_cols.append(emb[:, 0:1])
+                deep_cols.append(emb[:, 1:])
+            else:
+                deep_cols.append(emb)
+        wide = torch.cat(wide_cols, dim=1).sum(dim=1) + self.bias[0]
+        return wide + self.tower(torch.cat(deep_cols, dim=1))[:, 0]
+
+
+def fm_first_and_second(fields, model: str) -> torch.Tensor:
+    """Sum of the fields' column 0 plus the second order of columns 1..d."""
+    if len({e.shape[1] for e in fields}) != 1:
+        raise AssertionError(f"{model} requires equal embedding dims across fields")
+    w = torch.cat([e[:, 0:1] for e in fields], dim=1)               # (B, nf)
+    v = torch.stack([e[:, 1:] for e in fields], dim=1)              # (B, nf, d-1)
+    return w.sum(dim=1) + fm_second_order(v)
+
+
+class FMRanker(RankerBase):
+    """Factorization machine on column-sliced embeddings (``fm/model.py``)."""
+
+    def __init__(self, tables, schema: FeatureSchema, init_scale: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(tables, schema, init_scale, generator)
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward_from_fields(self, fields) -> torch.Tensor:
+        return self.bias[0] + fm_first_and_second(fields, "FM")
+
+
+class DeepFMRanker(RankerBase):
+    """DeepFM: FM first and second order plus a deep MLP over the same
+    shared embeddings, summed into one logit (Guo et al. 2017)."""
+
+    def __init__(self, tables, schema: FeatureSchema, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__(tables, schema, init_scale, generator)
+        self.bias = nn.Parameter(torch.zeros(1))
+        self.tower = MLP(schema.total_dim, hidden, generator)
+
+    def forward_from_fields(self, fields) -> torch.Tensor:
+        fm = fm_first_and_second(fields, "DeepFM")
+        return self.bias[0] + fm + self.tower(torch.cat(fields, dim=1))[:, 0]
+
+
 class CrossNetV1(nn.Module):
     """Stacked DCN-v1 cross layers through the fused ``dcn_cross_stack``.
 
@@ -61,15 +154,31 @@ class CrossNetV1(nn.Module):
         return dcn_cross_stack(x0, self.ws, self.bs)
 
 
+class CrossNetV2(nn.Module):
+    """Stacked DCN-v2 cross layers with ReLU between (``dcn_arch.py:69-90``)."""
+
+    def __init__(self, dim: int, num_layers: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(Linear(dim, dim, generator) for _ in range(num_layers))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for layer in self.layers:
+            x = torch.relu(x0 * layer(x) + x)
+        return x
+
+
 class DCNRanker(RankerBase):
     """Cross net + MLP over concat[x, cross(x)] (``dcn/model.py:16-29``)."""
 
     def __init__(self, tables, schema: FeatureSchema, cross_layers: int = 3,
-                 hidden: Sequence[int] = DEFAULT_HIDDEN, init_scale: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 cross_version: int = 1, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
         super().__init__(tables, schema, init_scale, generator)
         dim = schema.total_dim
-        self.cross = CrossNetV1(dim, cross_layers, generator)
+        cross = CrossNetV1 if cross_version == 1 else CrossNetV2
+        self.cross = cross(dim, cross_layers, generator)
         self.tower = MLP(2 * dim, hidden, generator)
 
     def forward_from_fields(self, fields) -> torch.Tensor:
@@ -83,17 +192,34 @@ def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
     name = name or cfg.name
     if name not in RANKER_NAMES:
         raise ValueError(f"Unknown ranker: {name!r}")
-    dcn = cfg.extra("dcn_cfg", {}) or {}
-    if name != "dcn" or int(dcn.get("version", 1)) != 1:
-        raise NotImplementedError(
-            f"ranker {name!r} (dcn_cfg {dcn}) is not ported yet: see ROADMAP.md, "
-            "queue 1, 'Rest of the ranking zoo' (the attention ranker: "
-            "'Attention sequence ranker')")
+    if name == "attention":
+        raise NotImplementedError("ranker 'attention' is not ported yet: see ROADMAP.md, "
+                                  "queue 1, 'Attention sequence ranker'")
     if cfg.mesh.param_dtype != "float32" or cfg.mesh.compute_dtype != "float32":
         raise NotImplementedError("bfloat16 tables and towers are not ported yet: "
                                   "see ROADMAP.md, queue 1, 'Optimizer variants'")
-    generator = torch.Generator().manual_seed(seed)
-    model = DCNRanker(table_specs(cfg), build_schema(cfg),
-                      cross_layers=int(dcn.get("num_layers", 3)),
-                      init_scale=cfg.embeddings.init_scale, generator=generator)
+    schema = build_schema(cfg)
+    common = dict(tables=table_specs(cfg), schema=schema,
+                  init_scale=cfg.embeddings.init_scale,
+                  generator=torch.Generator().manual_seed(seed))
+    if name == "lr":
+        model = LRRanker(**common)
+    elif name == "deep":
+        model = DeepRanker(**common)
+    elif name == "widedeep":
+        wd = cfg.extra("wide_and_deep_cfg", {}) or {}
+        wide = tuple(wd.get("wide_feature_names", ()))
+        if not any(f in schema for f in wide):
+            raise ValueError(
+                "widedeep requires wide_and_deep_cfg.wide_feature_names with at "
+                f"least one feature from the rank schema {schema.names}; got {wide!r}")
+        model = WideDeepRanker(wide_features=wide, **common)
+    elif name == "fm":
+        model = FMRanker(**common)
+    elif name == "deepfm":
+        model = DeepFMRanker(**common)
+    else:
+        dcn = cfg.extra("dcn_cfg", {}) or {}
+        model = DCNRanker(cross_layers=int(dcn.get("num_layers", 3)),
+                          cross_version=int(dcn.get("version", 1)), **common)
     return model.to(device).eval()

@@ -38,6 +38,10 @@ SIGNATURES = {
     "nrt_lookup_pool_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, rows, vals, S, D, V, stream
     "nrt_scatter_rows_set": [_P, _P, _P, _I, _I, _I, _P],
+    # v, out, B, F, D, stream
+    "nrt_fm_fwd": [_P, _P, _I, _I, _I, _P],
+    # v, g, dv, B, F, D, stream
+    "nrt_fm_bwd": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

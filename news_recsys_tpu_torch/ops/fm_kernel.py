@@ -1,0 +1,101 @@
+"""FM second-order interaction: CUDA kernels for Hopper and their plain
+PyTorch versions.
+
+``out[b] = 0.5 * sum_d [(sum_f v_bfd)^2 - sum_f v_bfd^2]``, the
+½[(Σv)² − Σv²] identity of the reference (``fm/model.py:18-26``), with the
+analytic gradient ``dv_bfd = (sum_f' v_bf'd - v_bfd) * g_b``.
+
+:func:`fm_second_order` is a ``torch.autograd.Function``, as the JAX
+package's is a ``jax.custom_vjp``. Forward: ``csrc/fm_second_order.cu``,
+entry ``nrt_fm_fwd``, which replaces the Pallas kernel
+``news_recsys_tpu/ops/fm_kernel.py::_fm_pallas``; backward:
+:func:`fm_second_order_bwd`, entry ``nrt_fm_bwd``, the JAX package's XLA
+``_bwd``. Both are bound by memory: one warp per row keeps the per-column
+sums in registers and reads each element of ``v`` once; every reduction
+stays inside a row, so a run repeats its bits. The kernels take any B (the
+Pallas path fell back to XLA when B was not a multiple of its tile).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+
+
+def fm_plain(v: torch.Tensor) -> torch.Tensor:
+    """The forward in plain PyTorch (the JAX package's ``_fm_xla``): the CPU
+    path and the kernel's oracle."""
+    sum_v = v.sum(dim=1)
+    return 0.5 * (sum_v * sum_v - (v * v).sum(dim=1)).sum(dim=1)
+
+
+def fm_bwd_plain(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The VJP in plain PyTorch (the JAX package's ``_bwd``)."""
+    return (v.sum(dim=1, keepdim=True) - v) * g[:, None, None]
+
+
+def _kernel_shape(v: torch.Tensor):
+    B, F, D = v.shape
+    if B >= 2 ** 31 or F * D >= 2 ** 31:
+        raise ValueError(f"the fm_second_order kernels take B, F*D < 2**31; got {tuple(v.shape)}")
+    return B, F, D
+
+
+def _fm_fwd_kernel(v: torch.Tensor) -> torch.Tensor:
+    from ._build import launch
+
+    B, F, D = _kernel_shape(v)
+    out = v.new_empty((B,))
+    if B == 0:
+        return out
+    launch("nrt_fm_fwd", v.data_ptr(), out.data_ptr(), B, F, D, stream_ptr(v))
+    with launch_count_lock:
+        fm_second_order.launches += 1
+    return out
+
+
+def fm_second_order_bwd(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """v (B, F, D), g (B,), float32 -> dv (B, F, D). On CUDA tensors it
+    launches ``nrt_fm_bwd``."""
+    check_tensor(v, "v", torch.float32, 3)
+    check_tensor(g, "g", torch.float32, 1)
+    if g.shape[0] != v.shape[0]:
+        raise ValueError(f"g {tuple(g.shape)} must be ({v.shape[0]},)")
+    if kernel_device(v, g) == "cpu":
+        return fm_bwd_plain(v, g)
+    from ._build import launch
+
+    B, F, D = _kernel_shape(v)
+    dv = torch.empty_like(v)
+    if B == 0:
+        return dv
+    launch("nrt_fm_bwd", v.data_ptr(), g.data_ptr(), dv.data_ptr(), B, F, D, stream_ptr(v))
+    with launch_count_lock:
+        fm_second_order_bwd.launches += 1
+    return dv
+
+
+class _FM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(v)
+        return fm_plain(v) if v.device.type == "cpu" else _fm_fwd_kernel(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        return fm_second_order_bwd(v, g.contiguous())
+
+
+def fm_second_order(v: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) float32 field latent vectors -> (B,) second-order
+    interaction; differentiable in ``v``."""
+    check_tensor(v, "v", torch.float32, 3)
+    kernel_device(v)
+    return _FM.apply(v)
+
+
+fm_second_order.launches = 0
+fm_second_order_bwd.launches = 0

@@ -4,9 +4,10 @@ Port of :mod:`news_recsys_tpu.serving` on PyTorch. A :class:`Recommender`
 encodes the item corpus once on its ``device`` and serves batched
 user -> top-k queries with per-user history dedup; a
 :class:`CascadeRecommender` re-scores the recall stage's ``fetch``
-candidates with a ranker (DCN) and serves the top-k by ranker score. On a
-CUDA device the user tower's history pooling and the ranker's cross stack
-run in the port's CUDA kernels.
+candidates with any ranker of the port's zoo (LR, Deep, Wide&Deep, FM,
+DeepFM, DCN v1/v2) and serves the top-k by ranker score. On a CUDA device
+the user tower's history pooling, DCN-v1's cross stack and the FM second
+order run in the port's CUDA kernels.
 
 Bundles are directories of plain files, so no flax is needed to read them:
 ``config.json``, ``params.npz`` (numpy arrays keyed by flax path, see

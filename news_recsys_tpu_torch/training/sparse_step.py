@@ -32,7 +32,7 @@ every addressable row.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,11 +77,12 @@ def check_ported(cfg: Config) -> None:
 @dataclass
 class SparseTrainState:
     """The model (its parameters are the training state), one AdamW over the
-    dense parameters and the small tables, the large tables' rowwise AdaGrad
+    dense parameters and the small tables (None when there are none: an LR
+    whose every table is large), the large tables' rowwise AdaGrad
     accumulators {table: (V,)}, and the number of steps taken."""
 
     model: nn.Module
-    dense_opt: torch.optim.AdamW
+    dense_opt: Optional[torch.optim.AdamW]
     emb_acc: Dict[str, torch.Tensor]
     step: int = 0
 
@@ -93,11 +94,16 @@ def dense_parameters(model: nn.Module) -> list:
     return [(n, p) for n, p in model.named_parameters() if n not in large]
 
 
-def make_dense_tx(cfg: Config, params) -> torch.optim.AdamW:
+def make_dense_tx(cfg: Config, params) -> Optional[torch.optim.AdamW]:
     """AdamW with the config's betas and weight decay, eps 1e-8: optax's
     ``adamw`` formula (decay scaled by the lr, 1-based bias correction, eps
     after the square root) in one group, as optax applies no mask. The lr is
-    set on the group before every step (:func:`make_sparse_train_step`)."""
+    set on the group before every step (:func:`make_sparse_train_step`).
+    None for an empty ``params``: ``torch.optim`` refuses an empty list
+    where optax steps an empty tree."""
+    params = list(params)
+    if not params:
+        return None
     hp = cfg.train_hparams
     return torch.optim.AdamW(params, lr=hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)(0),
                              betas=(hp.b1, hp.b2), eps=ADAM_EPS, weight_decay=hp.weight_decay)
@@ -279,16 +285,19 @@ def make_sparse_train_step(model: nn.Module, cfg: Config):
             fields_from_rows(schema, batch, rows, tables, large))
         per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
         loss = (per_ex * weights).sum() / weights.sum().clamp(min=1.0)
-        state.dense_opt.zero_grad(set_to_none=True)
+        opt = state.dense_opt
+        if opt is not None:
+            opt.zero_grad(set_to_none=True)
         loss.backward()
 
         # optax evaluates the schedule at the pre-increment step count; the
         # rowwise update uses the same lr
         lr = sched(state.step)
         with torch.no_grad():
-            for group in state.dense_opt.param_groups:
-                group["lr"] = lr
-            state.dense_opt.step()
+            if opt is not None:
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
             per_table = collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()},
                                           large)
             table_update(tables, state.emb_acc, per_table, lr)

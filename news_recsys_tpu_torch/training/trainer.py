@@ -1,15 +1,19 @@
-"""Training runtime for the rankers: the binned train AUC and the epoch loop.
+"""Training runtime for the rankers: the binned train AUC, the epoch loop,
+prediction and validation.
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
 (``embedding_optimizer="rowwise_adagrad"``) and its device-resident epoch:
 the packed dataset goes to the device once, and each step gathers its batch
 rows there. Steps run eagerly, one Python call each (JAX scanned them in
-one compiled chunk). ``train.log`` and ``metrics.jsonl`` keep the JAX
-package's format.
+one compiled chunk). Validation scores the dev set on the device and runs
+the JAX package's host metric engine (:mod:`news_recsys_tpu.training.metrics`)
+at every size. ``train.log``, ``val_log.log`` and ``metrics.jsonl`` keep the
+JAX package's format.
 
-Not ported yet (ROADMAP.md, queue 1, item 2): validation (``dev_ds``),
-``predict``, checkpoints and resume, TensorBoard, and the slab-streamed
-path for datasets larger than ``device_resident_bytes``.
+Not ported yet (ROADMAP.md, queue 1, item 2): checkpoints and resume,
+TensorBoard, ``model_info.log``, the device metric engine
+(``training/metrics_device.py``), and the slab-streamed path for datasets
+larger than ``device_resident_bytes``.
 """
 
 from __future__ import annotations
@@ -18,13 +22,14 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 import numpy as np
 import torch
 
 from news_recsys_tpu.config import Config
 from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
+from news_recsys_tpu.training.metrics import compute_user_metrics, format_validation_block
 from news_recsys_tpu.utils.logging import get_logger
 
 __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
@@ -87,8 +92,10 @@ class Trainer:
         ts = time.strftime("%Y%m%d-%H%M%S")
         self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
         os.makedirs(self.log_dir, exist_ok=True)
+        self.val_log_path = os.path.join(self.log_dir, "val_log.log")
         self.train_log_path = os.path.join(self.log_dir, "train.log")
         self.metrics_path = os.path.join(self.log_dir, "metrics.jsonl")
+        open(self.val_log_path, "a").close()
         self.global_step = 0
         self._packed: Dict[int, tuple] = {}
 
@@ -134,8 +141,7 @@ class Trainer:
         dt = time.perf_counter() - t0
         metrics = {"train_loss": loss_val, "train_auc": binned_auc_value(hist),
                    "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
-        with open(self.metrics_path, "a") as f:
-            f.write(json.dumps({"step": self.global_step, "epoch": epoch, **metrics}) + "\n")
+        self._log_scalars(epoch=epoch, **metrics)
         with open(self.train_log_path, "a") as f:
             f.write(f"Epoch {epoch} Training Metrics:\n")
             for k, v in metrics.items():
@@ -145,12 +151,50 @@ class Trainer:
                     f"auc~{metrics['train_auc']:.4f} ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
 
+    def _log_scalars(self, **scalars) -> None:
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps({"step": self.global_step, **scalars}) + "\n")
+
+    def predict(self, ds: PackedDataset, batch_size: Optional[int] = None) -> np.ndarray:
+        """Sigmoid scores (float32) of every row of ``ds`` in row order, at
+        ``eval_batch_size`` (else ``batch_size``) rows a forward; the tail
+        batch is padded with the last row and trimmed, as in JAX."""
+        bs = batch_size or self.cfg.dataset.eval_batch_size or self.cfg.dataset.batch_size
+        packer, int_dev, float_dev = self._device_matrices(ds)
+        layout = packer.layout_key()
+        nb = -(-packer.n // bs)
+        idx = torch.arange(nb * bs, device=self.device).clamp_(max=packer.n - 1).view(nb, bs)
+        ones = torch.ones(bs, device=self.device)
+        with torch.inference_mode():
+            scores = [torch.sigmoid(self.model(unpack_batch(int_dev[i], float_dev[i], ones,
+                                                            layout)))
+                      for i in idx]
+            return torch.cat(scores)[: packer.n].cpu().numpy()
+
+    def validate(self, state, ds: PackedDataset, epoch: int,
+                 warm_user_set: Optional[Set[int]] = None) -> Dict[str, Dict[str, float]]:
+        """Score ``ds`` with ``state``'s model and compute the Overall /
+        Warm-start / Cold-start block on the host; prints it, appends it to
+        ``val_log.log`` and logs AUC, GAUC and NDCG@10 to ``metrics.jsonl``."""
+        if state.model is not self.model:
+            raise ValueError("validate: the state's model is not this trainer's")
+        scores = self.predict(ds)
+        results = compute_user_metrics(ds.arrays["user_id"], scores, ds.arrays["label"][:, 0],
+                                       warm_user_set)
+        block = format_validation_block(results, epoch)
+        print(block)
+        with open(self.val_log_path, "a") as f:
+            f.write(block)
+        self._log_scalars(epoch=epoch, val_auc=results["Overall"]["AUC"],
+                          val_gauc=results["Overall"]["GAUC"],
+                          val_ndcg10=results["Overall"]["NDCG@10"])
+        return results
+
     def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
-            max_epochs: Optional[int] = None):
+            warm_user_set: Optional[Set[int]] = None, max_epochs: Optional[int] = None):
         """Train from the model's current parameters for ``max_epochs``
-        (default ``train_hparams.max_epoch``) or until ``max_step``."""
-        if dev_ds is not None:
-            raise NotImplementedError("validation (dev_ds) " + RUNTIME_NOT_PORTED)
+        (default ``train_hparams.max_epoch``) or until ``max_step``,
+        validating on ``dev_ds`` after every ``val_freq``-th epoch."""
         hp = self.cfg.train_hparams
         max_epochs = hp.max_epoch if max_epochs is None else max_epochs
         state = self.init_state()
@@ -158,4 +202,6 @@ class Trainer:
             if self.global_step >= hp.max_step:
                 break
             state, _ = self.train_epoch(state, train_ds, epoch)
+            if dev_ds is not None and (epoch + 1) % hp.val_freq == 0:
+                self.validate(state, dev_ds, epoch, warm_user_set)
         return state

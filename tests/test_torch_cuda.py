@@ -11,7 +11,9 @@ whose values grow over the layers, to rtol 1e-5 and atol 1e-4. Its
 backward sums the batch's terms (up to ~500 each at these inputs, cancelling
 to order 1 in places) in per-block partials, so it holds to rtol 1e-5 and an
 atol of 1e-5 of the largest gradient. The row scatter moves bits and is
-held to equality. Training on the card against the CPU: rtol 1e-5, atol 5e-5
+held to equality. The FM second order and its backward sum F products per
+column (and D columns) in another order than PyTorch: rtol 1e-5 and an atol
+of 1e-5 of the largest value. Training on the card against the CPU: rtol 1e-5, atol 5e-5
 after 4 steps (cuBLAS and the CPU sum the matmuls in other orders, and Adam
 divides each step by ``|g| + 1e-8``, which amplifies those differences in
 weights whose gradient cancels near 1e-8).
@@ -28,6 +30,8 @@ from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpa
 from news_recsys_tpu_torch.models.rankers import build_ranker
 from news_recsys_tpu_torch.ops.dcn_kernel import (cross_bwd_plain, cross_fwd_plain, cross_plain,
                                                   dcn_cross_bwd, dcn_cross_stack)
+from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
+                                                 fm_second_order_bwd)
 from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                          reference_lookup_pool)
 from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
@@ -106,6 +110,53 @@ def train_cfg(arena: bool, batch_size: int = 64, mesh=None, **train):
                                user_feature_names=["user_id", "hist"])
         raw["embeddings"]["share_emb_table_features"] = {"hist": "item_id"}
     return config_from_dict(raw)
+
+
+def zoo_train_cfg(name: str, arena: bool = True, batch_size: int = 64, **train):
+    """A narrow config for a ranker of the zoo (``lr``, ``deep``,
+    ``widedeep``, ``fm``, ``deepfm``, ``dcn``, ``dcn@v2``): large user and
+    item tables (5,000 and 4,500 ids, rowwise AdaGrad), small ``category``
+    and ``subcategory`` tables (AdamW). Dims 1 for LR and 8 for FM and
+    DeepFM everywhere (equal dims); otherwise 16 for the large tables (8 for
+    the item table without ``arena``) and 8 for the small ones, with 9 for
+    Wide&Deep's wide ``category`` and ``subcategory`` (column 0 wide). As in
+    :func:`train_cfg`, ``arena`` packs the large tables into one and its
+    absence adds a click history ``hist`` of 5 pooled over the item table.
+    The shallow models take the scoreboard's ``init_scale`` 0.03."""
+    model = name.split("@")[0]
+    shallow = model in ("lr", "fm", "deepfm")
+    big, small = {"lr": (1, 1), "fm": (8, 8), "deepfm": (8, 8)}.get(model, (16, 8))
+    wide = small + 1 if model == "widedeep" else small
+    feats = ["user_id", "item_id", "category", "subcategory"]
+    raw = {
+        "name": model,
+        "features": {"sparse_feature_names": feats,
+                     "item_feature_names": ["item_id", "category", "subcategory"],
+                     "user_feature_names": ["user_id"]},
+        "embeddings": {"embedding_size": {"user_id": big,
+                                          "item_id": big if arena or shallow else big // 2,
+                                          "category": wide, "subcategory": wide},
+                       "embedding_table_size": {"user_id": 5000, "item_id": 4500,
+                                                "category": 10, "subcategory": 30},
+                       "arena_tables": arena, "init_scale": 0.03 if shallow else 1.0},
+        "dataset": {"batch_size": batch_size},
+        "train_hparams": {"lr": 1e-3, "min_lr": 1e-4, "lr_milestones": [2, 6],
+                          "max_step": 10000, "max_epoch": 2,
+                          "embedding_optimizer": "rowwise_adagrad", **train},
+        "wide_and_deep_cfg": {"wide_feature_names": ["category", "subcategory"]},
+        "dcn_cfg": {"num_layers": 2, "version": 2 if name == "dcn@v2" else 1},
+    }
+    if not arena:
+        raw["features"].update(array_feature_names=["hist"], array_max_length={"hist": 5},
+                               user_feature_names=["user_id", "hist"])
+        raw["embeddings"]["share_emb_table_features"] = {"hist": "item_id"}
+    return config_from_dict(raw)
+
+
+def fm_inputs(B, F, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, F, D)).astype(np.float32),
+            rng.standard_normal(B).astype(np.float32))
 
 
 def train_dataset(cfg, n: int, seed: int) -> PackedDataset:
@@ -330,6 +381,74 @@ def test_training_steps_on_cuda_match_cpu(cuda, arena):
             steps[d](states[d], batch, AucHist.zeros(dev))
     assert dcn_cross_bwd.launches - before[0] == 4
     assert scatter_rows_set.launches - before[1] >= 4
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **TRAIN_TOL)
+    for name, acc in states["cuda"].emb_acc.items():
+        torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[name], msg=name, **TRAIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 512, 6400])
+@pytest.mark.parametrize("F", [1, 2, 5, 39])
+@pytest.mark.parametrize("D", [1, 15, 16, 33, 64])
+def test_fm_kernels_match_plain(cuda, B, F, D):
+    v, g = on(cuda, *fm_inputs(B, F, D))
+    with torch.inference_mode():
+        n = fm_second_order.launches, fm_second_order_bwd.launches
+        got, dv = fm_second_order(v), fm_second_order_bwd(v, g)
+        assert (fm_second_order.launches - n[0], fm_second_order_bwd.launches - n[1]) == (1, 1)
+    assert_close_to_scale(got, fm_plain(v), "fm forward")
+    assert_close_to_scale(dv, fm_bwd_plain(v, g), "fm backward")
+
+
+@pytest.mark.cuda
+def test_fm_kernels_are_deterministic(cuda):
+    v, g = on(cuda, *fm_inputs(6400, 5, 15, seed=1))
+    assert torch.equal(fm_second_order(v), fm_second_order(v))
+    assert torch.equal(fm_second_order_bwd(v, g), fm_second_order_bwd(v, g))
+
+
+@pytest.mark.cuda
+def test_fm_autograd_on_cuda(cuda):
+    """The Function's forward and backward kernels against plain autograd
+    through ``fm_plain`` on the same card."""
+    v_np, g_np = fm_inputs(512, 5, 15, seed=2)
+    g = torch.from_numpy(g_np).to(cuda)
+    grads = {}
+    for name, fn in (("kernel", fm_second_order), ("plain", fm_plain)):
+        v = torch.from_numpy(v_np).to(cuda).requires_grad_()
+        n = fm_second_order.launches, fm_second_order_bwd.launches
+        fn(v).backward(g)
+        launched = (fm_second_order.launches - n[0], fm_second_order_bwd.launches - n[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        grads[name] = v.grad
+    assert_close_to_scale(grads["kernel"], grads["plain"], "dv")
+
+
+@pytest.mark.cuda
+def test_deepfm_training_steps_on_cuda_match_cpu(cuda):
+    """4 sparse steps of a narrow DeepFM, card against CPU; the step goes
+    through both FM kernels and the scatter."""
+    cfg = zoo_train_cfg("deepfm")
+    ds = train_dataset(cfg, 256, seed=4)
+    packer = BatchPacker(ds)
+    cpu_model = build_ranker(cfg, seed=1)
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
+    idx = np.random.default_rng(1).permutation(256).reshape(4, 64)
+    before = (fm_second_order.launches, fm_second_order_bwd.launches, scatter_rows_set.launches)
+    for rows in idx:
+        for d in ("cpu", "cuda"):
+            dev = torch.device(d)
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(dev),
+                                 torch.from_numpy(packer.float_mat[rows]).to(dev),
+                                 torch.ones(64, device=dev), packer.layout_key())
+            steps[d](states[d], batch, AucHist.zeros(dev))
+    assert fm_second_order.launches - before[0] == 4
+    assert fm_second_order_bwd.launches - before[1] == 4
+    assert scatter_rows_set.launches - before[2] >= 4
     want = dict(models["cpu"].named_parameters())
     for name, p in models["cuda"].named_parameters():
         torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **TRAIN_TOL)

@@ -249,9 +249,7 @@ def test_dcn_logits_match_jax_at_full_mind_width(pallas_interpret):
 
 
 @pytest.mark.parametrize("name,extra,err", [
-    ("deep", {}, NotImplementedError),
     ("attention", {}, NotImplementedError),
-    ("dcn", {"dcn_cfg": {"num_layers": 2, "version": 2}}, NotImplementedError),
     ("nope", {}, ValueError),
 ])
 def test_build_ranker_names_what_is_not_ported(name, extra, err):
