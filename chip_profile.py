@@ -3,15 +3,16 @@ port, on one CUDA GPU.
 
     python3 chip_profile.py [--users 64,256,1024] [--requests 10]
 
-Builds the full-width MIND cascade of ``chip_smoke.py`` (seeded weights,
-65,238 items, fetch 100) on the card and, for each request size, calls
+Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
+65,238 items, fetch 100; a DCN and an attention ranker over the same
+recall) on the card and, for each request size, calls
 ``CascadeRecommender.recommend`` directly (no HTTP), in three separate runs
 over the same requests after two warm-up requests:
 
 1. plain: wall time per request of parsing the request JSON, ``recommend``
    and encoding the answer, with nothing added to the code;
 2. layers: wall time of the user tower, the top-k search, the recall stage
-   and the DCN forward, from wrappers that synchronise the card around each
+   and the ranker's forward, from wrappers that synchronise the card around each
    (removed again before the next run);
 3. traced: a ``torch.profiler`` trace of 5 requests, for the device kernel
    time per request and the top kernels.
@@ -20,9 +21,12 @@ The device-busy share is the traced device time per request over the
 plain run's ``recommend`` time, so neither the tracer's nor the wrappers'
 overhead enters it.
 
-Training: the full-width DCN and DeepFM of ``chip_smoke.py``'s training
-phase (``mind_config("dcn", embedding_optimizer="rowwise_adagrad")`` and
-``mind_ranker_config("deepfm")``, batch 512) under ``Trainer.train_epoch``,
+Training: the full-width DCN, DeepFM and attention rankers of
+``chip_smoke.py``'s training phases (``mind_config("dcn",
+embedding_optimizer="rowwise_adagrad")``, ``mind_ranker_config("deepfm")``,
+``attention_config()``, and ``mind_ranker_config("attention@adamw")`` on the
+all-dense step, whose spans are forward, backward, AdamW over every
+parameter and the AUC; batch 512) under ``Trainer.train_epoch``,
 after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
 (24) steps: plain (ms per step, nothing added), layers (gather, fields,
 forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
@@ -91,7 +95,7 @@ def layer_times(casc, reqs) -> dict:
     spans = [(casc.recall, "_encode", "recall: user tower"),
              (casc.recall.searcher, "search", "recall: matmul + topk + copy"),
              (casc.recall, "recommend", "recall: total (incl. dedup loop)"),
-             (casc.ranker_model, "forward", "rank: DCN forward")]
+             (casc.ranker_model, "forward", f"rank: {casc.ranker_cfg.name} forward")]
     for obj, name, label in spans:
         setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
     try:
@@ -104,6 +108,15 @@ def layer_times(casc, reqs) -> dict:
     return {k: v / len(reqs) * 1e3 for k, v in totals.items()}
 
 
+def device_events(prof) -> list:
+    """A ``torch.profiler`` trace's device kernels and copies, by name; user
+    annotations (``Optimizer.step#...`` ranges), which span other kernels,
+    are left out so that nothing is counted twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def traced_kernels(casc, reqs) -> list:
     """Device kernels of ``reqs`` under ``torch.profiler``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -111,28 +124,39 @@ def traced_kernels(casc, reqs) -> list:
             casc.recommend(_user_batch_from_json(casc, req["users"]), k=chip_smoke.K,
                            histories=req["histories"])
         torch.cuda.synchronize()
-    return chip_smoke.device_events(prof)
+    return device_events(prof)
 
 
 # the kernel of each profiled ranker's forward (and backward)
-FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM"}
+FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM", "attention": "fused block",
+                   "attention@adamw": "fused block"}
 
 
-def train_layer_times(trainer, state, ds, epoch) -> dict:
-    """Mean wall ms per step of each layer of the sparse step, the card
+def train_spans(trainer, state, ranker: str) -> list:
+    """(object, attribute, label) of each layer of the ranker's step."""
+    from news_recsys_tpu_torch.training import dense_step, sparse_step
+
+    kernel = FORWARD_KERNELS[ranker]
+    if not trainer.sparse_embeddings:
+        return [(trainer.model, "forward", f"forward (embed, pool, {kernel} kernel, MLP)"),
+                (torch.Tensor, "backward", f"backward (incl. {kernel} and pool bwd kernels)"),
+                (state.opt, "step", "AdamW over every parameter"),
+                (dense_step, "binned_auc_update", "AUC histogram")]
+    return [(sparse_step, "gather_large_rows", "gather (large-table rows)"),
+            (sparse_step, "fields_from_rows", "fields (small-table gathers, masks)"),
+            (trainer.model, "forward_from_fields", f"forward ({kernel} kernel + MLP)"),
+            (torch.Tensor, "backward", f"backward (incl. {kernel} bwd kernel)"),
+            (state.dense_opt, "step", "dense AdamW"),
+            (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
+            (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel"),
+            (sparse_step, "binned_auc_update", "AUC histogram")]
+
+
+def train_layer_times(trainer, state, ds, epoch, ranker: str) -> dict:
+    """Mean wall ms per step of each layer of the step, the card
     synchronised around each."""
-    from news_recsys_tpu_torch.training import sparse_step
-
     totals = collections.defaultdict(float)
-    kernel = FORWARD_KERNELS[trainer.cfg.name]
-    spans = [(sparse_step, "gather_large_rows", "gather (large-table rows)"),
-             (sparse_step, "fields_from_rows", "fields (small-table gathers, masks)"),
-             (trainer.model, "forward_from_fields", f"forward ({kernel} kernel + MLP)"),
-             (torch.Tensor, "backward", f"backward (incl. {kernel} bwd kernel)"),
-             (state.dense_opt, "step", "dense AdamW"),
-             (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
-             (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel"),
-             (sparse_step, "binned_auc_update", "AUC histogram")]
+    spans = train_spans(trainer, state, ranker)
     saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in spans]
     for obj, name, label in spans:
         setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
@@ -153,7 +177,7 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
 
     bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
     cfg = chip_smoke.train_config(ranker)
-    ds = PackedDataset(chip_smoke.ranking_arrays(bs * steps, chip_smoke.SEED + 9))
+    ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
@@ -162,11 +186,11 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
         state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
         _, plain = trainer.train_epoch(state, ds, 1)
         step_ms = bs / plain["examples_per_sec"] * 1e3
-        layers = train_layer_times(trainer, state, ds, 2)
+        layers = train_layer_times(trainer, state, ds, 2, ranker)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.train_epoch(state, ds, 3)
             torch.cuda.synchronize()
-    kernels = chip_smoke.device_events(prof)
+    kernels = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     print(f"\n== training {ranker}, batch {bs}, epochs of {steps} steps ({smi})")
@@ -193,7 +217,15 @@ def main(argv=None) -> None:
         raise SystemExit("needs a CUDA GPU")
     smi = chip_smoke.card()
     print(smi, flush=True)
-    casc = chip_smoke.build_cascade(torch.device("cuda"))
+    for ranker in ("dcn", "attention"):
+        profile_serving(smi, ranker, args)
+    for ranker in FORWARD_KERNELS:
+        profile_training(smi, ranker)
+    print(smi)
+
+
+def profile_serving(smi: str, ranker: str, args) -> None:
+    casc = chip_smoke.build_cascade(torch.device("cuda"), ranker)
     for users in map(int, args.users.split(",")):
         chip_smoke.USERS_PER_REQUEST = users
         reqs = chip_smoke.make_requests(2 + args.requests)
@@ -205,7 +237,8 @@ def main(argv=None) -> None:
         traced = reqs[2:7]
         kernels = traced_kernels(casc, traced)
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(traced)
-        print(f"\n== {users} users/request, {args.requests} requests, no HTTP ({smi})")
+        print(f"\n== {ranker} cascade, {users} users/request, {args.requests} requests, "
+              f"no HTTP ({smi})")
         for k, v in {**plain, **layers}.items():
             print(f"  {k:36s} {v:9.3f} ms")
         print(f"  {'users served per second':36s} "
@@ -216,9 +249,6 @@ def main(argv=None) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.key[:72]:72s} "
                   f"{e.self_device_time_total / len(traced):8.1f} us/request")
-    for ranker in FORWARD_KERNELS:
-        profile_training(smi, ranker)
-    print(smi)
 
 
 if __name__ == "__main__":

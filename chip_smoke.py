@@ -4,18 +4,22 @@
 
 Drives the port's paths once at the full width of the repo's MIND
 models, from seeded random weights: serving (the recall -> rank cascade,
-with a DCN and with a DeepFM ranker), training (the DCN and DeepFM rankers'
-sparse step under ``Trainer.fit``, DeepFM's with validation) and a few
-steps of each other ranker of the zoo. Fails (non-zero exit, no result
-line) if any phase fails:
+with a DCN, a DeepFM and an attention ranker), training (the DCN, DeepFM and
+attention rankers' sparse step under ``Trainer.fit``, DeepFM's with
+validation; the attention ranker's all-dense AdamW step) and a few steps of
+each other ranker of the zoo. Fails (non-zero exit, no result line) if any
+phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
-   one nvcc per source in parallel);
-3. holds each kernel against its plain PyTorch version on the card at its
-   path's shapes, and times both (device time from CUDA graph replays, or
-   from a profiler trace where the plain version synchronises, and wall
-   time per call with host overhead);
+   one nvcc per source in parallel; PyTorch's own start-up on the card is
+   paid meanwhile);
+3. holds each of the nine kernels against its plain PyTorch version on the
+   card at its path's shapes, and times both (device time from CUDA graph
+   replays, and wall time per call with host overhead); beside them the bound (the
+   least time the card could take: bytes moved over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger, from this run's inputs)
+   and, where one PyTorch call computes the same function, that call's time;
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -25,7 +29,7 @@ line) if any phase fails:
    card's answers;
 5. training: the DCN of zoo.mind_config("dcn",
    embedding_optimizer="rowwise_adagrad") (arena 159,360 x 32, batch 512)
-   on a synthetic dataset of 64 batches shaped like bench.py's; 4 steps on
+   on a synthetic dataset of 32 batches shaped like bench.py's; 4 steps on
    the card and on the CPU from the same state and batches must agree;
    then ``Trainer.fit`` for one epoch on the card (loss finite), and a
    second, warm epoch timed for steps/s and examples/s; the same for the
@@ -33,10 +37,20 @@ line) if any phase fails:
    ``Trainer.fit`` also validates on a dev set of 256 users x 32 rows (half
    of them warm): the block must be finite and equal the CPU's
    ``validate`` on the same state;
-6. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 of
-   zoo.mind_ranker_config): 2 steps each at full width, card against CPU;
-7. checks that each path launched the kernels it runs: the counts are set
-   to 0 just before a path is driven and read just after.
+6. the attention ranker of zoo.attention_config() (user 94,080 x 32, item
+   65,280 x 32 shared with the unpooled history of 30, one Transformer
+   block D 32, 2 heads, FF 64): served in the cascade, card against CPU;
+   trained on the sparse step (4 steps card against CPU, ``Trainer.fit`` for
+   an epoch of 64 steps, a timed warm epoch: 15,872 item-table slots a
+   step); and the scoreboard recipe zoo.mind_ranker_config("attention@adamw")
+   on the all-dense AdamW step (4 steps card against CPU, then
+   ``Trainer.fit`` for an epoch and a timed warm one);
+7. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 and the scoreboard
+   attention recipe of zoo.mind_ranker_config): 2 steps each at full width,
+   card against CPU;
+8. checks that each path launched the kernels it runs, the new paths as
+   many times as they should: the counts are set to 0 just before a path is
+   driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times, and ``{"ok": true, "device": {...}}``.
@@ -59,9 +73,10 @@ import urllib.request
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 SEED = 0
 USERS_PER_REQUEST = 64
-REQUESTS = 8                  # timed, after one warm-up request
+REQUESTS = 6                  # timed, after one warm-up request
 K = 10
 FETCH = 100
 # kernel vs plain on the card: float32 with another summation order; the
@@ -70,9 +85,12 @@ DCN_TOL = dict(rtol=1e-5, atol=1e-4)
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 # card vs CPU answers: sigmoid scores and user embeddings
 ANSWER_TOL = 1e-5
-# training: batch 512, one epoch of 64 steps over a synthetic dataset
+# training: batch 512, one epoch over a synthetic dataset: 64 steps for the
+# attention ranker, 32 for the DCN and the DeepFM (cut from 64 to keep the
+# run short as paths are added)
 TRAIN_BATCH = 512
 TRAIN_STEPS = 64
+EARLIER_TRAIN_STEPS = 32
 CHECK_STEPS = 4
 # card vs CPU training state after CHECK_STEPS steps: cuBLAS and the CPU sum
 # the matmuls in other orders, and Adam divides each step by |g| + 1e-8,
@@ -89,6 +107,20 @@ DEV_USERS, DEV_ROWS = 256, 32
 # card vs CPU validation metrics on the same state
 VAL_TOL = 1e-4
 ZOO_CHECK_STEPS = 2
+DENSE_STEPS = 16                # steps in an epoch of the all-dense path
+# the fused block, kernel vs plain on the card: the JAX package's tolerances
+# for its kernel (float32, other summation orders; gradients are sums over
+# B*L rows, held to an atol of 2e-5 of the largest value)
+BLOCK_L, BLOCK_D, BLOCK_H, BLOCK_F = 30, 32, 2, 64
+BLOCK_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+BLOCK_GRAD_RTOL = 2e-4
+# this slice's kernels and their plain versions take 50 us to 3 ms a call:
+# fewer replays and calls than the microsecond kernels get
+DEEP = dict(rounds=7, inner=10)
+# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory
+# and float32 outside the tensor cores, which is what every kernel here uses
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -101,7 +133,7 @@ def card() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def call_ms(fn, rounds: int = 21, inner: int = 20) -> float:
+def call_ms(fn, rounds: int = 11, inner: int = 20) -> float:
     """Wall time per call, host overhead included: median over ``rounds``
     of ``inner`` back-to-back calls timed with CUDA events."""
     for _ in range(3):
@@ -119,7 +151,7 @@ def call_ms(fn, rounds: int = 21, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, rounds: int = 21, inner: int = 20) -> float:
+def device_ms(fn, rounds: int = 11, inner: int = 20) -> float:
     """Device time per call: ``inner`` calls captured in one CUDA graph and
     replayed, so no host work sits between the launches; median over
     ``rounds`` replays. Inputs stay in L2 from one call to the next."""
@@ -146,44 +178,33 @@ def device_ms(fn, rounds: int = 21, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_events(prof) -> list:
-    """A ``torch.profiler`` trace's device kernels and copies, by name; user
-    annotations (``Optimizer.step#...`` ranges), which span other kernels,
-    are left out so that nothing is counted twice."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+def least_time(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for ``nbytes`` moved (each input
+    read once, each output written once) and ``flops`` float32 operations."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": float(nbytes), "flops": float(flops)}
 
 
-def traced_ms(fn, calls: int = 50) -> float:
-    """Device time per call from a ``torch.profiler`` trace of ``calls``
-    eager calls: the kernels' own time, without the gaps between them. For
-    a function that synchronises (a CUDA graph cannot capture it)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / calls
-
-
-def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
-                  **extra) -> dict:
+def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape, work,
+                  library_ms=None, **extra) -> dict:
     """Log a kernel's check and times, and return its entry of the
     ``kernels`` line. ``times``: device ms of plain, kernel, kernel, plain
     (the two orders average out drift); ``calls``: ms per call with host
-    overhead of kernel and plain."""
+    overhead of kernel and plain; ``work``: :func:`least_time` of this run's
+    inputs; ``library_ms``: device ms of the one PyTorch call that computes
+    the same function, where there is one."""
     ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    lib = "none" if library_ms is None else f"{library_ms * 1e3:.2f} us"
     log(f"kernel {name} [{shape}]: max_abs_err {err:.3e} ({tol}); device time ({timing}) "
-        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; per call with host "
-        f"overhead kernel {calls[0] * 1e3:.2f} us, plain {calls[1] * 1e3:.2f} us")
+        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+        f"{work['bound_ms'] * 1e3:.2f} us by {work['bound_by']}, library call {lib}; per call "
+        f"with host overhead kernel {calls[0] * 1e3:.2f} us, plain {calls[1] * 1e3:.2f} us")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "timing": timing, "call_ms": calls[0], "plain_call_ms": calls[1], **extra}
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": library_ms, "timing": timing, "shape": shape, "call_ms": calls[0],
+            "plain_call_ms": calls[1], **extra}
 
 
 def scaled_tol(want: torch.Tensor) -> dict:
@@ -215,21 +236,31 @@ def check_kernels(dev) -> list:
     table, ids, mask = (torch.from_numpy(a).to(dev) for a in (table, ids, mask))
     v = torch.from_numpy(rng.standard_normal((B, FM_F, FM_D), np.float32)).to(dev)
 
+    # the pool reads every distinct row its slots point at once, and the ids and mask
+    weights = mask * (ids != 0)
+    pool_rows = int(torch.unique(ids[weights > 0]).numel())
+    ids64 = ids.long()
     cases = [
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
-         (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}"),
+         (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
+         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None),
         ("fused_lookup_pool", "news_recsys_tpu_torch/csrc/lookup_pool.cu",
          "news_recsys_tpu/ops/fused_lookup_pool.py:71", fused_lookup_pool,
          reference_lookup_pool, (table, ids, mask), POOL_TOL,
-         f"V={V} D={Dp} B={Bp} L={L}"),
+         f"V={V} D={Dp} B={Bp} L={L}",
+         least_time(4 * (pool_rows * Dp + 2 * Bp * L + Bp * Dp), 2 * Bp * L * Dp),
+         # the gather and the weighted sum in one call; the division is left out
+         lambda: torch.nn.functional.embedding_bag(ids64, table, mode="sum",
+                                                   per_sample_weights=weights)),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
-         f"B={B} F={FM_F} D={FM_D}"),
+         f"B={B} F={FM_F} D={FM_D}",
+         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None),
     ]
     out = []
     with torch.inference_mode():
-        for name, source, replaces, kernel, plain, args, tol, shape in cases:
+        for name, source, replaces, kernel, plain, args, tol, shape, work, library in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -238,7 +269,8 @@ def check_kernels(dev) -> list:
             t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
             out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
-                                     "cuda_graph", shape))
+                                     "cuda_graph", shape, work,
+                                     device_ms(library) if library else None))
     return out
 
 
@@ -278,7 +310,7 @@ def check_fm_training_kernels(dev) -> tuple:
         "fm_second_order_bwd", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
         "news_recsys_tpu/ops/fm_kernel.py:69", bwd_err,
         "rtol 1e-5, atol 1e-5 of the largest value; two runs bit-identical", t, calls,
-        "cuda_graph", shape)
+        "cuda_graph", shape, least_time(4 * (2 * B * FM_F * FM_D + B), 3 * B * FM_F * FM_D))
 
 
 def check_training_kernels(dev) -> list:
@@ -344,15 +376,196 @@ def check_training_kernels(dev) -> list:
             "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
             f"bit-identical", t, calls, "cuda_graph", f"B={B} D={D} NL={NL}",
+            least_time(4 * ((3 + NL) * B * D + NL * B + 3 * NL * D), 8 * NL * B * D),
             fwd_residuals_max_abs_err=fwd_err)
         scatter = (lambda: scatter_rows_set(t_kernel, rows, vals),
                    lambda: scatter_rows_plain(t_plain, rows, vals))
-        t = [traced_ms(scatter[i]) for i in (1, 0, 0, 1)]
+        t = [device_ms(scatter[i]) for i in (1, 0, 0, 1)]
         calls = [call_ms(f) for f in scatter]
+        rows64 = rows.long()
+        library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))   # rows in range
+        written = int(torch.unique(rows).numel())
         return [bwd, report_kernel(
             "scatter_rows_set", "news_recsys_tpu_torch/csrc/scatter_rows.cu",
             "news_recsys_tpu/ops/scatter_rows.py:68", scatter_err, "bit-identical", t, calls,
-            "profiler", f"V={V} D={Ds} S={S}")]
+            "cuda_graph", f"V={V} D={Ds} S={S}",
+            least_time(4 * (S * Ds + S + written * Ds), 0), library)]
+
+
+def block_case(B: int, seed: int, dev) -> tuple:
+    """(params, x, mask, dy) of the attention ranker's block at batch ``B``:
+    ~25% invalid keys, a few examples with no valid key, torch-default
+    weights and LayerNorm scales around 1."""
+    rng = np.random.default_rng(seed)
+    L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
+    x = rng.standard_normal((B, L, D)).astype(np.float32)
+    mask = (rng.random((B, L)) > 0.25).astype(np.float32)
+    mask[1::97] = 0.0
+    shapes = ((D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,), (D, F), (F,), (F, D), (D,), (D,),
+              (D,))
+    fan_in = (D, D, D, D, 0, 0, D, D, F, F, 0, 0)
+    params = [(rng.uniform(-1, 1, sh) / np.sqrt(f) if f else 0.1 * rng.standard_normal(sh))
+              .astype(np.float32) for sh, f in zip(shapes, fan_in)]
+    params[4] += 1.0
+    params[10] += 1.0
+    dy = rng.standard_normal((B, L, D)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (*params, x, mask, dy))
+
+
+def block_work(B: int, backward: bool) -> dict:
+    """Bytes and float32 operations of the block at batch ``B``: x (and dy)
+    in, y (or dx) out, the mask and the 8,544 parameters (their gradients
+    too in the backward); per row 2*(4*D*D + 2*D*F) for the four
+    projections and 4*L*D for q k^T and p v. The backward recomputes the
+    forward and then takes two products for each of the forward's."""
+    L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
+    n_params = 4 * D * D + 2 * D * F + 9 * D + F
+    proj, attn = 2 * (4 * D * D + 2 * D * F), 4 * L * D
+    if backward:
+        return least_time(4 * (3 * B * L * D + B * L + 2 * n_params), B * L * 3 * (proj + attn))
+    return least_time(4 * (2 * B * L * D + B * L + n_params), B * L * (proj + attn))
+
+
+def encoder_layer_ms(params, x, mask) -> float:
+    """Device time (CUDA graph replays, as every other ``library_ms``) of
+    ``torch.nn.TransformerEncoderLayer`` on the same
+    inputs: post-norm, ReLU, ``layer_norm_eps`` 1e-6, ``src_key_padding_mask``,
+    eval mode, the block's weights. A yardstick only: it gives NaN or zeros
+    where an example has no valid key, and nothing in the port calls it."""
+    L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
+    wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2 = params
+    layer = torch.nn.TransformerEncoderLayer(D, BLOCK_H, F, dropout=0.0, activation="relu",
+                                             layer_norm_eps=1e-6, batch_first=True,
+                                             norm_first=False, device=x.device).eval()
+    with torch.no_grad():
+        for dst, src in ((layer.self_attn.in_proj_weight, wqkv.t()),
+                         (layer.self_attn.in_proj_bias, bqkv),
+                         (layer.self_attn.out_proj.weight, wo.t()),
+                         (layer.self_attn.out_proj.bias, bo), (layer.norm1.weight, g1),
+                         (layer.norm1.bias, b1), (layer.linear1.weight, w1.t()),
+                         (layer.linear1.bias, c1), (layer.linear2.weight, w2.t()),
+                         (layer.linear2.bias, c2), (layer.norm2.weight, g2),
+                         (layer.norm2.bias, b2)):
+            dst.copy_(src)
+    padding = mask == 0
+    with torch.inference_mode():
+        return device_ms(lambda: layer(x, src_key_padding_mask=padding), **DEEP)
+
+
+def pool_bwd_case(V: int, L: int, B: int, skewed: bool, seed: int) -> tuple:
+    """(ids (B, L) int32, mask, the longest run of one id) for the pool's
+    backward: ragged lengths, one example masked out, and ids either uniform
+    over the table or from a Zipf law (exponent 1.05, folded into the
+    table), whose most frequent id takes about one valid slot in 20, as
+    popular items and entities do. The kernel walks a run of equal ids with
+    D threads, so its time depends on the longest run."""
+    rng = np.random.default_rng(seed)
+    if skewed:
+        ids = (1 + (rng.zipf(1.05, (B, L)) - 1) % (V - 65)).astype(np.int32)
+    else:
+        ids = rng.integers(1, V - 64, (B, L)).astype(np.int32)
+    lengths = rng.integers(0, L + 1, B)
+    lengths[:3] = (0, 1, L)
+    ids[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    mask = (ids != 0).astype(np.float32)
+    mask[5] = 0.0
+    longest = int(np.bincount(ids[ids > 0]).max())
+    return ids, mask, longest
+
+
+def check_attention_kernels(dev) -> list:
+    """This slice's kernels at its paths' shapes: the fused block's forward
+    at batch 6,400 (a served request) and 512 (a training step), its
+    backward at 512 (dx and all 12 parameter gradients, two runs
+    bit-identical), and the pool's backward for ``entities`` (30,080 x 16,
+    L 5) and the DSSM ``hist`` (65,280 x 16, L 30) at batch 512, each on
+    skewed (Zipf) and on uniform ids."""
+    from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain,
+                                                           block_plain,
+                                                           fused_transformer_block,
+                                                           fused_transformer_block_bwd)
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool_bwd,
+                                                             pool_bwd_plain)
+
+    source = "news_recsys_tpu_torch/csrc/fused_attention.cu"
+    shape = f"L={BLOCK_L} D={BLOCK_D} H={BLOCK_H} F={BLOCK_F}"
+    out, at_train = [], None
+    for B in (USERS_PER_REQUEST * FETCH, TRAIN_BATCH):
+        *params, x, mask, dy = block_case(B, SEED + 20 + B, dev)
+        kernel = lambda: fused_transformer_block(params, x, mask, BLOCK_H)      # noqa: E731
+        plain = lambda: block_plain(x, mask, *params, num_heads=BLOCK_H)        # noqa: E731
+        with torch.inference_mode():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **BLOCK_FWD_TOL)
+            err = float((got - want).abs().max())
+            t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+            calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+        entry = report_kernel("fused_transformer_block", source,
+                              "news_recsys_tpu/ops/fused_attention.py:307", err,
+                              f"tol {BLOCK_FWD_TOL}", t, calls, "cuda_graph", f"B={B} {shape}",
+                              block_work(B, False), encoder_layer_ms(params, x, mask))
+        if B == TRAIN_BATCH:
+            at_train = entry
+        else:
+            out.append(entry)
+    out[0]["at_train_shape"] = {k: at_train[k] for k in
+                                ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "call_ms")}
+
+    B = TRAIN_BATCH
+    kernel = lambda: fused_transformer_block_bwd(params, x, mask, dy, BLOCK_H)  # noqa: E731
+    plain = lambda: block_bwd_plain(params, x, mask, dy, BLOCK_H)               # noqa: E731
+    (dx, dparams), (want_dx, want_dparams), (again_dx, again) = kernel(), plain(), kernel()
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("dx", *PARAM_NAMES), (dx, *dparams), (want_dx, *want_dparams)):
+        torch.testing.assert_close(a, b, rtol=BLOCK_GRAD_RTOL, msg=lambda m: f"{name}: {m}",
+                                   atol=2e-5 * max(1.0, float(b.abs().max())))
+        err = max(err, float((a - b).abs().max()))
+    if not (torch.equal(dx, again_dx) and all(torch.equal(a, b) for a, b in zip(dparams, again))):
+        raise AssertionError("fused_transformer_block_bwd: two runs gave different bits")
+    t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+    calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+    out.append(report_kernel(
+        "fused_transformer_block_bwd", source, "news_recsys_tpu/ops/fused_attention.py:333", err,
+        f"rtol {BLOCK_GRAD_RTOL}, atol 2e-5 of each gradient's largest value; two runs "
+        f"bit-identical", t, calls, "cuda_graph", f"B={B} {shape}", block_work(B, True)))
+
+    entries = {}
+    for V, D, L in ((30080, 16, 5), (65280, 16, 30)):
+        for skewed in (True, False):
+            ids, mask, longest = pool_bwd_case(V, L, B, skewed, SEED + 30 + L)
+            g = torch.from_numpy(np.random.default_rng(SEED + 40 + L)
+                                 .standard_normal((B, D)).astype(np.float32)).to(dev)
+            ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            kernel = lambda: fused_lookup_pool_bwd(ids, mask, g, V)             # noqa: E731
+            plain = lambda: pool_bwd_plain(ids, mask, g, V)                     # noqa: E731
+            got, want, second = kernel(), plain(), kernel()
+            torch.cuda.synchronize()
+            tol = scaled_tol(want)
+            torch.testing.assert_close(got, want, **tol)
+            if not torch.equal(got, second):
+                raise AssertionError("fused_lookup_pool_bwd: two runs gave different bits")
+            t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+            calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+            kind = "zipf" if skewed else "uniform"
+            entries[L, skewed] = report_kernel(
+                "fused_lookup_pool_bwd", "news_recsys_tpu_torch/csrc/lookup_pool_bwd.cu",
+                "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
+                f"tol {tol}; two runs bit-identical", t, calls, "cuda_graph",
+                f"V={V} D={D} B={B} L={L} ids={kind} longest_run={longest}",
+                least_time(4 * (V * D + B * D + 2 * B * L), 2 * B * L * D),
+                ids=kind, longest_run=longest)
+    # the entry is the skewed case at the shape the all-dense path gives the
+    # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
+    keys = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "call_ms")
+    main = entries[5, True]
+    main["uniform_ids"] = {k: entries[5, False][k] for k in keys}
+    main["at_hist_shape"] = {k: entries[30, True][k] for k in keys}
+    main["at_hist_shape"]["uniform_ids"] = {k: entries[30, False][k] for k in keys}
+    return out + [main]
 
 
 def make_requests(n_requests: int) -> list:
@@ -445,15 +658,39 @@ def compare_with_cpu(gpu, cpu, reqs: list, answers: list) -> None:
     assert emb_err <= ANSWER_TOL and score_err <= ANSWER_TOL
 
 
-def build_kernels() -> None:
+def start_pytorch(dev: torch.device) -> float:
+    """PyTorch's one-off costs on the card: the CUDA context, cuBLAS, and the
+    modules that the first ``torch.autograd.grad`` and the first optimizer
+    import (seconds, on a machine that keeps no bytecode cache). No kernel of
+    the port is needed for them, so they are paid while ``nvcc`` runs."""
+    t0 = time.perf_counter()
+    w = torch.nn.Parameter(torch.ones(8, 8, device=dev))
+    opt = torch.optim.AdamW([w])
+    w.grad, = torch.autograd.grad((w @ w).sum(), w)
+    opt.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def build_kernels(dev: torch.device) -> None:
+    """Build and load the kernels: ``nvcc`` on a thread (it waits for its
+    subprocesses), PyTorch's start-up on this one meanwhile."""
     from news_recsys_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    lib = _build.build()
+    built = []
+    nvcc_thread = threading.Thread(target=lambda: built.append(_build.build()))
+    nvcc_thread.start()
+    start_s = start_pytorch(dev)
+    nvcc_thread.join()
+    if not built:
+        raise RuntimeError("the kernels did not build (nvcc's report is above)")
+    lib = built[0]
     _build.library()
     report = (lib.parent / "build.log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
-    log(f"build: {time.perf_counter() - t0:.2f} s -> {lib}; ptxas: {len(regs)} kernels, "
+    log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
+        f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
 
 
@@ -462,17 +699,26 @@ def ranker_config(ranker: str):
     (the PR 1 cascade), the others as the scoreboard trains them."""
     from news_recsys_tpu_torch.zoo import mind_config, mind_ranker_config
 
+    from news_recsys_tpu_torch.zoo import attention_config
+
+    if ranker == "attention":
+        return attention_config()
     return mind_config("dcn") if ranker == "dcn" else mind_ranker_config(ranker)
 
 
 def train_config(ranker: str):
     """The ranker's full-width MIND training config at batch TRAIN_BATCH: DCN
-    as bench.py trains it (``mind_config("dcn")`` with rowwise AdaGrad), the
-    others as the scoreboard trains them."""
+    and ``attention`` as bench.py trains them (``mind_config("dcn")`` and
+    ``attention_config()`` with rowwise AdaGrad), the others, ``attention@adamw``
+    among them, as the scoreboard trains them."""
     from news_recsys_tpu_torch.zoo import mind_config, mind_ranker_config
+
+    from news_recsys_tpu_torch.zoo import attention_config
 
     if ranker == "dcn":
         return mind_config("dcn", batch_size=TRAIN_BATCH, embedding_optimizer="rowwise_adagrad")
+    if ranker == "attention":
+        return attention_config(batch_size=TRAIN_BATCH)
     return mind_ranker_config(ranker)
 
 
@@ -507,6 +753,29 @@ def ranking_arrays(rows: int, seed: int) -> dict:
     arrays = {n: rng.integers(1, MIND_TABLE_SIZE[n], rows).astype(np.int32)
               for n in MIND_FEATURES}
     arrays["label"] = (rng.random(rows) < 0.1).astype(np.float32).reshape(-1, 1)
+    return arrays
+
+
+def training_arrays(cfg, rows: int, seed: int) -> dict:
+    """Synthetic rows for ``cfg``: :func:`ranking_arrays`, or for an attention
+    config ``zoo.attention_arrays`` with every 50th history emptied, plus,
+    for the scoreboard recipe, the two other sparse features and ragged
+    ``entities`` of 5 over its 30,000-row table."""
+    from news_recsys_tpu_torch.zoo import MIND_TABLE_SIZE, attention_arrays
+    if cfg.name != "attention":
+        return ranking_arrays(rows, seed)
+    arrays = attention_arrays(rows, seed=seed)
+    arrays["hist"][::50] = 0
+    arrays["hist_mask"] = (arrays["hist"] != 0).astype(np.float32)
+    if "entities" in cfg.features.array_feature_names:
+        rng = np.random.default_rng(seed + 1000)
+        for f in ("subcategory", "user_click_category"):
+            arrays[f] = rng.integers(1, MIND_TABLE_SIZE[f], rows).astype(np.int32)
+        n_ent = cfg.embeddings.embedding_table_size["entities"]
+        L = cfg.features.array_max_length["entities"]
+        entities = rng.integers(1, n_ent, (rows, L)).astype(np.int32)
+        entities[np.arange(L)[None, :] >= rng.integers(0, L + 1, rows)[:, None]] = 0
+        arrays["entities"] = entities
     return arrays
 
 
@@ -555,24 +824,30 @@ def serve_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> 
             f"ms, then median {np.median(latency_ms[1:]):.1f} ms, max "
             f"{max(latency_ms[1:]):.1f} ms over {REQUESTS} requests")
 
-        cpu = CascadeRecommender.load(bundle, device="cpu")
-        compare_with_cpu(gpu, cpu, reqs, answers)
+        cpu = timed(f"serve ({ranker}): the bundle loaded on the CPU", CascadeRecommender.load,
+                    bundle, "cpu")
+        timed(f"serve ({ranker}): card vs CPU", compare_with_cpu, gpu, cpu, reqs, answers)
     return launches
 
 
 def compare_training_with_cpu(dev: torch.device, cfg, ds, n_steps: int = CHECK_STEPS) -> None:
-    """``n_steps`` sparse steps on the card and on the CPU from the same
-    seeded state and the same batches: every parameter (both take the sorted
-    route, so every table row) and accumulator within TRAIN_TOL."""
+    """``n_steps`` training steps (sparse, or all-dense for ``adamw``) on the
+    card and on the CPU from the same seeded state and the same batches:
+    every parameter (both take the sorted route, so every table row) and
+    accumulator within TRAIN_TOL."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.dense_step import init_dense_state, make_train_step
     from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
                                                             make_sparse_train_step)
     from news_recsys_tpu_torch.training.trainer import AucHist, BatchPacker, unpack_batch
 
-    cpu_model = build_ranker(cfg, seed=SEED + 5)
+    dense = cfg.train_hparams.embedding_optimizer == "adamw"
+    init, make_step = ((init_dense_state, make_train_step) if dense
+                       else (init_sparse_state, make_sparse_train_step))
+    cpu_model = build_ranker(cfg, seed=SEED + 5, device="cpu")
     models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
-    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
-    steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
+    states = {d: init(m, cfg) for d, m in models.items()}
+    steps = {d: make_step(m, cfg) for d, m in models.items()}
     packer = BatchPacker(ds)
     idx = np.random.default_rng(SEED + 8).permutation(packer.n)[: n_steps * TRAIN_BATCH]
     losses = {"cpu": [], "cuda": []}
@@ -588,12 +863,13 @@ def compare_training_with_cpu(dev: torch.device, cfg, ds, n_steps: int = CHECK_S
     for n, p in models["cuda"].named_parameters():
         err["params"] = max(err["params"], float((p.detach().cpu() - want[n].detach()).abs().max()))
         torch.testing.assert_close(p.detach().cpu(), want[n].detach(), msg=n, **TRAIN_TOL)
-    for n, acc in states["cuda"].emb_acc.items():
+    for n, acc in ({} if dense else states["cuda"].emb_acc).items():
         err["accumulators"] = max(err["accumulators"],
                                   float((acc.cpu() - states["cpu"].emb_acc[n]).abs().max()))
         torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[n], msg=n, **TRAIN_TOL)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TRAIN_TOL)
-    log(f"training {cfg.name} ({cfg.extra('dcn_cfg', {}) or ''}), card vs CPU after {n_steps} "
+    log(f"training {cfg.name} ({cfg.extra('dcn_cfg', {}) or ''}; "
+        f"{cfg.train_hparams.embedding_optimizer}), card vs CPU after {n_steps} "
         f"steps at batch {TRAIN_BATCH}: tables {sorted(cpu_model.tables.items())}; max_abs_err "
         f"tables + dense parameters {err['params']:.3e}, AdaGrad accumulators "
         f"{err['accumulators']:.3e}, losses {losses['cuda']} vs {losses['cpu']} "
@@ -631,7 +907,7 @@ def check_validation(trainer, state, dev_ds, warm: set, tmp: str) -> None:
     card = trainer.validate(state, dev_ds, 0, warm)
     val_s = time.perf_counter() - t0
     cpu = Trainer(trainer.cfg, copy.deepcopy(trainer.model).to("cpu"),
-                  workdir=os.path.join(tmp, "cpu"))
+                  workdir=os.path.join(tmp, "cpu"), device="cpu")
     want = cpu.validate(cpu.init_state(), dev_ds, 0, warm)
     err = max(abs(card[c][k] - want[c][k]) for c in want for k in want[c])
     if err > VAL_TOL or abs(card["Overall"]["AUC"] - logged[0]["val_auc"]) > VAL_TOL:
@@ -644,20 +920,27 @@ def check_validation(trainer, state, dev_ds, warm: set, tmp: str) -> None:
 
 def train_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> dict:
     """Train the full-width ranker with ``Trainer.fit`` on the card; returns
-    the kernel launches of that epoch. DCN's epoch trains alone; DeepFM's
-    also validates on a dev set, checked against the CPU."""
+    the kernel launches of that epoch. DCN's and the attention ranker's
+    epochs train alone (``attention@adamw`` on the all-dense step, AdamW
+    over the full tables); DeepFM's also validates on a dev set, checked
+    against the CPU."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
     cfg = train_config(ranker)
-    data_seed, seed = (SEED + 9, SEED + 6) if ranker == "dcn" else (SEED + 10, SEED + 11)
-    arrays = ranking_arrays(TRAIN_BATCH * TRAIN_STEPS, data_seed)
+    dense = cfg.train_hparams.embedding_optimizer == "adamw"
+    n_steps = (DENSE_STEPS if dense else
+               TRAIN_STEPS if ranker == "attention" else EARLIER_TRAIN_STEPS)
+    data_seed, seed = {"dcn": (SEED + 9, SEED + 6), "deepfm": (SEED + 10, SEED + 11),
+                       "attention": (SEED + 14, SEED + 15)}.get(ranker, (SEED + 16, SEED + 17))
+    arrays = training_arrays(cfg, TRAIN_BATCH * n_steps, data_seed)
     ds = PackedDataset(arrays)
-    validate = ranker != "dcn"
+    validate = ranker == "deepfm"
     dev_ds = PackedDataset(dev_arrays(arrays["user_id"], SEED + 12)) if validate else None
     warm = {int(u) for u in np.unique(arrays["user_id"])} if validate else None
-    compare_training_with_cpu(dev, cfg, ds)
+    timed(f"train ({ranker}): {CHECK_STEPS} steps card vs CPU", compare_training_with_cpu, dev,
+          cfg, ds)
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg, build_ranker(cfg, seed=seed, device=dev), workdir=tmp,
@@ -671,12 +954,12 @@ def train_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> 
         launches = read_launches()
         with open(trainer.metrics_path) as f:
             first = next(json.loads(line) for line in f if "train_loss" in line)
-        if first["steps"] != TRAIN_STEPS or not math.isfinite(first["train_loss"]):
+        if first["steps"] != n_steps or not math.isfinite(first["train_loss"]):
             raise AssertionError(f"Trainer.fit: {first}")
         bad = [n for n, p in trainer.model.named_parameters() if not torch.isfinite(p).all()]
         if bad:
             raise AssertionError(f"Trainer.fit left non-finite parameters: {bad}")
-        log(f"Trainer.fit ({ranker}) on {name}: tables {tables}; {TRAIN_STEPS} steps of batch "
+        log(f"Trainer.fit ({ranker}) on {name}: tables {tables}; {n_steps} steps of batch "
             f"{TRAIN_BATCH}{' and a validation' if validate else ''} in {fit_s:.2f} s (first "
             f"epoch, warm-up included); train_loss {first['train_loss']:.6f}, train_auc "
             f"{first['train_auc']:.4f}; launches in that epoch: {launches}")
@@ -686,9 +969,10 @@ def train_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> 
         if not math.isfinite(warm_epoch["train_loss"]):
             raise AssertionError(f"train_epoch: {warm_epoch}")
     rate = warm_epoch["examples_per_sec"]
-    log(f"training throughput ({ranker}) on {name} ({smi}): batch {TRAIN_BATCH}, a warm epoch "
-        f"of {warm_epoch['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s, {rate:.0f} "
-        f"examples/s")
+    log(f"training throughput ({ranker}, {cfg.train_hparams.embedding_optimizer}) on {name} "
+        f"({smi}): batch {TRAIN_BATCH}, a warm epoch of {warm_epoch['steps']} steps: "
+        f"{rate / TRAIN_BATCH:.1f} steps/s ({TRAIN_BATCH / rate * 1e3:.3f} ms a step), "
+        f"{rate:.0f} examples/s")
     return launches
 
 
@@ -698,20 +982,26 @@ def zoo_phase(dev: torch.device) -> dict:
     from news_recsys_tpu_torch.training.trainer import PackedDataset
     from news_recsys_tpu_torch.zoo import mind_ranker_config
 
-    ds = PackedDataset(ranking_arrays(TRAIN_BATCH * ZOO_CHECK_STEPS, SEED + 13))
     reset_launches()
-    for recipe in ("lr", "deep", "widedeep", "fm", "dcn@v2"):
-        compare_training_with_cpu(dev, mind_ranker_config(recipe), ds, n_steps=ZOO_CHECK_STEPS)
+    for recipe in ("lr", "deep", "widedeep", "fm", "dcn@v2", "attention"):
+        cfg = mind_ranker_config(recipe)
+        ds = PackedDataset(training_arrays(cfg, TRAIN_BATCH * ZOO_CHECK_STEPS, SEED + 13))
+        compare_training_with_cpu(dev, cfg, ds, n_steps=ZOO_CHECK_STEPS)
     return read_launches()
 
 
 def counted_kernels() -> dict:
     from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd, dcn_cross_stack
     from news_recsys_tpu_torch.ops.fm_kernel import fm_second_order, fm_second_order_bwd
-    from news_recsys_tpu_torch.ops.fused_lookup_pool import fused_lookup_pool
+    from news_recsys_tpu_torch.ops.fused_attention import (fused_transformer_block,
+                                                           fused_transformer_block_bwd)
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
+                                                             fused_lookup_pool_bwd)
     from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_set
     return {f.__name__: f for f in (dcn_cross_stack, fused_lookup_pool, dcn_cross_bwd,
-                                    scatter_rows_set, fm_second_order, fm_second_order_bwd)}
+                                    scatter_rows_set, fm_second_order, fm_second_order_bwd,
+                                    fused_transformer_block, fused_transformer_block_bwd,
+                                    fused_lookup_pool_bwd)}
 
 
 def reset_launches() -> None:
@@ -723,36 +1013,81 @@ def read_launches() -> dict:
     return {n: f.launches for n, f in counted_kernels().items()}
 
 
-# the kernels each path must launch
-PATH_KERNELS = {"serve": ("dcn_cross_stack", "fused_lookup_pool"),
-                "train": ("dcn_cross_stack", "dcn_cross_bwd", "scatter_rows_set"),
-                "serve_deepfm": ("fm_second_order", "fused_lookup_pool"),
-                "train_deepfm": ("fm_second_order", "fm_second_order_bwd", "scatter_rows_set"),
-                "train_zoo": ("fm_second_order", "fm_second_order_bwd", "scatter_rows_set")}
+# The kernels each path must launch: at least once (None), or exactly as
+# many times as given. Serving: one user-tower pool and one ranker forward a
+# request. Training: one forward and one backward a step, and one scatter
+# for each large table that updates (the attention ranker's item and user
+# tables); the all-dense step pools ``entities`` and scatters nothing.
+N_REQUESTS = 1 + REQUESTS
+PATH_KERNELS = {
+    "serve": {"dcn_cross_stack": None, "fused_lookup_pool": None},
+    "train": {"dcn_cross_stack": None, "dcn_cross_bwd": None, "scatter_rows_set": None},
+    "serve_deepfm": {"fm_second_order": None, "fused_lookup_pool": None},
+    "train_deepfm": {"fm_second_order": None, "fm_second_order_bwd": None,
+                     "scatter_rows_set": None},
+    "train_zoo": {"fm_second_order": None, "fm_second_order_bwd": None,
+                  "scatter_rows_set": None, "fused_transformer_block": ZOO_CHECK_STEPS,
+                  "fused_transformer_block_bwd": ZOO_CHECK_STEPS},
+    "serve_attention": {"fused_transformer_block": N_REQUESTS, "fused_lookup_pool": N_REQUESTS,
+                        "fused_transformer_block_bwd": 0, "scatter_rows_set": 0},
+    "train_attention": {"fused_transformer_block": TRAIN_STEPS,
+                        "fused_transformer_block_bwd": TRAIN_STEPS,
+                        "scatter_rows_set": 2 * TRAIN_STEPS, "fused_lookup_pool": 0},
+    "train_attention_dense": {"fused_transformer_block": DENSE_STEPS,
+                              "fused_transformer_block_bwd": DENSE_STEPS,
+                              "fused_lookup_pool": DENSE_STEPS,
+                              "fused_lookup_pool_bwd": DENSE_STEPS, "scatter_rows_set": 0},
+}
+
+
+def check_launches(paths: dict) -> None:
+    for path, wanted in PATH_KERNELS.items():
+        for k, n in wanted.items():
+            got = paths[path][k]
+            if (got <= 0) if n is None else (got != n):
+                raise AssertionError(f"{k}: the {path} path launched it {got} times, expected "
+                                     f"{'at least once' if n is None else n}: {paths[path]}")
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, with the phase's wall time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def run(dev: torch.device) -> None:
     name = torch.cuda.get_device_name(0)
     smi = card()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels()
-    kernels = check_kernels(dev) + check_training_kernels(dev)
-    fm_train_fwd, fm_bwd = check_fm_training_kernels(dev)
+    timed("build", build_kernels, dev)
+    kernels = timed("kernels of serving", check_kernels, dev)
+    kernels += timed("kernels of DCN training", check_training_kernels, dev)
+    fm_train_fwd, fm_bwd = timed("kernels of FM training", check_fm_training_kernels, dev)
     next(k for k in kernels if k["name"] == "fm_second_order")["at_train_shape"] = fm_train_fwd
     kernels.append(fm_bwd)
-    paths = {"serve": serve_phase(dev, name, smi),
-             "train": train_phase(dev, name, smi),
-             "serve_deepfm": serve_phase(dev, name, smi, "deepfm"),
-             "train_deepfm": train_phase(dev, name, smi, "deepfm"),
-             "train_zoo": zoo_phase(dev)}
-    for path, names in PATH_KERNELS.items():
-        for k in names:
-            if paths[path][k] <= 0:
-                raise AssertionError(f"{k}: the {path} path never launched it")
+    kernels += timed("kernels of the attention ranker", check_attention_kernels, dev)
+    paths = {"serve": timed("serve", serve_phase, dev, name, smi),
+             "train": timed("train", train_phase, dev, name, smi),
+             "serve_deepfm": timed("serve_deepfm", serve_phase, dev, name, smi, "deepfm"),
+             "train_deepfm": timed("train_deepfm", train_phase, dev, name, smi, "deepfm"),
+             "train_zoo": timed("train_zoo", zoo_phase, dev),
+             "serve_attention": timed("serve_attention", serve_phase, dev, name, smi,
+                                      "attention"),
+             "train_attention": timed("train_attention", train_phase, dev, name, smi,
+                                      "attention"),
+             "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
+                                            smi, "attention@adamw")}
+    check_launches(paths)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no path launched it")
 
+    log(f"phases done {time.perf_counter() - T_START:.2f} s after the script started")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,10 +4,12 @@ The port runs on one NVIDIA H100 (Hopper, ``sm_90a``). Its layout mirrors
 the JAX package's, which stays as the reference: ``zoo``, ``ops/``
 (hand-written CUDA kernels in ``csrc/``, each beside its plain PyTorch
 version), ``models/``, ``training/``, ``serving``, ``convert`` and
-``cli``. It imports no JAX. The JAX package's backend-free modules
-(``config``, ``zoo``, ``data.packed_dataset``, ``utils.logging``) import no
-JAX either, and the port uses them as they are, so configs and feature
-schemas have one source.
+``cli``. It imports no JAX and nothing of the JAX package: ``config``,
+``zoo``, ``data.packed_dataset``, ``training.metrics`` and ``utils.logging``
+are the port's own copies of the JAX package's backend-free modules, under
+the same names. A config travels between the two packages as the plain dict
+of ``config_to_dict`` / ``config_from_dict``, parameters and data as numpy
+arrays.
 
 Float32 matrix products and convolutions run in full float32, not TF32, so
 that results match the JAX package's ``"highest"`` precision.

@@ -13,14 +13,19 @@ flax path                                  port parameter
 ``<m>/Linear_<i>/Dense_0/bias``            ``<m>.layers.<i>.bias``
 ``cross/w_<l>`` (D, 1), ``cross/b_<l>``    row l of ``cross.ws``, ``cross.bs``
 ``bias`` (1,)                              ``bias``
+``blocks_<i>/<flax leaf>``                 ``blocks.<i>.<name>``, as it is
 =========================================  ==================================
 
 The ``Linear`` row covers the MLP towers (``tower``, ``user_fc``, ...) and
 DCN-v2's cross layers (``cross/Linear_<i>``); ``cross/w_<l>`` is DCN-v1's.
+A Transformer block's 12 leaves (:data:`BLOCK_LEAVES`) keep their (in, out)
+kernels, which the port's attention layers store as flax does.
 
 A sparse training state travels the same way (:func:`sparse_state_from_jax`,
 :func:`sparse_state_to_jax`): AdamW's moments are keyed by their
-parameter's flax path.
+parameter's flax path. So does the all-dense state
+(:func:`dense_state_from_jax`, :func:`dense_state_to_jax`), whose moments
+cover the whole tree.
 """
 
 from __future__ import annotations
@@ -32,11 +37,26 @@ import numpy as np
 import torch
 from torch import nn
 
+from .training.dense_step import init_dense_state
 from .training.sparse_step import dense_parameters, init_sparse_state
 
 _LINEAR = re.compile(r"^(.+)/Linear_(\d+)/Dense_0/(kernel|bias)$")
 _CROSS = re.compile(r"^cross/([wb])_(\d+)$")
 _LAYER = re.compile(r"^(.+)\.layers\.(\d+)\.(weight|bias)$")
+_FLAX_BLOCK = re.compile(r"^blocks_(\d+)/(.+)$")
+_PORT_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
+# a flax TransformerBlock's leaves -> the port's TransformerBlock parameters
+BLOCK_LEAVES = {
+    "MultiHeadSelfAttention_0/Linear_0/Dense_0/kernel": "attn.wqkv",
+    "MultiHeadSelfAttention_0/Linear_0/Dense_0/bias": "attn.bqkv",
+    "MultiHeadSelfAttention_0/Linear_1/Dense_0/kernel": "attn.wo",
+    "MultiHeadSelfAttention_0/Linear_1/Dense_0/bias": "attn.bo",
+    "LayerNorm_0/scale": "g1", "LayerNorm_0/bias": "b1",
+    "Linear_0/Dense_0/kernel": "w1", "Linear_0/Dense_0/bias": "c1",
+    "Linear_1/Dense_0/kernel": "w2", "Linear_1/Dense_0/bias": "c2",
+    "LayerNorm_1/scale": "g2", "LayerNorm_1/bias": "b2",
+}
+_BLOCK_PATHS = {name: leaf for leaf, name in BLOCK_LEAVES.items()}
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -61,7 +81,11 @@ def port_arrays(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     cross: Dict[str, Dict[int, np.ndarray]] = {"w": {}, "b": {}}
     for path, value in flat.items():
         value = np.asarray(value, np.float32)
-        if m := _LINEAR.match(path):
+        if m := _FLAX_BLOCK.match(path):
+            if m.group(2) not in BLOCK_LEAVES:
+                raise KeyError(f"no port parameter for flax path {path!r}")
+            state[f"blocks.{m.group(1)}.{BLOCK_LEAVES[m.group(2)]}"] = value
+        elif m := _LINEAR.match(path):
             module, i, kind = m.groups()
             name = "weight" if kind == "kernel" else "bias"
             state[f"{module.replace('/', '.')}.layers.{i}.{name}"] = (
@@ -85,7 +109,9 @@ def flax_arrays(named: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     {flax path: array}."""
     flat: Dict[str, np.ndarray] = {}
     for name, value in named.items():
-        if m := _LAYER.match(name):
+        if m := _PORT_BLOCK.match(name):
+            flat[f"blocks_{m.group(1)}/{_BLOCK_PATHS[m.group(2)]}"] = value
+        elif m := _LAYER.match(name):
             module, i, kind = m.groups()
             leaf = "kernel" if kind == "weight" else "bias"
             flat[f"{module.replace('.', '/')}/Linear_{i}/Dense_0/{leaf}"] = (
@@ -194,4 +220,65 @@ def sparse_state_to_jax(state) -> Dict:
             "dense_opt": {"count": np.asarray(int(steps.pop()) if steps else 0, np.int32),
                           "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
             "emb_mu": {k: v.detach().cpu().numpy() for k, v in state.emb_acc.items()},
+            "step": np.asarray(state.step, np.int32)}
+
+
+def flatten_dense_state(state) -> Dict:
+    """The JAX package's all-dense ``TrainState`` (numpy leaves, from
+    ``jax.device_get``) as the plain dict that :func:`dense_state_to_jax`
+    gives; a dict of that form passes through as it is::
+
+        {"params": {flax path: array},
+         "opt": {"count": (), "mu": {flax path: array}, "nu": {...}},
+         "step": ()}
+
+    ``opt`` is the ``ScaleByAdamState`` of optax's ``adamw`` over the whole
+    parameter tree (its ``count`` also counts the schedule)."""
+    if isinstance(state, Mapping):
+        return state
+    adam = state.opt_state[0]
+    return {"params": flatten(state.params),
+            "opt": {"count": np.asarray(adam.count), "mu": flatten(adam.mu),
+                    "nu": flatten(adam.nu)},
+            "step": np.asarray(state.step)}
+
+
+def dense_state_from_jax(state, model: nn.Module, cfg):
+    """A JAX all-dense ``TrainState`` (or :func:`flatten_dense_state`'s
+    dict) as the port's: ``model`` takes the parameters in place, AdamW its
+    moments and step count per parameter (optax ``count`` / ``mu`` / ``nu``
+    -> torch ``step`` / ``exp_avg`` / ``exp_avg_sq``)."""
+    s = flatten_dense_state(state)
+    params_from_flax(s["params"], model)
+    out = init_dense_state(model, cfg)
+    params = dict(model.named_parameters())
+    mu, nu = port_arrays(s["opt"]["mu"]), port_arrays(s["opt"]["nu"])
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise KeyError(f"AdamW moments {sorted(mu)} do not match the parameters "
+                       f"{sorted(params)}")
+    count = float(np.asarray(s["opt"]["count"]))
+    for name, p in params.items():
+        out.opt.state[p] = {"step": torch.tensor(count),
+                            "exp_avg": torch.tensor(mu[name], device=p.device),
+                            "exp_avg_sq": torch.tensor(nu[name], device=p.device)}
+    out.step = int(np.asarray(s["step"]))
+    return out
+
+
+def dense_state_to_jax(state) -> Dict:
+    """Inverse of :func:`dense_state_from_jax`, as the dict of
+    :func:`flatten_dense_state` (numpy leaves)."""
+    params = list(state.model.named_parameters())
+    opt = [state.opt.state.get(p, {}) for _, p in params]
+    steps = {float(o["step"]) for o in opt if o}
+    if len(steps) > 1:
+        raise ValueError(f"AdamW step counts differ between parameters: {sorted(steps)}")
+
+    def moments(key) -> Dict[str, np.ndarray]:
+        return flax_arrays({n: (o[key] if o else torch.zeros_like(p)).detach().cpu().numpy()
+                            for (n, p), o in zip(params, opt)})
+
+    return {"params": params_to_flax(state.model),
+            "opt": {"count": np.asarray(int(steps.pop()) if steps else 0, np.int32),
+                    "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
             "step": np.asarray(state.step, np.int32)}

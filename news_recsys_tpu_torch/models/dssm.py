@@ -9,7 +9,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from news_recsys_tpu.config import Config, FeatureSchema, build_schema, table_specs
+from ..config import Config, FeatureSchema, build_schema, table_specs
 
 from .embedding import EmbeddingCollection
 from .layers import Linear
@@ -54,8 +54,9 @@ class DSSM(nn.Module):
         return self.user_embedding(batch), self.item_embedding(batch)
 
 
-def build_dssm(cfg: Config, *, seed: int = 0, device="cpu") -> DSSM:
-    """The DSSM of ``cfg``, its parameters drawn from ``seed``, on ``device``."""
+def build_dssm(cfg: Config, *, seed: int = 0, device="cuda") -> DSSM:
+    """The DSSM of ``cfg``, its parameters drawn from ``seed``, on ``device``
+    (the card unless the caller names another; with no card the move raises)."""
     generator = torch.Generator().manual_seed(seed)
     model = DSSM(
         table_specs(cfg),

@@ -10,7 +10,8 @@ Port of :mod:`news_recsys_tpu.models.embedding`, with the same contracts:
 - arena members (``arena_d<D>`` tables) shift real ids by their offset and
   clamp ids outside ``[1, member_vocab)`` to padding (:func:`offset_ids`);
 - array features are masked-mean pooled with the ``+1e-8`` denominator,
-  through :func:`~news_recsys_tpu_torch.ops.fused_lookup_pool.fused_lookup_pool`.
+  through :func:`~news_recsys_tpu_torch.ops.fused_lookup_pool.fused_lookup_pool`
+  (differentiable in the table), unless the model takes them unpooled.
 
 Ids outside a table's ``[0, V)`` read as NaN rows, as ``jnp.take`` fills
 them in the JAX package.
@@ -23,7 +24,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from news_recsys_tpu.config import ARRAY, DENSE, SPARSE, FeatureSchema
+from ..config import ARRAY, DENSE, SPARSE, FeatureSchema
 
 from ..ops.fused_lookup_pool import fused_lookup_pool
 
@@ -83,8 +84,11 @@ class EmbeddingCollection(nn.Module):
         mask = mask.to(emb.dtype)[..., None]
         return (emb * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)
 
-    def embed_fields(self, batch: Dict[str, torch.Tensor], schema: FeatureSchema):
-        """Per-field embeddings in schema (sorted-name) order: list of (B, d_f)."""
+    def embed_fields(self, batch: Dict[str, torch.Tensor], schema: FeatureSchema,
+                     unpooled=()):
+        """Per-field embeddings in schema (sorted-name) order: list of (B, d_f).
+        Array features in ``unpooled`` return their raw (B, L, D) sequence
+        instead of the masked mean (sequence models pool them themselves)."""
         parts = []
         for spec in schema.specs:
             val = batch[spec.name]
@@ -100,6 +104,9 @@ class EmbeddingCollection(nn.Module):
                         "features.array_feature_names (with array_max_length).")
                 parts.append(self.lookup(spec.table, val))
             elif spec.kind == ARRAY:
+                if spec.name in unpooled:
+                    parts.append(self.lookup(spec.table, val))       # (B, L, D)
+                    continue
                 mask = batch.get(f"{spec.name}_mask")
                 if mask is None:
                     mask = val != 0

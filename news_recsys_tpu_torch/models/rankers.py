@@ -1,4 +1,5 @@
-"""Ranking model zoo: LR, Deep, Wide&Deep, FM, DeepFM, DCN v1/v2. Port of
+"""Ranking model zoo: LR, Deep, Wide&Deep, FM, DeepFM, DCN v1/v2 (and, in
+:mod:`.seq_ranker`, the attention sequence ranker). Port of
 :mod:`news_recsys_tpu.models.rankers`, with its slicing contracts:
 
 - FM and DeepFM: per field, column 0 of the embedding is the first-order
@@ -10,7 +11,7 @@
   DCN v2: ``relu(x0 * Linear(x_l) + x_l)`` per layer.
 
 Every ranker returns **logits** (B,) and factors as
-``forward = forward_from_fields(embed_fields(batch))``. Parameter names
+``forward = forward_from_fields(embed_fields(batch), masks)``. Parameter names
 map one to one onto the JAX package's flax paths
 (:mod:`news_recsys_tpu_torch.convert`): ``tower.layers.<i>`` for an MLP,
 ``cross.layers.<i>`` for DCN-v2's ``Linear``s, a top-level ``bias`` (1,).
@@ -24,7 +25,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from news_recsys_tpu.config import Config, FeatureSchema, build_schema, table_specs
+from ..config import Config, FeatureSchema, build_schema, table_specs
 
 from ..ops.dcn_kernel import dcn_cross_stack
 from ..ops.fm_kernel import fm_second_order
@@ -40,6 +41,10 @@ class RankerBase(nn.Module):
     physical table to its (vocab, dim), as the JAX module's field does; the
     sparse train step reads it."""
 
+    # array features a subclass consumes as raw (B, L, D) sequences instead
+    # of mean-pooled vectors (their masks travel via the ``masks`` argument)
+    unpooled_arrays: Tuple[str, ...] = ()
+
     def __init__(self, tables: Mapping[str, Tuple[int, int]], schema: FeatureSchema,
                  init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -48,9 +53,18 @@ class RankerBase(nn.Module):
         self.embedder = EmbeddingCollection(tables, init_scale, generator)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.forward_from_fields(self.embedder.embed_fields(batch, self.schema))
+        fields = self.embedder.embed_fields(batch, self.schema,
+                                            unpooled=set(self.unpooled_arrays))
+        return self.forward_from_fields(fields, self._collect_masks(batch))
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def _collect_masks(self, batch) -> Dict[str, torch.Tensor]:
+        masks = {}
+        for name in self.unpooled_arrays:
+            m = batch.get(f"{name}_mask")
+            masks[name] = (batch[name] != 0 if m is None else m).to(torch.float32)
+        return masks
+
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -58,7 +72,7 @@ class LRRanker(RankerBase):
     """Logistic regression via dim-1 embeddings: logit = sum of the concat
     (reference ``lr/model.py:17-27``)."""
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         return torch.cat(fields, dim=1).sum(dim=1)
 
 
@@ -70,7 +84,7 @@ class DeepRanker(RankerBase):
         super().__init__(tables, schema, init_scale, generator)
         self.tower = MLP(schema.total_dim, hidden, generator)
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         return self.tower(torch.cat(fields, dim=1))[:, 0]
 
 
@@ -87,7 +101,7 @@ class WideDeepRanker(RankerBase):
         self.tower = MLP(schema.total_dim - n_wide, hidden, generator)
         self.bias = nn.Parameter(torch.zeros(1))
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         wide_cols, deep_cols = [], []
         for spec, emb in zip(self.schema.specs, fields):
             if spec.name in self.wide_features:
@@ -116,7 +130,7 @@ class FMRanker(RankerBase):
         super().__init__(tables, schema, init_scale, generator)
         self.bias = nn.Parameter(torch.zeros(1))
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         return self.bias[0] + fm_first_and_second(fields, "FM")
 
 
@@ -130,7 +144,7 @@ class DeepFMRanker(RankerBase):
         self.bias = nn.Parameter(torch.zeros(1))
         self.tower = MLP(schema.total_dim, hidden, generator)
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         fm = fm_first_and_second(fields, "DeepFM")
         return self.bias[0] + fm + self.tower(torch.cat(fields, dim=1))[:, 0]
 
@@ -181,23 +195,25 @@ class DCNRanker(RankerBase):
         self.cross = cross(dim, cross_layers, generator)
         self.tower = MLP(2 * dim, hidden, generator)
 
-    def forward_from_fields(self, fields) -> torch.Tensor:
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         x = torch.cat(fields, dim=1)
         return self.tower(torch.cat([x, self.cross(x)], dim=1))[:, 0]
 
 
 def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
-                 device="cpu") -> RankerBase:
-    """A ranker by name, its parameters drawn from ``seed``, on ``device``."""
+                 device="cuda") -> RankerBase:
+    """A ranker by name, its parameters drawn from ``seed``, on ``device``
+    (the card unless the caller names another; with no card the move raises)."""
     name = name or cfg.name
     if name not in RANKER_NAMES:
         raise ValueError(f"Unknown ranker: {name!r}")
-    if name == "attention":
-        raise NotImplementedError("ranker 'attention' is not ported yet: see ROADMAP.md, "
-                                  "queue 1, 'Attention sequence ranker'")
     if cfg.mesh.param_dtype != "float32" or cfg.mesh.compute_dtype != "float32":
         raise NotImplementedError("bfloat16 tables and towers are not ported yet: "
                                   "see ROADMAP.md, queue 1, 'Optimizer variants'")
+    if name == "attention":
+        from .seq_ranker import build_attention_ranker
+
+        return build_attention_ranker(cfg, seed=seed).to(device).eval()
     schema = build_schema(cfg)
     common = dict(tables=table_specs(cfg), schema=schema,
                   init_scale=cfg.embeddings.init_scale,

@@ -5,11 +5,10 @@ the plain version, a CUDA tensor launches the kernel (built at first use,
 see :mod:`._build`) or raises. Each kernel wrapper carries ``launches``, a
 plain count of the kernel launches it made.
 
-The cross stack and the FM second order are ``torch.autograd.Function``s
-whose backward is a kernel too. The fused lookup + pool has no backward
-kernel yet and the row scatter writes in place, so on CUDA those two
-wrappers raise on inputs that require grad while autograd is on
-(:func:`forward_only`).
+The cross stack, the FM second order, the fused lookup + pool and the fused
+Transformer block are ``torch.autograd.Function``s whose backward is a
+kernel too. The row scatter writes in place, so on CUDA its wrapper raises
+on inputs that require grad while autograd is on (:func:`forward_only`).
 """
 
 from __future__ import annotations

@@ -42,6 +42,19 @@ SIGNATURES = {
     "nrt_fm_fwd": [_P, _P, _I, _I, _I, _P],
     # v, g, dv, B, F, D, stream
     "nrt_fm_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    # ids, mask, g, sorted_ids, order, grad_table, coef, B, L, D, V, stream
+    "nrt_lookup_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, mask, params (12 pointers), out, ws, B, L, D, F, H, nblk, stream
+    "nrt_fused_block_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, mask, dy, params, dx, dflat, wt, partial, ws, B, L, D, F, H, nblk, stream
+    "nrt_fused_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+# C entry point -> argument types; these launch nothing and return a count of floats
+SIZE_FUNCTIONS = {
+    # L, D, F, backward
+    "nrt_fused_block_ws_floats": [_I, _I, _I, _I],
+    # D, F
+    "nrt_fused_block_param_floats": [_I, _I],
 }
 
 _lock = threading.Lock()
@@ -124,6 +137,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in SIZE_FUNCTIONS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             lib.nrt_error_string.argtypes = [ctypes.c_int]
             lib.nrt_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -1,5 +1,5 @@
-"""Fused embedding lookup + masked mean pool: a CUDA kernel for Hopper and
-its plain PyTorch version.
+"""Fused embedding lookup + masked mean pool: CUDA kernels for Hopper
+(forward and backward) and their plain PyTorch versions.
 
 ``out[b] = sum_l w[b,l] table[ids[b,l]] / (sum_l w[b,l] + 1e-8)`` with
 ``w = mask * (ids != 0)``: padding id 0 carries no weight, as in the
@@ -12,17 +12,28 @@ whole table rows coalesced (several ids at once when D < 32), sums them in
 registers and writes only (B, D), so the (B, L, D) gather never reaches
 device memory.
 
+:func:`fused_lookup_pool` is a ``torch.autograd.Function`` in the table,
+as the JAX package's is a ``jax.custom_vjp``. Its backward,
+:func:`fused_lookup_pool_bwd` (``csrc/lookup_pool_bwd.cu``, entry
+``nrt_lookup_pool_bwd``), replaces the JAX package's XLA ``_bwd``: the dense
+(V, D) gradient ``grad_table[ids] += g * w / (sum w + 1e-8)``. It is bound by
+the V*D*4 bytes of zeros it must write. The wrapper sorts the B*L slots by
+id (a stable ``torch.sort``) and the kernel sums each run of equal ids in
+slot order, one writer per table row: no float atomics, and two runs give
+the same bits.
+
 Ids outside ``[0, V)``: the pooled row is NaN, whatever the mask, as the
 JAX package's XLA gather gives (``jnp.take`` fills out-of-range rows with
-NaN). Negative ids never reach here from a request: the HTTP boundary
-rejects them.
+NaN); the backward drops them, negative ones too, as JAX's scatter-add
+drops ids >= V. Negative ids never reach here from a request: the HTTP
+boundary rejects them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import check_tensor, forward_only, kernel_device, launch_count_lock, stream_ptr
+from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
 
 EPS = 1e-8
 MAX_D = 256
@@ -39,23 +50,39 @@ def reference_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
     return (rows * w[..., None]).sum(dim=1) / (w.sum(dim=1, keepdim=True) + EPS)
 
 
-def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
-    """table (V, D) float32, ids (B, L) int32, mask (B, L) float32 -> (B, D)."""
-    check_tensor(table, "table", torch.float32, 2)
+def pool_bwd_plain(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                   V: int) -> torch.Tensor:
+    """The table's gradient in plain PyTorch (the JAX package's ``_bwd``):
+    ids (B, L), mask (B, L), g (B, D) -> (V, D). Ids outside [0, V) are
+    dropped: they add a zero to a row inside, so that nothing here waits
+    for the device."""
+    keep = (ids >= 0) & (ids < V)
+    w = mask * ((ids != 0) & keep).to(mask.dtype)
+    denom = (mask * (ids != 0).to(mask.dtype)).sum(dim=1, keepdim=True) + EPS
+    contrib = (g / denom)[:, None, :] * w[..., None]                                # (B, L, D)
+    grad = g.new_zeros((V, g.shape[1]))
+    return grad.index_add_(0, ids.clamp(0, V - 1).reshape(-1).long(),
+                           contrib.reshape(-1, g.shape[1]))
+
+
+def _check(ids, mask):
     check_tensor(ids, "ids", torch.int32, 2)
     check_tensor(mask, "mask", torch.float32, 2)
     if mask.shape != ids.shape:
         raise ValueError(f"mask {tuple(mask.shape)} must match ids {tuple(ids.shape)}")
-    (V, D), (B, L) = table.shape, ids.shape
-    if kernel_device(table, ids, mask) == "cpu":
-        return reference_lookup_pool(table, ids, mask)
-    forward_only(table, ids, mask)
+
+
+def _kernel_limits(D: int, V: int):
     if not 1 <= D <= MAX_D or V >= 2 ** 31:
-        raise ValueError(f"fused_lookup_pool kernel takes 1 <= D <= {MAX_D} and "
+        raise ValueError(f"the fused_lookup_pool kernels take 1 <= D <= {MAX_D} and "
                          f"V < 2**31; got D={D}, V={V}")
+
+
+def _fwd_kernel(table, ids, mask) -> torch.Tensor:
     from ._build import launch
 
+    (V, D), (B, L) = table.shape, ids.shape
+    _kernel_limits(D, V)
     out = torch.empty((B, D), dtype=torch.float32, device=table.device)
     launch("nrt_lookup_pool_fwd", table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
            out.data_ptr(), B, L, D, V, stream_ptr(table))
@@ -64,4 +91,57 @@ def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def fused_lookup_pool_bwd(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                          V: int) -> torch.Tensor:
+    """ids (B, L) int32, mask (B, L) float32, g (B, D) float32 -> the (V, D)
+    gradient of the table. On CUDA tensors it launches ``nrt_lookup_pool_bwd``."""
+    check_tensor(g, "g", torch.float32, 2)
+    _check(ids, mask)
+    if g.shape[0] != ids.shape[0]:
+        raise ValueError(f"g {tuple(g.shape)} must have {ids.shape[0]} rows")
+    if kernel_device(ids, mask, g) == "cpu":
+        return pool_bwd_plain(ids, mask, g, V)
+    from ._build import launch
+
+    (B, L), D = ids.shape, g.shape[1]
+    _kernel_limits(D, V)
+    if B * L * D >= 2 ** 31:
+        raise ValueError(f"the fused_lookup_pool backward takes B*L*D < 2**31; got "
+                         f"B={B}, L={L}, D={D}")
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    grad = g.new_empty((V, D))
+    coef = g.new_empty((B * L,))
+    launch("nrt_lookup_pool_bwd", ids.data_ptr(), mask.data_ptr(), g.data_ptr(),
+           sorted_ids.data_ptr(), order.data_ptr(), grad.data_ptr(), coef.data_ptr(),
+           B, L, D, V, stream_ptr(g))
+    with launch_count_lock:
+        fused_lookup_pool_bwd.launches += 1
+    return grad
+
+
+class _Pool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mask):
+        ctx.V = table.shape[0]
+        ctx.save_for_backward(ids, mask)
+        return _fwd_kernel(table, ids, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, mask = ctx.saved_tensors
+        return fused_lookup_pool_bwd(ids, mask, g.contiguous(), ctx.V), None, None
+
+
+def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """table (V, D) float32, ids (B, L) int32, mask (B, L) float32 -> (B, D);
+    differentiable in ``table``."""
+    check_tensor(table, "table", torch.float32, 2)
+    _check(ids, mask)
+    if kernel_device(table, ids, mask) == "cpu":
+        return reference_lookup_pool(table, ids, mask)
+    return _Pool.apply(table, ids, mask)
+
+
 fused_lookup_pool.launches = 0
+fused_lookup_pool_bwd.launches = 0

@@ -18,8 +18,8 @@ replaces the Pallas kernel
 ``news_recsys_tpu/ops/scatter_rows.py::_scatter_pallas``. It is bound by
 memory latency: each slot's row is one coalesced write, 16 bytes a thread,
 and the table is never read. The plain version checks sortedness on the
-CPU, as the JAX interpret path does; the CUDA path does not synchronise to
-check it.
+CPU, as the JAX interpret path does; on the card neither it nor the kernel
+synchronises.
 """
 
 from __future__ import annotations
@@ -36,9 +36,16 @@ def scatter_rows_plain(table: torch.Tensor, rows: torch.Tensor,
     rows = rows.long()
     if rows.device.type == "cpu" and bool((rows[1:] < rows[:-1]).any()):
         raise ValueError("scatter_rows_set: rows must be non-decreasing")
+    if rows.numel() == 0:
+        return table
+    # nothing here waits for the device: a dropped slot repeats the write of
+    # a kept one (the first), or, where none is kept, what the table holds
     keep = (rows >= 0) & (rows < table.shape[0])
-    table[rows[keep]] = vals[keep]
-    return table
+    first = keep.to(torch.uint8).argmax().reshape(1)
+    idx = torch.where(keep, rows, rows.index_select(0, first)).clamp(0, table.shape[0] - 1)
+    src = torch.where(keep[:, None], vals, vals.index_select(0, first))
+    src = torch.where(keep.any(), src, table[idx])
+    return table.index_put_((idx,), src)
 
 
 def scatter_rows_set(table: torch.Tensor, rows: torch.Tensor,

@@ -14,7 +14,7 @@ class TopKSearcher:
     """Inner-product top-k: ``update_embedding`` snapshots a corpus onto
     ``device``; ``search`` returns (indices, scores) as numpy arrays."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.corpus: Optional[torch.Tensor] = None
 

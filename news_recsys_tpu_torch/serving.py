@@ -27,14 +27,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from news_recsys_tpu.config import DENSE, Config, config_from_dict, config_to_dict
-from news_recsys_tpu.data.packed_dataset import Batch, PackedDataset
-from news_recsys_tpu.utils.logging import get_logger
-
+from .config import DENSE, Config, config_from_dict, config_to_dict
 from .convert import params_from_flax, params_to_flax
+from .data.packed_dataset import Batch, PackedDataset
 from .models.dssm import DSSM, _l2, build_dssm
 from .models.rankers import build_ranker
 from .ops.topk import TopKSearcher
+from .utils.logging import get_logger
 
 logger = get_logger("torch_serving")
 
@@ -84,7 +83,7 @@ class Recommender:
     """DSSM recall: exact top-k over the L2-normalised item corpus."""
 
     def __init__(self, cfg: Config, model: DSSM, item_ds: Optional[PackedDataset] = None,
-                 device="cpu", batch_size: int = 1024,
+                 device="cuda", batch_size: int = 1024,
                  _corpus: Optional[np.ndarray] = None,
                  _item_ids: Optional[np.ndarray] = None):
         self.cfg = cfg
@@ -129,11 +128,11 @@ class Recommender:
         return path
 
     @classmethod
-    def load(cls, path: str, device="cpu", batch_size: int = 1024) -> "Recommender":
+    def load(cls, path: str, device="cuda", batch_size: int = 1024) -> "Recommender":
         """Restore a bundle saved by :meth:`save`; no item re-encode."""
         _read_meta(path)
         cfg = _load_config(path)
-        model = _load_params(path, build_dssm(cfg))
+        model = _load_params(path, build_dssm(cfg, device=device))
         with np.load(os.path.join(path, "corpus.npz")) as z:
             corpus, item_ids = z["corpus"], z["item_ids"]
         return cls(cfg, model, device=device, batch_size=batch_size,
@@ -223,14 +222,14 @@ class CascadeRecommender:
         return path
 
     @classmethod
-    def load(cls, path: str, device="cpu", fetch: Optional[int] = None) -> "CascadeRecommender":
+    def load(cls, path: str, device="cuda", fetch: Optional[int] = None) -> "CascadeRecommender":
         meta = _read_meta(path)
         if meta.get("kind") != "cascade":
             raise ValueError(f"{path} is not a cascade bundle")
         recall = Recommender.load(os.path.join(path, "recall"), device=device)
         rdir = os.path.join(path, "ranker")
         rcfg = _load_config(rdir)
-        model = _load_params(rdir, build_ranker(rcfg, rcfg.name))
+        model = _load_params(rdir, build_ranker(rcfg, rcfg.name, device=device))
         item_ds = PackedDataset.load(os.path.join(path, "item_features.npz"))
         return cls(recall, rcfg, model, item_ds, fetch=fetch or int(meta.get("fetch", 100)))
 

@@ -22,6 +22,10 @@ Where JAX rebuilt arrays, the port updates in place under
 the AUC histogram. The gathered rows are copies, so writing a table after
 ``backward()`` is safe.
 
+An unpooled array feature (the attention ranker's ``hist``) keeps its
+gathered rows (B, L, D) as the field; their gradient flattens into the
+table's B*L slots in :func:`collect_per_table`.
+
 The port stays on the sorted route for every slot count. JAX's MXU dedup
 (``_dedup_rows_matmul``, below ``MATMUL_DEDUP_MAX``) and its dense
 full-table route (``dense_rowwise_adagrad_update``, from
@@ -38,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from news_recsys_tpu.config import ARRAY, DENSE, SPARSE, Config
+from ..config import ARRAY, DENSE, SPARSE, Config
 
 from ..models.embedding import SMALL_VOCAB_THRESHOLD, offset_ids, padded_vocab, take
 from ..ops.scatter_rows import scatter_rows_set
@@ -58,9 +62,11 @@ def _large_tables(tables_spec) -> set:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a training config the port does not run."""
+    """Raise ``NotImplementedError`` for a training config the port does not
+    run. It runs ``rowwise_adagrad`` (this module) and the all-dense
+    ``adamw`` (:mod:`.dense_step`)."""
     hp = cfg.train_hparams
-    if hp.embedding_optimizer != "rowwise_adagrad":
+    if hp.embedding_optimizer not in ("rowwise_adagrad", "adamw"):
         raise NotImplementedError(f"embedding_optimizer={hp.embedding_optimizer!r} "
                                   + NOT_PORTED)
     if hp.embedding_update_period != 1:
@@ -72,6 +78,15 @@ def check_ported(cfg: Config) -> None:
     if cfg.mesh.model > 1:
         raise NotImplementedError(f"a model-parallel mesh (mesh.model={cfg.mesh.model}) "
                                   + NOT_PORTED)
+
+
+def check_sparse(cfg: Config) -> None:
+    """:func:`check_ported`, and the optimizer must be this module's."""
+    check_ported(cfg)
+    if cfg.train_hparams.embedding_optimizer != "rowwise_adagrad":
+        raise ValueError("the sparse step runs embedding_optimizer='rowwise_adagrad'; "
+                         f"{cfg.train_hparams.embedding_optimizer!r} trains on the all-dense "
+                         "step (training/dense_step.py)")
 
 
 @dataclass
@@ -112,7 +127,7 @@ def make_dense_tx(cfg: Config, params) -> Optional[torch.optim.AdamW]:
 def init_sparse_state(model: nn.Module, cfg: Config) -> SparseTrainState:
     """The training state of ``model``'s current parameters. The large
     tables stop requiring grad: the step differentiates their gathered rows."""
-    check_ported(cfg)
+    check_sparse(cfg)
     tables = model.embedder.tables
     emb_acc = {}
     for name in sorted(_large_tables(model.tables)):
@@ -130,11 +145,13 @@ def gather_large_rows(schema, batch, tables, large) -> Dict[str, torch.Tensor]:
             for spec in schema.specs if spec.kind in (SPARSE, ARRAY) and spec.table in large}
 
 
-def fields_from_rows(schema, batch, rows, tables, large) -> list:
-    """The per-field embeddings in schema order, as ``embed_fields`` builds
-    them, from the gathered large-table ``rows`` and the small ``tables``;
-    array features are masked-mean pooled here."""
-    fields = []
+def fields_from_rows(schema, batch, rows, tables, large, unpooled=()) -> tuple:
+    """(fields, masks): the per-field embeddings in schema order, as
+    ``embed_fields`` builds them, from the gathered large-table ``rows`` and
+    the small ``tables``. Array features are masked-mean pooled here, except
+    those in ``unpooled``, which stay (B, L, D) and whose float masks are
+    returned by name."""
+    fields, masks = [], {}
     for spec in schema.specs:
         if spec.kind == DENSE:
             fields.append(batch[spec.name].to(torch.float32)[:, None])
@@ -144,10 +161,14 @@ def fields_from_rows(schema, batch, rows, tables, large) -> list:
         r = r * (ids != 0).to(r.dtype)[..., None]
         if spec.kind == ARRAY:
             mask = batch.get(f"{spec.name}_mask")
-            m = (ids != 0 if mask is None else mask).to(torch.float32)[..., None]
-            r = (r * m).sum(dim=1) / (m.sum(dim=1) + EPS_POOL)
+            m = (ids != 0 if mask is None else mask).to(torch.float32)
+            if spec.name in unpooled:
+                masks[spec.name] = m
+            else:
+                m = m[..., None]
+                r = (r * m).sum(dim=1) / (m.sum(dim=1) + EPS_POOL)
         fields.append(r)
-    return fields
+    return fields, masks
 
 
 def collect_per_table(schema, batch, row_grads, large) -> Dict[str, list]:
@@ -247,7 +268,7 @@ def make_table_updater(cfg: Config, tables_spec):
     """``update(tables, emb_acc, per_table, lr)``: rowwise AdaGrad on the
     touched rows of the large tables, in place; ``per_table`` maps a table
     to the (flat ids, flat row-grads) pairs of the features sharing it."""
-    check_ported(cfg)
+    check_sparse(cfg)
     table_vocab = dict(tables_spec)
     spare = {t: padded_vocab(v) - 1 for t, (v, d) in table_vocab.items()}
 
@@ -270,6 +291,7 @@ def make_sparse_train_step(model: nn.Module, cfg: Config):
     schema = model.schema
     large = _large_tables(model.tables)
     table_update = make_table_updater(cfg, model.tables)
+    unpooled = set(getattr(model, "unpooled_arrays", ()) or ())
 
     def sparse_train_step(state: SparseTrainState, batch, hist: AucHist):
         tables = state.model.embedder.tables
@@ -282,7 +304,7 @@ def make_sparse_train_step(model: nn.Module, cfg: Config):
         if weights is None:
             weights = torch.ones_like(labels)
         logits = state.model.forward_from_fields(
-            fields_from_rows(schema, batch, rows, tables, large))
+            *fields_from_rows(schema, batch, rows, tables, large, unpooled))
         per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
         loss = (per_ex * weights).sum() / weights.sum().clamp(min=1.0)
         opt = state.dense_opt

@@ -2,13 +2,14 @@
 prediction and validation.
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
-(``embedding_optimizer="rowwise_adagrad"``) and its device-resident epoch:
+(``embedding_optimizer="rowwise_adagrad"``, :mod:`.sparse_step`) or the
+all-dense one (``"adamw"``, :mod:`.dense_step`), chosen as the JAX trainer
+chooses by :attr:`Trainer.sparse_embeddings`, and its device-resident epoch:
 the packed dataset goes to the device once, and each step gathers its batch
 rows there. Steps run eagerly, one Python call each (JAX scanned them in
 one compiled chunk). Validation scores the dev set on the device and runs
-the JAX package's host metric engine (:mod:`news_recsys_tpu.training.metrics`)
-at every size. ``train.log``, ``val_log.log`` and ``metrics.jsonl`` keep the
-JAX package's format.
+the host metric engine (:mod:`.metrics`) at every size. ``train.log``,
+``val_log.log`` and ``metrics.jsonl`` keep the JAX package's format.
 
 Not ported yet (ROADMAP.md, queue 1, item 2): checkpoints and resume,
 TensorBoard, ``model_info.log``, the device metric engine
@@ -27,10 +28,10 @@ from typing import Dict, Optional, Set
 import numpy as np
 import torch
 
-from news_recsys_tpu.config import Config
-from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
-from news_recsys_tpu.training.metrics import compute_user_metrics, format_validation_block
-from news_recsys_tpu.utils.logging import get_logger
+from ..config import Config
+from ..data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
+from ..utils.logging import get_logger
+from .metrics import compute_user_metrics, format_validation_block
 
 __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
            "binned_auc_update", "binned_auc_value", "unpack_batch"]
@@ -50,7 +51,7 @@ class AucHist:
     neg: torch.Tensor
 
     @staticmethod
-    def zeros(device="cpu") -> "AucHist":
+    def zeros(device) -> "AucHist":
         return AucHist(torch.zeros(AUC_BINS, device=device),
                        torch.zeros(AUC_BINS, device=device))
 
@@ -79,16 +80,19 @@ class Trainer:
 
     ``model`` brings its parameters (seeded by ``build_ranker``, or converted
     from the JAX package by :mod:`news_recsys_tpu_torch.convert`) and moves
-    to ``device``.
+    to ``device``: the card, unless the caller names another; with no card
+    the move raises.
     """
 
-    def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cpu"):
+    def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cuda"):
+        from .dense_step import make_train_step
         from .sparse_step import make_sparse_train_step
 
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
-        self.train_step = make_sparse_train_step(self.model, cfg)
+        self.train_step = (make_sparse_train_step if self.sparse_embeddings
+                           else make_train_step)(self.model, cfg)
         ts = time.strftime("%Y%m%d-%H%M%S")
         self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
         os.makedirs(self.log_dir, exist_ok=True)
@@ -99,10 +103,16 @@ class Trainer:
         self.global_step = 0
         self._packed: Dict[int, tuple] = {}
 
+    @property
+    def sparse_embeddings(self) -> bool:
+        return self.cfg.train_hparams.embedding_optimizer in ("sparse_adamw", "rowwise_adagrad")
+
     def init_state(self):
+        from .dense_step import init_dense_state
         from .sparse_step import init_sparse_state
 
-        return init_sparse_state(self.model, self.cfg)
+        init = init_sparse_state if self.sparse_embeddings else init_dense_state
+        return init(self.model, self.cfg)
 
     def _device_matrices(self, ds: PackedDataset):
         """(packer, int matrix, float matrix) of ``ds``, the matrices uploaded

@@ -10,8 +10,10 @@ directory that ``news_recsys_tpu_torch.serving`` loads and
     python scripts/export_torch_bundle.py --bundle <jax recall bundle> \
         --ranker-ckpt <epoch_*.msgpack | experiment dir> --ranker-config <yaml> --out <dir>
 
-Parameters pass through ``news_recsys_tpu_torch.convert``, and the port's
-own ``save`` writes the bundle.
+Parameters pass through ``news_recsys_tpu_torch.convert``, configs through
+their plain dicts, and the port's own ``save`` writes the bundle. The rewrite
+is a change of format and computes nothing, so it holds the port's models on
+the CPU (``device="cpu"``) and needs no GPU.
 """
 
 from __future__ import annotations
@@ -25,23 +27,30 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from news_recsys_tpu import serving as jserving  # noqa: E402
-from news_recsys_tpu.data.packed_dataset import PackedDataset  # noqa: E402
+from news_recsys_tpu.config import config_to_dict  # noqa: E402
 from news_recsys_tpu_torch import serving as tserving  # noqa: E402
+from news_recsys_tpu_torch.config import config_from_dict  # noqa: E402
 from news_recsys_tpu_torch.convert import params_from_flax  # noqa: E402
 from news_recsys_tpu_torch.models.dssm import build_dssm  # noqa: E402
 from news_recsys_tpu_torch.models.rankers import build_ranker  # noqa: E402
 
 
+def port_config(cfg):
+    """A JAX-package config as the port's, through its plain dict."""
+    return config_from_dict(config_to_dict(cfg))
+
+
 def port_recommender(rec: jserving.Recommender) -> tserving.Recommender:
-    return tserving.Recommender(rec.cfg, params_from_flax(rec.params, build_dssm(rec.cfg)),
-                                _corpus=rec.corpus, _item_ids=rec.item_ids)
+    cfg = port_config(rec.cfg)
+    return tserving.Recommender(cfg, params_from_flax(rec.params, build_dssm(cfg, device="cpu")),
+                                device="cpu", _corpus=rec.corpus, _item_ids=rec.item_ids)
 
 
 def port_cascade(casc: jserving.CascadeRecommender) -> tserving.CascadeRecommender:
-    rcfg = casc.ranker_cfg
-    ranker = params_from_flax(casc.ranker_params, build_ranker(rcfg, rcfg.name))
+    rcfg = port_config(casc.ranker_cfg)
+    ranker = params_from_flax(casc.ranker_params, build_ranker(rcfg, rcfg.name, device="cpu"))
     return tserving.CascadeRecommender(port_recommender(casc.recall), rcfg, ranker,
-                                       PackedDataset(casc.item_arrays), fetch=casc.fetch)
+                                       tserving.PackedDataset(casc.item_arrays), fetch=casc.fetch)
 
 
 def export(bundle: str, out: str, ranker_ckpt: str = "", ranker_config: str = "",

@@ -25,14 +25,18 @@ import numpy as np
 import pytest
 import torch
 
-from news_recsys_tpu.config import config_from_dict
-from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
+from news_recsys_tpu_torch.config import config_from_dict
+from news_recsys_tpu_torch.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from news_recsys_tpu_torch.models.rankers import build_ranker
 from news_recsys_tpu_torch.ops.dcn_kernel import (cross_bwd_plain, cross_fwd_plain, cross_plain,
                                                   dcn_cross_bwd, dcn_cross_stack)
 from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
                                                  fm_second_order_bwd)
+from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain, block_plain,
+                                                       fused_transformer_block,
+                                                       fused_transformer_block_bwd)
 from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
+                                                         fused_lookup_pool_bwd, pool_bwd_plain,
                                                          reference_lookup_pool)
 from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
 from news_recsys_tpu_torch.training.sparse_step import init_sparse_state, make_sparse_train_step
@@ -228,18 +232,14 @@ def test_pool_kernel_ids_out_of_range_give_nan(cuda):
 
 @pytest.mark.cuda
 def test_kernels_refuse_grad(cuda):
-    """The pool and the scatter have no backward: on CUDA they refuse inputs
-    that need a gradient while autograd is on. (The cross stack trains.)"""
+    """The scatter writes in place and has no backward: on CUDA it refuses
+    inputs that need a gradient while autograd is on. (The cross stack, the
+    FM second order, the pool and the fused block train.)"""
     table = torch.zeros(10, 4, device=cuda, requires_grad=True)
-    ids = torch.ones(2, 3, dtype=torch.int32, device=cuda)
-    mask = torch.ones(2, 3, device=cuda)
-    with pytest.raises(RuntimeError, match="forward only"):
-        fused_lookup_pool(table, ids, mask)
     rows = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="forward only"):
         scatter_rows_set(table, rows, torch.ones(2, 4, device=cuda))
     with torch.no_grad():
-        fused_lookup_pool(table, ids, mask)
         scatter_rows_set(table, rows, torch.ones(2, 4, device=cuda))
     assert (table[1:3] == 1).all() and (table[0] == 0).all()
 
@@ -265,7 +265,7 @@ def test_dcn_ranker_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     batch = {"user_id": rng.integers(1, 64, 256), "item_id": rng.integers(1, 128, 256),
              "category": rng.integers(1, 8, 256)}
-    cpu_model = build_ranker(cfg, seed=3)
+    cpu_model = build_ranker(cfg, seed=3, device="cpu")
     gpu_model = build_ranker(cfg, seed=3, device=cuda)
     with torch.inference_mode():
         want = cpu_model({k: torch.from_numpy(v.astype(np.int32)) for k, v in batch.items()})
@@ -366,7 +366,7 @@ def test_training_steps_on_cuda_match_cpu(cuda, arena):
     cfg = train_cfg(arena)
     ds = train_dataset(cfg, 256, seed=3)
     packer = BatchPacker(ds)
-    cpu_model = build_ranker(cfg, seed=0)
+    cpu_model = build_ranker(cfg, seed=0, device="cpu")
     models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
     states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
     steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
@@ -433,7 +433,7 @@ def test_deepfm_training_steps_on_cuda_match_cpu(cuda):
     cfg = zoo_train_cfg("deepfm")
     ds = train_dataset(cfg, 256, seed=4)
     packer = BatchPacker(ds)
-    cpu_model = build_ranker(cfg, seed=1)
+    cpu_model = build_ranker(cfg, seed=1, device="cpu")
     models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
     states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
     steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
@@ -454,3 +454,151 @@ def test_deepfm_training_steps_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **TRAIN_TOL)
     for name, acc in states["cuda"].emb_acc.items():
         torch.testing.assert_close(acc.cpu(), states["cpu"].emb_acc[name], msg=name, **TRAIN_TOL)
+
+
+# -- the fused Transformer block -----------------------------------------------
+
+# kernel vs plain on the card, float32 with other summation orders: the JAX
+# package's own tolerances for its kernel (2e-5 forward; rtol 2e-4 and an
+# atol of 2e-5 of the largest value for gradients, which are sums over B*L rows)
+BLOCK_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def block_inputs(B, L, D, F, seed=0, scale=0.3):
+    """x, a mask with ~25% invalid keys, an all-zero row and an all-one row,
+    the 12 parameters (LayerNorm scales around 1) and an upstream gradient."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, D)).astype(np.float32)
+    mask = (rng.random((B, L)) > 0.25).astype(np.float32)
+    mask[0] = 1.0
+    if B > 1:
+        mask[1] = 0.0
+    shapes = ((D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,), (D, F), (F,), (F, D), (D,), (D,),
+              (D,))
+    params = [(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    for i in (4, 10):
+        params[i] = params[i] + 1.0
+    dy = rng.standard_normal((B, L, D)).astype(np.float32)
+    return x, mask, params, dy
+
+
+def assert_grads_close(got, want, name):
+    torch.testing.assert_close(got, want, rtol=2e-4,
+                               atol=2e-5 * max(1.0, float(want.abs().max())), msg=name)
+
+
+BLOCK_SHAPES = [(6400, 30, 32, 64, 2), (512, 30, 32, 64, 2), (24, 30, 32, 64, 2),
+                (7, 12, 16, 24, 1), (130, 50, 64, 96, 4), (3, 128, 128, 512, 8),
+                (5, 33, 24, 40, 3), (1, 1, 4, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,F,H", BLOCK_SHAPES)
+def test_fused_block_forward_matches_plain(cuda, B, L, D, F, H):
+    """(3, 128, 128, 512) is the edge of the Pallas kernel's domain: the
+    workspace no longer fits shared memory and lies in device memory."""
+    x, mask, params, _ = block_inputs(B, L, D, F)
+    x, mask, *params = on(cuda, x, mask, *params)
+    with torch.inference_mode():
+        n = fused_transformer_block.launches
+        got = fused_transformer_block(params, x, mask, H)
+        assert fused_transformer_block.launches == n + 1
+        want = block_plain(x, mask, *params, num_heads=H)
+    torch.testing.assert_close(got, want, **BLOCK_FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,F,H", BLOCK_SHAPES[1:])
+def test_fused_block_backward_matches_plain(cuda, B, L, D, F, H):
+    x, mask, params, dy = block_inputs(B, L, D, F, seed=1)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    n = fused_transformer_block_bwd.launches
+    dx, dparams = fused_transformer_block_bwd(params, x, mask, dy, H)
+    assert fused_transformer_block_bwd.launches == n + 1
+    want_dx, want_dparams = block_bwd_plain(params, x, mask, dy, H)
+    assert_grads_close(dx, want_dx, "dx")
+    for name, a, b in zip(PARAM_NAMES, dparams, want_dparams):
+        assert_grads_close(a, b, name)
+    again_dx, again = fused_transformer_block_bwd(params, x, mask, dy, H)
+    assert torch.equal(dx, again_dx) and all(torch.equal(a, b) for a, b in zip(dparams, again))
+
+
+@pytest.mark.cuda
+def test_fused_block_autograd_on_cuda(cuda):
+    """The Function's forward and backward kernels against autograd through
+    ``block_plain`` on the CPU."""
+    x_np, mask_np, params_np, dy_np = block_inputs(64, 30, 32, 64, seed=2)
+    grads = {}
+    for dev in ("cpu", cuda):
+        x, mask, dy, *params = on(dev, x_np, mask_np, dy_np, *params_np)
+        leaves = [t.requires_grad_() for t in (x, *params)]
+        n = fused_transformer_block.launches, fused_transformer_block_bwd.launches
+        fused_transformer_block(leaves[1:], leaves[0], mask, 2).backward(dy)
+        launched = (fused_transformer_block.launches - n[0],
+                    fused_transformer_block_bwd.launches - n[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for name, a, b in zip(("dx", *PARAM_NAMES), grads["cuda"], grads["cpu"]):
+        assert_grads_close(a, b, name)
+
+
+@pytest.mark.cuda
+def test_fused_block_rejects_what_it_does_not_take(cuda):
+    x, mask, params, _ = block_inputs(2, 4, 8, 8)
+    x, mask, *params = on(cuda, x, mask, *params)
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        fused_transformer_block(params, x, mask, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_transformer_block(params, x.transpose(0, 1), mask.t(), 2)
+    big = torch.zeros(1, 129, 8, device=cuda)
+    with pytest.raises(ValueError, match="L <= 128"):
+        fused_transformer_block(params, big, torch.ones(1, 129, device=cuda), 2)
+
+
+# -- the pool's backward ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,D,B,L", [(30080, 16, 512, 5), (65280, 16, 512, 30), (500, 40, 33, 7),
+                                     (50, 3, 9, 4), (80, 256, 8, 2)])
+def test_pool_bwd_kernel_matches_plain(cuda, V, D, B, L):
+    """Duplicates inside and across examples, padding id 0, masked slots, an
+    all-zero mask row; two runs bit-identical."""
+    _, ids, mask = pool_inputs(V, D, B, L)
+    ids[:, 0] = ids[0, 0]                                   # one id in every example
+    g = np.random.default_rng(1).standard_normal((B, D)).astype(np.float32)
+    ids, mask, g = on(cuda, ids, mask, g)
+    n = fused_lookup_pool_bwd.launches
+    got = fused_lookup_pool_bwd(ids, mask, g, V)
+    assert fused_lookup_pool_bwd.launches == n + 1
+    assert_close_to_scale(got, pool_bwd_plain(ids, mask, g, V), "grad_table")
+    assert not got[0].any()
+    assert torch.equal(got, fused_lookup_pool_bwd(ids, mask, g, V))
+
+
+@pytest.mark.cuda
+def test_pool_bwd_kernel_drops_out_of_range_ids(cuda):
+    _, ids, mask = pool_inputs(50, 8, 8, 4)
+    mask[:] = 1.0
+    ids[3, 1], ids[5, 2], ids[6, 0] = 50, 1000, -2
+    g = np.random.default_rng(2).standard_normal((8, 8)).astype(np.float32)
+    got = fused_lookup_pool_bwd(*on(cuda, ids, mask, g), 50).cpu()
+    want = pool_bwd_plain(*map(torch.from_numpy, (ids, mask, g)), 50)
+    assert torch.isfinite(got).all()
+    assert_close_to_scale(got, want, "grad_table")
+
+
+@pytest.mark.cuda
+def test_pool_autograd_on_cuda(cuda):
+    table_np, ids_np, mask_np = pool_inputs(300, 16, 64, 6)
+    g_np = np.random.default_rng(3).standard_normal((64, 16)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        table, ids, mask, g = on(dev, table_np, ids_np, mask_np, g_np)
+        table.requires_grad_()
+        n = fused_lookup_pool.launches, fused_lookup_pool_bwd.launches
+        fused_lookup_pool(table, ids, mask).backward(g)
+        launched = (fused_lookup_pool.launches - n[0], fused_lookup_pool_bwd.launches - n[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = table.grad.cpu()
+    assert_close_to_scale(grads["cuda"], grads["cpu"], "grad_table")

@@ -117,7 +117,7 @@ def test_config_schema_and_tables_match_jax(source):
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), schema_batch(cfg)))
     want = {k: v.shape for k, v in flatten(
         jax.tree.map(lambda s: np.empty(s.shape, s.dtype), shapes)).items()}
-    model = build_dssm(cfg) if is_dssm else build_ranker(cfg, cfg.name)
+    model = build_dssm(cfg, device="cpu") if is_dssm else build_ranker(cfg, cfg.name, device="cpu")
     got = {k: v.shape for k, v in params_to_flax(model).items()}
     assert got == want
     assert {name: tuple(t.shape) for name, t in model.embedder.tables.items()} == {
@@ -126,14 +126,15 @@ def test_config_schema_and_tables_match_jax(source):
 
 def test_zoo_configs_match_jax():
     """``mind_dssm_config`` equals ``configs/dssm.yaml`` field by field; the
-    ranker config and table sizes are the JAX package's own."""
+    ranker config and table sizes equal the JAX package's (the port keeps
+    its own copies: tests/test_torch_shared.py holds every one of them)."""
     got, want = config_to_dict(tzoo.mind_dssm_config()), config_to_dict(
         load_config("configs/dssm.yaml"))
     assert sorted(got) == sorted(want)
     for section in want:
         assert got[section] == want[section], section
-    assert tzoo.mind_config is jzoo.mind_config
-    assert tzoo.MIND_TABLE_SIZE is jzoo.MIND_TABLE_SIZE
+    assert config_to_dict(tzoo.mind_config("dcn")) == config_to_dict(jzoo.mind_config("dcn"))
+    assert tzoo.MIND_TABLE_SIZE == jzoo.MIND_TABLE_SIZE
 
 
 # -- layers ------------------------------------------------------------------
@@ -225,7 +226,7 @@ def test_dcn_logits_match_jax(pallas_interpret):
     batch = ranker_batch(rng, 64, {"user_id": 64, "item_id": 128, "category": 8})
     jmodel = jbuild_ranker(cfg, "dcn")
     params = jax_init(jmodel, batch)
-    model = params_from_flax(params, build_ranker(cfg, "dcn"))
+    model = params_from_flax(params, build_ranker(cfg, "dcn", device="cpu"))
     assert model.cross.ws.shape == (2, 48)
     with torch.inference_mode():
         got = model(torch_batch(batch)).numpy()
@@ -240,7 +241,7 @@ def test_dcn_logits_match_jax_at_full_mind_width(pallas_interpret):
     batch.pop("_valid")
     jmodel = jbuild_ranker(cfg, "dcn")
     params = jax_init(jmodel, batch)
-    model = params_from_flax(params, build_ranker(cfg, "dcn"))
+    model = params_from_flax(params, build_ranker(cfg, "dcn", device="cpu"))
     assert model.embedder.tables["arena_d32"].shape == (159360, 32)
     assert model.schema.total_dim == 112 and model.cross.ws.shape == (3, 112)
     with torch.inference_mode():
@@ -249,18 +250,18 @@ def test_dcn_logits_match_jax_at_full_mind_width(pallas_interpret):
 
 
 @pytest.mark.parametrize("name,extra,err", [
-    ("attention", {}, NotImplementedError),
+    ("dcn", {"mesh": {"compute_dtype": "bfloat16"}}, NotImplementedError),
     ("nope", {}, ValueError),
 ])
 def test_build_ranker_names_what_is_not_ported(name, extra, err):
     cfg = config_from_dict({**small_dcn_raw(), **extra})
     with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else "Unknown"):
-        build_ranker(cfg, name)
+        build_ranker(cfg, name, device="cpu")
 
 
 def test_build_ranker_is_seeded():
     cfg = config_from_dict(small_dcn_raw())
-    a, b, c = (build_ranker(cfg, seed=s) for s in (7, 7, 8))
+    a, b, c = (build_ranker(cfg, seed=s, device="cpu") for s in (7, 7, 8))
     torch.testing.assert_close(a.tower.layers[0].weight, b.tower.layers[0].weight)
     assert not torch.equal(a.cross.ws, c.cross.ws)
 
@@ -287,7 +288,7 @@ def dssm_towers_match_jax(cfg, B, seed):
                             sizes["item_id"])
     jmodel = jbuild_dssm(cfg)
     params = jax_init(jmodel, batch)
-    model = params_from_flax(params, build_dssm(cfg))
+    model = params_from_flax(params, build_dssm(cfg, device="cpu"))
     tb = torch_batch(batch)
     with torch.inference_mode():
         got_u, got_i = model.user_embedding(tb).numpy(), model.item_embedding(tb).numpy()
@@ -305,7 +306,7 @@ def test_params_round_trip_through_flax_paths():
     batch = ranker_batch(np.random.default_rng(0), 8, {"user_id": 64, "item_id": 128,
                                                        "category": 8})
     params = jax_init(jbuild_ranker(cfg, "dcn"), batch)
-    flat = params_to_flax(params_from_flax(params, build_ranker(cfg)))
+    flat = params_to_flax(params_from_flax(params, build_ranker(cfg, device="cpu")))
     want = flatten(params)
     assert sorted(flat) == sorted(want)
     for key, value in want.items():
@@ -313,7 +314,7 @@ def test_params_round_trip_through_flax_paths():
 
 
 def test_params_from_flax_is_strict():
-    model = build_ranker(config_from_dict(small_dcn_raw()))
+    model = build_ranker(config_from_dict(small_dcn_raw()), device="cpu")
     flat = params_to_flax(model)
     with pytest.raises(KeyError, match="no port parameter"):
         params_from_flax({**flat, "head/scale": np.zeros(1)}, model)

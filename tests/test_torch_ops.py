@@ -184,7 +184,7 @@ def test_topk_searcher_matches_jax():
     rng = np.random.default_rng(0)
     corpus = rng.standard_normal((500, 16)).astype(np.float32)
     queries = rng.standard_normal((32, 16)).astype(np.float32)
-    searcher, jsearcher = TopKSearcher(), JTopKSearcher(normalize=False)
+    searcher, jsearcher = TopKSearcher(device="cpu"), JTopKSearcher(normalize=False)
     searcher.update_embedding(corpus)
     jsearcher.update_embedding(corpus)
     idx, scores = searcher.search(queries, k=7, batch_size=10)      # 4 query chunks

@@ -72,10 +72,10 @@ def stacks():
                                    backend="device", batch_size=16)
     jcasc = jserving.CascadeRecommender(jrecall, rcfg, jranker, rparams,
                                         PackedDataset(dict(items)), fetch=FETCH)
-    trecall = tserving.Recommender(dcfg, params_from_flax(dparams, build_dssm(dcfg)),
+    trecall = tserving.Recommender(dcfg, params_from_flax(dparams, build_dssm(dcfg, device="cpu")),
                                    PackedDataset(dict(items)), device="cpu", batch_size=16)
     tcasc = tserving.CascadeRecommender(trecall, rcfg,
-                                        params_from_flax(rparams, build_ranker(rcfg)),
+                                        params_from_flax(rparams, build_ranker(rcfg, device="cpu")),
                                         PackedDataset(dict(items)), fetch=FETCH)
     return jcasc, tcasc
 
@@ -151,9 +151,9 @@ def test_bundle_round_trip(stacks, tmp_path):
     path = tcasc.save(str(tmp_path / "bundle"))
     assert sorted(os.listdir(path)) == ["item_features.npz", "meta.json", "ranker", "recall"]
     assert sorted(os.listdir(os.path.join(path, "ranker"))) == ["config.json", "params.npz"]
-    loaded = tserving.CascadeRecommender.load(path)
+    loaded = tserving.CascadeRecommender.load(path, device="cpu")
     assert loaded.recommend(batch, k=5, histories=histories_of(batch)) == want
-    recall = tserving.Recommender.load(os.path.join(path, "recall"))
+    recall = tserving.Recommender.load(os.path.join(path, "recall"), device="cpu")
     np.testing.assert_array_equal(recall.corpus, tcasc.recall.corpus)
 
 
@@ -165,13 +165,13 @@ def test_export_script_converts_jax_bundles(stacks, tmp_path, pallas_interpret):
     spec.loader.exec_module(script)
     jpath = jcasc.save(str(tmp_path / "jax"))
     with pytest.raises(ValueError, match="export_torch_bundle"):
-        tserving.Recommender.load(os.path.join(jpath, "recall"))
+        tserving.Recommender.load(os.path.join(jpath, "recall"), device="cpu")
     out = script.export(jpath, str(tmp_path / "torch"))
     batch = users(8, seed=6)
-    got = tserving.CascadeRecommender.load(out).recommend(batch, k=6)
+    got = tserving.CascadeRecommender.load(out, device="cpu").recommend(batch, k=6)
     assert_same_answers(got, jcasc.recommend(batch, k=6))
     out = script.export(os.path.join(jpath, "recall"), str(tmp_path / "torch_recall"))
-    assert_same_answers(tserving.Recommender.load(out).recommend(batch, k=6),
+    assert_same_answers(tserving.Recommender.load(out, device="cpu").recommend(batch, k=6),
                         jcasc.recall.recommend(batch, k=6))
 
 
@@ -225,27 +225,33 @@ def test_http_shim_rejects_bad_requests(server, users_json, extra, match):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py load without JAX: the JAX package's
-    modules they share (config, zoo, packed dataset, logging) import none."""
+    """The port, chip_smoke.py and chip_profile.py load without JAX and
+    without any module of the JAX package: the port keeps its own copies of
+    the backend-free modules the two share (tests/test_torch_shared.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import news_recsys_tpu_torch as p, chip_smoke\n"
+        "import news_recsys_tpu_torch as p, chip_smoke, chip_profile\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'news_recsys_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the chip scripts reach the shared modules only through the port
-    for script in ("chip_smoke.py", "chip_profile.py"):
-        with open(os.path.join(REPO, script)) as f:
+    # nor does any file of the port, or a chip script, name such an import
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_profile.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "news_recsys_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    files.append(os.path.join(REPO, "tests", "test_torch_cuda.py"))
+    for path in files:
+        with open(path) as f:
             tree = ast.parse(f.read())
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-        assert not [m for m in names if m and m.split(".")[0] == "news_recsys_tpu"], script
+        assert not [m for m in names if m and m.split(".")[0] in
+                    ("jax", "jaxlib", "flax", "optax", "news_recsys_tpu")], path
 
 
 def test_serve_cli_refuses_missing_gpu(stacks, tmp_path):
@@ -257,3 +263,33 @@ def test_serve_cli_refuses_missing_gpu(stacks, tmp_path):
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "no CUDA GPU is visible" in proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["build_ranker", "build_dssm", "Trainer", "TopKSearcher",
+                                   "Recommender.load", "CascadeRecommender.load"])
+def test_entry_points_default_to_the_card(stacks, tmp_path, entry):
+    """With no ``device=`` an entry point runs on the card, and raises where
+    there is none: nothing carries on on the CPU unasked."""
+    import inspect
+
+    from news_recsys_tpu_torch.ops.topk import TopKSearcher
+    from news_recsys_tpu_torch.training.trainer import Trainer
+
+    tcasc = stacks[1]
+    fn = {"build_ranker": build_ranker, "build_dssm": build_dssm, "Trainer": Trainer,
+          "TopKSearcher": TopKSearcher, "Recommender.load": tserving.Recommender.load,
+          "CascadeRecommender.load": tserving.CascadeRecommender.load}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is there to use")
+    path = tcasc.save(str(tmp_path / "bundle"))
+    calls = {"build_ranker": lambda: build_ranker(tcasc.ranker_cfg),
+             "build_dssm": lambda: build_dssm(tcasc.recall.cfg),
+             "Trainer": lambda: Trainer(tcasc.ranker_cfg, tcasc.ranker_model,
+                                        workdir=str(tmp_path / "work")),
+             "TopKSearcher": lambda: TopKSearcher().update_embedding(np.zeros((4, 2), np.float32)),
+             "Recommender.load": lambda: tserving.Recommender.load(os.path.join(path, "recall")),
+             "CascadeRecommender.load": lambda: tserving.CascadeRecommender.load(path)}
+    with pytest.raises((AssertionError, RuntimeError), match="(?i)cuda|nvidia"):
+        calls[entry]()
+    assert next(tcasc.ranker_model.parameters()).device.type == "cpu"

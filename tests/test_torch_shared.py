@@ -1,0 +1,242 @@
+"""The port's own copies of the JAX package's backend-free modules, held to
+the originals on the CPU: ``config``, ``zoo``, ``data.packed_dataset``,
+``training.metrics`` and ``utils.logging``.
+
+The port imports nothing of the JAX package, so it keeps a copy of what the
+two share. The reference is frozen; these tests are what keeps a copy from
+drifting. A config crosses between the packages as the plain dict of
+``config_to_dict`` / ``config_from_dict``. Everything here is compared for
+equality: nothing is summed in another order.
+"""
+
+import dataclasses
+import glob
+import logging
+import os
+
+import numpy as np
+import pytest
+
+from news_recsys_tpu import config as jconfig
+from news_recsys_tpu import zoo as jzoo
+from news_recsys_tpu.data import packed_dataset as jpacked
+from news_recsys_tpu.training import metrics as jmetrics
+from news_recsys_tpu.utils import logging as jlogging
+from news_recsys_tpu_torch import config as tconfig
+from news_recsys_tpu_torch import zoo as tzoo
+from news_recsys_tpu_torch.data import packed_dataset as tpacked
+from news_recsys_tpu_torch.training import metrics as tmetrics
+from news_recsys_tpu_torch.utils import logging as tlogging
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAMLS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
+
+
+def to_jax(cfg):
+    """A port config as the JAX package's, through its plain dict."""
+    return jconfig.config_from_dict(tconfig.config_to_dict(cfg))
+
+
+def config_pairs():
+    """name -> a function giving (the port's config, the JAX package's)."""
+    pairs = {y: (lambda y=y: (tconfig.load_config(os.path.join(REPO, "configs", y)),
+                              jconfig.load_config(os.path.join(REPO, "configs", y))))
+             for y in YAMLS}
+    pairs["mind_config"] = lambda: (tzoo.mind_config("dcn"), jzoo.mind_config("dcn"))
+    pairs["mind_config(rowwise, no arena, equal dims)"] = lambda: (
+        tzoo.mind_config("fm", batch_size=64, equal_dims=True,
+                         embedding_optimizer="rowwise_adagrad", arena_tables=False),
+        jzoo.mind_config("fm", batch_size=64, equal_dims=True,
+                         embedding_optimizer="rowwise_adagrad", arena_tables=False))
+    pairs["attention_config"] = lambda: (tzoo.attention_config(), jzoo.attention_config())
+    pairs["attention_config(adamw, hist 12)"] = lambda: (
+        tzoo.attention_config(batch_size=64, hist_len=12, embedding_optimizer="adamw"),
+        jzoo.attention_config(batch_size=64, hist_len=12, embedding_optimizer="adamw"))
+    pairs["mind_dssm_config"] = lambda: (
+        tzoo.mind_dssm_config(), jconfig.load_config(os.path.join(REPO, "configs", "dssm.yaml")))
+    for name in tzoo.RANKER_RECIPES:
+        pairs[f"mind_ranker_config({name})"] = lambda name=name: (
+            tzoo.mind_ranker_config(name), to_jax(tzoo.mind_ranker_config(name)))
+    return pairs
+
+
+PAIRS = config_pairs()
+
+
+def schema_rows(schema):
+    return [dataclasses.asdict(s) for s in schema.specs]
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_config_copy_equals_the_original(name):
+    tcfg, jcfg = PAIRS[name]()
+    assert tconfig.config_to_dict(tcfg) == jconfig.config_to_dict(jcfg)
+    # and the dict round-trips in both directions
+    assert jconfig.config_to_dict(to_jax(tcfg)) == jconfig.config_to_dict(jcfg)
+    assert tconfig.config_to_dict(tconfig.config_from_dict(jconfig.config_to_dict(jcfg))) == \
+        tconfig.config_to_dict(tcfg)
+    assert tconfig.table_specs(tcfg) == jconfig.table_specs(jcfg)
+    assert tconfig.arena_layout(tcfg) == jconfig.arena_layout(jcfg)
+    f = jcfg.features
+    for names in (None, sorted(f.user_feature_names), sorted(f.item_feature_names)):
+        got, want = tconfig.build_schema(tcfg, names), jconfig.build_schema(jcfg, names)
+        assert schema_rows(got) == schema_rows(want)       # names, kinds, tables, dims,
+        assert got.names == want.names                     # offsets, id_offset, member_vocab
+        assert got.dims == want.dims and got.total_dim == want.total_dim
+        assert schema_rows(got.subset(got.names[:2])) == schema_rows(want.subset(want.names[:2]))
+
+
+@pytest.mark.parametrize("raw,match", [
+    ({"features": {"array_feature_names": ["hist"]}}, "max_length not defined"),
+    ({"features": {"sparse_feature_names": ["a"]}}, "Embedding size"),
+    ({"train_hparams": {"lr_milestones": [1]}}, "lr_milestones"),
+    ({"embeddings": {"init_scale": 0}}, "init_scale"),
+    ({"mesh": {"param_dtype": "float16"}}, "param_dtype"),
+    ({"train_hparams": {"embedding_optimizer": "sgd"}}, "embedding_optimizer"),
+    ({"train_hparams": {"embedding_update_period": 0}}, "embedding_update_period"),
+    ({"train_hparams": {"embedding_update_period": 2}}, "requires"),
+    ({"mesh": {"param_dtype": "bfloat16"}}, "requires a rowwise"),
+])
+def test_config_copy_validates_as_the_original(raw, match):
+    for module in (tconfig, jconfig):
+        with pytest.raises(ValueError, match=match):
+            module.config_from_dict(raw)
+
+
+def test_config_constants_equal():
+    for name in ("SPARSE", "DENSE", "ARRAY", "DENSE_FEATURE_DIM", "ARENA_MIN_VOCAB"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+    assert tzoo.MIND_FEATURES == jzoo.MIND_FEATURES
+    assert tzoo.MIND_TABLE_SIZE == jzoo.MIND_TABLE_SIZE
+    assert tzoo.MIND_EMB_SIZE == jzoo.MIND_EMB_SIZE
+    assert tzoo.ATTENTION_HIST_LEN == jzoo.ATTENTION_HIST_LEN
+    with pytest.raises(FileNotFoundError):
+        tconfig.load_config("no/such.yaml")
+
+
+@pytest.mark.parametrize("rows,hist_len,seed", [(64, 30, 0), (7, 12, 3), (512, 30, 11)])
+def test_attention_arrays_equal(rows, hist_len, seed):
+    got, want = tzoo.attention_arrays(rows, hist_len, seed), jzoo.attention_arrays(
+        rows, hist_len, seed)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# -- the packed dataset --------------------------------------------------------
+
+
+def packed_arrays(n, seed):
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, 50, (n, 6)).astype(np.int32)
+    return {"user_id": rng.integers(1, 99, n).astype(np.int64),
+            "item_id": rng.integers(1, 50, n).astype(np.int32),
+            "hist": hist, "hist_mask": (hist != 0).astype(np.float32),
+            "price": rng.random(n).astype(np.float64),
+            "label": (rng.random((n, 1)) < 0.3).astype(np.float32)}
+
+
+def assert_batches_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n,seed", [(37, 0), (128, 1)])
+def test_batch_packer_and_unpack_equal(n, seed):
+    arrays = packed_arrays(n, seed)
+    tds, jds = tpacked.PackedDataset(dict(arrays)), jpacked.PackedDataset(dict(arrays))
+    assert len(tds) == len(jds) == n
+    tp, jp = tpacked.BatchPacker(tds), jpacked.BatchPacker(jds)
+    assert tp.layout_key() == jp.layout_key() and tp.n == jp.n
+    np.testing.assert_array_equal(tp.int_mat, jp.int_mat)
+    np.testing.assert_array_equal(tp.float_mat, jp.float_mat)
+    for shuffle in (True, False):
+        got = list(tp.iterate(16, shuffle, seed=5, epoch=2))
+        want = list(jp.iterate(16, shuffle, seed=5, epoch=2))
+        assert len(got) == len(want) == tpacked.num_batches(n, 16, drop_last=shuffle)
+        for (gi, gf, gv), (wi, wf, wv) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gf, wf)
+            np.testing.assert_array_equal(gv, wv)
+            assert_batches_equal(tpacked.unpack_batch(gi, gf, gv, tp.layout_key()),
+                                 jpacked.unpack_batch(wi, wf, wv, jp.layout_key()))
+    idx = np.array([3, 0, 5])
+    assert_batches_equal(tds.take(idx), jds.take(idx))
+
+
+@pytest.mark.parametrize("shuffle,drop_last", [(True, None), (False, None), (False, True)])
+def test_iterate_batches_equal(shuffle, drop_last):
+    arrays = packed_arrays(53, 2)
+    got = list(tpacked.iterate_batches(tpacked.PackedDataset(dict(arrays)), 8, shuffle, seed=4,
+                                       epoch=1, drop_last=drop_last))
+    want = list(jpacked.iterate_batches(jpacked.PackedDataset(dict(arrays)), 8, shuffle, seed=4,
+                                        epoch=1, drop_last=drop_last))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_batches_equal(g, w)
+
+
+def test_packed_dataset_load_and_checks_equal(tmp_path):
+    arrays = packed_arrays(20, 3)
+    arrays["hist_mask"] = arrays["hist_mask"].astype(np.uint8)     # masks at rest
+    path = str(tmp_path / "split.npz")
+    np.savez(path, **arrays)
+    got, want = tpacked.PackedDataset.load(path), jpacked.PackedDataset.load(path)
+    assert got.arrays["hist_mask"].dtype == np.float32
+    assert_batches_equal(got.arrays, want.arrays)
+    for module in (tpacked, jpacked):
+        with pytest.raises(ValueError, match="Empty"):
+            module.PackedDataset({})
+        with pytest.raises(ValueError, match="Inconsistent"):
+            module.PackedDataset({"a": np.zeros(3), "b": np.zeros(4)})
+    # open_split finds the split's npz under the config's out_basedir
+    base = tmp_path / "extractored_feature"
+    base.mkdir()
+    np.savez(str(base / "train_features.npz"), **arrays)
+    cfg = tconfig.config_from_dict({"paths": {"out_basedir": str(tmp_path)}})
+    assert_batches_equal(tpacked.PackedDataset.open_split(cfg, "train").arrays,
+                         jpacked.PackedDataset.open_split(to_jax(cfg), "train").arrays)
+    with pytest.raises(FileNotFoundError):
+        tpacked.PackedDataset.open_split(cfg, "dev")
+
+
+# -- the metric engine ---------------------------------------------------------
+
+
+def metric_inputs(n, users, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    scores = rng.random(n).astype(np.float32)
+    if ties:
+        scores = np.round(scores, 1)
+    return (rng.integers(1, users, n), scores, (rng.random(n) < 0.2).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,users,k,warm,ties", [
+    (2000, 60, 10, "half", False), (2000, 60, 10, "none", True), (500, 200, 5, "half", True),
+    (300, 4, 10, "all", False), (0, 5, 10, "none", False)])
+def test_user_metrics_equal(n, users, k, warm, ties):
+    uid, scores, labels = metric_inputs(n, users, seed=n + k, ties=ties)
+    warm_set = {"none": None, "all": set(range(users)),
+                "half": {u for u in range(users) if u % 2}}[warm]
+    got = tmetrics.compute_user_metrics(uid, scores, labels, warm_set, k=k)
+    want = jmetrics.compute_user_metrics(uid, scores, labels, warm_set, k=k)
+    assert got == want
+    assert tmetrics.format_validation_block(got, 3, k=k) == jmetrics.format_validation_block(
+        want, 3, k=k)
+    assert tmetrics.pooled_auc(labels, scores) == jmetrics.pooled_auc(labels, scores)
+    assert tmetrics.pooled_logloss(labels, scores) == jmetrics.pooled_logloss(labels, scores)
+
+
+def test_logger_copy():
+    got, want = tlogging.get_logger("shared_test"), jlogging.get_logger("shared_test")
+    assert got.name == "news_recsys_tpu_torch.shared_test"
+    assert want.name == "news_recsys_tpu.shared_test"
+    assert tlogging.get_logger("shared_test") is got and len(got.handlers) == 1
+    assert got.propagate is want.propagate is False and got.level == want.level
+    record = logging.LogRecord("x", logging.WARNING, "f", 1, "hello", None, None)
+    for colour in (True, False):
+        assert tlogging.ColoredFormatter(colour).format(record) == \
+            jlogging.ColoredFormatter(colour).format(record)

@@ -52,8 +52,8 @@ def test_trainer_fit_matches_jax(monkeypatch, tmp_path, mode):
                           use_mesh=False)
     jstate = jax.device_get(jt.fit(ds, max_epochs=2))
     params = jax_params(cfg, ds, seed=cfg.train_hparams.seed)     # the JAX trainer's init
-    trainer = Trainer(cfg, params_from_flax(params, build_ranker(cfg)),
-                      workdir=str(tmp_path / "port"))
+    trainer = Trainer(cfg, params_from_flax(params, build_ranker(cfg, device="cpu")),
+                      workdir=str(tmp_path / "port"), device="cpu")
     state = trainer.fit(ds, max_epochs=2)
     assert trainer.global_step == jt.global_step == state.step == 8
     assert_states_close(state, jstate, cfg, tol=dict(rtol=1e-5, atol=5e-5))

@@ -90,7 +90,7 @@ def port_batches(packer, idx):
 def port_train(cfg, state, packer, idx):
     """The port's step over the rows ``idx``; returns (state, hist, last loss)."""
     step = tss.make_sparse_train_step(state.model, cfg)
-    hist = AucHist.zeros()
+    hist = AucHist.zeros("cpu")
     loss = None
     for batch in port_batches(packer, idx):
         loss, _ = step(state, batch, hist)
@@ -98,7 +98,7 @@ def port_train(cfg, state, packer, idx):
 
 
 def port_state(cfg, params):
-    return tss.init_sparse_state(params_from_flax(params, build_ranker(cfg)), cfg)
+    return tss.init_sparse_state(params_from_flax(params, build_ranker(cfg, device="cpu")), cfg)
 
 
 def assert_states_close(port, jax_state, cfg, tol=TOL):
@@ -175,14 +175,14 @@ def test_binned_auc_matches_jax():
     weights = rng.random(1000).astype(np.float32)
     weights[10:20] = 0.0
     jhist = jtrainer.binned_auc_update(jtrainer.AucHist.zeros(), probs, labels, weights)
-    hist = AucHist.zeros()
+    hist = AucHist.zeros("cpu")
     for part in np.array_split(np.arange(1000), 3):    # streamed in three batches
         binned_auc_update(hist, *(torch.from_numpy(a[part]) for a in (probs, labels, weights)))
     np.testing.assert_allclose(hist.pos.numpy(), np.asarray(jhist.pos), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(hist.neg.numpy(), np.asarray(jhist.neg), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(binned_auc_value(hist), float(jtrainer.binned_auc_value(jhist)),
                                rtol=1e-6)
-    assert binned_auc_value(AucHist.zeros()) == 0.0
+    assert binned_auc_value(AucHist.zeros("cpu")) == 0.0
 
 
 # -- dedup and the rowwise update --------------------------------------------
@@ -318,7 +318,7 @@ def test_jax_state_continues_in_the_port(monkeypatch):
     params = jax_params(cfg, ds, seed=2)
     idx = step_indices(ds, cfg, 4)
     s2, _, _ = jax_train(cfg, params, packer, idx[:2], monkeypatch)
-    state = sparse_state_from_jax(s2, build_ranker(cfg), cfg)
+    state = sparse_state_from_jax(s2, build_ranker(cfg, device="cpu"), cfg)
     s4, _, jloss = jax_train(cfg, s2, packer, idx[2:], monkeypatch)
     state, _, loss = port_train(cfg, state, packer, idx[2:])
     np.testing.assert_allclose(loss, jloss, **TOL)
@@ -332,7 +332,7 @@ def test_sparse_state_round_trip(monkeypatch):
     s1, _, _ = jax_train(cfg, jax_params(cfg, ds, seed=3), packer, step_indices(ds, cfg, 1),
                          monkeypatch)
     want = flatten_sparse_state(s1)
-    got = sparse_state_to_jax(sparse_state_from_jax(s1, build_ranker(cfg), cfg))
+    got = sparse_state_to_jax(sparse_state_from_jax(s1, build_ranker(cfg, device="cpu"), cfg))
     assert sorted(got) == sorted(want)
     for section in ("params", "emb_mu"):
         assert sorted(got[section]) == sorted(want[section])
@@ -343,7 +343,7 @@ def test_sparse_state_round_trip(monkeypatch):
             np.testing.assert_array_equal(got["dense_opt"][key][k], v, err_msg=k)
     assert int(got["dense_opt"]["count"]) == int(want["dense_opt"]["count"]) == 1
     assert int(got["step"]) == 1
-    again = sparse_state_to_jax(sparse_state_from_jax(got, build_ranker(cfg), cfg))
+    again = sparse_state_to_jax(sparse_state_from_jax(got, build_ranker(cfg, device="cpu"), cfg))
     for k, v in got["params"].items():
         np.testing.assert_array_equal(again["params"][k], v, err_msg=k)
 
@@ -353,14 +353,13 @@ def test_sparse_state_round_trip(monkeypatch):
 
 @pytest.mark.parametrize("train,mesh", [
     ({"embedding_optimizer": "sparse_adamw"}, {}),
-    ({"embedding_optimizer": "adamw"}, {}),
     ({"embedding_update_period": 4}, {}),
     ({}, {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}),
     ({}, {"model": 2}),
-], ids=["sparse_adamw", "adamw", "K>1", "bf16", "model-parallel"])
+], ids=["sparse_adamw", "K>1", "bf16", "model-parallel"])
 def test_unported_options_raise(train, mesh):
     cfg = train_cfg(True, mesh=mesh, **train)
-    model = build_ranker(train_cfg(True))
+    model = build_ranker(train_cfg(True), device="cpu")
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
         tss.make_sparse_train_step(model, cfg)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
@@ -370,7 +369,7 @@ def test_unported_options_raise(train, mesh):
 def test_unported_runtime_raises(tmp_path):
     cfg = train_cfg(True)
     ds = train_dataset(cfg, 128, seed=7)
-    trainer = Trainer(train_cfg(True, device_resident_bytes=1024), build_ranker(cfg),
-                      workdir=str(tmp_path))
+    trainer = Trainer(train_cfg(True, device_resident_bytes=1024), build_ranker(cfg, device="cpu"),
+                      workdir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 2"):
         trainer.fit(ds, max_epochs=1)

@@ -68,8 +68,8 @@ def both_trainers(cfg, tmp_path, seed=0):
     params = jax_params(cfg, ds, seed=seed)
     jt = jtrainer.Trainer(cfg, jbuild_ranker(cfg, cfg.name), workdir=str(tmp_path / "jax"),
                           use_mesh=False)
-    port = Trainer(cfg, params_from_flax(params, build_ranker(cfg)),
-                   workdir=str(tmp_path / "port"))
+    port = Trainer(cfg, params_from_flax(params, build_ranker(cfg, device="cpu")),
+                   workdir=str(tmp_path / "port"), device="cpu")
     return jt, params, port
 
 
@@ -130,8 +130,9 @@ def test_validate_matches_jax(monkeypatch, tmp_path, name):
 
 def test_validate_refuses_another_model(tmp_path):
     cfg = zoo_train_cfg("fm")
-    port = Trainer(cfg, build_ranker(cfg), workdir=str(tmp_path))
-    other = Trainer(cfg, build_ranker(cfg), workdir=str(tmp_path / "other"))
+    port = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(tmp_path), device="cpu")
+    other = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(tmp_path / "other"),
+                    device="cpu")
     with pytest.raises(ValueError, match="not this trainer's"):
         port.validate(other.init_state(), dev_dataset(cfg), epoch=0)
 
@@ -149,8 +150,8 @@ def test_fit_validates_every_val_freq_epochs(monkeypatch, tmp_path, val_freq, ep
                           use_mesh=False)
     jstate = jax.device_get(jt.fit(ds, dev, warm, max_epochs=epochs))
     params = jax_params(cfg, ds, seed=cfg.train_hparams.seed)
-    port = Trainer(cfg, params_from_flax(params, build_ranker(cfg)),
-                   workdir=str(tmp_path / "port"))
+    port = Trainer(cfg, params_from_flax(params, build_ranker(cfg, device="cpu")),
+                   workdir=str(tmp_path / "port"), device="cpu")
     state = port.fit(ds, dev, warm, max_epochs=epochs)
     assert_states_close(state, jstate, cfg, tol=dict(rtol=1e-5, atol=5e-5))
     got, want = (read_jsonl(tmp_path / d / "metrics.jsonl") for d in ("port", "jax"))
@@ -185,10 +186,10 @@ def deepfm_stacks():
                                    backend="device", batch_size=16)
     jcasc = jserving.CascadeRecommender(jrecall, rcfg, jranker, rparams,
                                         PackedDataset(dict(items)), fetch=FETCH)
-    trecall = tserving.Recommender(dcfg, params_from_flax(dparams, build_dssm(dcfg)),
+    trecall = tserving.Recommender(dcfg, params_from_flax(dparams, build_dssm(dcfg, device="cpu")),
                                    PackedDataset(dict(items)), device="cpu", batch_size=16)
     tcasc = tserving.CascadeRecommender(trecall, rcfg,
-                                        params_from_flax(rparams, build_ranker(rcfg)),
+                                        params_from_flax(rparams, build_ranker(rcfg, device="cpu")),
                                         PackedDataset(dict(items)), fetch=FETCH)
     return jcasc, tcasc
 
@@ -213,7 +214,7 @@ def test_deepfm_cascade_bundle_and_export(monkeypatch, deepfm_stacks, tmp_path):
     jcasc, tcasc = deepfm_stacks
     batch = users(8, seed=5)
     want = tcasc.recommend(batch, k=5, histories=histories_of(batch))
-    loaded = tserving.CascadeRecommender.load(tcasc.save(str(tmp_path / "bundle")))
+    loaded = tserving.CascadeRecommender.load(tcasc.save(str(tmp_path / "bundle")), device="cpu")
     assert type(loaded.ranker_model).__name__ == "DeepFMRanker"
     assert loaded.recommend(batch, k=5, histories=histories_of(batch)) == want
     spec = importlib.util.spec_from_file_location(
@@ -221,5 +222,5 @@ def test_deepfm_cascade_bundle_and_export(monkeypatch, deepfm_stacks, tmp_path):
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     out = script.export(jcasc.save(str(tmp_path / "jax")), str(tmp_path / "torch"))
-    assert_same_answers(tserving.CascadeRecommender.load(out).recommend(batch, k=6),
+    assert_same_answers(tserving.CascadeRecommender.load(out, device="cpu").recommend(batch, k=6),
                         jcasc.recommend(batch, k=6))

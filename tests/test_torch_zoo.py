@@ -71,12 +71,26 @@ def test_fm_second_order_checks_its_input():
 # -- the rankers ---------------------------------------------------------------
 
 
+def scoreboard_attention_arrays(n, seed):
+    """``hist`` (n, 30) with ragged lengths (row 0 empty, row 1 full) and its
+    mask, and ``entities`` (n, 5) with padding, for the scoreboard attention
+    recipe."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, 65239, (n, 30)).astype(np.int32)
+    lengths = rng.integers(0, 31, n)
+    lengths[:2] = (0, 30)
+    hist[np.arange(30)[None, :] >= lengths[:, None]] = 0
+    entities = rng.integers(1, 30000, (n, 5)).astype(np.int32)
+    entities[np.arange(5)[None, :] >= rng.integers(0, 6, n)[:, None]] = 0
+    return {"hist": hist, "hist_mask": (hist != 0).astype(np.float32), "entities": entities}
+
+
 def init_both(cfg, n=64, seed=1):
     """(JAX model, its init params, port model with those params, batch)."""
     batch = train_dataset(cfg, n, seed=seed).take(np.arange(n))
     jmodel = jbuild_ranker(cfg, cfg.name)
     params = jax_init(jmodel, batch, seed=seed)
-    return jmodel, params, params_from_flax(params, build_ranker(cfg)), batch
+    return jmodel, params, params_from_flax(params, build_ranker(cfg, device="cpu")), batch
 
 
 @pytest.mark.parametrize("arena", [True, False], ids=["arena", "tables"])
@@ -92,19 +106,28 @@ def test_ranker_logits_match_jax(monkeypatch, name, arena):
 @pytest.mark.parametrize("name", RANKER_RECIPES)
 def test_ranker_logits_match_jax_at_scoreboard_width(monkeypatch, name):
     """``mind_ranker_config(name)``: the arena table at its scoreboard width
-    (159,360 rows of 1, 16 or 32), the small tables, batch 64."""
+    (159,360 rows of 1, 16 or 32), the small tables, batch 64. The attention
+    recipes form no arena (the item table backs ``hist``): user 94,080 x 32,
+    item 65,280 x 32 and entities 30,080 x 16, with empty histories."""
     from news_recsys_tpu.zoo import synthetic_batch
 
     monkeypatch.setenv("NRT_PALLAS", "interpret")
     cfg = mind_ranker_config(name)
     batch = synthetic_batch(64, seed=5)
     batch.pop("_valid")
+    if cfg.name == "attention":
+        batch.update(scoreboard_attention_arrays(64, seed=6))
     jmodel = jbuild_ranker(cfg, cfg.name)
     params = jax_init(jmodel, batch)
-    model = params_from_flax(params, build_ranker(cfg))
-    dim = {"lr": 1, "fm": 16, "deepfm": 16}.get(cfg.name, 32)
-    assert model.embedder.tables[f"arena_d{dim}"].shape == (padded_vocab(159296), dim) == (
-        159360, dim)
+    model = params_from_flax(params, build_ranker(cfg, device="cpu"))
+    if cfg.name == "attention":
+        assert {t: tuple(p.shape) for t, p in model.embedder.tables.items()
+                if p.shape[0] > 4096} == {"user_id": (94080, 32), "item_id": (65280, 32),
+                                          "entities": (30080, 16)}
+    else:
+        dim = {"lr": 1, "fm": 16, "deepfm": 16}.get(cfg.name, 32)
+        assert model.embedder.tables[f"arena_d{dim}"].shape == (padded_vocab(159296), dim) == (
+            159360, dim)
     with torch.inference_mode():
         got = model(torch_batch(batch)).numpy()
     np.testing.assert_allclose(got, np.asarray(jmodel.apply(params, batch)), atol=1e-4)
@@ -117,25 +140,25 @@ def test_params_round_trip_through_flax_paths(name):
     assert sorted(flat) == sorted(want)
     for key, value in want.items():
         np.testing.assert_array_equal(flat[key], value, err_msg=key)
-    seeded = params_to_flax(build_ranker(zoo_train_cfg(name, arena=False), seed=3))
+    seeded = params_to_flax(build_ranker(zoo_train_cfg(name, arena=False), seed=3, device="cpu"))
     assert {k: v.shape for k, v in seeded.items()} == {k: v.shape for k, v in want.items()}
 
 
 def test_param_names_map_one_to_one():
     """``bias``, ``tower.layers.<i>`` and DCN-v2's ``cross.layers.<i>``."""
-    names = {n: dict(build_ranker(zoo_train_cfg(n)).named_parameters()) for n in ZOO}
+    names = {n: dict(build_ranker(zoo_train_cfg(n), device="cpu").named_parameters()) for n in ZOO}
     assert set(names["lr"]) == {f"embedder.tables.{t}" for t in
                                 ("arena_d1", "category", "subcategory")}
     assert names["deepfm"]["bias"].shape == names["fm"]["bias"].shape == (1,)
     assert names["widedeep"]["tower.layers.0.weight"].shape == (128, 16 + 16 + 8 + 8)
     assert "bias" not in names["deep"] and "bias" not in names["dcn@v2"]
     assert names["dcn@v2"]["cross.layers.1.weight"].shape == (48, 48)
-    flat = params_to_flax(build_ranker(zoo_train_cfg("dcn@v2")))
+    flat = params_to_flax(build_ranker(zoo_train_cfg("dcn@v2"), device="cpu"))
     assert "cross/Linear_1/Dense_0/kernel" in flat and "tower/Linear_4/Dense_0/bias" in flat
 
 
 def test_params_from_flax_is_strict_for_the_zoo():
-    model = build_ranker(zoo_train_cfg("deepfm"))
+    model = build_ranker(zoo_train_cfg("deepfm"), device="cpu")
     flat = params_to_flax(model)
     with pytest.raises(KeyError, match="no port parameter"):
         params_from_flax({**flat, "wide/bias": np.zeros(1)}, model)
@@ -151,7 +174,7 @@ def test_fm_models_require_equal_dims():
     batch = torch_batch(train_dataset(cfg, 4, seed=0).take(np.arange(4)))
     for name, what in (("fm", "FM"), ("deepfm", "DeepFM")):
         with pytest.raises(AssertionError, match=f"{what} requires equal embedding dims"):
-            build_ranker(cfg, name)(batch)
+            build_ranker(cfg, name, device="cpu")(batch)
 
 
 def test_widedeep_needs_a_wide_feature_in_the_schema():
@@ -166,9 +189,9 @@ def test_widedeep_needs_a_wide_feature_in_the_schema():
 def test_build_ranker_builds_the_zoo():
     for name in ZOO + ("dcn",):
         cfg = zoo_train_cfg(name)
-        model = build_ranker(cfg, seed=2)
+        model = build_ranker(cfg, seed=2, device="cpu")
         assert type(model).__name__ == type(jbuild_ranker(cfg, cfg.name)).__name__
-    v2 = build_ranker(zoo_train_cfg("dcn@v2"))
+    v2 = build_ranker(zoo_train_cfg("dcn@v2"), device="cpu")
     assert type(v2.cross).__name__ == "CrossNetV2" and len(v2.cross.layers) == 2
 
 
@@ -204,6 +227,7 @@ def test_mind_ranker_config_is_the_scoreboard_recipe(name, tmp_path, monkeypatch
     assert sorted(got) == sorted(want)
     for section in want:
         assert got[section] == want[section], section
-    assert got["train_hparams"]["embedding_optimizer"] == "rowwise_adagrad"
+    assert got["train_hparams"]["embedding_optimizer"] == (
+        "adamw" if name.endswith("@adamw") else "rowwise_adagrad")
     with pytest.raises(ValueError, match="no scoreboard recipe"):
-        mind_ranker_config("attention")
+        mind_ranker_config("dssm")

@@ -77,7 +77,7 @@ def test_sparse_state_round_trip(monkeypatch, name):
     idx = step_indices(ds, cfg, 2)
     s1, _, _ = jax_train(cfg, jax_params(cfg, ds, seed=3), packer, idx[:1], monkeypatch)
     want = flatten_sparse_state(s1)
-    state = sparse_state_from_jax(s1, build_ranker(cfg), cfg)
+    state = sparse_state_from_jax(s1, build_ranker(cfg, device="cpu"), cfg)
     got = sparse_state_to_jax(state)
     for section in ("params", "emb_mu"):
         assert sorted(got[section]) == sorted(want[section])
@@ -109,7 +109,8 @@ def all_large_lr_cfg():
 
 def test_lr_with_only_large_tables_trains_as_jax(monkeypatch):
     cfg = all_large_lr_cfg()
-    assert all(v >= tss.SMALL_VOCAB_THRESHOLD for v, _ in build_ranker(cfg).tables.values())
+    tables = build_ranker(cfg, device="cpu").tables
+    assert all(v >= tss.SMALL_VOCAB_THRESHOLD for v, _ in tables.values())
     ds = train_dataset(cfg, 192, seed=7)
     packer = BatchPacker(ds)
     params = jax_params(cfg, ds, seed=2)
@@ -120,7 +121,7 @@ def test_lr_with_only_large_tables_trains_as_jax(monkeypatch):
     state, _, loss = port_train(cfg, state, packer, idx)
     np.testing.assert_allclose(loss, jloss, **TOL)
     assert_states_close(state, jstate, cfg)
-    again = sparse_state_from_jax(sparse_state_to_jax(state), build_ranker(cfg), cfg)
+    again = sparse_state_from_jax(sparse_state_to_jax(state), build_ranker(cfg, device="cpu"), cfg)
     assert again.step == 3 and again.dense_opt is None
 
 
