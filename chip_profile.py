@@ -2,6 +2,7 @@
 port, on one CUDA GPU.
 
     python3 chip_profile.py [--users 64,256,1024] [--requests 10]
+    python3 chip_profile.py --block-split
 
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
@@ -33,6 +34,15 @@ forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
 wrapped with card syncs), traced (device time per step, top kernels). The
 device-busy share of a step is the traced device time per step over the
 plain run's.
+
+``--block-split`` instead takes the fused Transformer block's kernels apart at
+the attention ranker's widths: each launch of the backward by name (both
+routes, batch 512, from a ``torch.profiler`` trace), and the general route's
+forward at batch 6,400 and 512 whole, with its products alone and with its
+attention alone (two copies of ``csrc/fused_attention.cu`` with one line
+changed each, built beside the library; their outputs are not the block's);
+and the tiled route with its TF32 split made by ``cvt.rna.tf32.f32`` instead
+of integer rounding (``-DNRT_SPLIT_WITH_CVT``), forward and backward.
 """
 
 from __future__ import annotations
@@ -208,15 +218,129 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
               f"({e.count // steps} calls)")
 
 
+# (what a variant of the general forward leaves out, the line changed, its replacement)
+FORWARD_VARIANTS = {
+    "products alone (no attention loop)": (
+        "  for (int h = 0; h < H; ++h) {\n    attention_probs(sS, sQKV, ldq, sM, L, D, hd, h, scale);"
+        "\n    const float* v = sQKV",
+        "  for (int h = 0; h < 0; ++h) {\n    attention_probs(sS, sQKV, ldq, sM, L, D, hd, h, scale);"
+        "\n    const float* v = sQKV"),
+    "attention alone (no products)": (
+        "  const int groups = (R + RB - 1) / RB;\n  for (int item = threadIdx.x; item < groups * N;",
+        "  const int groups = 0;\n  for (int item = threadIdx.x; item < groups * N;"),
+}
+
+
+def build_variant(src, tag: str, entry: str, flags=()):
+    """``src`` built as a library of its own under the build directory;
+    returns its C entry point ``entry``."""
+    import ctypes
+    import subprocess
+
+    from news_recsys_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"{tag}.so"
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", f"-I{_build.CSRC_DIR}", *flags, "-o", str(lib),
+                    str(src)], check=True)
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
+    return fn
+
+
+def build_forward_variant(old: str, new: str, tag: str):
+    """``csrc/fused_attention.cu`` with ``old`` replaced by ``new``."""
+    from news_recsys_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "fused_attention.cu").read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"variant {tag!r}: the line to change occurs {text.count(old)} times")
+    src = _build.BUILD_DIR / "variants" / f"{tag}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(old, new))
+    return build_variant(src, tag, "nrt_fused_block_fwd")
+
+
+def block_split(smi: str) -> None:
+    import ctypes
+
+    from news_recsys_tpu_torch.ops import _build
+    from news_recsys_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    L, D, H, F = chip_smoke.BLOCK_L, chip_smoke.BLOCK_D, chip_smoke.BLOCK_H, chip_smoke.BLOCK_F
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"\n== the fused block's kernels taken apart, L={L} D={D} H={H} F={F} ({smi})")
+    *params, x, mask, dy = chip_smoke.block_case(chip_smoke.TRAIN_BATCH, chip_smoke.SEED, dev)
+    reps = 20
+    for route in fa.ROUTES:
+        fa.fused_transformer_block_bwd(params, x, mask, dy, H, route=route)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fa.fused_transformer_block_bwd(params, x, mask, dy, H, route=route)
+            torch.cuda.synchronize()
+        print(f"  backward, B={chip_smoke.TRAIN_BATCH}, route {route}: "
+              f"{fa.plan_shape(x.shape[0], L, D, F, H, sms, True, route)}")
+        for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
+            print(f"    {e.key[:72]:72s} {e.self_device_time_total / reps:8.2f} us/call "
+                  f"({e.count // reps} launches)")
+    variants = {tag: build_forward_variant(old, new, f"variant{i}")
+                for i, (tag, (old, new)) in enumerate(FORWARD_VARIANTS.items())}
+    cvt = {d: build_variant(_build.CSRC_DIR / f"fused_attention_tiled_{d}.cu", f"cvt_{d}",
+                            f"nrt_fused_block_tiled_{d}", ("-DNRT_SPLIT_WITH_CVT",))
+           for d in ("fwd", "bwd")}
+    for B in (chip_smoke.USERS_PER_REQUEST * chip_smoke.FETCH, chip_smoke.TRAIN_BATCH):
+        *params, x, mask, dy = chip_smoke.block_case(B, chip_smoke.SEED, dev)
+        plan = fa.plan_shape(B, L, D, F, H, sms, False, "general")
+        out, ptrs = torch.empty_like(x), fa._param_pointers(params)
+        args = (x.data_ptr(), mask.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), None,
+                B, L, D, F, H, plan.blocks)
+        with torch.inference_mode():
+            whole = {r: chip_smoke.device_ms(
+                lambda: fa.fused_transformer_block(params, x, mask, H, route=r),
+                **chip_smoke.DEEP) for r in fa.ROUTES}
+            parts = {tag: chip_smoke.device_ms(lambda: fn(*args, fa.stream_ptr(x)),
+                                               **chip_smoke.DEEP) for tag, fn in variants.items()}
+        print(f"  forward, B={B}: " + ", ".join(f"{r} route {t * 1e3:.2f} us"
+                                                for r, t in whole.items()))
+        for tag, t in parts.items():
+            print(f"    general route, {tag:36s} {t * 1e3:8.2f} us")
+        plan = fa.plan_shape(B, L, D, F, H, sms, False)
+        args = (x.data_ptr(), mask.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), B, L,
+                plan.blocks)
+        t = chip_smoke.device_ms(lambda: cvt["fwd"](*args, fa.stream_ptr(x)), **chip_smoke.DEEP)
+        print(f"    tiled route, the split by cvt.rna.tf32.f32           {t * 1e3:8.2f} us")
+    plan = fa.plan_shape(B, L, D, F, H, sms, True)
+    dx, dflat = torch.empty_like(x), x.new_empty((fa.param_floats(D, F),))
+    partial = x.new_empty((plan.blocks * dflat.numel(),))
+    args = (x.data_ptr(), mask.data_ptr(), dy.data_ptr(), ctypes.addressof(ptrs), dx.data_ptr(),
+            dflat.data_ptr(), partial.data_ptr(), B, L, plan.blocks)
+    whole = {r: chip_smoke.device_ms(
+        lambda: fa.fused_transformer_block_bwd(params, x, mask, dy, H, route=r),
+        **chip_smoke.DEEP) for r in fa.ROUTES}
+    t = chip_smoke.device_ms(lambda: cvt["bwd"](*args, fa.stream_ptr(x)), **chip_smoke.DEEP)
+    print(f"  backward, B={B}: " + ", ".join(f"{r} route {v * 1e3:.2f} us"
+                                             for r, v in whole.items()))
+    print(f"    tiled route, the split by cvt.rna.tf32.f32           {t * 1e3:8.2f} us")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--users", default="64,256,1024")
     p.add_argument("--requests", type=int, default=10)
+    p.add_argument("--block-split", action="store_true",
+                   help="take the fused block's kernels apart instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     smi = chip_smoke.card()
     print(smi, flush=True)
+    if args.block_split:
+        block_split(smi)
+        return
     for ranker in ("dcn", "attention"):
         profile_serving(smi, ranker, args)
     for ranker in FORWARD_KERNELS:

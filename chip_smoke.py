@@ -18,8 +18,11 @@ phase fails:
    card at its path's shapes, and times both (device time from CUDA graph
    replays, and wall time per call with host overhead); beside them the bound (the
    least time the card could take: bytes moved over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger, from this run's inputs)
-   and, where one PyTorch call computes the same function, that call's time;
+   operations over the peak of the units the kernel uses, 67 TFLOP/s outside
+   the tensor cores and 495 TFLOP/s in TF32 on them, whichever is larger,
+   from this run's inputs) and, where one PyTorch call computes the same
+   function, that call's time; the fused block runs both its routes (tiled
+   and general) against the plain version and times them in the same run;
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -117,10 +120,13 @@ BLOCK_GRAD_RTOL = 2e-4
 # this slice's kernels and their plain versions take 50 us to 3 ms a call:
 # fewer replays and calls than the microsecond kernels get
 DEEP = dict(rounds=7, inner=10)
-# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory
-# and float32 outside the tensor cores, which is what every kernel here uses
+# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory,
+# float32 outside the tensor cores (every kernel but the block's tiled route)
+# and dense TF32 on them (the tiled route's mma.sync products; its float32
+# operations are counted once, not the three products of the 3xTF32 split)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 def log(msg: str) -> None:
@@ -178,13 +184,14 @@ def device_ms(fn, rounds: int = 11, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def least_time(nbytes: float, flops: float) -> dict:
+def least_time(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
     """The least time the card could take for ``nbytes`` moved (each input
-    read once, each output written once) and ``flops`` float32 operations."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    read once, each output written once) and ``flops`` float32 operations
+    at ``peak_flops``, the peak of the units the timed kernel uses."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": float(nbytes), "flops": float(flops)}
+            "bytes": float(nbytes), "flops": float(flops), "peak_flops": peak_flops}
 
 
 def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape, work,
@@ -196,6 +203,9 @@ def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
     inputs; ``library_ms``: device ms of the one PyTorch call that computes
     the same function, where there is one."""
     ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    if ms < work["bound_ms"]:
+        raise AssertionError(f"{name} [{shape}]: {ms * 1e3:.2f} us is under its bound of "
+                             f"{work['bound_ms'] * 1e3:.2f} us: the bound is wrong")
     lib = "none" if library_ms is None else f"{library_ms * 1e3:.2f} us"
     log(f"kernel {name} [{shape}]: max_abs_err {err:.3e} ({tol}); device time ({timing}) "
         f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
@@ -412,18 +422,39 @@ def block_case(B: int, seed: int, dev) -> tuple:
     return tuple(torch.from_numpy(a).to(dev) for a in (*params, x, mask, dy))
 
 
-def block_work(B: int, backward: bool) -> dict:
+def block_work(B: int, backward: bool, route: str) -> dict:
     """Bytes and float32 operations of the block at batch ``B``: x (and dy)
     in, y (or dx) out, the mask and the 8,544 parameters (their gradients
     too in the backward); per row 2*(4*D*D + 2*D*F) for the four
     projections and 4*L*D for q k^T and p v. The backward recomputes the
-    forward and then takes two products for each of the forward's."""
+    forward and then takes two products for each of the forward's. The
+    tiled route's products run on the tensor cores: its bound uses the TF32
+    peak."""
     L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
     n_params = 4 * D * D + 2 * D * F + 9 * D + F
     proj, attn = 2 * (4 * D * D + 2 * D * F), 4 * L * D
+    peak = TF32_FLOPS if route == "tiled" else FP32_FLOPS
     if backward:
-        return least_time(4 * (3 * B * L * D + B * L + 2 * n_params), B * L * 3 * (proj + attn))
-    return least_time(4 * (2 * B * L * D + B * L + n_params), B * L * (proj + attn))
+        return least_time(4 * (3 * B * L * D + B * L + 2 * n_params), B * L * 3 * (proj + attn),
+                          peak)
+    return least_time(4 * (2 * B * L * D + B * L + n_params), B * L * (proj + attn), peak)
+
+
+BLOCK_SOURCES = {"general": "news_recsys_tpu_torch/csrc/fused_attention.cu",
+                 "tiled": "news_recsys_tpu_torch/csrc/fused_attention_tiled_{}.cu"}
+
+
+def block_routes(B: int, backward: bool, dev) -> dict:
+    """What the block's entry says of its routes at batch ``B``: the route
+    the wrapper takes with no keyword (the timed launch) and its source."""
+    from news_recsys_tpu_torch.ops.fused_attention import plan_shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_shape(B, BLOCK_L, BLOCK_D, BLOCK_F, BLOCK_H, sms, backward)
+    if plan.route != "tiled":
+        raise AssertionError(f"the ranker's block must take the tiled route, got {plan}")
+    return {"kernel_route": plan.route, "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
+            "source": BLOCK_SOURCES[plan.route].format("bwd" if backward else "fwd"),
+            "general_source": BLOCK_SOURCES["general"]}
 
 
 def encoder_layer_ms(params, x, mask) -> float:
@@ -473,6 +504,40 @@ def pool_bwd_case(V: int, L: int, B: int, skewed: bool, seed: int) -> tuple:
     return ids, mask, longest
 
 
+def embedding_bag_bwd_ms(ids, mask, g, V: int, want) -> tuple:
+    """(device ms, how it was timed) of the one PyTorch call that computes the
+    pool backward's table gradient: the backward of ``F.embedding_bag(mode=
+    "sum", per_sample_weights=)`` alone (``aten::_embedding_bag_dense_backward``,
+    the node autograd runs), its forward run once outside the timing. Graph
+    replays like every ``library_ms``; if that call cannot be captured in a
+    graph, CUDA events around eager calls (host overhead included then). A
+    yardstick only: nothing in the port calls it."""
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import EPS
+    B, L = ids.shape
+    aten = torch.ops.aten
+    table = torch.zeros((V, g.shape[1]), device=g.device, requires_grad=True)
+    valid = mask * (ids != 0)
+    weights = (valid / (valid.sum(dim=1, keepdim=True) + EPS)).reshape(-1)     # the mean's share
+    flat, offsets = ids.long().reshape(-1), torch.arange(0, B * L, L, device=g.device)
+    try:
+        with torch.no_grad():
+            _, offset2bag, bag_size, max_indices = aten._embedding_bag(
+                table, flat, offsets, False, 0, False, weights, False, -1)
+            backward = lambda: aten._embedding_bag_dense_backward(               # noqa: E731
+                g, flat, offset2bag, bag_size, max_indices, V, False, 0, weights, -1)
+            torch.testing.assert_close(backward(), want, **scaled_tol(want))
+            return device_ms(backward, **DEEP), "cuda_graph"
+    except (RuntimeError, TypeError) as e:
+        torch.cuda.synchronize()
+        log(f"  embedding_bag's backward op alone failed or is not capturable "
+            f"({str(e).splitlines()[0][:80]}): autograd's call timed with CUDA events")
+    pooled = torch.nn.functional.embedding_bag(flat, table, offsets, mode="sum",
+                                               per_sample_weights=weights)
+    backward = lambda: torch.autograd.grad(pooled, table, g, retain_graph=True)[0]  # noqa: E731
+    torch.testing.assert_close(backward(), want, **scaled_tol(want))
+    return call_ms(backward, **DEEP), "events"
+
+
 def check_attention_kernels(dev) -> list:
     """This slice's kernels at its paths' shapes: the fused block's forward
     at batch 6,400 (a served request) and 512 (a training step), its
@@ -487,50 +552,71 @@ def check_attention_kernels(dev) -> list:
     from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool_bwd,
                                                              pool_bwd_plain)
 
-    source = "news_recsys_tpu_torch/csrc/fused_attention.cu"
     shape = f"L={BLOCK_L} D={BLOCK_D} H={BLOCK_H} F={BLOCK_F}"
     out, at_train = [], None
     for B in (USERS_PER_REQUEST * FETCH, TRAIN_BATCH):
         *params, x, mask, dy = block_case(B, SEED + 20 + B, dev)
+        routes = block_routes(B, False, dev)
         kernel = lambda: fused_transformer_block(params, x, mask, BLOCK_H)      # noqa: E731
+        general = lambda: fused_transformer_block(params, x, mask, BLOCK_H,     # noqa: E731
+                                                  route="general")
         plain = lambda: block_plain(x, mask, *params, num_heads=BLOCK_H)        # noqa: E731
         with torch.inference_mode():
-            got, want = kernel(), plain()
+            got, got_general, want = kernel(), general(), plain()
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **BLOCK_FWD_TOL)
-            err = float((got - want).abs().max())
-            t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+            torch.testing.assert_close(got_general, want, **BLOCK_FWD_TOL)
+            err, general_err = (float((g - want).abs().max()) for g in (got, got_general))
+            t = [device_ms(f, **DEEP) for f in (plain, general, kernel, kernel, general, plain)]
             calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+        source = routes.pop("source")
         entry = report_kernel("fused_transformer_block", source,
                               "news_recsys_tpu/ops/fused_attention.py:307", err,
-                              f"tol {BLOCK_FWD_TOL}", t, calls, "cuda_graph", f"B={B} {shape}",
-                              block_work(B, False), encoder_layer_ms(params, x, mask))
+                              f"tol {BLOCK_FWD_TOL}", [t[0], t[2], t[3], t[5]], calls,
+                              "cuda_graph", f"B={B} {shape}",
+                              block_work(B, False, routes["kernel_route"]),
+                              encoder_layer_ms(params, x, mask), **routes,
+                              general_ms=(t[1] + t[4]) / 2, general_max_abs_err=general_err)
+        log(f"  route {routes['kernel_route']} {entry['ms'] * 1e3:.2f} us; the general route at "
+            f"the same shape {entry['general_ms'] * 1e3:.2f} us, max_abs_err {general_err:.3e}")
         if B == TRAIN_BATCH:
             at_train = entry
         else:
             out.append(entry)
     out[0]["at_train_shape"] = {k: at_train[k] for k in
                                 ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms", "call_ms")}
+                                 "bound_by", "peak_flops", "library_ms", "call_ms",
+                                 "kernel_route", "general_ms", "general_max_abs_err")}
 
     B = TRAIN_BATCH
+    routes = block_routes(B, True, dev)
     kernel = lambda: fused_transformer_block_bwd(params, x, mask, dy, BLOCK_H)  # noqa: E731
+    general = lambda: fused_transformer_block_bwd(params, x, mask, dy, BLOCK_H,  # noqa: E731
+                                                  route="general")
     plain = lambda: block_bwd_plain(params, x, mask, dy, BLOCK_H)               # noqa: E731
-    (dx, dparams), (want_dx, want_dparams), (again_dx, again) = kernel(), plain(), kernel()
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, a, b in zip(("dx", *PARAM_NAMES), (dx, *dparams), (want_dx, *want_dparams)):
-        torch.testing.assert_close(a, b, rtol=BLOCK_GRAD_RTOL, msg=lambda m: f"{name}: {m}",
-                                   atol=2e-5 * max(1.0, float(b.abs().max())))
-        err = max(err, float((a - b).abs().max()))
-    if not (torch.equal(dx, again_dx) and all(torch.equal(a, b) for a, b in zip(dparams, again))):
-        raise AssertionError("fused_transformer_block_bwd: two runs gave different bits")
-    t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+    (want_dx, want_dparams), errs = plain(), []
+    for fn in (kernel, general):
+        (dx, dparams), (again_dx, again) = fn(), fn()
+        torch.cuda.synchronize()
+        errs.append(0.0)
+        for name, a, b in zip(("dx", *PARAM_NAMES), (dx, *dparams), (want_dx, *want_dparams)):
+            torch.testing.assert_close(a, b, rtol=BLOCK_GRAD_RTOL, msg=lambda m: f"{name}: {m}",
+                                       atol=2e-5 * max(1.0, float(b.abs().max())))
+            errs[-1] = max(errs[-1], float((a - b).abs().max()))
+        if not (torch.equal(dx, again_dx)
+                and all(torch.equal(a, b) for a, b in zip(dparams, again))):
+            raise AssertionError("fused_transformer_block_bwd: two runs gave different bits")
+    t = [device_ms(f, **DEEP) for f in (plain, general, kernel, kernel, general, plain)]
     calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+    source = routes.pop("source")
     out.append(report_kernel(
-        "fused_transformer_block_bwd", source, "news_recsys_tpu/ops/fused_attention.py:333", err,
-        f"rtol {BLOCK_GRAD_RTOL}, atol 2e-5 of each gradient's largest value; two runs "
-        f"bit-identical", t, calls, "cuda_graph", f"B={B} {shape}", block_work(B, True)))
+        "fused_transformer_block_bwd", source, "news_recsys_tpu/ops/fused_attention.py:333",
+        errs[0], f"rtol {BLOCK_GRAD_RTOL}, atol 2e-5 of each gradient's largest value; two runs "
+        f"bit-identical", [t[0], t[2], t[3], t[5]], calls, "cuda_graph", f"B={B} {shape}",
+        block_work(B, True, routes["kernel_route"]), **routes, general_ms=(t[1] + t[4]) / 2,
+        general_max_abs_err=errs[1]))
+    log(f"  route {routes['kernel_route']} {out[-1]['ms'] * 1e3:.2f} us; the general route at the "
+        f"same shape {out[-1]['general_ms'] * 1e3:.2f} us, max_abs_err {errs[1]:.3e}")
 
     entries = {}
     for V, D, L in ((30080, 16, 5), (65280, 16, 30)):
@@ -549,18 +635,19 @@ def check_attention_kernels(dev) -> list:
                 raise AssertionError("fused_lookup_pool_bwd: two runs gave different bits")
             t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+            library_ms, library_timing = embedding_bag_bwd_ms(ids, mask, g, V, want)
             kind = "zipf" if skewed else "uniform"
             entries[L, skewed] = report_kernel(
                 "fused_lookup_pool_bwd", "news_recsys_tpu_torch/csrc/lookup_pool_bwd.cu",
                 "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
                 f"tol {tol}; two runs bit-identical", t, calls, "cuda_graph",
                 f"V={V} D={D} B={B} L={L} ids={kind} longest_run={longest}",
-                least_time(4 * (V * D + B * D + 2 * B * L), 2 * B * L * D),
-                ids=kind, longest_run=longest)
+                least_time(4 * (V * D + B * D + 2 * B * L), 2 * B * L * D), library_ms,
+                library_timing=library_timing, ids=kind, longest_run=longest)
     # the entry is the skewed case at the shape the all-dense path gives the
     # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
     keys = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "call_ms")
+            "bound_by", "library_ms", "library_timing", "call_ms")
     main = entries[5, True]
     main["uniform_ids"] = {k: entries[5, False][k] for k in keys}
     main["at_hist_shape"] = {k: entries[30, True][k] for k in keys}

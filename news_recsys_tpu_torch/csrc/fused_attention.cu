@@ -1,4 +1,9 @@
-// One post-norm Transformer block, forward and backward, fused:
+// One post-norm Transformer block, forward and backward, fused: the general
+// route, for every shape of the domain (L <= 128, D <= 128, F <= 512). The
+// attention ranker's widths take the tiled route instead
+// (fused_attention_tiled_fwd.cu, fused_attention_tiled_bwd.cu), which keeps
+// the parameters in shared memory and runs the products on the tensor cores.
+//
 //   qkv  = x Wqkv + bqkv                     (L, 3D): q | k | v, head h = columns h*hd..
 //   s    = q_h k_h^T / sqrt(hd); s = -1e9 where the key is invalid; p = softmax(s)
 //   ao   = concat_h p v_h
@@ -30,8 +35,8 @@
 //     in L2), so that every L <= 128, D <= 128, F <= 512 runs in one body;
 //   - every product is one routine: a thread owns an output column and RB
 //     rows, reads the weight once per k from device memory (coalesced over
-//     the columns, served by L1: all parameters are 34 KB) and the
-//     activations as shared-memory broadcasts;
+//     the columns; from L1 where the workspace leaves it room, else from L2)
+//     and the activations as shared-memory broadcasts;
 //   - products with a transposed weight (the backward's g W^T) read a
 //     transposed copy that a small kernel writes first, so that they too
 //     are coalesced;

@@ -5,7 +5,7 @@ one ``nvcc`` per source, all started together, and the objects are linked
 into one shared library, ``libnrt_kernels.so``, with a plain C interface
 that is bound through ``ctypes``. The build runs at first use, from the
 package's own sources, into ``news_recsys_tpu_torch/build/<digest>/``: the
-digest covers the sources and the flags, so an edited kernel is rebuilt and
+digest covers the sources, their headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and
 a stale library is never loaded. Building needs no PyTorch headers, which
 keeps it to seconds.
 """
@@ -48,13 +48,20 @@ SIGNATURES = {
     "nrt_fused_block_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, mask, dy, params, dx, dflat, wt, partial, ws, B, L, D, F, H, nblk, stream
     "nrt_fused_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, mask, params, out, B, L, nblk, stream
+    "nrt_fused_block_tiled_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, mask, dy, params, dx, dflat, partial, B, L, nblk, stream
+    "nrt_fused_block_tiled_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
-# C entry point -> argument types; these launch nothing and return a count of floats
+# C entry point -> argument types; these launch nothing and return a size (floats or bytes)
 SIZE_FUNCTIONS = {
     # L, D, F, backward
     "nrt_fused_block_ws_floats": [_I, _I, _I, _I],
     # D, F
     "nrt_fused_block_param_floats": [_I, _I],
+    # the tiled route's dynamic shared memory a block, in bytes
+    "nrt_fused_block_tiled_fwd_smem_bytes": [],
+    "nrt_fused_block_tiled_bwd_smem_bytes": [],
 }
 
 _lock = threading.Lock()
@@ -87,7 +94,7 @@ def nvcc_command(nvcc: str, output: Path, objects) -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources():
+    for src in (*sources(), *sorted(CSRC_DIR.glob("*.cuh"))):     # headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME

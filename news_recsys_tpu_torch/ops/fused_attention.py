@@ -18,11 +18,20 @@ package's is a ``jax.custom_vjp``. Forward: ``csrc/fused_attention.cu``,
 entry ``nrt_fused_block_fwd``, which replaces the Pallas kernel
 ``news_recsys_tpu/ops/fused_attention.py::_fused_fwd_call``; backward:
 :func:`fused_transformer_block_bwd`, entry ``nrt_fused_block_bwd``, which
-replaces ``_fused_block_bwd``. Both are bound by float32 operations (about
-80 flops per byte moved). The backward recomputes the forward from
+replaces ``_fused_block_bwd``. The backward recomputes the forward from
 ``(x, mask, parameters)``, the only tensors saved, and sums the parameter
-gradients in per-block partials and a second pass in block order, so two
+gradients in per-block partials and a second pass in a fixed order, so two
 runs give the same bits.
+
+Two routes, chosen by :func:`plan_shape` from the shape alone. The *tiled*
+route (``csrc/fused_attention_tiled_{fwd,bwd}.cu``) takes the attention
+ranker's family of shapes (:func:`tiled_takes`: 16 < L <= 32, D 32, F 64,
+heads of 16): the parameters stay in shared memory, a thread block walks
+tiles of two examples (64 rows) and every product runs on the tensor cores
+in 3xTF32, which keeps float32 accuracy. Every other shape of the domain
+(L <= 128, D <= 128, F <= 512) takes the *general* route
+(``csrc/fused_attention.cu``: float32 FMAs, one example a block-iteration).
+A route is no fallback for the other: a launch that fails raises.
 
 An example whose mask is all zero attends uniformly over its L keys, kernel
 and plain version alike, as the flax block does (the Pallas kernel leaves
@@ -33,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -115,19 +124,96 @@ def _kernel_shape(B, L, D, F) -> None:
                          f"F <= {MAX_F} and B*L*D < 2**31; got B={B}, L={L}, D={D}, F={F}")
 
 
-def _plan(x: torch.Tensor, L, D, F, backward: bool):
-    """(thread blocks, the device-memory workspace or None) for a launch:
-    as many blocks as the card keeps resident, each walking its share of
-    the examples."""
-    from ._build import library
+ROUTES = ("general", "tiled")
+# the tiled route's tile: an example fills a slot of 32 rows, two examples a tile
+TILED_SLOT, TILED_EXAMPLES, TILED_WARPS = 32, 2, 4
 
-    ws_floats = library().nrt_fused_block_ws_floats(L, D, F, int(backward))
+
+def param_floats(D: int, F: int) -> int:
+    """Floats of the 12 parameters (and of their flat gradient)."""
+    return 4 * D * D + 2 * D * F + 9 * D + F
+
+
+def tiled_takes(L: int, D: int, F: int, H: int) -> bool:
+    """The shapes the tiled kernels are built for: the widths are compile-time
+    constants of ``csrc/fused_attention_tiled.cuh`` (D 32, F 64, heads of
+    16), and an example must fill more than half of its 32-row slot."""
+    return TILED_SLOT // 2 < L <= TILED_SLOT and D == 32 and F == 64 and H > 0 and D == 16 * H
+
+
+def _tiled_smem_floats(D: int, F: int, backward: bool) -> int:
+    """A tiled block's shared memory, as ``S_TOTAL`` of the two sources lays
+    it out: the kernels with padded strides (the backward: their transposes
+    too), the small vectors, and the tile's activations."""
+    rows = TILED_SLOT * TILED_EXAMPLES
+    ldx, ldq, ldh, ldp = D + 4, 3 * D + 4, F + 4, TILED_SLOT + 4
+    ld_qkv, ld_d, ld_f = 3 * D + 8, D + 8, F + 8
+    kernels = D * ld_qkv + D * ld_d + D * ld_f + F * ld_d
+    vectors = 9 * D + F
+    if not backward:    # x (ao and y1 in its place), q|k|v, a copy of the key codes a warp
+        return kernels + vectors + rows * (ldx + ldq) + TILED_WARPS * TILED_SLOT
+    transposed = 3 * D * ld_d + D * ld_d + F * ld_d + D * ld_f
+    sums = param_floats(D, F) + TILED_WARPS * vectors
+    return (kernels + transposed + vectors + sums
+            + rows * (4 * ldx + ldq + ldh + 2 * ldp + 1))
+
+
+def _general_ws_floats(L: int, D: int, F: int, backward: bool) -> int:
+    """Floats of workspace an example takes on the general route
+    (``fwd_ws_floats`` / ``bwd_ws_floats`` of ``csrc/fused_attention.cu``)."""
+    ldq = (3 * D) | 1
+    if backward:
+        return L * (7 * D + 2 * ldq + 2 * L + 2 * F + 3)
+    return L * (2 * D + ldq + L + F + 1)
+
+
+class Plan(NamedTuple):
+    """How a launch of one shape is laid out (:func:`plan_shape`)."""
+    route: str              # "general" or "tiled"
+    tile_examples: int      # examples a tile; tile t goes to block t % blocks
+    blocks: int             # persistent thread blocks
+    smem_bytes: int         # dynamic shared memory a block
+    workspace_floats: int   # device-memory workspace of the launch (general route)
+
+    def tiles(self, B: int) -> int:
+        return -(-B // self.tile_examples)
+
+
+def plan_shape(B: int, L: int, D: int, F: int, H: int, sms: int, backward: bool,
+               route: Optional[str] = None) -> Plan:
+    """The launch of a (B, L, D) block with feed-forward width F and H heads
+    on a card of ``sms`` multiprocessors: a pure function of the shape. The
+    tiled route where :func:`tiled_takes` says so, else the general one;
+    ``route`` forces one (``"tiled"`` on a shape it does not take raises).
+    As many blocks as the card keeps resident, at most one per tile; tiles
+    are dealt round-robin, so two blocks' counts differ by at most one."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be None or one of {ROUTES}, got {route!r}")
+    takes = tiled_takes(L, D, F, H)
+    if route == "tiled" and not takes:
+        raise ValueError(f"the tiled route takes 16 < L <= 32, D = 32, F = 64 and heads of 16; "
+                         f"got L={L}, D={D}, F={F}, H={H}")
+    if route == "tiled" or (route is None and takes):
+        smem = 4 * _tiled_smem_floats(D, F, backward)
+        per_sm = max(1, SMEM_BYTES // (smem + 1024))      # 1 KB a block is the system's
+        tiles = -(-B // TILED_EXAMPLES)
+        return Plan("tiled", TILED_EXAMPLES, max(1, min(tiles, sms * per_sm)), smem, 0)
+    ws_floats = _general_ws_floats(L, D, F, backward)
     in_smem = ws_floats * 4 <= SMEM_BYTES
     per_sm = max(1, min(8, SMEM_BYTES // (ws_floats * 4))) if in_smem else 2
+    blocks = max(1, min(B, sms * per_sm))
+    return Plan("general", 1, blocks, ws_floats * 4 if in_smem else 0,
+                0 if in_smem else blocks * ws_floats)
+
+
+def _plan(x: torch.Tensor, L, D, F, H, backward: bool, route) -> Plan:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nblk = min(x.shape[0], sms * per_sm)
-    ws = None if in_smem else x.new_empty((nblk * ws_floats,))
-    return nblk, ws
+    return plan_shape(x.shape[0], L, D, F, H, sms, backward, route)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, at an address the tiled kernels' 16-byte copies take."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _param_pointers(params):
@@ -135,7 +221,7 @@ def _param_pointers(params):
     return (ctypes.c_void_p * len(params))(*(p.data_ptr() for p in params))
 
 
-def _fwd_kernel(params, x, mask, num_heads: int) -> torch.Tensor:
+def _fwd_kernel(params, x, mask, num_heads: int, route=None) -> torch.Tensor:
     from ._build import launch
 
     B, L, D, F = _check(params, x, mask, num_heads)
@@ -143,42 +229,60 @@ def _fwd_kernel(params, x, mask, num_heads: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if B == 0:
         return out
-    nblk, ws = _plan(x, L, D, F, backward=False)
-    ptrs = _param_pointers(params)
-    launch("nrt_fused_block_fwd", x.data_ptr(), mask.data_ptr(), ctypes.addressof(ptrs),
-           out.data_ptr(), None if ws is None else ws.data_ptr(), B, L, D, F, num_heads, nblk,
-           stream_ptr(x))
+    plan = _plan(x, L, D, F, num_heads, False, route)
+    if plan.route == "tiled":
+        x, params = _aligned(x), tuple(map(_aligned, params))
+        ptrs = _param_pointers(params)
+        launch("nrt_fused_block_tiled_fwd", x.data_ptr(), mask.data_ptr(),
+               ctypes.addressof(ptrs), out.data_ptr(), B, L, plan.blocks, stream_ptr(x))
+    else:
+        ws = x.new_empty((plan.workspace_floats,)) if plan.workspace_floats else None
+        ptrs = _param_pointers(params)
+        launch("nrt_fused_block_fwd", x.data_ptr(), mask.data_ptr(), ctypes.addressof(ptrs),
+               out.data_ptr(), None if ws is None else ws.data_ptr(), B, L, D, F, num_heads,
+               plan.blocks, stream_ptr(x))
     with launch_count_lock:
         fused_transformer_block.launches += 1
     return out
 
 
-def fused_transformer_block_bwd(params: Sequence[torch.Tensor], x, mask, dy, num_heads: int):
+def fused_transformer_block_bwd(params: Sequence[torch.Tensor], x, mask, dy, num_heads: int,
+                                route: Optional[str] = None):
     """The block's VJP: ``dy`` (B, L, D) -> (dx, the 12 parameter gradients in
     :data:`PARAM_NAMES` order). On CUDA tensors it launches
-    ``nrt_fused_block_bwd``, which recomputes the forward."""
+    ``nrt_fused_block_tiled_bwd`` or ``nrt_fused_block_bwd`` (``route`` as in
+    :func:`fused_transformer_block`), which recompute the forward."""
     params = tuple(params)
     B, L, D, F = _check(params, x, mask, num_heads)
     check_tensor(dy, "dy", torch.float32, 3)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must be {tuple(x.shape)}")
+    plan_shape(B, L, D, F, num_heads, 1, True, route)       # raises on a route not taken
     if kernel_device(x, mask, dy, *params) == "cpu":
         return block_bwd_plain(params, x, mask, dy, num_heads)
-    from ._build import launch, library
+    from ._build import launch
 
     _kernel_shape(B, L, D, F)
     dx = torch.empty_like(x)
-    n_params = library().nrt_fused_block_param_floats(D, F)
+    n_params = param_floats(D, F)
     dflat = x.new_zeros((n_params,)) if B == 0 else x.new_empty((n_params,))
     if B > 0:
-        nblk, ws = _plan(x, L, D, F, backward=True)
-        wt = x.new_empty((4 * D * D + 2 * D * F,))
-        partial = x.new_empty((nblk * n_params,))
-        ptrs = _param_pointers(params)
-        launch("nrt_fused_block_bwd", x.data_ptr(), mask.data_ptr(), dy.data_ptr(),
-               ctypes.addressof(ptrs), dx.data_ptr(), dflat.data_ptr(), wt.data_ptr(),
-               partial.data_ptr(), None if ws is None else ws.data_ptr(), B, L, D, F, num_heads,
-               nblk, stream_ptr(x))
+        plan = _plan(x, L, D, F, num_heads, True, route)
+        partial = x.new_empty((plan.blocks * n_params,))
+        if plan.route == "tiled":
+            x, dy, params = _aligned(x), _aligned(dy), tuple(map(_aligned, params))
+            ptrs = _param_pointers(params)
+            launch("nrt_fused_block_tiled_bwd", x.data_ptr(), mask.data_ptr(), dy.data_ptr(),
+                   ctypes.addressof(ptrs), dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(),
+                   B, L, plan.blocks, stream_ptr(x))
+        else:
+            ws = x.new_empty((plan.workspace_floats,)) if plan.workspace_floats else None
+            wt = x.new_empty((4 * D * D + 2 * D * F,))
+            ptrs = _param_pointers(params)
+            launch("nrt_fused_block_bwd", x.data_ptr(), mask.data_ptr(), dy.data_ptr(),
+                   ctypes.addressof(ptrs), dx.data_ptr(), dflat.data_ptr(), wt.data_ptr(),
+                   partial.data_ptr(), None if ws is None else ws.data_ptr(), B, L, D, F,
+                   num_heads, plan.blocks, stream_ptr(x))
         with launch_count_lock:
             fused_transformer_block_bwd.launches += 1
     grads, at = [], 0
@@ -190,30 +294,34 @@ def fused_transformer_block_bwd(params: Sequence[torch.Tensor], x, mask, dy, num
 
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mask, num_heads, *params):
-        ctx.num_heads = num_heads
+    def forward(ctx, x, mask, num_heads, route, *params):
+        ctx.num_heads, ctx.route = num_heads, route
         ctx.save_for_backward(x, mask, *params)
-        return _fwd_kernel(params, x, mask, num_heads)
+        return _fwd_kernel(params, x, mask, num_heads, route)
 
     @staticmethod
     def backward(ctx, dy):
         x, mask, *params = ctx.saved_tensors
-        dx, dparams = fused_transformer_block_bwd(params, x, mask, dy.contiguous(), ctx.num_heads)
-        return (dx, None, None, *dparams)
+        dx, dparams = fused_transformer_block_bwd(params, x, mask, dy.contiguous(),
+                                                  ctx.num_heads, ctx.route)
+        return (dx, None, None, None, *dparams)
 
 
-def fused_transformer_block(params, x: torch.Tensor, mask: torch.Tensor,
-                            num_heads: int) -> torch.Tensor:
+def fused_transformer_block(params, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                            route: Optional[str] = None) -> torch.Tensor:
     """``params``: the 12 tensors in :data:`PARAM_NAMES` order, or a module
     with ``fused_params()`` (``models.layers.TransformerBlock``); ``x``
     (B, L, D) float32; ``mask`` (B, L) float32 validity of the keys. Returns
     (B, L, D); differentiable in ``x`` and every parameter. CPU tensors take
-    :func:`block_plain`, CUDA tensors the kernels."""
+    :func:`block_plain`, CUDA tensors the kernels. ``route`` is for tests and
+    measurements that run both kernels at one shape: ``None`` (the route of
+    :func:`plan_shape`), ``"general"`` or ``"tiled"``."""
     params = tuple(params.fused_params() if hasattr(params, "fused_params") else params)
-    _check(params, x, mask, num_heads)
+    B, L, D, F = _check(params, x, mask, num_heads)
+    plan_shape(B, L, D, F, num_heads, 1, False, route)      # raises on a route not taken
     if kernel_device(x, mask, *params) == "cpu":
         return block_plain(x, mask, *params, num_heads=num_heads)
-    return _FusedBlock.apply(x, mask, num_heads, *params)
+    return _FusedBlock.apply(x, mask, num_heads, route, *params)
 
 
 fused_transformer_block.launches = 0

@@ -46,6 +46,7 @@ from news_recsys_tpu_torch.models import layers as tlayers
 from news_recsys_tpu_torch.models.dssm import build_dssm
 from news_recsys_tpu_torch.models.rankers import build_ranker
 from news_recsys_tpu_torch.models.seq_ranker import AttentionSeqRanker
+from news_recsys_tpu_torch.ops.fused_attention import SMEM_BYTES, plan_shape, tiled_takes
 from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain, block_plain,
                                                        fused_transformer_block,
                                                        fused_transformer_block_bwd,
@@ -504,3 +505,84 @@ def test_attention_cascade_bundle_and_export(monkeypatch, attention_stacks, tmp_
     out = script.export(jcasc.save(str(tmp_path / "jax")), str(tmp_path / "torch"))
     assert_same_answers(tserving.CascadeRecommender.load(out, device="cpu").recommend(batch, k=6),
                         jcasc.recommend(batch, k=6), tol=2e-5)
+
+
+# -- the planner: which route a shape takes, and how its launch is laid out ------
+
+H100_SMS = 132
+RANKER_SHAPE = (30, 32, 64, 2)                     # L, D, F, H of zoo.attention_config()
+# the shapes the GPU tests run (tests/test_torch_cuda.py::BLOCK_SHAPES)
+PLANNED_SHAPES = [(6400, 30, 32, 64, 2), (512, 30, 32, 64, 2), (24, 30, 32, 64, 2),
+                  (7, 12, 16, 24, 1), (130, 50, 64, 96, 4), (3, 128, 128, 512, 8),
+                  (5, 33, 24, 40, 3), (1, 1, 4, 4, 1)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 511, 512, 513, 6400])
+def test_plan_ranker_shape_takes_the_tiled_route(B, backward):
+    """With no keyword the ranker's widths go to the tiled kernels, in both
+    directions, at every batch; the plan is the same at every call."""
+    plan = plan_shape(B, *RANKER_SHAPE, H100_SMS, backward)
+    assert plan == plan_shape(B, *RANKER_SHAPE, H100_SMS, backward)
+    assert plan.route == "tiled" and plan.tile_examples == 2 and plan.workspace_floats == 0
+    assert plan.tiles(B) == (B + 1) // 2 and 1 <= plan.blocks <= plan.tiles(B)
+    # the forward keeps three blocks on a multiprocessor, the backward one
+    per_sm = 1 if backward else 3
+    assert plan.blocks <= H100_SMS * per_sm
+    assert per_sm * (plan.smem_bytes + 1024) <= 228 * 1024 < (per_sm + 1) * plan.smem_bytes
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B,L,D,F,H", PLANNED_SHAPES)
+def test_plan_covers_every_tested_shape(B, L, D, F, H, backward):
+    plan = plan_shape(B, L, D, F, H, H100_SMS, backward)
+    assert plan.route == ("tiled" if tiled_takes(L, D, F, H) else "general")
+    assert plan.route == ("tiled" if (L, D, F, H) == RANKER_SHAPE else "general")
+    assert 0 <= plan.smem_bytes <= SMEM_BYTES == 227 * 1024
+    # a workspace that does not fit shared memory lies in device memory
+    assert (plan.smem_bytes == 0) == (plan.workspace_floats > 0)
+    tiles = plan.tiles(B)
+    assert 1 <= plan.blocks <= tiles
+    per_block = np.bincount(np.arange(tiles) % plan.blocks, minlength=plan.blocks)
+    assert per_block.sum() == tiles and per_block.max() - per_block.min() <= 1
+
+
+def test_plan_backward_has_no_short_second_round():
+    """Batch 512 is 256 tiles of two examples over 132 blocks: every block
+    walks one or two tiles."""
+    plan = plan_shape(512, *RANKER_SHAPE, H100_SMS, True)
+    per_block = np.bincount(np.arange(plan.tiles(512)) % plan.blocks)
+    assert plan.blocks == H100_SMS and set(per_block) == {1, 2}
+
+
+@pytest.mark.parametrize("L,D,F,H,takes", [
+    (30, 32, 64, 2, True), (32, 32, 64, 2, True), (17, 32, 64, 2, True),
+    (16, 32, 64, 2, False), (33, 32, 64, 2, False), (30, 32, 64, 4, False),
+    (30, 32, 64, 1, False), (30, 64, 64, 4, False), (30, 32, 128, 2, False)])
+def test_tiled_route_rule(L, D, F, H, takes):
+    assert tiled_takes(L, D, F, H) is takes
+    assert plan_shape(8, L, D, F, H, H100_SMS, False).route == ("tiled" if takes else "general")
+
+
+def test_plan_forced_routes():
+    assert plan_shape(512, *RANKER_SHAPE, H100_SMS, True, route="general").route == "general"
+    assert plan_shape(512, *RANKER_SHAPE, H100_SMS, False, route="tiled").route == "tiled"
+    with pytest.raises(ValueError, match="tiled route takes"):
+        plan_shape(3, 128, 128, 512, 8, H100_SMS, False, route="tiled")
+    with pytest.raises(ValueError, match="route must be"):
+        plan_shape(3, 128, 128, 512, 8, H100_SMS, False, route="fast")
+
+
+def test_route_keyword_is_checked_on_every_device():
+    """On CPU tensors both routes are ``block_plain``; a route that the shape
+    does not take raises all the same, forward and backward."""
+    rng = np.random.default_rng(0)
+    shapes = ((8, 24), (24,), (8, 8), (8,), (8,), (8,), (8, 12), (12,), (12, 8), (8,), (8,), (8,))
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    x, mask = torch.from_numpy(rng.standard_normal((2, 5, 8)).astype(np.float32)), torch.ones(2, 5)
+    want = block_plain(x, mask, *params, num_heads=2)
+    torch.testing.assert_close(fused_transformer_block(params, x, mask, 2, route="general"), want)
+    with pytest.raises(ValueError, match="tiled route takes"):
+        fused_transformer_block(params, x, mask, 2, route="tiled")
+    with pytest.raises(ValueError, match="tiled route takes"):
+        fused_transformer_block_bwd(params, x, mask, torch.ones_like(x), 2, route="tiled")

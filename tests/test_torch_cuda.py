@@ -32,9 +32,12 @@ from news_recsys_tpu_torch.ops.dcn_kernel import (cross_bwd_plain, cross_fwd_pla
                                                   dcn_cross_bwd, dcn_cross_stack)
 from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
                                                  fm_second_order_bwd)
-from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain, block_plain,
+from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, _general_ws_floats,
+                                                       block_bwd_plain, block_plain,
                                                        fused_transformer_block,
-                                                       fused_transformer_block_bwd)
+                                                       fused_transformer_block_bwd,
+                                                       layer_norm_plain, mhsa_plain,
+                                                       param_floats, plan_shape)
 from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                          fused_lookup_pool_bwd, pool_bwd_plain,
                                                          reference_lookup_pool)
@@ -553,6 +556,151 @@ def test_fused_block_rejects_what_it_does_not_take(cuda):
     big = torch.zeros(1, 129, 8, device=cuda)
     with pytest.raises(ValueError, match="L <= 128"):
         fused_transformer_block(params, big, torch.ones(1, 129, device=cuda), 2)
+
+
+# -- the block's two routes at the attention ranker's widths ----------------------
+
+RANKER_L, RANKER_D, RANKER_F, RANKER_H = 30, 32, 64, 2
+# odd batches leave the last tile half filled
+ROUTE_BATCHES = [1, 2, 3, 511, 512, 513, 6400]
+
+
+def ranker_block_inputs(B, seed):
+    """:func:`block_inputs` at the ranker's widths with examples that have no
+    valid key first, last and paired in one tile of two (examples 4 and 5)."""
+    x, mask, params, dy = block_inputs(B, RANKER_L, RANKER_D, RANKER_F, seed=seed)
+    if B > 1:
+        mask[1] = 1.0
+    mask[0] = 0.0
+    mask[-1] = 0.0
+    if B >= 6:
+        mask[4:6] = 0.0
+    return x, mask, params, dy
+
+
+def mute_relu_kinks(params, x, mask, dy, margin=1e-5):
+    """``dy`` with the examples zeroed in which a pre-activation of the
+    feed-forward lies within ``margin`` of the ReLU's kink. There rounding
+    decides the gate (a kernel recomputes the forward in another order than
+    the plain version), and with the gate a whole row's gradient; at batch
+    6,400 the block has 12 M pre-activations and a few always land there."""
+    wqkv, bqkv, wo, bo, g1, b1, w1, c1 = params[:8]
+    y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, RANKER_H), g1, b1)
+    near = ((y1 @ w1 + c1).abs() < margin).flatten(1).any(dim=1)
+    assert int(near.sum()) <= max(1, x.shape[0] // 20)
+    return torch.where(near[:, None, None], torch.zeros_like(dy), dy)
+
+
+@pytest.mark.cuda
+def test_planner_mirrors_the_kernels_sizes(cuda):
+    """The pure-Python planner states the sizes that the sources compute."""
+    from news_recsys_tpu_torch.ops._build import library
+    lib = library()
+    for backward in (False, True):
+        plan = plan_shape(512, RANKER_L, RANKER_D, RANKER_F, RANKER_H, 132, backward)
+        fn = lib.nrt_fused_block_tiled_bwd_smem_bytes if backward else \
+            lib.nrt_fused_block_tiled_fwd_smem_bytes
+        assert plan.smem_bytes == fn()
+        for _, L, D, F, _ in BLOCK_SHAPES:
+            assert _general_ws_floats(L, D, F, backward) == \
+                lib.nrt_fused_block_ws_floats(L, D, F, int(backward))
+            assert param_floats(D, F) == lib.nrt_fused_block_param_floats(D, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["general", "tiled"])
+@pytest.mark.parametrize("B", ROUTE_BATCHES)
+def test_block_routes_forward_match_plain(cuda, B, route):
+    x, mask, params, _ = ranker_block_inputs(B, seed=3)
+    x, mask, *params = on(cuda, x, mask, *params)
+    with torch.inference_mode():
+        n = fused_transformer_block.launches
+        got = fused_transformer_block(params, x, mask, RANKER_H, route=route)
+        assert fused_transformer_block.launches == n + 1
+        want = block_plain(x, mask, *params, num_heads=RANKER_H)
+    torch.testing.assert_close(got, want, **BLOCK_FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["general", "tiled"])
+@pytest.mark.parametrize("B", ROUTE_BATCHES)
+def test_block_routes_backward_match_plain(cuda, B, route):
+    """Random ``dy``: a padding row that leaked into a gradient would show.
+    Two runs give the same bits."""
+    x, mask, params, dy = ranker_block_inputs(B, seed=4)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    dy = mute_relu_kinks(params, x, mask, dy)
+    n = fused_transformer_block_bwd.launches
+    dx, dparams = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route=route)
+    assert fused_transformer_block_bwd.launches == n + 1
+    want_dx, want_dparams = block_bwd_plain(params, x, mask, dy, RANKER_H)
+    assert_grads_close(dx, want_dx, "dx")
+    for name, a, b in zip(PARAM_NAMES, dparams, want_dparams):
+        assert_grads_close(a, b, name)
+    again_dx, again = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route=route)
+    assert torch.equal(dx, again_dx) and all(torch.equal(a, b) for a, b in zip(dparams, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", ROUTE_BATCHES)
+def test_block_routes_agree_and_the_default_is_tiled(cuda, B):
+    """The two routes against each other, and the route taken with no keyword
+    against the tiled one, bit for bit."""
+    x, mask, params, dy = ranker_block_inputs(B, seed=5)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    dy = mute_relu_kinks(params, x, mask, dy)
+    out, grads = {}, {}
+    for route in (None, "general", "tiled"):
+        with torch.no_grad():
+            out[route] = fused_transformer_block(params, x, mask, RANKER_H, route=route)
+        dx, dparams = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route=route)
+        grads[route] = (dx, *dparams)
+    assert torch.equal(out[None], out["tiled"])
+    assert all(torch.equal(a, b) for a, b in zip(grads[None], grads["tiled"]))
+    torch.testing.assert_close(out["tiled"], out["general"], **BLOCK_FWD_TOL)
+    for name, a, b in zip(("dx", *PARAM_NAMES), grads["tiled"], grads["general"]):
+        assert_grads_close(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [17, 24, 32])
+def test_tiled_route_takes_every_length_of_its_slot(cuda, L):
+    x, mask, params, dy = block_inputs(37, L, RANKER_D, RANKER_F, seed=6)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    dy = mute_relu_kinks(params, x, mask, dy)
+    with torch.no_grad():
+        got = fused_transformer_block(params, x, mask, RANKER_H, route="tiled")
+    torch.testing.assert_close(got, block_plain(x, mask, *params, num_heads=RANKER_H),
+                               **BLOCK_FWD_TOL)
+    dx, dparams = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route="tiled")
+    want_dx, want_dparams = block_bwd_plain(params, x, mask, dy, RANKER_H)
+    for name, a, b in zip(("dx", *PARAM_NAMES), (dx, *dparams), (want_dx, *want_dparams)):
+        assert_grads_close(a, b, name)
+
+
+@pytest.mark.cuda
+def test_tiled_route_autograd_and_unaligned_views(cuda):
+    """Through the ``autograd.Function`` with the route named, on inputs that
+    are views at addresses off the 16-byte grid."""
+    x_np, mask_np, params_np, dy_np = ranker_block_inputs(9, seed=7)
+    x, mask, dy, *params = on(cuda, x_np, mask_np, dy_np, *params_np)
+    x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    leaves = [t.requires_grad_() for t in (x, *params)]
+    fused_transformer_block(leaves[1:], leaves[0], mask, RANKER_H, route="tiled").backward(dy)
+    want_dx, want_dparams = block_bwd_plain(params, x.detach(), mask, dy, RANKER_H)
+    for name, t, b in zip(("dx", *PARAM_NAMES), leaves, (want_dx, *want_dparams)):
+        assert_grads_close(t.grad, b, name)
+
+
+@pytest.mark.cuda
+def test_tiled_route_refuses_other_shapes(cuda):
+    x, mask, params, dy = block_inputs(3, 128, 128, 512)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    with pytest.raises(ValueError, match="tiled route takes"):
+        fused_transformer_block(params, x, mask, 8, route="tiled")
+    with pytest.raises(ValueError, match="tiled route takes"):
+        fused_transformer_block_bwd(params, x, mask, dy, 8, route="tiled")
 
 
 # -- the pool's backward ---------------------------------------------------------
