@@ -3,6 +3,7 @@ port, on one CUDA GPU.
 
     python3 chip_profile.py [--users 64,256,1024] [--requests 10]
     python3 chip_profile.py --block-split
+    python3 chip_profile.py --pool-split
 
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
@@ -43,6 +44,16 @@ attention alone (two copies of ``csrc/fused_attention.cu`` with one line
 changed each, built beside the library; their outputs are not the block's);
 and the tiled route with its TF32 split made by ``cvt.rna.tf32.f32`` instead
 of integer rounding (``-DNRT_SPLIT_WITH_CVT``), forward and backward.
+
+``--pool-split`` takes the fused lookup + pool's kernels apart, the first
+design's (``csrc/previous/``) beside this one's, at ``chip_smoke.py``'s shapes:
+the backward at batch 512 on ``entities`` (30,080 x 16, L 5) and ``hist``
+(65,280 x 16, L 30), Zipf and uniform ids, whole (graph replays) and each
+launch by name from a ``torch.profiler`` trace (first design: the wrapper's
+``torch.sort``, memset, coefficients, segment walk; now: memset, scan,
+accumulate, write); the forward whole at a 1,024-user request (B 1,024, L
+30), ``entities`` (B 512, L 5) and a 64-user request (B 64, L 30), uniform
+and Zipf ids.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -327,12 +339,63 @@ def block_split(smi: str) -> None:
     print(f"    tiled route, the split by cvt.rna.tf32.f32           {t * 1e3:8.2f} us")
 
 
+def pool_split(smi: str) -> None:
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
+                                                             fused_lookup_pool_bwd)
+
+    dev, B, D, reps = torch.device("cuda"), chip_smoke.TRAIN_BATCH, chip_smoke.POOL_D, 20
+    print(f"\n== the pool's backward taken apart, D={D} B={B} ({smi})")
+    for V, L in chip_smoke.POOL_BWD_SHAPES:
+        for skewed in (True, False):
+            ids, mask, longest = chip_smoke.pool_bwd_case(V, L, B, skewed,
+                                                          chip_smoke.SEED + 30 + L)
+            g = torch.from_numpy(np.random.default_rng(chip_smoke.SEED + 40 + L)
+                                 .standard_normal((B, D)).astype(np.float32)).to(dev)
+            ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            designs = {
+                "first design: sort, memset, coef, walk":
+                    lambda: chip_smoke.previous_pool_bwd(ids, mask, g, V),
+                "now: memset, scan, accumulate, write":
+                    lambda: fused_lookup_pool_bwd(ids, mask, g, V)}
+            print(f"  V={V} L={L} ids={'zipf' if skewed else 'uniform'} longest_run={longest}")
+            for label, fn in designs.items():
+                whole = chip_smoke.device_ms(fn, **chip_smoke.DEEP)
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                events = device_events(prof)
+                parts = sum(e.self_device_time_total for e in events) / reps
+                print(f"    {label}: {whole * 1e3:.2f} us a call (graph replays); its launches "
+                      f"alone (eager, traced) {parts:.2f} us:")
+                for e in sorted(events, key=lambda e: -e.self_device_time_total):
+                    print(f"      {e.key[:70]:70s} {e.self_device_time_total / reps:8.2f} us "
+                          f"({e.count // reps} a call)")
+    print(f"\n== the pool's forward, the first design's kernel against this one, D={D} ({smi})")
+    shapes = {"request, 1,024 users": (65280, 30, 1024), **chip_smoke.POOL_FWD_SHAPES}
+    for label, (V, L, Bf) in shapes.items():
+        for skewed in (False, True):
+            table, ids, mask, longest = chip_smoke.pool_fwd_case(V, L, Bf, skewed,
+                                                                 chip_smoke.SEED + 60, dev)
+            fns = (chip_smoke.previous_pool_fwd, fused_lookup_pool, fused_lookup_pool,
+                   chip_smoke.previous_pool_fwd)
+            with torch.inference_mode():
+                t = [chip_smoke.device_ms(lambda: f(table, ids, mask)) for f in fns]
+            print(f"  {label} (V={V} L={L} B={Bf}), ids={'zipf' if skewed else 'uniform'} "
+                  f"longest_run={longest}: first design {(t[0] + t[3]) / 2 * 1e3:.2f} us, now "
+                  f"{(t[1] + t[2]) / 2 * 1e3:.2f} us")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--users", default="64,256,1024")
     p.add_argument("--requests", type=int, default=10)
     p.add_argument("--block-split", action="store_true",
                    help="take the fused block's kernels apart instead")
+    p.add_argument("--pool-split", action="store_true",
+                   help="take the lookup + pool's kernels apart instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -340,6 +403,9 @@ def main(argv=None) -> None:
     print(smi, flush=True)
     if args.block_split:
         block_split(smi)
+        return
+    if args.pool_split:
+        pool_split(smi)
         return
     for ranker in ("dcn", "attention"):
         profile_serving(smi, ranker, args)

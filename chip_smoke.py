@@ -12,8 +12,9 @@ phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
-   one nvcc per source in parallel; PyTorch's own start-up on the card is
-   paid meanwhile);
+   one nvcc per source in parallel, ``csrc/previous`` into a library of its
+   own at the same time; PyTorch's own start-up on the card is paid
+   meanwhile);
 3. holds each of the nine kernels against its plain PyTorch version on the
    card at its path's shapes, and times both (device time from CUDA graph
    replays, and wall time per call with host overhead); beside them the bound (the
@@ -23,6 +24,11 @@ phase fails:
    from this run's inputs) and, where one PyTorch call computes the same
    function, that call's time; the fused block runs both its routes (tiled
    and general) against the plain version and times them in the same run;
+   the lookup + pool's forward (a 1,024- and a 64-user request's ``hist``,
+   the dense step's ``entities``) and backward (``entities`` and ``hist`` at
+   batch 512), each on uniform and Zipf ids, also run the first design's kernels
+   (``csrc/previous/``, built beside the others) and time them
+   (``previous_ms``);
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -225,8 +231,6 @@ def scaled_tol(want: torch.Tensor) -> dict:
 def check_kernels(dev) -> list:
     from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
     from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order
-    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
-                                                             reference_lookup_pool)
     rng = np.random.default_rng(SEED)
     B, D, NL = USERS_PER_REQUEST * FETCH, 112, 3
     bound = np.sqrt(6 / (D + 1))
@@ -234,35 +238,13 @@ def check_kernels(dev) -> list:
     ws = torch.from_numpy(rng.uniform(-bound, bound, (NL, D)).astype(np.float32)).to(dev)
     bs = torch.from_numpy(0.1 * rng.standard_normal((NL, D), np.float32)).to(dev)
 
-    V, Dp, Bp, L = 65280, 16, 1024, 30
-    table = rng.standard_normal((V, Dp), np.float32)
-    table[0] = 0
-    ids = rng.integers(1, 65239, (Bp, L)).astype(np.int32)
-    lengths = rng.integers(0, L + 1, Bp)
-    lengths[:4] = (0, 1, L, L)
-    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
-    ids[mask == 0] = 0
-    ids[3, ::3] = 0                      # padding inside an unmasked row
-    table, ids, mask = (torch.from_numpy(a).to(dev) for a in (table, ids, mask))
     v = torch.from_numpy(rng.standard_normal((B, FM_F, FM_D), np.float32)).to(dev)
 
-    # the pool reads every distinct row its slots point at once, and the ids and mask
-    weights = mask * (ids != 0)
-    pool_rows = int(torch.unique(ids[weights > 0]).numel())
-    ids64 = ids.long()
     cases = [
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
          (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
          least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None),
-        ("fused_lookup_pool", "news_recsys_tpu_torch/csrc/lookup_pool.cu",
-         "news_recsys_tpu/ops/fused_lookup_pool.py:71", fused_lookup_pool,
-         reference_lookup_pool, (table, ids, mask), POOL_TOL,
-         f"V={V} D={Dp} B={Bp} L={L}",
-         least_time(4 * (pool_rows * Dp + 2 * Bp * L + Bp * Dp), 2 * Bp * L * Dp),
-         # the gather and the weighted sum in one call; the division is left out
-         lambda: torch.nn.functional.embedding_bag(ids64, table, mode="sum",
-                                                   per_sample_weights=weights)),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
          f"B={B} F={FM_F} D={FM_D}",
@@ -488,8 +470,9 @@ def pool_bwd_case(V: int, L: int, B: int, skewed: bool, seed: int) -> tuple:
     backward: ragged lengths, one example masked out, and ids either uniform
     over the table or from a Zipf law (exponent 1.05, folded into the
     table), whose most frequent id takes about one valid slot in 20, as
-    popular items and entities do. The kernel walks a run of equal ids with
-    D threads, so its time depends on the longest run."""
+    popular items and entities do. The first design's kernel walked a run of
+    equal ids with D threads, so its time followed the longest run; the
+    current one's should not."""
     rng = np.random.default_rng(seed)
     if skewed:
         ids = (1 + (rng.zipf(1.05, (B, L)) - 1) % (V - 65)).astype(np.int32)
@@ -538,19 +521,186 @@ def embedding_bag_bwd_ms(ids, mask, g, V: int, want) -> tuple:
     return call_ms(backward, **DEEP), "events"
 
 
+# The pool's shapes (V, L, B), D 16: the recall's user tower pools the DSSM
+# ``hist`` over the item table for every request (1,024 and 64 users), the
+# all-dense attention step pools ``entities`` at batch 512; the backward runs
+# at the two training shapes (``entities``; ``hist``, where item 6's DSSM
+# training will take it).
+POOL_D = 16
+POOL_FWD_SHAPES = {"at_entities_shape": (30080, 5, TRAIN_BATCH),
+                   "at_64_users": (65280, 30, USERS_PER_REQUEST)}
+POOL_BWD_SHAPES = ((30080, 5), (65280, 30))
+
+
+def pool_fwd_case(V: int, L: int, B: int, skewed: bool, seed: int, dev) -> tuple:
+    """(table, ids, mask, longest run) on ``dev``: the ids and mask of
+    :func:`pool_bwd_case` and a seeded (V, POOL_D) table, row 0 zero."""
+    ids, mask, longest = pool_bwd_case(V, L, B, skewed, seed)
+    table = np.random.default_rng(seed + 1).standard_normal((V, POOL_D)).astype(np.float32)
+    table[0] = 0
+    return (*(torch.from_numpy(a).to(dev) for a in (table, ids, mask)), longest)
+
+
+def previous_pool_fwd(table, ids, mask):
+    """The first design's forward kernel (``csrc/previous/lookup_pool_v1.cu``), timed
+    beside its redesign; nothing in the port calls it."""
+    from news_recsys_tpu_torch.ops import _build, stream_ptr
+    (V, D), (B, L) = table.shape, ids.shape
+    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
+    rc = _build.previous_library().nrt_lookup_pool_fwd_v1(
+        table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, D, V,
+        stream_ptr(table))
+    if rc:
+        raise RuntimeError(f"nrt_lookup_pool_fwd_v1: cudaError_t {rc}")
+    return out
+
+
+def previous_pool_bwd(ids, mask, g, V: int):
+    """The first design's backward: its wrapper's stable ``torch.sort`` of the slots, then
+    ``csrc/previous/lookup_pool_bwd_v1.cu`` (memset, coefficients, a walk of
+    each run of equal ids); timed beside its redesign."""
+    from news_recsys_tpu_torch.ops import _build, stream_ptr
+    (B, L), D = ids.shape, g.shape[1]
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    grad, coef = g.new_empty((V, D)), g.new_empty((B * L,))
+    rc = _build.previous_library().nrt_lookup_pool_bwd_v1(
+        ids.data_ptr(), mask.data_ptr(), g.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+        grad.data_ptr(), coef.data_ptr(), B, L, D, V, stream_ptr(g))
+    if rc:
+        raise RuntimeError(f"nrt_lookup_pool_bwd_v1: cudaError_t {rc}")
+    return grad
+
+
+POOL_KEYS = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "previous_ms",
+             "bound_ms", "bound_by", "library_ms", "call_ms", "path")
+
+
+def check_pool_forward(dev) -> dict:
+    """The pool's forward against ``reference_lookup_pool``, and its time
+    beside the first design's, the plain version's and ``embedding_bag``'s: the
+    entry is a 1,024-user request's ``hist`` (65,280 x 16, L 30, the ids of
+    earlier runs' entry); Zipf ids, and the ``entities`` and 64-user shapes on
+    uniform and Zipf ids, ride along."""
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
+                                                             reference_lookup_pool)
+
+    rng = np.random.default_rng(SEED)
+    V, L, B = 65280, 30, 1024
+    table = rng.standard_normal((V, POOL_D), np.float32)
+    table[0] = 0
+    ids = rng.integers(1, 65239, (B, L)).astype(np.int32)
+    lengths = rng.integers(0, L + 1, B)
+    lengths[:4] = (0, 1, L, L)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    ids[mask == 0] = 0
+    ids[3, ::3] = 0                      # padding inside an unmasked row
+    longest = int(np.bincount(ids[(mask > 0) & (ids > 0)]).max())
+    main = (*(torch.from_numpy(a).to(dev) for a in (table, ids, mask)), longest)
+    cases = {("entry", False): main}
+    cases[("entry", True)] = pool_fwd_case(V, L, B, True, SEED + 50, dev)
+    for key, (Vc, Lc, Bc) in POOL_FWD_SHAPES.items():
+        for skewed in (False, True):
+            cases[(key, skewed)] = pool_fwd_case(Vc, Lc, Bc, skewed, SEED + 51 + Lc + Bc, dev)
+    entries = {}
+    for (key, skewed), (table, ids, mask, longest) in cases.items():
+        (Vc, D), (Bc, Lc) = table.shape, ids.shape
+        args = (table, ids, mask)
+        weights = mask * (ids != 0)
+        ids64 = ids.long()
+        with torch.inference_mode():
+            got, want, before = (f(*args) for f in (fused_lookup_pool, reference_lookup_pool,
+                                                   previous_pool_fwd))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **POOL_TOL)
+            torch.testing.assert_close(before, want, **POOL_TOL)
+            t = [device_ms(lambda: f(*args)) for f in (reference_lookup_pool, fused_lookup_pool,
+                                                      previous_pool_fwd, previous_pool_fwd,
+                                                      fused_lookup_pool, reference_lookup_pool)]
+            calls = [call_ms(lambda: f(*args)) for f in (fused_lookup_pool,
+                                                         reference_lookup_pool)]
+            # the gather and the weighted sum in one call; the division is left out
+            library = device_ms(lambda: torch.nn.functional.embedding_bag(
+                ids64, table, mode="sum", per_sample_weights=weights))
+        # the pool reads every distinct row its slots point at once, and the ids and mask
+        rows = int(torch.unique(ids[weights > 0]).numel())
+        kind = "zipf" if skewed else "uniform"
+        entries[key, skewed] = report_kernel(
+            "fused_lookup_pool", "news_recsys_tpu_torch/csrc/lookup_pool.cu",
+            "news_recsys_tpu/ops/fused_lookup_pool.py:71", float((got - want).abs().max()),
+            f"tol {POOL_TOL}", [t[0], t[1], t[4], t[5]], calls, "cuda_graph",
+            f"V={Vc} D={D} B={Bc} L={Lc} ids={kind} longest_run={longest}",
+            least_time(4 * (rows * D + 2 * Bc * Lc + Bc * D), 2 * Bc * Lc * D), library,
+            ids=kind, longest_run=longest, previous_ms=(t[2] + t[3]) / 2,
+            previous_source="news_recsys_tpu_torch/csrc/previous/lookup_pool_v1.cu",
+            # rows of at most 8 slots keep the first design's loop (csrc/lookup_pool.cu)
+            path="short-row loop" if Lc <= 8 else "every load in flight")
+        log(f"  the first design's kernel {entries[key, skewed]['previous_ms'] * 1e3:.2f} us")
+    entry = entries["entry", False]
+    entry["zipf_ids"] = {k: entries["entry", True][k] for k in POOL_KEYS}
+    for key in POOL_FWD_SHAPES:
+        entry[key] = {k: entries[key, False][k] for k in POOL_KEYS}
+        entry[key]["zipf_ids"] = {k: entries[key, True][k] for k in POOL_KEYS}
+    return entry
+
+
+def check_pool_backward(dev) -> dict:
+    """The pool's backward against ``pool_bwd_plain`` (two runs bit-identical)
+    and its time beside the first design's, the plain version's and ``embedding_bag``'s
+    backward, at ``entities`` (30,080 x 16, L 5; the entry) and the DSSM
+    ``hist`` (65,280 x 16, L 30) at batch 512, each on skewed (Zipf) and on
+    uniform ids."""
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool_bwd,
+                                                             pool_bwd_plain)
+
+    B, entries = TRAIN_BATCH, {}
+    for V, L in POOL_BWD_SHAPES:
+        for skewed in (True, False):
+            ids, mask, longest = pool_bwd_case(V, L, B, skewed, SEED + 30 + L)
+            g = torch.from_numpy(np.random.default_rng(SEED + 40 + L)
+                                 .standard_normal((B, POOL_D)).astype(np.float32)).to(dev)
+            ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            kernel = lambda: fused_lookup_pool_bwd(ids, mask, g, V)             # noqa: E731
+            plain = lambda: pool_bwd_plain(ids, mask, g, V)                     # noqa: E731
+            before = lambda: previous_pool_bwd(ids, mask, g, V)                 # noqa: E731
+            got, want, second, old = kernel(), plain(), kernel(), before()
+            torch.cuda.synchronize()
+            tol = scaled_tol(want)
+            torch.testing.assert_close(got, want, **tol)
+            torch.testing.assert_close(old, want, **tol)
+            if not torch.equal(got, second):
+                raise AssertionError("fused_lookup_pool_bwd: two runs gave different bits")
+            t = [device_ms(f, **DEEP) for f in (plain, kernel, before, before, kernel, plain)]
+            calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+            library_ms, library_timing = embedding_bag_bwd_ms(ids, mask, g, V, want)
+            kind = "zipf" if skewed else "uniform"
+            entries[L, skewed] = report_kernel(
+                "fused_lookup_pool_bwd", "news_recsys_tpu_torch/csrc/lookup_pool_bwd.cu",
+                "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
+                f"tol {tol}; two runs bit-identical", [t[0], t[1], t[4], t[5]], calls,
+                "cuda_graph", f"V={V} D={POOL_D} B={B} L={L} ids={kind} longest_run={longest}",
+                least_time(4 * (V * POOL_D + B * POOL_D + 2 * B * L), 2 * B * L * POOL_D),
+                library_ms, library_timing=library_timing, ids=kind, longest_run=longest,
+                previous_ms=(t[2] + t[3]) / 2,
+                previous_source="news_recsys_tpu_torch/csrc/previous/lookup_pool_bwd_v1.cu")
+            log(f"  the first design's kernel {entries[L, skewed]['previous_ms'] * 1e3:.2f} us")
+    # the entry is the skewed case at the shape the all-dense path gives the
+    # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
+    keys = (*POOL_KEYS[:-1], "library_timing")
+    main = entries[5, True]
+    main["uniform_ids"] = {k: entries[5, False][k] for k in keys}
+    main["at_hist_shape"] = {k: entries[30, True][k] for k in keys}
+    main["at_hist_shape"]["uniform_ids"] = {k: entries[30, False][k] for k in keys}
+    return main
+
+
 def check_attention_kernels(dev) -> list:
-    """This slice's kernels at its paths' shapes: the fused block's forward
-    at batch 6,400 (a served request) and 512 (a training step), its
-    backward at 512 (dx and all 12 parameter gradients, two runs
-    bit-identical), and the pool's backward for ``entities`` (30,080 x 16,
-    L 5) and the DSSM ``hist`` (65,280 x 16, L 30) at batch 512, each on
-    skewed (Zipf) and on uniform ids."""
+    """The fused block's kernels at their paths' shapes: the forward at batch
+    6,400 (a served request) and 512 (a training step), the backward at 512
+    (dx and all 12 parameter gradients, two runs bit-identical)."""
     from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain,
                                                            block_plain,
                                                            fused_transformer_block,
                                                            fused_transformer_block_bwd)
-    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool_bwd,
-                                                             pool_bwd_plain)
 
     shape = f"L={BLOCK_L} D={BLOCK_D} H={BLOCK_H} F={BLOCK_F}"
     out, at_train = [], None
@@ -618,41 +768,7 @@ def check_attention_kernels(dev) -> list:
     log(f"  route {routes['kernel_route']} {out[-1]['ms'] * 1e3:.2f} us; the general route at the "
         f"same shape {out[-1]['general_ms'] * 1e3:.2f} us, max_abs_err {errs[1]:.3e}")
 
-    entries = {}
-    for V, D, L in ((30080, 16, 5), (65280, 16, 30)):
-        for skewed in (True, False):
-            ids, mask, longest = pool_bwd_case(V, L, B, skewed, SEED + 30 + L)
-            g = torch.from_numpy(np.random.default_rng(SEED + 40 + L)
-                                 .standard_normal((B, D)).astype(np.float32)).to(dev)
-            ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
-            kernel = lambda: fused_lookup_pool_bwd(ids, mask, g, V)             # noqa: E731
-            plain = lambda: pool_bwd_plain(ids, mask, g, V)                     # noqa: E731
-            got, want, second = kernel(), plain(), kernel()
-            torch.cuda.synchronize()
-            tol = scaled_tol(want)
-            torch.testing.assert_close(got, want, **tol)
-            if not torch.equal(got, second):
-                raise AssertionError("fused_lookup_pool_bwd: two runs gave different bits")
-            t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
-            calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
-            library_ms, library_timing = embedding_bag_bwd_ms(ids, mask, g, V, want)
-            kind = "zipf" if skewed else "uniform"
-            entries[L, skewed] = report_kernel(
-                "fused_lookup_pool_bwd", "news_recsys_tpu_torch/csrc/lookup_pool_bwd.cu",
-                "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
-                f"tol {tol}; two runs bit-identical", t, calls, "cuda_graph",
-                f"V={V} D={D} B={B} L={L} ids={kind} longest_run={longest}",
-                least_time(4 * (V * D + B * D + 2 * B * L), 2 * B * L * D), library_ms,
-                library_timing=library_timing, ids=kind, longest_run=longest)
-    # the entry is the skewed case at the shape the all-dense path gives the
-    # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
-    keys = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_timing", "call_ms")
-    main = entries[5, True]
-    main["uniform_ids"] = {k: entries[5, False][k] for k in keys}
-    main["at_hist_shape"] = {k: entries[30, True][k] for k in keys}
-    main["at_hist_shape"]["uniform_ids"] = {k: entries[30, False][k] for k in keys}
-    return out + [main]
+    return out
 
 
 def make_requests(n_requests: int) -> list:
@@ -702,12 +818,14 @@ def ranker_scores(casc, batch, ids: list) -> np.ndarray:
         return torch.sigmoid(casc.ranker_model(feats)).reshape(len(ids), k).cpu().numpy()
 
 
-def recall_cut_tie(gpu, cpu, batch, r: int, hist: list) -> bool:
+def recall_cut_tie(gpu, cpu, batch, r: int, histories: list) -> bool:
     """True when the two devices' recall candidates for user ``r`` differ
-    only by items scored within ANSWER_TOL of the fetch cut."""
-    one = {k: v[r:r + 1] for k, v in batch.items()}
-    (g_ids,), (g_sc,) = gpu.recall.recommend(one, k=FETCH, histories=[hist])
-    (c_ids,), (c_sc,) = cpu.recall.recommend(one, k=FETCH, histories=[hist])
+    only by items scored within ANSWER_TOL of the fetch cut. Both recall the
+    whole request, as it was served: the card rounds a batch of one
+    otherwise than a batch of 64 (cuBLAS picks another product)."""
+    (g_ids, g_sc), (c_ids, c_sc) = (rec.recall.recommend(batch, k=FETCH, histories=histories)
+                                    for rec in (gpu, cpu))
+    g_ids, g_sc, c_ids, c_sc = g_ids[r], g_sc[r], c_ids[r], c_sc[r]
     diff = set(g_ids) ^ set(c_ids)
     score = {**dict(zip(g_ids, g_sc)), **dict(zip(c_ids, c_sc))}
     return bool(diff) and all(abs(score[i] - c_sc[-1]) <= ANSWER_TOL for i in diff)
@@ -736,7 +854,7 @@ def compare_with_cpu(gpu, cpu, reqs: list, answers: list) -> None:
                     or (j < len(gaps) and gaps[j] <= ANSWER_TOL) for j in range(K)]
             if all(t or g == c for g, c, t in zip(got, want, tied)):
                 continue
-            if not recall_cut_tie(gpu, cpu, batch, r, req["histories"][r]):
+            if not recall_cut_tie(gpu, cpu, batch, r, req["histories"]):
                 raise AssertionError(f"user {r}: card served {got}, CPU {want}")
             ties += 1
     log(f"card vs CPU: user embeddings max_abs_err {emb_err:.3e}, served sigmoid scores "
@@ -759,26 +877,56 @@ def start_pytorch(dev: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+def ptxas_report(report: str, part: str) -> dict:
+    """{kernel: [registers, spilled bytes]} of the entry functions whose
+    mangled name holds ``part``, from nvcc's ``-Xptxas=-v`` report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or part not in name:
+            continue
+        info = out.setdefault(name, [0, 0])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            info[1] = int(m.group(1))
+    return out
+
+
 def build_kernels(dev: torch.device) -> None:
-    """Build and load the kernels: ``nvcc`` on a thread (it waits for its
-    subprocesses), PyTorch's start-up on this one meanwhile."""
+    """Build and load the kernels and the pool kernels' first design (``csrc/previous``,
+    timed beside their redesign): ``nvcc`` on two threads (each waits for its
+    subprocesses, one per source), PyTorch's start-up on this one meanwhile."""
     from news_recsys_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    built = []
-    nvcc_thread = threading.Thread(target=lambda: built.append(_build.build()))
-    nvcc_thread.start()
+    built = {}
+    threads = [threading.Thread(target=lambda k=k, a=a: built.__setitem__(k, _build.build(*a)))
+               for k, a in (("kernels", ()),
+                            ("previous", (_build.PREVIOUS_DIR, _build.PREVIOUS_LIB_NAME)))]
+    for th in threads:
+        th.start()
     start_s = start_pytorch(dev)
-    nvcc_thread.join()
-    if not built:
+    for th in threads:
+        th.join()
+    if len(built) != 2:
         raise RuntimeError("the kernels did not build (nvcc's report is above)")
-    lib = built[0]
+    lib = built["kernels"]
     _build.library()
+    _build.previous_library()
     report = (lib.parent / "build.log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
     log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
         f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
+    pool = {**ptxas_report(report, "pool_bwd"), **ptxas_report(report, "lookup_pool_fwd")}
+    log("  pool kernels (registers, spilled bytes): " + "; ".join(
+        f"{n[:70]} {r} {s}" for n, (r, s) in pool.items()))
 
 
 def ranker_config(ranker: str):
@@ -1156,6 +1304,8 @@ def run(dev: torch.device) -> None:
     next(k for k in kernels if k["name"] == "fm_second_order")["at_train_shape"] = fm_train_fwd
     kernels.append(fm_bwd)
     kernels += timed("kernels of the attention ranker", check_attention_kernels, dev)
+    kernels.insert(1, timed("the pool's forward", check_pool_forward, dev))
+    kernels.append(timed("the pool's backward", check_pool_backward, dev))
     paths = {"serve": timed("serve", serve_phase, dev, name, smi),
              "train": timed("train", train_phase, dev, name, smi),
              "serve_deepfm": timed("serve_deepfm", serve_phase, dev, name, smi, "deepfm"),

@@ -8,6 +8,12 @@ package's own sources, into ``news_recsys_tpu_torch/build/<digest>/``: the
 digest covers the sources, their headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and
 a stale library is never loaded. Building needs no PyTorch headers, which
 keeps it to seconds.
+
+``csrc/previous/*.cu`` holds the first design of redesigned kernels, kept
+until the next change to them so that ``chip_smoke.py`` and
+``chip_profile.py`` can time both in one run; they build the same way into a
+library of their own, ``libnrt_previous.so`` (:func:`previous_library`),
+which nothing in the package calls.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libnrt_kernels.so"
+PREVIOUS_DIR = CSRC_DIR / "previous"
+PREVIOUS_LIB_NAME = "libnrt_previous.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,8 +50,8 @@ SIGNATURES = {
     "nrt_fm_fwd": [_P, _P, _I, _I, _I, _P],
     # v, g, dv, B, F, D, stream
     "nrt_fm_bwd": [_P, _P, _P, _I, _I, _I, _P],
-    # ids, mask, g, sorted_ids, order, grad_table, coef, B, L, D, V, stream
-    "nrt_lookup_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ids, mask, g, grad_table, state, coef, acc, flags, B, L, D, V, P, stream
+    "nrt_lookup_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, mask, params (12 pointers), out, ws, B, L, D, F, H, nblk, stream
     "nrt_fused_block_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, mask, dy, params, dx, dflat, wt, partial, ws, B, L, D, F, H, nblk, stream
@@ -52,6 +60,13 @@ SIGNATURES = {
     "nrt_fused_block_tiled_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, mask, dy, params, dx, dflat, partial, B, L, nblk, stream
     "nrt_fused_block_tiled_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+# the previous versions' entry points (csrc/previous/), in their own library
+PREVIOUS_SIGNATURES = {
+    # table, ids, mask, out, B, L, D, V, stream
+    "nrt_lookup_pool_fwd_v1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ids, mask, g, sorted_ids, order, grad_table, coef, B, L, D, V, stream
+    "nrt_lookup_pool_bwd_v1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # C entry point -> argument types; these launch nothing and return a size (floats or bytes)
 SIZE_FUNCTIONS = {
@@ -66,10 +81,11 @@ SIZE_FUNCTIONS = {
 
 _lock = threading.Lock()
 _library = None
+_previous = None
 
 
-def sources():
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(directory: Path = CSRC_DIR):
+    return sorted(directory.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -92,33 +108,34 @@ def nvcc_command(nvcc: str, output: Path, objects) -> list:
     return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
 
 
-def library_path() -> Path:
+def library_path(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in (*sources(), *sorted(CSRC_DIR.glob("*.cuh"))):     # headers too
+    for src in (*sources(directory), *sorted(CSRC_DIR.glob("*.cuh"))):     # headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_DIR / h.hexdigest()[:16] / name
 
 
-def build() -> Path:
-    """Compile the library unless this digest is built; returns its path.
+def build(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
+    """Compile the sources of ``directory`` into the library ``name`` unless
+    this digest is built; returns its path.
 
     The compiler's report (registers, shared memory, spills per kernel) is
     kept beside it in ``build.log``.
     """
-    lib = library_path()
+    lib = library_path(directory, name)
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = nvcc_path(), f"{os.getpid()}.tmp"
-    objects = [lib.parent / f"{src.stem}.{tag}.o" for src in sources()]
+    nvcc, tag, srcs = nvcc_path(), f"{os.getpid()}.tmp", sources(directory)
+    objects = [lib.parent / f"{src.stem}.{tag}.o" for src in srcs]
     procs = [subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources(), objects)]
+             for src, obj in zip(srcs, objects)]
     logs = [p.communicate()[0] for p in procs]      # waits for every nvcc
-    failed = [(src.name, p.returncode, log) for src, p, log in zip(sources(), procs, logs)
+    failed = [(src.name, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
               if p.returncode != 0]
-    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    tmp = lib.with_name(f"{name}.{tag}")
     link = None if failed else subprocess.run(nvcc_command(nvcc, tmp, objects),
                                               capture_output=True, text=True)
     (lib.parent / "build.log").write_text("".join(logs) + (link.stdout + link.stderr
@@ -134,16 +151,21 @@ def build() -> Path:
     return lib
 
 
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at the first call in the process."""
     global _library
     with _lock:
         if _library is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            lib = _load(build(), SIGNATURES)
             for name, argtypes in SIZE_FUNCTIONS.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -152,6 +174,16 @@ def library() -> ctypes.CDLL:
             lib.nrt_error_string.restype = ctypes.c_char_p
             _library = lib
         return _library
+
+
+def previous_library() -> ctypes.CDLL:
+    """The previous kernels' library (``csrc/previous/``), built at the first
+    call in the process."""
+    global _previous
+    with _lock:
+        if _previous is None:
+            _previous = _load(build(PREVIOUS_DIR, PREVIOUS_LIB_NAME), PREVIOUS_SIGNATURES)
+        return _previous
 
 
 def launch(name: str, *args) -> None:

@@ -80,19 +80,26 @@ def mhsa_plain(x, mask, wqkv, bqkv, wo, bo, num_heads: int) -> torch.Tensor:
 
 
 def block_plain(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
-                num_heads: int) -> torch.Tensor:
+                num_heads: int, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The block in plain PyTorch, step by step as the flax module: the CPU
-    path and the kernels' oracle (its gradients come from autograd)."""
+    path and the kernels' oracle (its gradients come from autograd).
+    ``gate`` (B, L, F), 0 or 1, replaces the feed-forward's ReLU gate
+    ``pre-activation > 0`` when given: a kernel that decides a pre-activation
+    within rounding of 0 the other way is held to this version with its own
+    gate."""
     y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, num_heads), g1, b1)
-    ffn = torch.relu(y1 @ w1 + c1) @ w2 + c2
+    z = y1 @ w1 + c1
+    ffn = (torch.relu(z) if gate is None else z * gate) @ w2 + c2
     return layer_norm_plain(y1 + ffn, g2, b2)
 
 
-def block_bwd_plain(params: Sequence[torch.Tensor], x, mask, dy, num_heads: int):
-    """(dx, the 12 parameter gradients) by autograd through :func:`block_plain`."""
+def block_bwd_plain(params: Sequence[torch.Tensor], x, mask, dy, num_heads: int,
+                    gate: Optional[torch.Tensor] = None):
+    """(dx, the 12 parameter gradients) by autograd through :func:`block_plain`
+    (with ``gate``, if given, as the ReLU's)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, *params)]
-        out = block_plain(leaves[0], mask, *leaves[1:], num_heads=num_heads)
+        out = block_plain(leaves[0], mask, *leaves[1:], num_heads=num_heads, gate=gate)
         grads = torch.autograd.grad(out, leaves, dy)
     return grads[0], tuple(grads[1:])
 

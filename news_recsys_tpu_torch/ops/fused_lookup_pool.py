@@ -7,20 +7,24 @@ reference pooling (``base_model.py:273-282``).
 
 The kernel (``csrc/lookup_pool.cu``, entry ``nrt_lookup_pool_fwd``) replaces
 the Pallas kernel ``news_recsys_tpu/ops/fused_lookup_pool.py::_pool_pallas``.
-It is bound by the B*L*D*4 gathered bytes: one warp per batch row reads
-whole table rows coalesced (several ids at once when D < 32), sums them in
-registers and writes only (B, D), so the (B, L, D) gather never reaches
-device memory.
+It is bound by the latency of two dependent reads, the ids and then the
+rows: one warp per batch row reads the row's ids and mask in one coalesced
+load and issues every table-row read of the example (16-byte loads where
+D allows) before the first add, and writes only (B, D), so the (B, L, D)
+gather never reaches device memory. Rows of at most 8 slots keep the first
+design's loop over the slots, which is as fast there.
 
 :func:`fused_lookup_pool` is a ``torch.autograd.Function`` in the table,
 as the JAX package's is a ``jax.custom_vjp``. Its backward,
 :func:`fused_lookup_pool_bwd` (``csrc/lookup_pool_bwd.cu``, entry
 ``nrt_lookup_pool_bwd``), replaces the JAX package's XLA ``_bwd``: the dense
-(V, D) gradient ``grad_table[ids] += g * w / (sum w + 1e-8)``. It is bound by
-the V*D*4 bytes of zeros it must write. The wrapper sorts the B*L slots by
-id (a stable ``torch.sort``) and the kernel sums each run of equal ids in
-slot order, one writer per table row: no float atomics, and two runs give
-the same bits.
+(V, D) gradient ``grad_table[ids] += g * w / (sum w + 1e-8)``. It sorts
+nothing: every term is added as an integer, scaled by a power of two from
+its row's largest term (:func:`fixed_point_bits`), so the order of the
+additions cannot change the result: two runs give the same bits, and a hot
+id's terms go to one row's integer atomics from every warp at once, not in
+a walk. One memset and three launches; the wrapper allocates the kernel's
+scratch (:func:`pool_bwd_scratch`).
 
 Ids outside ``[0, V)``: the pooled row is NaN, whatever the mask, as the
 JAX package's XLA gather gives (``jnp.take`` fills out-of-range rows with
@@ -91,6 +95,25 @@ def _fwd_kernel(table, ids, mask) -> torch.Tensor:
     return out
 
 
+def fixed_point_bits(S: int) -> int:
+    """P, the backward kernel's integer grain: a term t of a row whose largest
+    term is below 2^e is added as round(t * 2^(P - e)), at most 2^P in size,
+    so the S = B*L terms a row can take sum to at most 2^62: P = 62 - (the
+    bits of S)."""
+    return 62 - max(S, 0).bit_length()
+
+
+def pool_bwd_scratch(B: int, L: int, D: int, V: int, device) -> tuple:
+    """The backward kernel's scratch, uninitialised: (state (2V) int32, each
+    row's exponent and accumulator index; coef (B*L) float32; acc (B*L * D)
+    int64 and flags (B*L * D) int32: an accumulator row a slot, which the
+    first slot to touch a table row lends it)."""
+    return (torch.empty(2 * V, dtype=torch.int32, device=device),
+            torch.empty(B * L, dtype=torch.float32, device=device),
+            torch.empty(B * L * D, dtype=torch.int64, device=device),
+            torch.empty(B * L * D, dtype=torch.int32, device=device))
+
+
 def fused_lookup_pool_bwd(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                           V: int) -> torch.Tensor:
     """ids (B, L) int32, mask (B, L) float32, g (B, D) float32 -> the (V, D)
@@ -108,12 +131,10 @@ def fused_lookup_pool_bwd(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor
     if B * L * D >= 2 ** 31:
         raise ValueError(f"the fused_lookup_pool backward takes B*L*D < 2**31; got "
                          f"B={B}, L={L}, D={D}")
-    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
     grad = g.new_empty((V, D))
-    coef = g.new_empty((B * L,))
-    launch("nrt_lookup_pool_bwd", ids.data_ptr(), mask.data_ptr(), g.data_ptr(),
-           sorted_ids.data_ptr(), order.data_ptr(), grad.data_ptr(), coef.data_ptr(),
-           B, L, D, V, stream_ptr(g))
+    scratch = pool_bwd_scratch(B, L, D, V, g.device)
+    launch("nrt_lookup_pool_bwd", ids.data_ptr(), mask.data_ptr(), g.data_ptr(), grad.data_ptr(),
+           *(t.data_ptr() for t in scratch), B, L, D, V, fixed_point_bits(B * L), stream_ptr(g))
     with launch_count_lock:
         fused_lookup_pool_bwd.launches += 1
     return grad

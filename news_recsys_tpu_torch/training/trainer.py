@@ -11,7 +11,8 @@ one compiled chunk). Validation scores the dev set on the device and runs
 the host metric engine (:mod:`.metrics`) at every size. ``train.log``,
 ``val_log.log`` and ``metrics.jsonl`` keep the JAX package's format.
 
-Not ported yet (ROADMAP.md, queue 1, item 2): checkpoints and resume,
+Not ported yet (ROADMAP.md, queue 1, item 2): checkpoints and resume
+(``fit(resume=True)`` raises),
 TensorBoard, ``model_info.log``, the device metric engine
 (``training/metrics_device.py``), and the slab-streamed path for datasets
 larger than ``device_resident_bytes``.
@@ -128,17 +129,22 @@ class Trainer:
                                     torch.from_numpy(packer.float_mat).to(self.device))
         return self._packed[id(ds)][1:]
 
-    def train_epoch(self, state, ds: PackedDataset, epoch: int):
+    def train_epoch(self, state, ds: PackedDataset, epoch: int, skip_steps: int = 0):
         """One epoch in the permutation the JAX trainer draws; returns
-        (state, metrics)."""
+        (state, metrics). ``skip_steps`` leaves out the first batches of that
+        permutation (steps trained before a restart), as the JAX trainer's
+        does."""
         hp = self.cfg.train_hparams
         bs = self.cfg.dataset.batch_size
         packer, int_dev, float_dev = self._device_matrices(ds)
         layout = packer.layout_key()
         rng = np.random.default_rng(np.random.SeedSequence([self.cfg.dataset.shuffle_seed, epoch]))
         order = rng.permutation(packer.n)
-        nb = max(0, min(packer.n // bs, hp.max_step - self.global_step))
-        idx = torch.from_numpy(order[: nb * bs].reshape(nb, bs)).to(self.device)  # one upload
+        nb_full = packer.n // bs
+        start = min(skip_steps, nb_full)
+        nb = max(0, min(nb_full - start, hp.max_step - self.global_step))
+        idx = torch.from_numpy(order[start * bs:(start + nb) * bs].reshape(nb, bs)).to(
+            self.device)                                                     # one upload
         ones = torch.ones(bs, device=self.device)
         hist = AucHist.zeros(self.device)
         t0 = time.perf_counter()
@@ -201,13 +207,22 @@ class Trainer:
         return results
 
     def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
-            warm_user_set: Optional[Set[int]] = None, max_epochs: Optional[int] = None):
-        """Train from the model's current parameters for ``max_epochs``
-        (default ``train_hparams.max_epoch``) or until ``max_step``,
-        validating on ``dev_ds`` after every ``val_freq``-th epoch."""
+            warm_user_set: Optional[Set[int]] = None, state=None,
+            max_epochs: Optional[int] = None, resume: bool = False):
+        """Train ``state`` (default: :meth:`init_state`, the model's current
+        parameters) for ``max_epochs`` (default ``train_hparams.max_epoch``)
+        or until ``max_step``, validating on ``dev_ds`` after every
+        ``val_freq``-th epoch. The reference's arguments, in its order;
+        ``resume`` (restore the latest checkpoint) is not ported yet."""
+        if resume:
+            raise NotImplementedError("fit(resume=True): checkpoints and resume "
+                                      + RUNTIME_NOT_PORTED)
+        if state is None:
+            state = self.init_state()
+        elif state.model is not self.model:
+            raise ValueError("fit: the state's model is not this trainer's")
         hp = self.cfg.train_hparams
         max_epochs = hp.max_epoch if max_epochs is None else max_epochs
-        state = self.init_state()
         for epoch in range(max_epochs):
             if self.global_step >= hp.max_step:
                 break

@@ -182,6 +182,31 @@ def test_layer_norm_is_flax_layer_norm():
     assert np.abs(torch_default[0] - want[0]).max() > 1e-3
 
 
+def test_block_plain_takes_the_relu_gate():
+    """The gate of the feed-forward's ReLU as an input: ``pre-activation > 0``
+    gives the ReLU's output and gradients; flipping one pre-activation's gate
+    changes the gradients of its own example only (the batch's parameter
+    gradients through that example)."""
+    from news_recsys_tpu_torch.ops.fused_attention import mhsa_plain
+    from tests.test_torch_cuda import block_inputs
+
+    x_np, mask_np, params_np, dy_np = block_inputs(4, 6, 8, 12, seed=3)
+    x, mask, dy = map(torch.from_numpy, (x_np, mask_np, dy_np))
+    params = [torch.from_numpy(p) for p in params_np]
+    wqkv, bqkv, wo, bo, g1, b1, w1, c1 = params[:8]
+    y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, 2), g1, b1)
+    gate = (y1 @ w1 + c1 > 0).float()
+    assert torch.equal(block_plain(x, mask, *params, num_heads=2, gate=gate),
+                       block_plain(x, mask, *params, num_heads=2))
+    relu_dx, relu_dp = block_bwd_plain(params, x, mask, dy, 2)
+    dx, dp = block_bwd_plain(params, x, mask, dy, 2, gate=gate)
+    assert torch.equal(dx, relu_dx) and all(torch.equal(a, b) for a, b in zip(dp, relu_dp))
+    gate[2, 3, 5] = 1.0 - gate[2, 3, 5]
+    flipped, _ = block_bwd_plain(params, x, mask, dy, 2, gate=gate)
+    changed = (flipped != dx).flatten(1).any(dim=1)
+    assert changed.tolist() == [False, False, True, False]
+
+
 def test_mhsa_matches_flax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((5, 9, 16)).astype(np.float32)
@@ -234,14 +259,20 @@ def test_block_init_is_seeded_and_torch_default():
 # -- the pool's backward -------------------------------------------------------
 
 
-@pytest.mark.parametrize("V,D,B,L", [(640, 16, 64, 5), (300, 8, 33, 30), (50, 3, 9, 4)])
-def test_pool_bwd_matches_jax_grad(monkeypatch, V, D, B, L):
+@pytest.mark.parametrize("V,D,B,L,zipf", [(640, 16, 64, 5, False), (300, 8, 33, 30, False),
+                                          (50, 3, 9, 4, False), (2000, 16, 64, 30, True)])
+def test_pool_bwd_matches_jax_grad(monkeypatch, V, D, B, L, zipf):
     """Duplicates inside and across examples, padding id 0, masked slots, an
-    all-zero mask row, and ids >= V, which JAX's scatter-add drops."""
+    all-zero mask row, and ids >= V, which JAX's scatter-add drops; and Zipf
+    ids, whose most frequent id runs longer than the 32 slots the backward
+    kernel sums in one warp."""
     monkeypatch.setenv("NRT_PALLAS", "")
     rng = np.random.default_rng(V)
     table = rng.standard_normal((V, D)).astype(np.float32)
     ids = rng.integers(0, V, (B, L)).astype(np.int32)
+    if zipf:
+        ids = ((rng.zipf(1.05, (B, L)) - 1) % V).astype(np.int32)
+        assert np.bincount(ids[ids > 0]).max() > 32
     ids[:, 0] = 7                                    # one id in every example
     ids[4, 1:3] = ids[4, 0]                          # and several times in one
     mask = (rng.random((B, L)) > 0.3).astype(np.float32)

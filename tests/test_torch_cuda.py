@@ -578,15 +578,27 @@ def ranker_block_inputs(B, seed):
     return x, mask, params, dy
 
 
-def mute_relu_kinks(params, x, mask, dy, margin=1e-5):
+KINK_MARGIN = 1e-5
+
+
+def relu_kinks(params, x, mask, margin=KINK_MARGIN):
+    """(the feed-forward's pre-activations (B, L, F) as the plain version
+    computes them, the mask of those within ``margin`` of the ReLU's kink)."""
+    wqkv, bqkv, wo, bo, g1, b1, w1, c1 = params[:8]
+    y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, RANKER_H), g1, b1)
+    z = y1 @ w1 + c1
+    return z, z.abs() < margin
+
+
+def mute_relu_kinks(params, x, mask, dy, margin=KINK_MARGIN):
     """``dy`` with the examples zeroed in which a pre-activation of the
     feed-forward lies within ``margin`` of the ReLU's kink. There rounding
     decides the gate (a kernel recomputes the forward in another order than
     the plain version), and with the gate a whole row's gradient; at batch
-    6,400 the block has 12 M pre-activations and a few always land there."""
-    wqkv, bqkv, wo, bo, g1, b1, w1, c1 = params[:8]
-    y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, RANKER_H), g1, b1)
-    near = ((y1 @ w1 + c1).abs() < margin).flatten(1).any(dim=1)
+    6,400 the block has 12 M pre-activations and a few always land there.
+    ``test_block_routes_hold_kink_rows_to_their_own_gate`` holds these
+    examples to the plain gradient with the kernel's gate."""
+    near = relu_kinks(params, x, mask, margin)[1].flatten(1).any(dim=1)
     assert int(near.sum()) <= max(1, x.shape[0] // 20)
     return torch.where(near[:, None, None], torch.zeros_like(dy), dy)
 
@@ -639,6 +651,40 @@ def test_block_routes_backward_match_plain(cuda, B, route):
         assert_grads_close(a, b, name)
     again_dx, again = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route=route)
     assert torch.equal(dx, again_dx) and all(torch.equal(a, b) for a, b in zip(dparams, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["general", "tiled"])
+@pytest.mark.parametrize("B", [512, 6400])
+def test_block_routes_hold_kink_rows_to_their_own_gate(cuda, B, route):
+    """The examples that :func:`mute_relu_kinks` mutes, unmuted: for each, the
+    gate the kernel took is the one of the 2^k gates of its k pre-activations
+    near the kink whose plain gradient its dx matches; then dx and the 12
+    parameter gradients of the whole batch equal ``block_bwd_plain`` with
+    those gates, at the tolerances of the other tests: the mute hides no
+    other error."""
+    x, mask, params, dy = ranker_block_inputs(B, seed=4)
+    x, mask, dy, *params = on(cuda, x, mask, dy, *params)
+    z, near = relu_kinks(params, x, mask)
+    dx, dparams = fused_transformer_block_bwd(params, x, mask, dy, RANKER_H, route=route)
+    gate = (z > 0).float()
+    for i in near.flatten(1).any(dim=1).nonzero().flatten().tolist():
+        at = near[i].nonzero().tolist()
+        assert len(at) <= 4, at
+        errs = {}
+        for flips in range(2 ** len(at)):
+            gi = gate[i:i + 1].clone()
+            for bit, (l, f) in enumerate(at):
+                if flips >> bit & 1:
+                    gi[0, l, f] = 1.0 - gi[0, l, f]
+            want, _ = block_bwd_plain(params, x[i:i + 1], mask[i:i + 1], dy[i:i + 1], RANKER_H,
+                                      gate=gi)
+            errs[flips] = (float((dx[i] - want[0]).abs().max()), gi)
+        gate[i] = min(errs.values(), key=lambda e: e[0])[1][0]
+    want_dx, want_dparams = block_bwd_plain(params, x, mask, dy, RANKER_H, gate=gate)
+    assert_grads_close(dx, want_dx, "dx")
+    for name, a, b in zip(PARAM_NAMES, dparams, want_dparams):
+        assert_grads_close(a, b, name)
 
 
 @pytest.mark.cuda
@@ -750,3 +796,166 @@ def test_pool_autograd_on_cuda(cuda):
         assert launched == ((0, 0) if dev == "cpu" else (1, 1))
         grads[str(dev)] = table.grad.cpu()
     assert_close_to_scale(grads["cuda"], grads["cpu"], "grad_table")
+
+
+# -- the pool's kernels on skewed ids, runs of one id and odd widths ---------------
+#
+# The backward adds every term as an integer scaled by its row's largest term,
+# warps of 32 slots (blocks of 128) summing the slots of one id before one
+# atomic a column: runs of one id are placed to fill a warp, to overflow it by
+# one and to outrun a block.
+
+
+def zipf_pool_ids(V, B, L, seed, a=1.05):
+    """(ids, mask) with ids from a Zipf law folded into [1, V), ragged
+    lengths (the first example empty, the third full) and the sixth example
+    masked out: the most frequent id takes about one valid slot in 20."""
+    rng = np.random.default_rng(seed)
+    ids = (1 + (rng.zipf(a, (B, L)) - 1) % (V - 1)).astype(np.int32)
+    lengths = rng.integers(0, L + 1, B)
+    lengths[:3] = (0, 1, L)[:B]
+    ids[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    mask = (ids != 0).astype(np.float32)
+    if B > 5:
+        mask[5] = 0.0
+    return ids, mask
+
+
+def check_pool_bwd(dev, ids, mask, g, V):
+    """The kernel's gradient against ``pool_bwd_plain`` in float64 on the CPU
+    (the kernel adds exactly to a grain of 2^-31 of a row's largest term or
+    finer; a float32 sum of 15,360 terms in one row is not that close), and
+    a second run bit-identical; returns the gradient."""
+    want = pool_bwd_plain(torch.from_numpy(ids), torch.from_numpy(mask).double(),
+                          torch.from_numpy(g).double(), V).float()
+    ids, mask, g = on(dev, ids, mask, g)
+    n = fused_lookup_pool_bwd.launches
+    got = fused_lookup_pool_bwd(ids, mask, g, V)
+    assert fused_lookup_pool_bwd.launches == n + 1
+    assert_close_to_scale(got.cpu(), want, "grad_table")
+    assert not got[0].any()
+    assert torch.equal(got, fused_lookup_pool_bwd(ids, mask, g, V))
+    return got
+
+
+def pool_grad(B, D, seed):
+    return np.random.default_rng(seed).standard_normal((B, D)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,L", [(30080, 5), (65280, 30)])
+def test_pool_bwd_kernel_on_zipf_ids(cuda, V, L):
+    """The two training shapes at batch 512, D 16, ids as skewed as MIND's."""
+    ids, mask = zipf_pool_ids(V, 512, L, seed=L)
+    assert np.bincount(ids[mask > 0]).max() > 50
+    check_pool_bwd(cuda, ids, mask, pool_grad(512, 16, L), V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,L,D", [(500, 512, 30, 16), (50, 1, 4, 3), (9, 70, 33, 40)])
+def test_pool_bwd_kernel_one_id_in_every_slot(cuda, V, B, L, D):
+    ids = np.full((B, L), V - 2, np.int32)
+    mask = np.ones((B, L), np.float32)
+    got = check_pool_bwd(cuda, ids, mask, pool_grad(B, D, 3), V)
+    assert torch.count_nonzero(got.abs().sum(dim=1)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [32, 33, 128, 129, 1000])
+def test_pool_bwd_kernel_runs_of_one_id(cuda, run):
+    """A run of one id in consecutive slots, from slot 17 (across warps),
+    among uniform ids; every example fully valid."""
+    B, L, V = 64, 30, 1000
+    rng = np.random.default_rng(run)
+    ids = rng.integers(1, V, (B, L)).astype(np.int32)
+    ids.reshape(-1)[17:17 + run] = 321
+    mask = np.ones((B, L), np.float32)
+    check_pool_bwd(cuda, ids, mask, pool_grad(B, 16, run), V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", ["first", "last"])
+def test_pool_bwd_kernel_hot_id_at_the_table_edges(cuda, hot):
+    """A third of the slots hold id 1, or id V - 1."""
+    B, L, V = 256, 20, 4000
+    rng = np.random.default_rng(7)
+    ids = rng.integers(1, V, (B, L)).astype(np.int32)
+    ids[rng.random((B, L)) < 1 / 3] = 1 if hot == "first" else V - 1
+    _, mask = zipf_pool_ids(V, B, L, seed=8)
+    mask = np.where(mask > 0, mask, (rng.random((B, L)) < 0.5).astype(np.float32))
+    check_pool_bwd(cuda, ids, mask, pool_grad(B, 16, 9), V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 17, 256])
+def test_pool_bwd_kernel_widths(cuda, D):
+    ids, mask = zipf_pool_ids(2000, 64, 12, seed=D)
+    check_pool_bwd(cuda, ids, mask, pool_grad(64, D, D), 2000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 7, 40])
+def test_pool_bwd_kernel_batch_of_one(cuda, L):
+    """B 1; L 40 takes the scan's second chunk of 32 slots. Weights other
+    than 0 and 1 and a repeated id."""
+    rng = np.random.default_rng(L)
+    ids = rng.integers(1, 100, (1, L)).astype(np.int32)
+    ids[0, L // 2] = ids[0, 0]
+    mask = rng.uniform(0.2, 2.0, (1, L)).astype(np.float32)
+    check_pool_bwd(cuda, ids, mask, pool_grad(1, 16, L), 100)
+
+
+@pytest.mark.cuda
+def test_pool_bwd_kernel_non_finite_gradients(cuda):
+    """NaN and +-inf in g: the columns they reach read what an IEEE sum
+    gives (NaN, +inf, -inf; +inf and -inf in one column: NaN), every other
+    value stays exact; examples fully valid, so that the plain version adds
+    no masked slot."""
+    B, L, V, D = 8, 4, 50, 8
+    rng = np.random.default_rng(4)
+    ids = rng.integers(1, V, (B, L)).astype(np.int32)
+    ids[4, 0] = ids[5, 0] = ids[6, 0] = 7
+    mask = np.ones((B, L), np.float32)
+    g = pool_grad(B, D, 5)
+    g[3, 2] = np.nan
+    g[4, 5], g[5, 5], g[6, 6] = np.inf, -np.inf, np.inf
+    got = fused_lookup_pool_bwd(*on(cuda, ids, mask, g), V).cpu()
+    want = pool_bwd_plain(*map(torch.from_numpy, (ids, mask, g)), V)
+    assert got[7, 5].isnan() and got[7, 6] == np.inf
+    torch.testing.assert_close(got, want, equal_nan=True, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "zipf"])
+@pytest.mark.parametrize("V,B,L", [(65280, 64, 30), (30080, 512, 5), (65280, 1024, 30)])
+def test_pool_kernel_on_the_main_path_shapes(cuda, V, B, L, skewed):
+    """The forward at a 64- and a 1,024-user request's ``hist`` and the
+    dense step's ``entities``, D 16 (16-byte loads), on uniform and Zipf
+    ids; two runs bit-identical."""
+    rng = np.random.default_rng(B + L)
+    table = rng.standard_normal((V, 16)).astype(np.float32)
+    table[0] = 0.0
+    if skewed:
+        ids, mask = zipf_pool_ids(V, B, L, seed=B)
+    else:
+        _, ids, mask = pool_inputs(V, 16, B, L, seed=B)
+    table, ids, mask = on(cuda, table, ids, mask)
+    with torch.inference_mode():
+        got = fused_lookup_pool(table, ids, mask)
+        torch.testing.assert_close(got, reference_lookup_pool(table, ids, mask), **POOL_TOL)
+        assert torch.equal(got, fused_lookup_pool(table, ids, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 12])
+def test_pool_kernel_unaligned_table(cuda, D):
+    """A table view off the 16-byte grid takes the 4-byte loads; D 12 is a
+    multiple of 4 whose rows need not start on the grid either."""
+    table, ids, mask = pool_inputs(700, D, 40, 9)
+    table, ids, mask = on(cuda, table, ids, mask)
+    view = torch.cat([table.new_zeros(1), table.reshape(-1)])[1:].view(table.shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    with torch.inference_mode():
+        torch.testing.assert_close(fused_lookup_pool(view, ids, mask),
+                                   reference_lookup_pool(view, ids, mask), **POOL_TOL)

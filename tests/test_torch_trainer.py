@@ -21,16 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset
+from news_recsys_tpu.data.packed_dataset import BatchPacker, PackedDataset, iterate_batches
 from news_recsys_tpu.models.rankers import build_ranker as jbuild_ranker
 from news_recsys_tpu.training import trainer as jtrainer
 from news_recsys_tpu.zoo import MIND_FEATURES, MIND_TABLE_SIZE
-from news_recsys_tpu_torch.convert import params_from_flax
+from news_recsys_tpu_torch.convert import (dense_state_from_jax, params_from_flax,
+                                           sparse_state_from_jax)
 from news_recsys_tpu_torch.models.rankers import build_ranker
-from news_recsys_tpu_torch.training.trainer import Trainer
+from news_recsys_tpu_torch.training.trainer import RUNTIME_NOT_PORTED, Trainer
 from news_recsys_tpu_torch.zoo import mind_config
 
 from tests.test_torch_cuda import train_cfg, train_dataset
+from tests.test_torch_dense_training import assert_dense_states_close
 from tests.test_torch_training import (MODES, TOL, assert_states_close, jax_params, jax_train,
                                        port_state, port_train, step_indices)
 
@@ -86,3 +88,79 @@ def test_three_steps_at_full_mind_width(monkeypatch):
     state, _, loss = port_train(cfg, state, packer, idx)
     np.testing.assert_allclose(loss, jloss, **TOL)
     assert_states_close(state, jstate, cfg)
+
+
+# the sparse step, and the all-dense one (embedding_optimizer "adamw")
+STEPS = {"sparse": lambda: train_cfg(False),
+         "dense": lambda: train_cfg(False, embedding_optimizer="adamw")}
+
+
+def jax_trainer_and_state(cfg, ds, workdir):
+    """The JAX trainer and its initial state, and the same state converted
+    into a port ``Trainer`` on the CPU."""
+    jt = jtrainer.Trainer(cfg, jbuild_ranker(cfg, "dcn"), workdir=str(workdir / "jax"),
+                          use_mesh=False)
+    jstate = jt.init_state(next(iterate_batches(ds, cfg.dataset.batch_size, shuffle=False)))
+    trainer = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(workdir / "port"),
+                      device="cpu")
+    convert = sparse_state_from_jax if trainer.sparse_embeddings else dense_state_from_jax
+    return jt, jstate, trainer, convert(jax.device_get(jstate), trainer.model, cfg)
+
+
+def assert_close_to_jax(state, jstate, cfg, tol=TOL):
+    if cfg.train_hparams.embedding_optimizer == "adamw":
+        assert_dense_states_close(state, jax.device_get(jstate), tol=tol)
+    else:
+        assert_states_close(state, jax.device_get(jstate), cfg, tol=tol)
+
+
+@pytest.mark.parametrize("skip", [0, 1, 3, 9])
+@pytest.mark.parametrize("step", list(STEPS))
+def test_train_epoch_skip_steps_matches_jax(monkeypatch, tmp_path, step, skip):
+    """``train_epoch(skip_steps=k)`` leaves out the first k batches of the
+    epoch's permutation, as the JAX trainer's does (300 rows, batch 64: 4
+    batches; 9 skips them all), from a JAX state converted into the port."""
+    monkeypatch.setenv("NRT_PALLAS", "")
+    cfg = STEPS[step]()
+    ds = train_dataset(cfg, 300, seed=10)
+    jt, jstate, trainer, state = jax_trainer_and_state(cfg, ds, tmp_path)
+    jstate, jm = jt.train_epoch(jstate, ds, 1, skip_steps=skip)
+    state, m = trainer.train_epoch(state, ds, 1, skip_steps=skip)
+    assert m["steps"] == jm["steps"] == max(0, 4 - skip)
+    assert trainer.global_step == jt.global_step == state.step == m["steps"]
+    assert_close_to_jax(state, jstate, cfg)
+    if m["steps"]:
+        np.testing.assert_allclose(m["train_loss"], jm["train_loss"], **TOL)
+
+
+@pytest.mark.parametrize("step", list(STEPS))
+def test_fit_continues_from_a_given_state(monkeypatch, tmp_path, step):
+    """``fit(state=s)`` trains ``s`` (here a JAX state after 3 steps,
+    converted) and not a fresh ``init_state()``: it ends where JAX's
+    ``fit(state=s)`` ends."""
+    monkeypatch.setenv("NRT_PALLAS", "")
+    cfg = STEPS[step]()
+    ds = train_dataset(cfg, 300, seed=11)
+    jt, jstate, trainer, _ = jax_trainer_and_state(cfg, ds, tmp_path)
+    jstate, _ = jt.train_epoch(jstate, ds, 0, skip_steps=1)
+    convert = sparse_state_from_jax if trainer.sparse_embeddings else dense_state_from_jax
+    state = convert(jax.device_get(jstate), trainer.model, cfg)
+    assert state.step == 3
+    want = jax.device_get(jt.fit(ds, state=jstate, max_epochs=1))
+    got = trainer.fit(ds, state=state, max_epochs=1)
+    assert got is state and got.step == 7
+    assert_close_to_jax(got, want, cfg)
+    other = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(tmp_path / "other"),
+                    device="cpu")
+    with pytest.raises(ValueError, match="not this trainer's"):
+        other.fit(ds, state=state, max_epochs=1)
+
+
+def test_fit_resume_is_not_ported_yet(tmp_path):
+    """Resuming needs checkpoints, queue 1 item 2a."""
+    cfg = train_cfg(False)
+    trainer = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2") as e:
+        trainer.fit(train_dataset(cfg, 100, seed=1), resume=True)
+    assert RUNTIME_NOT_PORTED in str(e.value)
+    assert trainer.global_step == 0
