@@ -4,6 +4,7 @@ port, on one CUDA GPU.
     python3 chip_profile.py [--users 64,256,1024] [--requests 10]
     python3 chip_profile.py --block-split
     python3 chip_profile.py --pool-split
+    python3 chip_profile.py --cross-split
 
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
@@ -45,15 +46,21 @@ changed each, built beside the library; their outputs are not the block's);
 and the tiled route with its TF32 split made by ``cvt.rna.tf32.f32`` instead
 of integer rounding (``-DNRT_SPLIT_WITH_CVT``), forward and backward.
 
-``--pool-split`` takes the fused lookup + pool's kernels apart, the first
-design's (``csrc/previous/``) beside this one's, at ``chip_smoke.py``'s shapes:
-the backward at batch 512 on ``entities`` (30,080 x 16, L 5) and ``hist``
-(65,280 x 16, L 30), Zipf and uniform ids, whole (graph replays) and each
-launch by name from a ``torch.profiler`` trace (first design: the wrapper's
-``torch.sort``, memset, coefficients, segment walk; now: memset, scan,
-accumulate, write); the forward whole at a 1,024-user request (B 1,024, L
-30), ``entities`` (B 512, L 5) and a 64-user request (B 64, L 30), uniform
-and Zipf ids.
+``--pool-split`` takes the fused lookup + pool's kernels apart at
+``chip_smoke.py``'s shapes: the backward at batch 512 on ``entities`` (30,080
+x 16, L 5) and ``hist`` (65,280 x 16, L 30), Zipf and uniform ids, whole
+(graph replays) and each launch by name from a ``torch.profiler`` trace
+(memset, scan, accumulate, write); the forward whole at a 1,024-user request
+(B 1,024, L 30), ``entities`` (B 512, L 5) and a 64-user request (B 64, L 30),
+uniform and Zipf ids.
+
+``--cross-split`` takes the DCN cross stack's kernels apart, the first
+design's (``csrc/previous/``) beside this one's, at ``chip_smoke.py``'s three
+shapes (the forward at a request's B 6,400 and at a step's B 512 with the
+backward's residuals, the backward at B 512; D 112, 3 layers): whole (graph
+replays, in turns), each launch by name from a ``torch.profiler`` trace, and
+the DCN training step's device time with each design's kernels, traced in
+turns.
 """
 
 from __future__ import annotations
@@ -352,11 +359,8 @@ def pool_split(smi: str) -> None:
             g = torch.from_numpy(np.random.default_rng(chip_smoke.SEED + 40 + L)
                                  .standard_normal((B, D)).astype(np.float32)).to(dev)
             ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
-            designs = {
-                "first design: sort, memset, coef, walk":
-                    lambda: chip_smoke.previous_pool_bwd(ids, mask, g, V),
-                "now: memset, scan, accumulate, write":
-                    lambda: fused_lookup_pool_bwd(ids, mask, g, V)}
+            designs = {"memset, scan, accumulate, write":
+                       lambda: fused_lookup_pool_bwd(ids, mask, g, V)}
             print(f"  V={V} L={L} ids={'zipf' if skewed else 'uniform'} longest_run={longest}")
             for label, fn in designs.items():
                 whole = chip_smoke.device_ms(fn, **chip_smoke.DEEP)
@@ -373,19 +377,113 @@ def pool_split(smi: str) -> None:
                 for e in sorted(events, key=lambda e: -e.self_device_time_total):
                     print(f"      {e.key[:70]:70s} {e.self_device_time_total / reps:8.2f} us "
                           f"({e.count // reps} a call)")
-    print(f"\n== the pool's forward, the first design's kernel against this one, D={D} ({smi})")
+    print(f"\n== the pool's forward, D={D} ({smi})")
     shapes = {"request, 1,024 users": (65280, 30, 1024), **chip_smoke.POOL_FWD_SHAPES}
     for label, (V, L, Bf) in shapes.items():
         for skewed in (False, True):
             table, ids, mask, longest = chip_smoke.pool_fwd_case(V, L, Bf, skewed,
                                                                  chip_smoke.SEED + 60, dev)
-            fns = (chip_smoke.previous_pool_fwd, fused_lookup_pool, fused_lookup_pool,
-                   chip_smoke.previous_pool_fwd)
             with torch.inference_mode():
-                t = [chip_smoke.device_ms(lambda: f(table, ids, mask)) for f in fns]
+                t = chip_smoke.device_ms(lambda: fused_lookup_pool(table, ids, mask))
             print(f"  {label} (V={V} L={L} B={Bf}), ids={'zipf' if skewed else 'uniform'} "
-                  f"longest_run={longest}: first design {(t[0] + t[3]) / 2 * 1e3:.2f} us, now "
-                  f"{(t[1] + t[2]) / 2 * 1e3:.2f} us")
+                  f"longest_run={longest}: {t * 1e3:.2f} us")
+
+
+def cross_split(smi: str) -> None:
+    from news_recsys_tpu_torch.ops import dcn_kernel as dk
+
+    dev, reps, TB = torch.device("cuda"), 20, chip_smoke.TRAIN_BATCH
+    serve_B = chip_smoke.USERS_PER_REQUEST * chip_smoke.FETCH
+    x0, ws, bs, _ = chip_smoke.cross_case(serve_B, chip_smoke.SEED, dev)
+    tx0, tws, tbs, tg = chip_smoke.cross_case(TB, chip_smoke.SEED + 7, dev)
+    with torch.no_grad():
+        _, ss = dk._cross_fwd_kernel(tx0, tws, tbs, residuals=True)
+        _, xs1, ss1 = chip_smoke.previous_cross_fwd(tx0, tws, tbs, residuals=True)
+    designs = {   # shape -> (first design, this one)
+        f"forward, B={serve_B}": (lambda: chip_smoke.previous_cross_fwd(x0, ws, bs),
+                                  lambda: dk._cross_fwd_kernel(x0, ws, bs, False)),
+        f"forward with residuals, B={TB}": (
+            lambda: chip_smoke.previous_cross_fwd(tx0, tws, tbs, residuals=True),
+            lambda: dk._cross_fwd_kernel(tx0, tws, tbs, True)),
+        f"backward, B={TB}": (lambda: chip_smoke.previous_cross_bwd(tx0, tws, xs1, ss1, tg),
+                              lambda: dk.dcn_cross_bwd(tx0, tws, tbs, ss, tg))}
+    floor = chip_smoke.device_ms(chip_smoke.launch_empty)
+    print(f"\n== the cross stack's kernels, D=112 NL=3 ({smi}); an empty kernel "
+          f"{floor * 1e3:.2f} us")
+    with torch.no_grad():
+        for label, (first, now) in designs.items():
+            t = [chip_smoke.device_ms(f) for f in (first, now, now, first)]
+            print(f"  {label}: first design {(t[0] + t[3]) / 2 * 1e3:.2f} us, now "
+                  f"{(t[1] + t[2]) / 2 * 1e3:.2f} us (graph replays, in turns)")
+            for name, fn in (("first design", first), ("now", now)):
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
+                    print(f"    {name}: {e.key[:64]:64s} {e.self_device_time_total / reps:7.2f} "
+                          f"us ({e.count // reps} a call, eager)")
+
+    cross_step_split(smi)
+
+
+class _FirstDesignCross(torch.autograd.Function):
+    """The cross stack on the first design's kernels (``csrc/previous/``):
+    the forward writes xs and ss, the backward reads them."""
+
+    @staticmethod
+    def forward(ctx, x0, ws, bs):
+        out, xs, ss = chip_smoke.previous_cross_fwd(x0, ws, bs, residuals=True)
+        ctx.save_for_backward(x0, ws, xs, ss)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return chip_smoke.previous_cross_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def cross_step_split(smi: str) -> None:
+    """The DCN training step's device time with each design's cross kernels:
+    one traced epoch of TRAIN_STEPS steps each, in turns (first, now, now,
+    first), after a warm-up epoch of each."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.ops import dcn_kernel as dk
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
+    cfg = chip_smoke.train_config("dcn")
+    ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
+    dev, now = torch.device("cuda"), dk._CrossStack
+    designs = {"first design": _FirstDesignCross, "now": now}
+    results = collections.defaultdict(list)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
+                          workdir=tmp, device=dev)
+        state = trainer.init_state()
+        try:
+            for epoch, name in enumerate(("first design", "now", "first design", "now", "now",
+                                          "first design")):
+                dk._CrossStack = designs[name]
+                if epoch < 2:
+                    state, _ = trainer.train_epoch(state, ds, epoch)           # warm-up
+                    continue
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    trainer.train_epoch(state, ds, epoch)
+                    torch.cuda.synchronize()
+                events = device_events(prof)
+                cross = [e for e in events if "dcn_cross" in e.key]
+                results[name].append((sum(e.self_device_time_total for e in events) / steps,
+                                      sum(e.self_device_time_total for e in cross) / steps,
+                                      sum(e.count for e in cross) / steps))
+        finally:
+            dk._CrossStack = now
+    print(f"\n== the DCN training step, batch {bs}, traced epochs of {steps} steps ({smi})")
+    for name, runs in results.items():
+        print(f"  {name}: device time a step " + ", ".join(f"{r[0]:.1f}" for r in runs)
+              + " us; of it the cross kernels " + ", ".join(f"{r[1]:.2f}" for r in runs)
+              + f" us ({runs[0][2]:.0f} launches a step)")
 
 
 def main(argv=None) -> None:
@@ -396,6 +494,8 @@ def main(argv=None) -> None:
                    help="take the fused block's kernels apart instead")
     p.add_argument("--pool-split", action="store_true",
                    help="take the lookup + pool's kernels apart instead")
+    p.add_argument("--cross-split", action="store_true",
+                   help="take the cross stack's kernels apart instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -406,6 +506,9 @@ def main(argv=None) -> None:
         return
     if args.pool_split:
         pool_split(smi)
+        return
+    if args.cross_split:
+        cross_split(smi)
         return
     for ranker in ("dcn", "attention"):
         profile_serving(smi, ranker, args)

@@ -24,11 +24,11 @@ phase fails:
    from this run's inputs) and, where one PyTorch call computes the same
    function, that call's time; the fused block runs both its routes (tiled
    and general) against the plain version and times them in the same run;
-   the lookup + pool's forward (a 1,024- and a 64-user request's ``hist``,
-   the dense step's ``entities``) and backward (``entities`` and ``hist`` at
-   batch 512), each on uniform and Zipf ids, also run the first design's kernels
-   (``csrc/previous/``, built beside the others) and time them
-   (``previous_ms``);
+   the cross stack's forward (a request's B 6,400; a step's B 512, which also
+   writes the backward's residuals) and backward (B 512) also run the first
+   design's kernels (``csrc/previous/``, built beside the others) and time
+   them (``previous_ms``); and one empty kernel, the floor of a launch
+   (``launch_floor_ms``);
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -62,7 +62,7 @@ phase fails:
    driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
-times, and ``{"ok": true, "device": {...}}``.
+times (and the launch floor), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -244,26 +244,78 @@ def check_kernels(dev) -> list:
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
          (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
-         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None),
+         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None,
+         lambda *a: previous_cross_fwd(*a)[0]),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
          f"B={B} F={FM_F} D={FM_D}",
-         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None),
+         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None, None),
     ]
     out = []
     with torch.inference_mode():
-        for name, source, replaces, kernel, plain, args, tol, shape, work, library in cases:
+        for name, source, replaces, kernel, plain, args, tol, shape, work, library, before \
+                in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             tol = tol(want) if callable(tol) else tol
             torch.testing.assert_close(got, want, **tol)
-            t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
+            extra = {}
+            if before is None:
+                t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
+            else:
+                torch.testing.assert_close(before(*args), want, **tol)
+                t = [device_ms(lambda: f(*args))
+                     for f in (plain, kernel, before, before, kernel, plain)]
+                extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_v1.cu")
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
             out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
                                      "cuda_graph", shape, work,
-                                     device_ms(library) if library else None))
+                                     device_ms(library) if library else None, **extra))
     return out
+
+
+def previous_entry(first_ms: float, second_ms: float, source: str) -> dict:
+    """The first design's time (``previous_ms``, the mean of its two turns)
+    and source, for a kernel entry."""
+    ms = (first_ms + second_ms) / 2
+    log(f"  the first design's kernel ({source}) {ms * 1e3:.2f} us")
+    return {"previous_ms": ms, "previous_source": f"news_recsys_tpu_torch/csrc/previous/{source}"}
+
+
+def previous_cross_fwd(x0, ws, bs, residuals: bool = False):
+    """The first design's forward (``csrc/previous/dcn_cross_v1.cu``), timed
+    beside its redesign; nothing in the port calls it. (out, xs, ss): with
+    ``residuals`` it also writes every layer's input xs (NL, B, D) and ss."""
+    from news_recsys_tpu_torch.ops import _build, stream_ptr
+    (B, D), NL = x0.shape, ws.shape[0]
+    out = torch.empty_like(x0)
+    xs = x0.new_empty((NL, B, D)) if residuals else None
+    ss = x0.new_empty((NL, B)) if residuals else None
+    rc = _build.previous_library().nrt_dcn_cross_fwd_v1(
+        x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), out.data_ptr(),
+        xs.data_ptr() if residuals else None, ss.data_ptr() if residuals else None, B, D, NL,
+        stream_ptr(x0))
+    if rc:
+        raise RuntimeError(f"nrt_dcn_cross_fwd_v1: cudaError_t {rc}")
+    return out, xs, ss
+
+
+def previous_cross_bwd(x0, ws, xs, ss, g):
+    """The first design's backward (``csrc/previous/dcn_cross_bwd_v1.cu``: it
+    reads xs, and sums per-block partials in a second launch); timed beside
+    its redesign."""
+    from news_recsys_tpu_torch.ops import _build, stream_ptr
+    (B, D), NL = x0.shape, ws.shape[0]
+    nblk = max(1, min(-(-B // 8), 264))
+    dx0, dws, dbs = torch.empty_like(x0), torch.empty_like(ws), torch.empty_like(ws)
+    partial = x0.new_empty((nblk, 2, NL, D))
+    rc = _build.previous_library().nrt_dcn_cross_bwd_v1(
+        x0.data_ptr(), ws.data_ptr(), xs.data_ptr(), ss.data_ptr(), g.data_ptr(), dx0.data_ptr(),
+        dws.data_ptr(), dbs.data_ptr(), partial.data_ptr(), B, D, NL, nblk, stream_ptr(x0))
+    if rc:
+        raise RuntimeError(f"nrt_dcn_cross_bwd_v1: cudaError_t {rc}")
+    return dx0, dws, dbs
 
 
 def check_fm_training_kernels(dev) -> tuple:
@@ -292,9 +344,11 @@ def check_fm_training_kernels(dev) -> tuple:
         t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, fm_second_order,
                                                fm_plain)]
         fwd = {"shape": shape, "max_abs_err": fwd_err, "ms": (t[1] + t[2]) / 2,
-               "plain_ms": (t[0] + t[3]) / 2}
+               "plain_ms": (t[0] + t[3]) / 2,
+               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D)}
         log(f"kernel fm_second_order [{shape}]: max_abs_err {fwd_err:.3e}; device time "
-            f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us")
+            f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us, "
+            f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}")
         t = [device_ms(lambda: f(v, g)) for f in (fm_bwd_plain, fm_second_order_bwd,
                                                   fm_second_order_bwd, fm_bwd_plain)]
         calls = [call_ms(lambda: f(v, g)) for f in (fm_second_order_bwd, fm_bwd_plain)]
@@ -305,44 +359,75 @@ def check_fm_training_kernels(dev) -> tuple:
         "cuda_graph", shape, least_time(4 * (2 * B * FM_F * FM_D + B), 3 * B * FM_F * FM_D))
 
 
+def cross_case(B: int, seed: int, dev) -> tuple:
+    """(x0, ws, bs, g) of the DCN's cross stack at batch ``B`` (D 112, 3
+    layers): unit-normal rows and gradients, Glorot-uniform weights, small
+    biases."""
+    rng = np.random.default_rng(seed)
+    D, NL = 112, 3
+    bound = np.sqrt(6 / (D + 1))
+    arrays = (rng.standard_normal((B, D), np.float32),
+              rng.uniform(-bound, bound, (NL, D)).astype(np.float32),
+              0.1 * rng.standard_normal((NL, D), np.float32),
+              rng.standard_normal((B, D), np.float32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
 def check_training_kernels(dev) -> list:
     """The training path's kernels at its shapes: the cross stack's forward
-    in the mode that writes the backward's residuals and its backward fed
-    those residuals (batch 512, D 112, 3 layers), and the row scatter
-    (arena 159,360 x 32, 1,024 sorted slots with duplicates, as the dedup
-    gives them)."""
-    from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_plain,
+    in the mode that writes the backward's residuals (``ss``) and its
+    backward fed those residuals (batch 512, D 112, 3 layers), each beside
+    the first design's (which writes and reads ``xs`` too), and the row
+    scatter (arena 159,360 x 32, 1,024 sorted slots with duplicates, as the
+    dedup gives them)."""
+    from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_rebuild_plain,
                                                       cross_fwd_plain, dcn_cross_bwd)
     from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
 
-    rng = np.random.default_rng(SEED + 7)
     B, D, NL = TRAIN_BATCH, 112, 3
-    bound = np.sqrt(6 / (D + 1))
-    x0 = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
-    ws = torch.from_numpy(rng.uniform(-bound, bound, (NL, D)).astype(np.float32)).to(dev)
-    bs = torch.from_numpy(0.1 * rng.standard_normal((NL, D), np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+    shape = f"B={B} D={D} NL={NL}"
+    x0, ws, bs, g = cross_case(B, SEED + 7, dev)
+    fwd_kernel = lambda: _cross_fwd_kernel(x0, ws, bs, residuals=True)           # noqa: E731
+    fwd_plain = lambda: cross_fwd_plain(x0, ws, bs)                              # noqa: E731
+    fwd_before = lambda: previous_cross_fwd(x0, ws, bs, residuals=True)          # noqa: E731
     with torch.no_grad():
-        fwd = _cross_fwd_kernel(x0, ws, bs, residuals=True)
-        fwd_want = cross_fwd_plain(x0, ws, bs)
+        (out, ss), (want_out, want_xs, want_ss), before = fwd_kernel(), fwd_plain(), fwd_before()
     torch.cuda.synchronize()
-    fwd_err = max(float((a - b).abs().max()) for a, b in zip(fwd, fwd_want))
-    for part, a, b in zip(("out", "xs", "ss"), fwd, fwd_want):
+    fwd_err = max(float((a - b).abs().max()) for a, b in ((out, want_out), (ss, want_ss)))
+    for part, a, b in (("out", out, want_out), ("ss", ss, want_ss),
+                       *zip(("first design's out", "xs", "ss"), before, (want_out, want_xs,
+                                                                         want_ss))):
         torch.testing.assert_close(a, b, msg=lambda m: f"cross forward {part}: {m}", **DCN_TOL)
-    log(f"kernel dcn_cross_stack with residuals [B={B} D={D} NL={NL}]: out, xs, ss "
-        f"max_abs_err {fwd_err:.3e} (tol {DCN_TOL})")
-    bwd_args = (x0, ws, fwd[1], fwd[2], g)          # the forward kernel's own xs, ss
     with torch.no_grad():
-        got, want = dcn_cross_bwd(*bwd_args), cross_bwd_plain(*bwd_args)
-        again = dcn_cross_bwd(*bwd_args)
+        t = [device_ms(f) for f in (fwd_plain, fwd_kernel, fwd_before, fwd_before, fwd_kernel,
+                                    fwd_plain)]
+        extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_v1.cu")
+        calls = [call_ms(f) for f in (fwd_kernel, fwd_plain)]
+    # out and ss written; the first design also wrote xs (NL, B, D)
+    work = least_time(4 * (2 * B * D + NL * B + 2 * NL * D), 5 * NL * B * D)
+    old_work = least_time(4 * (2 * B * D + NL * B * D + NL * B + 2 * NL * D), 5 * NL * B * D)
+    log(f"  bound with the first design's residuals (xs too): {old_work['bound_ms'] * 1e3:.2f} us")
+    fwd = report_kernel(
+        "dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
+        "news_recsys_tpu/ops/dcn_kernel.py:51", fwd_err, f"out and ss, tol {DCN_TOL}", t, calls,
+        "cuda_graph", f"{shape} residuals", work, mode="residuals for the backward (ss)",
+        first_design_bound_ms=old_work["bound_ms"], **extra)
+
+    bwd_args = (x0, ws, bs, ss, g)                  # the forward kernel's own ss
+    before_args = (x0, ws, before[1], before[2], g)  # the first design's xs, ss
+    with torch.no_grad():
+        got, want = dcn_cross_bwd(*bwd_args), cross_bwd_rebuild_plain(*bwd_args)
+        again, old = dcn_cross_bwd(*bwd_args), previous_cross_bwd(*before_args)
     torch.cuda.synchronize()
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     bwd_scale = max(float(b.abs().max()) for b in want)
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, old):
         torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
+        torch.testing.assert_close(c, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("dcn_cross_bwd: two runs gave different bits")
 
+    rng = np.random.default_rng(SEED + 18)
     V, Ds, S = 159360, 32, 2 * TRAIN_BATCH
     table = torch.from_numpy(rng.standard_normal((V, Ds), np.float32)).to(dev)
     rows = np.sort(rng.integers(1, V, S)).astype(np.int32)
@@ -360,16 +445,24 @@ def check_training_kernels(dev) -> list:
         raise AssertionError("scatter_rows_set: the table differs from the plain version's")
 
     with torch.no_grad():
-        t = [device_ms(lambda: f(*bwd_args))
-             for f in (cross_bwd_plain, dcn_cross_bwd, dcn_cross_bwd, cross_bwd_plain)]
-        calls = [call_ms(lambda: f(*bwd_args)) for f in (dcn_cross_bwd, cross_bwd_plain)]
+        kernel = lambda: dcn_cross_bwd(*bwd_args)                                # noqa: E731
+        plain = lambda: cross_bwd_rebuild_plain(*bwd_args)                       # noqa: E731
+        previous = lambda: previous_cross_bwd(*before_args)                      # noqa: E731
+        t = [device_ms(f) for f in (plain, kernel, previous, previous, kernel, plain)]
+        extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_bwd_v1.cu")
+        calls = [call_ms(f) for f in (kernel, plain)]
+        # x0, g, ss, ws and bs read, dx0, dws and dbs written; the first
+        # design also read xs (NL, B, D) and wrote no bs
+        old_work = least_time(4 * ((3 + NL) * B * D + NL * B + 3 * NL * D), 8 * NL * B * D)
+        log(f"  bound with the first design's residuals (xs read): "
+            f"{old_work['bound_ms'] * 1e3:.2f} us")
         bwd = report_kernel(
             "dcn_cross_bwd", "news_recsys_tpu_torch/csrc/dcn_cross_bwd.cu",
             "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
-            f"bit-identical", t, calls, "cuda_graph", f"B={B} D={D} NL={NL}",
-            least_time(4 * ((3 + NL) * B * D + NL * B + 3 * NL * D), 8 * NL * B * D),
-            fwd_residuals_max_abs_err=fwd_err)
+            f"bit-identical", t, calls, "cuda_graph", shape,
+            least_time(4 * (3 * B * D + NL * B + 4 * NL * D), 8 * NL * B * D),
+            first_design_bound_ms=old_work["bound_ms"], **extra)
         scatter = (lambda: scatter_rows_set(t_kernel, rows, vals),
                    lambda: scatter_rows_plain(t_plain, rows, vals))
         t = [device_ms(scatter[i]) for i in (1, 0, 0, 1)]
@@ -377,7 +470,7 @@ def check_training_kernels(dev) -> list:
         rows64 = rows.long()
         library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))   # rows in range
         written = int(torch.unique(rows).numel())
-        return [bwd, report_kernel(
+        return [fwd, bwd, report_kernel(
             "scatter_rows_set", "news_recsys_tpu_torch/csrc/scatter_rows.cu",
             "news_recsys_tpu/ops/scatter_rows.py:68", scatter_err, "bit-identical", t, calls,
             "cuda_graph", f"V={V} D={Ds} S={S}",
@@ -541,43 +634,13 @@ def pool_fwd_case(V: int, L: int, B: int, skewed: bool, seed: int, dev) -> tuple
     return (*(torch.from_numpy(a).to(dev) for a in (table, ids, mask)), longest)
 
 
-def previous_pool_fwd(table, ids, mask):
-    """The first design's forward kernel (``csrc/previous/lookup_pool_v1.cu``), timed
-    beside its redesign; nothing in the port calls it."""
-    from news_recsys_tpu_torch.ops import _build, stream_ptr
-    (V, D), (B, L) = table.shape, ids.shape
-    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
-    rc = _build.previous_library().nrt_lookup_pool_fwd_v1(
-        table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, D, V,
-        stream_ptr(table))
-    if rc:
-        raise RuntimeError(f"nrt_lookup_pool_fwd_v1: cudaError_t {rc}")
-    return out
-
-
-def previous_pool_bwd(ids, mask, g, V: int):
-    """The first design's backward: its wrapper's stable ``torch.sort`` of the slots, then
-    ``csrc/previous/lookup_pool_bwd_v1.cu`` (memset, coefficients, a walk of
-    each run of equal ids); timed beside its redesign."""
-    from news_recsys_tpu_torch.ops import _build, stream_ptr
-    (B, L), D = ids.shape, g.shape[1]
-    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
-    grad, coef = g.new_empty((V, D)), g.new_empty((B * L,))
-    rc = _build.previous_library().nrt_lookup_pool_bwd_v1(
-        ids.data_ptr(), mask.data_ptr(), g.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-        grad.data_ptr(), coef.data_ptr(), B, L, D, V, stream_ptr(g))
-    if rc:
-        raise RuntimeError(f"nrt_lookup_pool_bwd_v1: cudaError_t {rc}")
-    return grad
-
-
-POOL_KEYS = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "previous_ms",
-             "bound_ms", "bound_by", "library_ms", "call_ms", "path")
+POOL_KEYS = ("shape", "ids", "longest_run", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "call_ms", "path")
 
 
 def check_pool_forward(dev) -> dict:
     """The pool's forward against ``reference_lookup_pool``, and its time
-    beside the first design's, the plain version's and ``embedding_bag``'s: the
+    beside the plain version's and ``embedding_bag``'s: the
     entry is a 1,024-user request's ``hist`` (65,280 x 16, L 30, the ids of
     earlier runs' entry); Zipf ids, and the ``entities`` and 64-user shapes on
     uniform and Zipf ids, ride along."""
@@ -608,13 +671,10 @@ def check_pool_forward(dev) -> dict:
         weights = mask * (ids != 0)
         ids64 = ids.long()
         with torch.inference_mode():
-            got, want, before = (f(*args) for f in (fused_lookup_pool, reference_lookup_pool,
-                                                   previous_pool_fwd))
+            got, want = fused_lookup_pool(*args), reference_lookup_pool(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **POOL_TOL)
-            torch.testing.assert_close(before, want, **POOL_TOL)
             t = [device_ms(lambda: f(*args)) for f in (reference_lookup_pool, fused_lookup_pool,
-                                                      previous_pool_fwd, previous_pool_fwd,
                                                       fused_lookup_pool, reference_lookup_pool)]
             calls = [call_ms(lambda: f(*args)) for f in (fused_lookup_pool,
                                                          reference_lookup_pool)]
@@ -627,14 +687,12 @@ def check_pool_forward(dev) -> dict:
         entries[key, skewed] = report_kernel(
             "fused_lookup_pool", "news_recsys_tpu_torch/csrc/lookup_pool.cu",
             "news_recsys_tpu/ops/fused_lookup_pool.py:71", float((got - want).abs().max()),
-            f"tol {POOL_TOL}", [t[0], t[1], t[4], t[5]], calls, "cuda_graph",
+            f"tol {POOL_TOL}", t, calls, "cuda_graph",
             f"V={Vc} D={D} B={Bc} L={Lc} ids={kind} longest_run={longest}",
             least_time(4 * (rows * D + 2 * Bc * Lc + Bc * D), 2 * Bc * Lc * D), library,
-            ids=kind, longest_run=longest, previous_ms=(t[2] + t[3]) / 2,
-            previous_source="news_recsys_tpu_torch/csrc/previous/lookup_pool_v1.cu",
+            ids=kind, longest_run=longest,
             # rows of at most 8 slots keep the first design's loop (csrc/lookup_pool.cu)
             path="short-row loop" if Lc <= 8 else "every load in flight")
-        log(f"  the first design's kernel {entries[key, skewed]['previous_ms'] * 1e3:.2f} us")
     entry = entries["entry", False]
     entry["zipf_ids"] = {k: entries["entry", True][k] for k in POOL_KEYS}
     for key in POOL_FWD_SHAPES:
@@ -645,7 +703,7 @@ def check_pool_forward(dev) -> dict:
 
 def check_pool_backward(dev) -> dict:
     """The pool's backward against ``pool_bwd_plain`` (two runs bit-identical)
-    and its time beside the first design's, the plain version's and ``embedding_bag``'s
+    and its time beside the plain version's and ``embedding_bag``'s
     backward, at ``entities`` (30,080 x 16, L 5; the entry) and the DSSM
     ``hist`` (65,280 x 16, L 30) at batch 512, each on skewed (Zipf) and on
     uniform ids."""
@@ -661,28 +719,23 @@ def check_pool_backward(dev) -> dict:
             ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
             kernel = lambda: fused_lookup_pool_bwd(ids, mask, g, V)             # noqa: E731
             plain = lambda: pool_bwd_plain(ids, mask, g, V)                     # noqa: E731
-            before = lambda: previous_pool_bwd(ids, mask, g, V)                 # noqa: E731
-            got, want, second, old = kernel(), plain(), kernel(), before()
+            got, want, second = kernel(), plain(), kernel()
             torch.cuda.synchronize()
             tol = scaled_tol(want)
             torch.testing.assert_close(got, want, **tol)
-            torch.testing.assert_close(old, want, **tol)
             if not torch.equal(got, second):
                 raise AssertionError("fused_lookup_pool_bwd: two runs gave different bits")
-            t = [device_ms(f, **DEEP) for f in (plain, kernel, before, before, kernel, plain)]
+            t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
             library_ms, library_timing = embedding_bag_bwd_ms(ids, mask, g, V, want)
             kind = "zipf" if skewed else "uniform"
             entries[L, skewed] = report_kernel(
                 "fused_lookup_pool_bwd", "news_recsys_tpu_torch/csrc/lookup_pool_bwd.cu",
                 "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
-                f"tol {tol}; two runs bit-identical", [t[0], t[1], t[4], t[5]], calls,
+                f"tol {tol}; two runs bit-identical", t, calls,
                 "cuda_graph", f"V={V} D={POOL_D} B={B} L={L} ids={kind} longest_run={longest}",
                 least_time(4 * (V * POOL_D + B * POOL_D + 2 * B * L), 2 * B * L * POOL_D),
-                library_ms, library_timing=library_timing, ids=kind, longest_run=longest,
-                previous_ms=(t[2] + t[3]) / 2,
-                previous_source="news_recsys_tpu_torch/csrc/previous/lookup_pool_bwd_v1.cu")
-            log(f"  the first design's kernel {entries[L, skewed]['previous_ms'] * 1e3:.2f} us")
+                library_ms, library_timing=library_timing, ids=kind, longest_run=longest)
     # the entry is the skewed case at the shape the all-dense path gives the
     # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
     keys = (*POOL_KEYS[:-1], "library_timing")
@@ -899,8 +952,8 @@ def ptxas_report(report: str, part: str) -> dict:
 
 
 def build_kernels(dev: torch.device) -> None:
-    """Build and load the kernels and the pool kernels' first design (``csrc/previous``,
-    timed beside their redesign): ``nvcc`` on two threads (each waits for its
+    """Build and load the kernels and the cross stack kernels' first design
+    (``csrc/previous``, timed beside their redesign): ``nvcc`` on two threads (each waits for its
     subprocesses, one per source), PyTorch's start-up on this one meanwhile."""
     from news_recsys_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -924,9 +977,9 @@ def build_kernels(dev: torch.device) -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
         f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
-    pool = {**ptxas_report(report, "pool_bwd"), **ptxas_report(report, "lookup_pool_fwd")}
-    log("  pool kernels (registers, spilled bytes): " + "; ".join(
-        f"{n[:70]} {r} {s}" for n, (r, s) in pool.items()))
+    cross = ptxas_report(report, "dcn_cross")
+    log("  cross stack kernels (registers, spilled bytes): " + "; ".join(
+        f"{n[:70]} {r} {s}" for n, (r, s) in cross.items()))
 
 
 def ranker_config(ranker: str):
@@ -1239,6 +1292,20 @@ def counted_kernels() -> dict:
                                     fused_lookup_pool_bwd)}
 
 
+def launch_empty() -> None:
+    """One empty kernel (``nrt_empty``, one block of 32 threads) on the current stream."""
+    from news_recsys_tpu_torch.ops import _build
+    _build.launch("nrt_empty", torch.cuda.current_stream().cuda_stream)
+
+
+def launch_floor_ms() -> float:
+    """Device time of :func:`launch_empty` as :func:`device_ms` takes it: the
+    floor under every kernel's time in this run."""
+    ms = device_ms(launch_empty)
+    log(f"launch floor: an empty kernel {ms * 1e3:.2f} us (CUDA graph replays)")
+    return ms
+
+
 def reset_launches() -> None:
     for f in counted_kernels().values():
         f.launches = 0
@@ -1256,7 +1323,8 @@ def read_launches() -> dict:
 N_REQUESTS = 1 + REQUESTS
 PATH_KERNELS = {
     "serve": {"dcn_cross_stack": None, "fused_lookup_pool": None},
-    "train": {"dcn_cross_stack": None, "dcn_cross_bwd": None, "scatter_rows_set": None},
+    "train": {"dcn_cross_stack": EARLIER_TRAIN_STEPS, "dcn_cross_bwd": EARLIER_TRAIN_STEPS,
+              "scatter_rows_set": None},
     "serve_deepfm": {"fm_second_order": None, "fused_lookup_pool": None},
     "train_deepfm": {"fm_second_order": None, "fm_second_order_bwd": None,
                      "scatter_rows_set": None},
@@ -1306,6 +1374,7 @@ def run(dev: torch.device) -> None:
     kernels += timed("kernels of the attention ranker", check_attention_kernels, dev)
     kernels.insert(1, timed("the pool's forward", check_pool_forward, dev))
     kernels.append(timed("the pool's backward", check_pool_backward, dev))
+    floor = timed("launch floor", launch_floor_ms)
     paths = {"serve": timed("serve", serve_phase, dev, name, smi),
              "train": timed("train", train_phase, dev, name, smi),
              "serve_deepfm": timed("serve_deepfm", serve_phase, dev, name, smi, "deepfm"),
@@ -1326,7 +1395,7 @@ def run(dev: torch.device) -> None:
 
     log(f"phases done {time.perf_counter() - T_START:.2f} s after the script started")
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

@@ -1,163 +1,439 @@
 // DCN-v1 cross stack, backward. With g the gradient of the stack's output,
 // for l = NL-1 .. 0:
 //   ds_l = sum_d g . x0          (per row)
-//   dw_l += xs_l * ds_l ;  db_l += g      (summed over the batch)
+//   dw_l += x_l * ds_l ;  db_l += g      (summed over the batch)
 //   dx0_extra += g * s_l
 //   g += w_l * ds_l              (the gradient of x_l)
-// and finally dx0 = g + dx0_extra. xs (NL, B, D) and ss (NL, B) are the
-// per-layer inputs and scalars that the forward kernel (dcn_cross.cu)
-// wrote.
+// and finally dx0 = g + dx0_extra. ss (NL, B) holds the forward's s_l
+// (dcn_cross.cu); x_l is rebuilt from x0, ss and bs by the forward's own
+// recurrence (dcn_cross.cuh::cross_step), bit for bit, so the forward writes
+// no (NL, B, D) residual and this kernel reads none.
 //
 // Replaces the backward of news_recsys_tpu/ops/dcn_kernel.py (_bwd, the
 // custom VJP of the Pallas kernel _cross_pallas; XLA code in JAX).
 //
-// What bounds it on the H100: memory. Per row it reads x0, g and NL rows of
-// xs and writes dx0, (NL + 3) * D floats, at about 8 flops per float read.
-// The design reads each of them once and keeps the chain in registers, as
-// the forward does:
-//   - one warp per batch row; g, x0 and dx0_extra stay in registers
-//     (VPL = ceil(D/32) values per lane, the ragged tail masked), ds_l is a
-//     warp-shuffle sum, w_l of all layers sits in shared memory;
-//   - dw and db are sums over the batch, which no block holds whole on
-//     Hopper. Each warp accumulates its rows into its own slice of shared
-//     memory (a lane owns its columns, so there is no atomic and no
-//     conflict), the block sums its warps' slices in warp order into one
-//     partial per block, and a second small kernel sums the partials in
-//     block order. Rows go to warps by a fixed rule, so the sums are taken
-//     in the same order on every run: two runs give the same bits, which
-//     float atomics would not.
-// It reads xs/ss instead of recomputing them: the forward already wrote
-// them, and recomputing costs the same x0 read plus NL more reductions.
+// What bounds it on the H100: at B 512, D 112 it moves 0.7 MB, 0.2 us at
+// full bandwidth; what it costs is latency: a chain of dependent steps per
+// row, and sums over the whole batch for dw and db, which no block holds.
+// The design, one launch:
+//   - rows: one chunk a lane (dcn_cross.cuh; D 112: a float4 on each of 32
+//     lanes), since a lane's chain of steps is what a row waits on when an SM
+//     has few warps (with 8 lanes of 4 float4s the whole kernel took 8.92 us
+//     against 7.03 in the run below); every load of a row (x0, g, its NL
+//     scalars s_l, one a lane) is issued before its first shuffle, and the
+//     weights come in beside them by cp.async. The ds_l are taken top-down (they need only g, x0
+//     and w), then x_l is rebuilt bottom-up for dw_l += x_l ds_l; lane l of
+//     a row holds s_l and ds_l and a layer reads them by shuffle, so the
+//     layer loops stay loops (NL <= the row's lanes, 32);
+//   - batch sums on chip: each warp adds its rows' dw/db terms into its own
+//     row of shared memory (the first row stores, so nothing is zeroed), and
+//     the block sums its warps' rows in warp order;
+//   - blocks form clusters (8 at B 512); after a cluster barrier block `rank`
+//     sums share `rank` of the columns over the cluster's blocks in rank
+//     order, read through distributed shared memory (ld.shared::cluster), and
+//     writes that share of the cluster's partial: blocks / cluster partials
+//     reach device memory, not one a block;
+//   - the last cluster to finish share `rank` (a ticket on counter `rank`,
+//     one of the counters the wrapper gives the launch, ops/dcn_kernel.py::
+//     arrival_counter) sums that share of the cluster partials in cluster
+//     order, its threads splitting the partials and adding their runs in
+//     order, and writes dws/dbs. It sets the counter back to 0, so the next
+//     call and a CUDA-graph replay need no memset. A ticket past the last
+//     cluster means two launches shared a counter: the kernel traps.
+// Every sum is taken in an order fixed by the plan, so two runs give the
+// same bits. Other ways for the blocks' sums to meet were measured in one run
+// on an NVIDIA H100 80GB HBM3 (700 W) at B 512: every block's partial in
+// device memory behind the cluster barrier 7.25 us, a cooperative launch's
+// grid barrier 9.03, this way 7.03, and the first design's two launches (a
+// kernel of block partials, then a kernel that sums them) 6.64: each wait on
+// other SMs costs about a microsecond here.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "dcn_cross.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;  // rows in flight per block
+using namespace dcn;
 
-template <int VPL>
-__global__ void __launch_bounds__(kWarps * 32)
-dcn_cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
-                     const float* __restrict__ xs, const float* __restrict__ ss,
-                     const float* __restrict__ g, float* __restrict__ dx0,
-                     float* __restrict__ partial, int B, int D, int NL) {
-  extern __shared__ float smem[];  // ws (NL*D), then per warp dw (NL*D) and db (NL*D)
-  const int nw = NL * D;
-  float* acc = smem + nw;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) smem[i] = ws[i];
-  for (int i = threadIdx.x; i < kWarps * 2 * nw; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
+constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on the H100
+constexpr int kMaxCluster = 8;           // the portable cluster size: a counter a rank
+constexpr int kBatch = 8;                // loads in flight a thread in the sums
+constexpr int kMaxWarps = 16;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* wacc = acc + warp * 2 * nw;
-  for (long long row = (long long)blockIdx.x * kWarps + warp; row < B;
-       row += (long long)gridDim.x * kWarps) {
-    const float* x0r = x0 + row * D;
-    const float* gr = g + row * D;
-    float a0[VPL], gg[VPL], ex[VPL];
+// v summed over the warp's 32 / G groups (an xor butterfly: every group gets
+// the same bits), then stored by group gq for its slots k with k % (32 / G)
+// == gq into the warp's accumulator row acc: stored by the warp's first
+// rows, added by the next ones
+template <int VW, int G, int S>
+__device__ __forceinline__ void warp_accumulate(float* acc, const float (&v)[S][VW], int sub,
+                                                int gq, int nchunk, bool fresh) {
+  float t[S][VW];
 #pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int d = lane + 32 * j;
-      a0[j] = d < D ? x0r[d] : 0.f;
-      gg[j] = d < D ? gr[d] : 0.f;
-      ex[j] = 0.f;
+  for (int k = 0; k < S; ++k) {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) t[k][j] = v[k][j];
+  }
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) t[k][j] += __shfl_xor_sync(kFull, t[k][j], o);
     }
-    for (int l = NL - 1; l >= 0; --l) {
-      float ds = 0.f;
+  }
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) ds += gg[j] * a0[j];
+  for (int k = 0; k < S; ++k) {
+    const int c = sub + k * G;
+    if (k % (32 / G) != gq || c >= nchunk) continue;
+    float* p = acc + c * VW;
+    if (!fresh) {
+      float o[VW];
+      load<VW>(o, p);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ds += __shfl_xor_sync(0xffffffffu, ds, o);
-      const float s = ss[(long long)l * B + row];
-      const float* xr = xs + ((long long)l * B + row) * D;
-      const float* w = smem + l * D;
-      float* dw = wacc + l * D;
-      float* db = wacc + nw + l * D;
+      for (int j = 0; j < VW; ++j) t[k][j] = __fadd_rn(o[j], t[k][j]);
+    }
+    store<VW>(p, t[k]);
+  }
+}
+
+// VW floats at p from L2, past the SM's L1: partials that other SMs wrote
+template <int VW>
+__device__ __forceinline__ void load_l2(float (&r)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else {
+    r[0] = __ldcg(p);
+  }
+}
+
+// sum_{q < n} src(q) in q order, kBatch loads in flight at a time
+template <int VW, typename Src>
+__device__ __forceinline__ void ordered_sum(float (&a)[VW], int n, Src src) {
+  for (int q0 = 0; q0 < n; q0 += kBatch) {
+    float t[kBatch][VW];
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) {
-        const int d = lane + 32 * j;
-        if (d < D) {
-          dw[d] += xr[d] * ds;
-          db[d] += gg[j];
-          ex[j] += gg[j] * s;
-          gg[j] += w[d] * ds;
+    for (int q = 0; q < kBatch; ++q)
+      if (q0 + q < n) src(t[q], q0 + q);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (q0 + q >= n) break;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) a[j] = q0 + q == 0 ? t[q][j] : __fadd_rn(a[j], t[q][j]);
+    }
+  }
+}
+
+// VW floats of block `rank`'s shared memory at the address of `local` in
+// this block's (distributed shared memory)
+template <int VW>
+__device__ __forceinline__ void load_remote(float (&r)[VW], const float* local, int rank) {
+  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(local));
+  asm volatile("mapa.shared::cluster.u32 %0, %0, %1;\n" : "+r"(addr) : "r"(rank));
+  if constexpr (VW == 4) {
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3]) : "r"(addr) : "memory");
+  } else {
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(r[0]) : "r"(addr) : "memory");
+  }
+}
+
+// the ticket of a block on counter c: acq_rel at device scope, so it
+// publishes what this block wrote (and saw through a barrier) and acquires
+// what the blocks before it published
+__device__ __forceinline__ int take_ticket(int* c) {
+  int ticket;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(ticket) : "l"(c)
+               : "memory");
+  return ticket;
+}
+
+// dst(e, sum_{q < P} src[q*E + e]) for the chunks e of [lo, hi), by the
+// whole block: each thread sums a run of partials in q order, and the runs'
+// sums are added in run order (a fixed order, so the bits repeat); scratch
+// holds blockDim.x * VW floats
+template <int VW, typename Dst>
+__device__ __forceinline__ void split_sum(const float* src, int P, int E, int lo, int hi,
+                                          float* scratch, Dst dst) {
+  const int n = (hi - lo) / VW;
+  for (int base = 0; base < n; base += blockDim.x) {      // the same trips in every thread
+    const int m = min((int)blockDim.x, n - base);
+    const int runs = max(1, min(P, (int)blockDim.x / m));
+    const int len = (P + runs - 1) / runs;
+    const int c = threadIdx.x % m, run = threadIdx.x / m;
+    const int e = lo + (base + c) * VW;
+    if (run < runs) {
+      const int q0 = min(P, run * len), q1 = min(P, q0 + len);
+      float a[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) a[j] = 0.f;
+      if (q1 > q0)
+        ordered_sum<VW>(a, q1 - q0, [&](float (&t)[VW], int q) {
+          load_l2<VW>(t, src + (long long)(q0 + q) * E + e);
+        });
+      store<VW>(scratch + (run * m + c) * VW, a);
+    }
+    __syncthreads();
+    if (threadIdx.x < m) {
+      float a[VW];
+      ordered_sum<VW>(a, runs,
+                      [&](float (&t)[VW], int r) { load<VW>(t, scratch + (r * m + c) * VW); });
+      dst(e, a);
+    }
+    __syncthreads();
+  }
+}
+
+template <int VW, int G, int S>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+dcn_cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
+                     const float* __restrict__ bs, const float* __restrict__ ss,
+                     const float* __restrict__ g, float* __restrict__ dx0,
+                     float* __restrict__ dws, float* __restrict__ dbs,
+                     float* __restrict__ partial, int* __restrict__ counter, int B, int D,
+                     int NL) {
+  constexpr int R = 32 / G;                      // rows a warp
+  // ws (NL, D) and bs (NL, D), then an accumulator row of E = 2*NL*D floats
+  // a warp: dw (NL, D), then db (NL, D)
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last;
+  __shared__ __align__(16) float scratch[kMaxWarps * 32 * VW];
+  const int ND = NL * D;
+  const int E = 2 * ND;
+  const int nchunk = D / VW;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int sub = threadIdx.x & (G - 1);
+  const int gq = (threadIdx.x & 31) / G;
+  float* sw = smem;
+  float* rows = smem + E;
+  float* dw_acc = rows + warp * E;
+  float* db_acc = dw_acc + ND;
+
+  // group gq of warp w of block b takes rows (b*warps + w)*R + gq + i*stride;
+  // a warp runs while any of its groups has a row (its shuffles take all 32
+  // lanes); rows past the batch add zeros
+  const long long stride = (long long)gridDim.x * warps * R;
+  const long long warp_row0 = ((long long)blockIdx.x * warps + warp) * R;
+  // a row's scalars live in its own lanes: lane l of the group holds s_l
+  // (and, once taken, ds_l), and a layer reads them with a shuffle (G >= NL)
+  float a0[S][VW], gg[S][VW], s_mine;
+  auto load_inputs = [&](long long row, bool live) {
+    const long long base = (live ? row : 0) * D;
+    load_row<VW, G, S>(a0, x0 + base, sub, nchunk, live);
+    load_row<VW, G, S>(gg, g + base, sub, nchunk, live);
+    s_mine = (sub < NL && live) ? ss[(long long)sub * B + row] : 0.f;
+  };
+  load_inputs(warp_row0 + gq, warp_row0 + gq < B);   // the kernel's first loads
+  stage_weights<VW>(sw, ws, bs, ND);
+  weights_ready();
+
+  // a row's dx0 is stored while the next row is worked on, and the last
+  // row's after the cluster's sum: stores in flight would hold up the
+  // barriers' release
+  float dx[S][VW];
+  long long dx_base = -1;
+  auto store_dx = [&]() {
+    if (dx_base < 0) return;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (sub + k * G < nchunk) store<VW>(dx0 + dx_base + (sub + k * G) * VW, dx[k]);
+  };
+  bool fresh = true;
+  for (long long i = 0; warp_row0 + i * stride < B; ++i) {
+    const long long row = warp_row0 + gq + i * stride;
+    const bool live = row < B;
+    if (i > 0) {
+      load_inputs(row, live);
+      store_dx();
+    }
+    float ex[S][VW], ds_mine = 0.f;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) ex[k][j] = 0.f;
+    }
+
+    // top-down: ds_l, db_l, dx0's extra term and the gradient of x_l
+    for (int l = NL - 1; l >= 0; --l) {            // NL is the same in every lane
+      float w[S][VW];
+      load_row<VW, G, S>(w, sw + l * D, sub, nchunk, true);
+      const float s_l = __shfl_sync(kFull, s_mine, l, G);
+      const float d = group_sum<G>(dot<VW, S>(gg, a0));
+      if (sub == l) ds_mine = d;
+      warp_accumulate<VW, G, S>(db_acc + l * D, gg, sub, gq, nchunk, fresh);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+#pragma unroll
+        for (int j = 0; j < VW; ++j) {
+          ex[k][j] = __fmaf_rn(gg[k][j], s_l, ex[k][j]);
+          gg[k][j] = __fmaf_rn(w[k][j], d, gg[k][j]);
         }
       }
     }
-    float* outr = dx0 + row * D;
+
+    // bottom-up: x_l rebuilt as the forward made it, dw_l += x_l ds_l
+    float x[S][VW];
 #pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) outr[d] = gg[j] + ex[j];
+    for (int k = 0; k < S; ++k) {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) x[k][j] = a0[k][j];
     }
+    for (int l = 0; l < NL; ++l) {
+      const float d = __shfl_sync(kFull, ds_mine, l, G);
+      const float s_l = __shfl_sync(kFull, s_mine, l, G);
+      float t[S][VW];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+#pragma unroll
+        for (int j = 0; j < VW; ++j) t[k][j] = __fmul_rn(x[k][j], d);
+      }
+      warp_accumulate<VW, G, S>(dw_acc + l * D, t, sub, gq, nchunk, fresh);
+      if (l + 1 < NL && live) {                  // a row past the batch keeps x = 0
+        float b[S][VW];
+        load_row<VW, G, S>(b, sw + ND + l * D, sub, nchunk, true);
+        cross_step<VW, S>(x, a0, s_l, b);
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) dx[k][j] = __fadd_rn(gg[k][j], ex[k][j]);
+    }
+    dx_base = live ? row * D : -1;
+    fresh = false;
+  }
+  if (fresh) {                                     // a warp that got no row
+    const float zero[VW] = {};
+    for (int e = (threadIdx.x & 31) * VW; e < E; e += 32 * VW) store<VW>(dw_acc + e, zero);
   }
   __syncthreads();
-  float* out = partial + (long long)blockIdx.x * 2 * nw;
-  for (int i = threadIdx.x; i < 2 * nw; i += blockDim.x) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += acc[w * 2 * nw + i];
-    out[i] = sum;
+
+  // the block's partial, its warps' rows summed in warp order, into its
+  // first row for the cluster to read (with one block, it is the answer)
+  const bool alone = gridDim.x == 1;
+  auto to_grads = [&](int e, const float (&a)[VW]) {
+    store<VW>(e < ND ? dws + e : dbs + (e - ND), a);
+  };
+  for (int e = threadIdx.x * VW; e < E; e += blockDim.x * VW) {
+    float a[VW];
+    ordered_sum<VW>(a, warps, [&](float (&t)[VW], int q) { load<VW>(t, rows + q * E + e); });
+    if (alone) {
+      to_grads(e, a);
+    } else {
+      store<VW>(rows + e, a);
+    }
   }
+  if (alone) {
+    store_dx();
+    return;
+  }
+
+  // the cluster's partial: share `rank` of the columns summed over the
+  // cluster's blocks in rank order through distributed shared memory; the
+  // last cluster at counter `rank` sums that share of the cluster partials
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int clusters = gridDim.x / C;
+  const int per = (E / VW + C - 1) / C * VW;
+  const int lo = min(E, rank * per), hi = min(E, lo + per);
+  cluster.sync();
+  float* dst = partial + (long long)(blockIdx.x / C) * E;
+  for (int e = lo + threadIdx.x * VW; e < hi; e += blockDim.x * VW) {
+    float a[VW];
+    ordered_sum<VW>(a, C, [&](float (&t)[VW], int q) { load_remote<VW>(t, rows + e, q); });
+    if (clusters == 1) {
+      to_grads(e, a);
+    } else {
+      store<VW>(dst + e, a);
+    }
+  }
+  // this block is done with the others' shared memory (the sums consumed
+  // the loads); none leaves before all are
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (clusters > 1) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int ticket = take_ticket(counter + rank);
+      if (ticket >= clusters) __trap();            // another launch took this counter
+      last = ticket == clusters - 1;
+      if (last) atomicExch(counter + rank, 0);     // every cluster has arrived
+    }
+    __syncthreads();
+    if (last) split_sum<VW>(partial, clusters, E, lo, hi, scratch, to_grads);
+  }
+  store_dx();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// dws/dbs (NL*D each) = the sum over nblk block partials, in block order
-__global__ void dcn_cross_bwd_reduce_kernel(const float* __restrict__ partial,
-                                            float* __restrict__ dws, float* __restrict__ dbs,
-                                            int nblk, int nw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * nw) return;
-  float sum = 0.f;
-  for (int b = 0; b < nblk; ++b) sum += partial[(long long)b * 2 * nw + i];
-  if (i < nw) dws[i] = sum;
-  else dbs[i - nw] = sum;
-}
-
-template <int VPL>
-cudaError_t launch(const float* x0, const float* ws, const float* xs, const float* ss,
-                   const float* g, float* dx0, float* partial, int B, int D, int NL,
-                   int nblk, cudaStream_t stream) {
-  const size_t smem = (size_t)(1 + 2 * kWarps) * NL * D * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dcn_cross_bwd_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dcn_cross_bwd_kernel<VPL><<<nblk, kWarps * 32, smem, stream>>>(
-      x0, ws, xs, ss, g, dx0, partial, B, D, NL);
-  return cudaSuccess;
+template <int VW, int G, int S>
+cudaError_t launch(const float* x0, const float* ws, const float* bs, const float* ss,
+                   const float* g, float* dx0, float* dws, float* dbs, float* partial,
+                   int* counter, int B, int D, int NL, int warps, int blocks, int cluster,
+                   cudaStream_t stream) {
+  constexpr size_t kStatic = 16 + kMaxWarps * 32 * VW * sizeof(float);  // last, scratch
+  const size_t smem = (size_t)(warps + 1) * 2 * NL * D * sizeof(float);
+  if (smem + kStatic > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(warps * 32);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  auto kernel = dcn_cross_bwd_kernel<VW, G, S>;
+  cudaError_t err = cudaSuccess;
+  if (smem + kStatic > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&config, kernel, x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter,
+                             B, D, NL);
+  // a refused call also leaves its error as the runtime's last one: take it,
+  // so that the next launch does not report it again
+  const cudaError_t last_error = cudaGetLastError();
+  return err != cudaSuccess ? err : last_error;
 }
 
 }  // namespace
 
-// x0 (B, D), ws (NL, D), xs (NL, B, D), ss (NL, B), g (B, D) in; dx0 (B, D),
-// dws (NL, D), dbs (NL, D) out; partial (nblk, 2, NL, D) scratch. All
-// float32, contiguous, on the device. 1 <= D <= 256, NL >= 1, and
-// (1 + 2*8)*NL*D*4 bytes of shared memory must fit a block (227 KB). Any
-// nblk >= 1 is right (rows are spread over the blocks); the caller sizes
-// partial for it. Returns the cudaError_t of the launches.
-extern "C" int nrt_dcn_cross_bwd(const float* x0, const float* ws, const float* xs,
+// x0 (B, D), ws (NL, D), bs (NL, D), ss (NL, B), g (B, D) in; dx0 (B, D), dws
+// (NL, D), dbs (NL, D) out; partial (the cluster partials of ops/
+// dcn_kernel.py::cross_partials, 2, NL, D) scratch, uninitialised; counter:
+// 8 int32, a ticket a cluster rank, 0 at the call and 0 again at its end, used
+// by no other launch in flight. All float32 but the counter, contiguous, on
+// the device. The launch is the wrapper's plan (ops/dcn_kernel.py::
+// plan_cross): vector (1: float4 chunks, which needs D % 4 == 0 and x0, ws,
+// bs, g, dx0 16-byte aligned), group (lanes a row) and slots (chunks a lane),
+// one of NRT_CROSS_BWD_LAYOUTS with group * slots chunks covering a row,
+// warps a block (1-16), blocks (any number >= 1: rows are spread over them)
+// and cluster (a power of two up to 8, dividing blocks); 1 <= NL <= group,
+// and (warps + 1) * 2*NL*D floats of shared memory must fit a block beside its
+// static scratch (227 KB in all). Returns the cudaError_t of the launch.
+extern "C" int nrt_dcn_cross_bwd(const float* x0, const float* ws, const float* bs,
                                  const float* ss, const float* g, float* dx0, float* dws,
-                                 float* dbs, float* partial, int B, int D, int NL, int nblk,
-                                 cudaStream_t stream) {
-  if (NL <= 0 || D <= 0 || nblk <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  switch ((D + 31) / 32) {
-    case 1: err = launch<1>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 2: err = launch<2>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 3: err = launch<3>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 4: err = launch<4>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 5: err = launch<5>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 6: err = launch<6>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 7: err = launch<7>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    case 8: err = launch<8>(x0, ws, xs, ss, g, dx0, partial, B, D, NL, nblk, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nw = NL * D;
-  dcn_cross_bwd_reduce_kernel<<<(2 * nw + 255) / 256, 256, 0, stream>>>(partial, dws, dbs,
-                                                                        nblk, nw);
-  return (int)cudaGetLastError();
+                                 float* dbs, float* partial, int* counter, int B, int D, int NL,
+                                 int vector, int group, int slots, int warps, int blocks,
+                                 int cluster, cudaStream_t stream) {
+  const int vw = vector ? 4 : 1;
+  if (D <= 0 || NL < 1 || NL > group || warps < 1 || warps > kMaxWarps || blocks < 1 ||
+      (vector && D % 4 != 0) || (long long)group * slots < D / vw || cluster < 1 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 || blocks % cluster != 0)
+    return (int)cudaErrorInvalidValue;
+#define NRT_CROSS_BWD_CASE(VW_, G_, S_)                                                     \
+  if (vw == VW_ && group == G_ && slots == S_)                                              \
+    return (int)launch<VW_, G_, S_>(x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter, B, D, \
+                                    NL, warps, blocks, cluster, stream);
+  NRT_CROSS_BWD_LAYOUTS(NRT_CROSS_BWD_CASE)
+#undef NRT_CROSS_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,18 @@
-// The CUDA runtime's message for an error code returned by a launch entry point.
+// The CUDA runtime's message for an error code returned by a launch entry
+// point, and an empty kernel: chip_smoke.py times its launch as the floor
+// under every kernel's time.
 
 #include <cuda_runtime.h>
 
 extern "C" const char* nrt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+extern "C" int nrt_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return (int)cudaGetLastError();
 }

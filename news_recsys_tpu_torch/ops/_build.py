@@ -38,10 +38,12 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
-    # x0, ws, bs, out, xs, ss, B, D, NL, stream
-    "nrt_dcn_cross_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x0, ws, xs, ss, g, dx0, dws, dbs, partial, B, D, NL, nblk, stream
-    "nrt_dcn_cross_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x0, ws, bs, out, ss, B, D, NL, vector, group, slots, warps, blocks, stream
+    "nrt_dcn_cross_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter, B, D, NL, vector, group, slots,
+    # warps, blocks, cluster, stream
+    "nrt_dcn_cross_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
     # table, ids, mask, out, B, L, D, V, stream
     "nrt_lookup_pool_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, rows, vals, S, D, V, stream
@@ -60,13 +62,15 @@ SIGNATURES = {
     "nrt_fused_block_tiled_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, mask, dy, params, dx, dflat, partial, B, L, nblk, stream
     "nrt_fused_block_tiled_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # stream: one empty kernel, the floor of a launch
+    "nrt_empty": [_P],
 }
 # the previous versions' entry points (csrc/previous/), in their own library
 PREVIOUS_SIGNATURES = {
-    # table, ids, mask, out, B, L, D, V, stream
-    "nrt_lookup_pool_fwd_v1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ids, mask, g, sorted_ids, order, grad_table, coef, B, L, D, V, stream
-    "nrt_lookup_pool_bwd_v1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x0, ws, bs, out, xs, ss, B, D, NL, stream
+    "nrt_dcn_cross_fwd_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x0, ws, xs, ss, g, dx0, dws, dbs, partial, B, D, NL, nblk, stream
+    "nrt_dcn_cross_bwd_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # C entry point -> argument types; these launch nothing and return a size (floats or bytes)
 SIZE_FUNCTIONS = {

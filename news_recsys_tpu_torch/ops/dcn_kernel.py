@@ -8,27 +8,103 @@ product (reference ``dcn_arch.py:14-30``).
 package's is a ``jax.custom_vjp``. Forward: ``csrc/dcn_cross.cu``, entry
 ``nrt_dcn_cross_fwd``, which replaces the Pallas kernel
 ``news_recsys_tpu/ops/dcn_kernel.py::_cross_pallas``. It is bound by memory
-(one read of x0, one write of out): one warp per row keeps x0 and x in
-registers, the layer weights sit in shared memory, and each ``s_l`` is a
-warp-shuffle sum, so no intermediate x reaches device memory. When a
-gradient is needed it also writes the per-layer inputs ``xs`` and scalars
-``ss``. Backward: :func:`dcn_cross_bwd`, ``csrc/dcn_cross_bwd.cu``, the
-analytic VJP of the JAX package's ``_bwd`` from those residuals.
+(one read of x0, one write of out) and, at the ranker's sizes, by the
+latency of that one trip: a row's loads come first, the layer weights
+follow into shared memory beside them, and a group of lanes owns a row
+(16-byte loads where the shape allows). When a gradient is needed it also
+writes ``ss`` (NL, B), each layer's scalar ``s_l = x_l . w_l``, and nothing
+else. Backward: :func:`dcn_cross_bwd`, ``csrc/dcn_cross_bwd.cu``, the
+analytic VJP of the JAX package's ``_bwd`` in one launch: it rebuilds each
+``x_l`` from x0, ``ss`` and ``bs`` by the forward's own recurrence
+(:func:`rebuild_xs` is the plain version) and sums dw and db over the batch
+on chip, the blocks in thread-block clusters that meet at arrival counters
+no two launches in flight share (:func:`arrival_counter`). :func:`plan_cross`
+lays out both launches from the shape alone.
 """
 
 from __future__ import annotations
+
+import threading
+from typing import NamedTuple
 
 import torch
 
 from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
 
-MAX_D = 256                    # 8 values per lane
-MAX_SHARED_FLOATS = 48 * 1024 // 4
-# the backward kernel: 8 warps per block, each with its own dw/db slice of
-# shared memory beside the weights; up to 2 blocks per SM of the H100's 132
+MAX_D = 256                    # a row in at most 32 lanes of 8 floats
+FWD_SMEM_BYTES = 48 * 1024     # the forward's weights in shared memory
+MAX_LAYERS = 32                # the backward holds a row's NL scalars in its lanes
+SMEM_BYTES = 232448            # a block's shared memory on the H100
+BWD_STATIC_BYTES = 16 + 16 * 32 * 4 * 4   # the backward's static shared memory
+FWD_WARPS = 4
 BWD_WARPS = 8
-BWD_MAX_SHARED_FLOATS = 232448 // 4
-BWD_MAX_BLOCKS = 264
+BWD_CLUSTER = 8                # blocks a cluster at most (the portable size); a counter a rank
+COUNTER_SLOTS = 1024           # launches' counters a device allocates at once (32 KB)
+
+
+class CrossPlan(NamedTuple):
+    """How a launch of the cross stack's kernels is laid out (:func:`plan_cross`)."""
+    vector: bool       # float4 chunks (16-byte loads and stores), else one float a chunk
+    group: int         # lanes a row; 32 // group rows share a warp
+    slots: int         # chunks a lane
+    warps: int         # warps a block
+    blocks: int
+    cluster: int       # blocks a cluster (the backward's; 1 in the forward)
+    partials: int      # cluster partials the backward writes to device memory
+    smem_bytes: int    # dynamic shared memory a block: the weights, and the
+                       # backward's dw/db sums, a row of them a warp
+
+
+def plan_cross(B: int, D: int, NL: int, aligned: bool, sms: int, backward: bool) -> CrossPlan:
+    """The launch of a (B, D) cross stack of NL layers on a card of ``sms``
+    multiprocessors: a pure function of the shape and of ``aligned`` (every
+    row pointer 16-byte aligned). A row is cut into chunks (float4s, or
+    floats on the scalar path) over a power of two of lanes, so a dot
+    product is a shuffle sum over the row's lanes alone. The forward takes
+    the fewest lanes that hold a row at up to 4 float4s (8 floats) a lane,
+    so rows share warps (at D 112, 8 lanes and 4 rows a warp), and gives
+    every row its lanes at once, FWD_WARPS warps a block. The backward takes
+    one chunk a lane, up to 32 lanes (several a lane past 32 chunks), and at
+    least NL lanes (they hold the row's NL scalars), which keeps each lane's
+    chain of dependent steps short; BWD_WARPS warps a block (more rows loop,
+    past two blocks an SM) and clusters of up to BWD_CLUSTER blocks, whose
+    sums meet in distributed shared memory (``csrc/dcn_cross_bwd.cu``)."""
+    vector = aligned and D % 4 == 0
+    chunks = D // 4 if vector else D
+    weights = 4 * 2 * NL * D
+    if not backward:
+        per_lane = 4 if vector else 8
+        group = min(32, 1 << (-(-chunks // per_lane) - 1).bit_length())
+        slots = 1 << (-(-chunks // group) - 1).bit_length()
+        warps_needed = max(1, -(-B // (32 // group)))
+        warps = min(FWD_WARPS, warps_needed)
+        return CrossPlan(vector, group, slots, warps, -(-warps_needed // warps), 1, 0, weights)
+    group = min(32, 1 << (max(chunks, NL) - 1).bit_length())
+    slots = 1 << (-(-chunks // group) - 1).bit_length()
+    warps_needed = max(1, -(-B // (32 // group)))
+    fit = (SMEM_BYTES - BWD_STATIC_BYTES) // weights - 1      # dw/db rows beside the weights
+    warps = max(1, min(BWD_WARPS, warps_needed, fit))
+    blocks = min(-(-warps_needed // warps), 2 * sms)
+    cluster = min(BWD_CLUSTER, 1 << (blocks.bit_length() - 1))
+    blocks = -(-blocks // cluster) * cluster
+    return CrossPlan(vector, group, slots, warps, blocks, cluster,
+                     cross_partials(blocks, cluster), weights * (warps + 1))
+
+
+def cross_partials(blocks: int, cluster: int) -> int:
+    """The partials (2*NL*D floats each) the backward writes to device
+    memory: one a cluster; none when one cluster holds the whole batch."""
+    n = blocks // cluster
+    return n if n > 1 else 0
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _plan(x0: torch.Tensor, NL: int, aligned: bool, backward: bool) -> CrossPlan:
+    sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
+    return plan_cross(x0.shape[0], x0.shape[1], NL, aligned, sms, backward)
 
 
 def cross_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
@@ -41,8 +117,9 @@ def cross_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.T
 
 
 def cross_fwd_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor):
-    """:func:`cross_plain` that also returns the backward's residuals:
-    (out (B, D), xs (NL, B, D), ss (NL, B)). The CPU path's forward."""
+    """:func:`cross_plain` that also returns each layer's input and scalar:
+    (out (B, D), xs (NL, B, D), ss (NL, B)). The CPU path's forward, which
+    keeps ``ss`` for the backward."""
     x = x0
     xs, ss = [], []
     for l in range(ws.shape[0]):
@@ -53,9 +130,22 @@ def cross_fwd_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor):
     return x, torch.stack(xs), torch.stack(ss)
 
 
+def rebuild_xs(x0: torch.Tensor, bs: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """Each layer's input x_l (NL, B, D) from x0, the biases and the
+    forward's scalars ``ss``, by :func:`cross_fwd_plain`'s own recurrence, so
+    it gives its ``xs`` bit for bit (the backward kernel does the same in
+    registers)."""
+    x, xs = x0, []
+    for l in range(ss.shape[0]):
+        xs.append(x)
+        x = x0 * ss[l][:, None] + bs[l] + x
+    return torch.stack(xs) if xs else x0.new_empty((0, *x0.shape))
+
+
 def cross_bwd_plain(x0, ws, xs, ss, g):
     """The VJP of the cross stack in plain PyTorch, a transliteration of
-    the JAX package's ``_bwd``: (dx0, dws, dbs)."""
+    the JAX package's ``_bwd`` on its residuals (x0, ws, xs, ss):
+    (dx0, dws, dbs)."""
     dx0_extra = torch.zeros_like(x0)
     dws, dbs = [], []
     for l in range(ws.shape[0] - 1, -1, -1):
@@ -65,6 +155,13 @@ def cross_bwd_plain(x0, ws, xs, ss, g):
         dx0_extra = dx0_extra + g * ss[l][:, None]
         g = g + ws[l][None, :] * ds[:, None]            # dL/dx_l
     return g + dx0_extra, torch.stack(dws[::-1]), torch.stack(dbs[::-1])
+
+
+def cross_bwd_rebuild_plain(x0, ws, bs, ss, g):
+    """:func:`cross_bwd_plain` on the port's residuals (x0, ws, bs, ss): the
+    layer inputs rebuilt by :func:`rebuild_xs`. The oracle of
+    :func:`dcn_cross_bwd` and its CPU path."""
+    return cross_bwd_plain(x0, ws, rebuild_xs(x0, bs, ss), ss, g)
 
 
 def reference_cross_stack(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
@@ -77,55 +174,114 @@ def reference_cross_stack(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) 
     return x
 
 
+def _check_limits(D: int, NL: int, backward: bool) -> None:
+    if not 1 <= D <= MAX_D or 4 * 2 * NL * D > FWD_SMEM_BYTES:
+        raise ValueError(f"the dcn_cross_stack kernels take 1 <= D <= {MAX_D} and "
+                         f"2*NL*D*4 <= {FWD_SMEM_BYTES} bytes; got D={D}, NL={NL}")
+    if backward and not 1 <= NL <= MAX_LAYERS:
+        raise ValueError(f"the dcn_cross_stack backward kernel takes 1 <= NL <= {MAX_LAYERS}; "
+                         f"got NL={NL}")
+
+
 def _cross_fwd_kernel(x0, ws, bs, residuals: bool):
+    """(out, ss) from ``nrt_dcn_cross_fwd``; ss (NL, B) only with ``residuals``."""
     B, D = x0.shape
     NL = ws.shape[0]
-    if not 1 <= D <= MAX_D or 2 * NL * D > MAX_SHARED_FLOATS:
-        raise ValueError(f"dcn_cross_stack kernel takes 1 <= D <= {MAX_D} and "
-                         f"2*NL*D <= {MAX_SHARED_FLOATS}; got D={D}, NL={NL}")
-    if residuals and (NL < 1 or (1 + 2 * BWD_WARPS) * NL * D > BWD_MAX_SHARED_FLOATS):
-        raise ValueError(f"dcn_cross_bwd kernel takes NL >= 1 and "
-                         f"{1 + 2 * BWD_WARPS}*NL*D <= {BWD_MAX_SHARED_FLOATS}; "
-                         f"got D={D}, NL={NL}")
+    _check_limits(D, NL, residuals)
     from ._build import launch
 
     out = torch.empty_like(x0)
-    xs = x0.new_empty((NL, B, D)) if residuals else None
     ss = x0.new_empty((NL, B)) if residuals else None
+    plan = _plan(x0, NL, _aligned(x0, ws, bs, out), False)
     launch("nrt_dcn_cross_fwd", x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), out.data_ptr(),
-           xs.data_ptr() if residuals else None, ss.data_ptr() if residuals else None,
-           B, D, NL, stream_ptr(x0))
+           ss.data_ptr() if residuals else None, B, D, NL, int(plan.vector), plan.group,
+           plan.slots, plan.warps, plan.blocks, stream_ptr(x0))
     with launch_count_lock:
         dcn_cross_stack.launches += 1
-    return out, xs, ss
+    return out, ss
 
 
-def dcn_cross_bwd(x0, ws, xs, ss, g):
-    """The cross stack's VJP from the forward's residuals: x0 (B, D), ws
-    (NL, D), xs (NL, B, D), ss (NL, B), g (B, D), float32 -> (dx0, dws, dbs).
+_counter_lock = threading.Lock()
+_free_counters: dict = {}      # device index -> zeroed counters no launch has taken
+_stream_counters: dict = {}    # (device index, stream handle) -> that stream's counters
 
-    On CUDA tensors it launches ``nrt_dcn_cross_bwd``; dws/dbs are reduced
-    over per-block partials in a fixed order, so a run repeats its bits."""
-    for t, name, ndim in ((x0, "x0", 2), (ws, "ws", 2), (xs, "xs", 3), (ss, "ss", 2),
-                          (g, "g", 2)):
-        check_tensor(t, name, torch.float32, ndim)
+
+def arrival_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """Arrival counters for one backward launch on ``stream`` (a CUDA stream
+    handle) on ``device``: BWD_CLUSTER int32, one for each rank of a cluster,
+    0 between launches.
+
+    With more than one cluster, the blocks of rank r take a ticket from
+    counter r to find the last of them to finish, which sums share r of the
+    cluster partials and sets the counter back to 0, so no call and no
+    CUDA-graph replay needs a memset. No two launches in flight share
+    counters:
+
+    - an eager call takes its stream's counters, and the launches of one
+      stream run one after another;
+    - a call recorded into a CUDA graph takes counters of its own, kept for
+      the life of the process, and CUDA runs the launches of one graph one
+      after another too, on whatever stream each is replayed. So a replay
+      shares counters neither with the calls of the stream it was captured
+      on nor with another graph: not even with the graphs ``torch.cuda.graph``
+      captures on its one default stream.
+
+    If two launches shared counters all the same (one graph instantiated
+    twice through the CUDA API and run at once), a ticket would pass the
+    last cluster, and the kernel traps rather than sum partials that are not
+    all there. Counters are allocated and zeroed COUNTER_SLOTS at a time,
+    outside any capture; a capture that finds none left raises."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (device.index, stream)
+    with _counter_lock:
+        if not capturing and key in _stream_counters:
+            return _stream_counters[key]
+        free = _free_counters.setdefault(device.index, [])
+        if not capturing and len(free) < COUNTER_SLOTS // 2:
+            free.extend(torch.zeros((COUNTER_SLOTS, BWD_CLUSTER), dtype=torch.int32,
+                                    device=device).unbind())
+            torch.cuda.synchronize(device)              # zero before any stream reads them
+        if not free:
+            raise RuntimeError("dcn_cross_bwd: no arrival counters are left for a CUDA-graph "
+                               "capture: call it once outside the capture first, which "
+                               "allocates them")
+        counter = free.pop()
+        if not capturing:
+            _stream_counters[key] = counter
+        return counter
+
+
+def dcn_cross_bwd(x0, ws, bs, ss, g):
+    """The cross stack's VJP from the forward's residuals: x0 (B, D), ws and
+    bs (NL, D), ss (NL, B), g (B, D), float32 -> (dx0, dws, dbs).
+
+    On CUDA tensors it launches ``nrt_dcn_cross_bwd`` once: the layer inputs
+    are rebuilt from ``ss`` and ``bs``, dws/dbs are summed in an order fixed
+    by :func:`plan_cross`, so a run repeats its bits. Its arrival counters
+    come from :func:`arrival_counter`."""
+    for t, name in ((x0, "x0"), (ws, "ws"), (bs, "bs"), (ss, "ss"), (g, "g")):
+        check_tensor(t, name, torch.float32, 2)
     B, D = x0.shape
     NL = ws.shape[0]
-    if (ws.shape[1] != D or xs.shape != (NL, B, D) or ss.shape != (NL, B)
+    if (ws.shape[1] != D or bs.shape != ws.shape or ss.shape != (NL, B)
             or g.shape != x0.shape):
         raise ValueError(f"shapes do not match x0 {tuple(x0.shape)}, ws {tuple(ws.shape)}: "
-                         f"xs {tuple(xs.shape)}, ss {tuple(ss.shape)}, g {tuple(g.shape)}")
-    if kernel_device(x0, ws, xs, ss, g) == "cpu":
-        return cross_bwd_plain(x0, ws, xs, ss, g)
+                         f"bs {tuple(bs.shape)}, ss {tuple(ss.shape)}, g {tuple(g.shape)}")
+    if kernel_device(x0, ws, bs, ss, g) == "cpu":
+        return cross_bwd_rebuild_plain(x0, ws, bs, ss, g)
+    _check_limits(D, NL, backward=True)
     from ._build import launch
 
-    nblk = max(1, min(-(-B // BWD_WARPS), BWD_MAX_BLOCKS))
     dx0 = torch.empty_like(x0)
     dws, dbs = torch.empty_like(ws), torch.empty_like(ws)
-    partial = x0.new_empty((nblk, 2, NL, D))
-    launch("nrt_dcn_cross_bwd", x0.data_ptr(), ws.data_ptr(), xs.data_ptr(), ss.data_ptr(),
+    plan = _plan(x0, NL, _aligned(x0, ws, bs, g, dx0), True)
+    partial = x0.new_empty((plan.partials, 2, NL, D))          # none with one block
+    stream = stream_ptr(x0)
+    counter = arrival_counter(x0.device, stream)
+    launch("nrt_dcn_cross_bwd", x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), ss.data_ptr(),
            g.data_ptr(), dx0.data_ptr(), dws.data_ptr(), dbs.data_ptr(), partial.data_ptr(),
-           B, D, NL, nblk, stream_ptr(x0))
+           counter.data_ptr(), B, D, NL, int(plan.vector), plan.group, plan.slots, plan.warps,
+           plan.blocks, plan.cluster, stream)
     with launch_count_lock:
         dcn_cross_bwd.launches += 1
     return dx0, dws, dbs
@@ -136,11 +292,11 @@ class _CrossStack(torch.autograd.Function):
     def forward(ctx, x0, ws, bs):
         need = any(ctx.needs_input_grad)
         if x0.device.type == "cpu":
-            out, xs, ss = cross_fwd_plain(x0, ws, bs)
+            out, _, ss = cross_fwd_plain(x0, ws, bs)
         else:
-            out, xs, ss = _cross_fwd_kernel(x0, ws, bs, residuals=need)
+            out, ss = _cross_fwd_kernel(x0, ws, bs, residuals=need)
         if need:
-            ctx.save_for_backward(x0, ws, xs, ss)
+            ctx.save_for_backward(x0, ws, bs, ss)
         return out
 
     @staticmethod

@@ -28,8 +28,10 @@ import torch
 from news_recsys_tpu_torch.config import config_from_dict
 from news_recsys_tpu_torch.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from news_recsys_tpu_torch.models.rankers import build_ranker
-from news_recsys_tpu_torch.ops.dcn_kernel import (cross_bwd_plain, cross_fwd_plain, cross_plain,
-                                                  dcn_cross_bwd, dcn_cross_stack)
+from news_recsys_tpu_torch.ops import stream_ptr
+from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, arrival_counter,
+                                                  cross_bwd_rebuild_plain, cross_fwd_plain,
+                                                  cross_plain, dcn_cross_bwd, dcn_cross_stack)
 from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
                                                  fm_second_order_bwd)
 from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, _general_ws_floats,
@@ -195,15 +197,49 @@ def on(dev, *arrays):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
+def off_by_one_float(dev, a):
+    """``a`` on ``dev`` as a contiguous view one float into its storage, so
+    not 16-byte aligned: the cross stack's kernels take their scalar path."""
+    base = torch.zeros(a.size + 1, dtype=torch.float32, device=dev)
+    t = base[1:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
+# the cross stack's kernels: the ranker's shapes (a request's B 6,400, a
+# step's B 512), one row, one past a warp's rows or a block's, D off the
+# float4 grid, the widest D with 6 layers, and tiny rows
+CROSS_SHAPES = [(6400, 112, 3), (512, 112, 3), (1000, 24, 2), (37, 200, 4), (5, 1, 1),
+                (1, 112, 3), (513, 112, 3), (6401, 113, 3), (512, 256, 6), (7, 3, 1),
+                (300, 24, 12)]
+
+
+def cross_case(dev, B, D, NL, aligned, seed=0):
+    """(x0, ws, bs, g) on ``dev``; x0 and g one float off alignment unless ``aligned``."""
+    x0, ws, bs = cross_inputs(B, D, NL, seed)
+    g = np.random.default_rng(seed + 1).standard_normal((B, D)).astype(np.float32)
+    place = (lambda a: torch.from_numpy(a).to(dev)) if aligned else \
+        (lambda a: off_by_one_float(dev, a))
+    return place(x0), *on(dev, ws, bs), place(g)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,D,NL", [(6400, 112, 3), (1000, 24, 2), (37, 200, 4), (5, 1, 1)])
-def test_dcn_kernel_matches_plain(cuda, B, D, NL):
-    x0, ws, bs = on(cuda, *cross_inputs(B, D, NL))
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+@pytest.mark.parametrize("B,D,NL", CROSS_SHAPES)
+def test_dcn_kernel_matches_plain(cuda, B, D, NL, aligned):
+    """The serving forward and the training one, which also writes ss."""
+    x0, ws, bs, _ = cross_case(cuda, B, D, NL, aligned)
     with torch.inference_mode():
         n = dcn_cross_stack.launches
         got = dcn_cross_stack(x0, ws, bs)
         assert dcn_cross_stack.launches == n + 1
         torch.testing.assert_close(got, cross_plain(x0, ws, bs), **DCN_TOL)
+        out, ss = _cross_fwd_kernel(x0, ws, bs, residuals=True)
+        want_out, _, want_ss = cross_fwd_plain(x0, ws, bs)
+        torch.testing.assert_close(out, want_out, **DCN_TOL)
+        torch.testing.assert_close(ss, want_ss, **DCN_TOL)
+        assert torch.equal(out, got)
 
 
 @pytest.mark.cuda
@@ -318,27 +354,118 @@ def test_scatter_kernel_unaligned_table(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,D,NL", [(6400, 112, 3), (512, 112, 3), (1000, 24, 2),
-                                    (37, 200, 4), (5, 1, 1)])
-def test_dcn_bwd_kernel_matches_plain(cuda, B, D, NL):
-    x0, ws, bs = on(cuda, *cross_inputs(B, D, NL))
-    g = torch.from_numpy(np.random.default_rng(1).standard_normal((B, D), np.float32)).to(cuda)
-    _, xs, ss = cross_fwd_plain(x0, ws, bs)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+@pytest.mark.parametrize("B,D,NL", CROSS_SHAPES)
+def test_dcn_bwd_kernel_matches_plain(cuda, B, D, NL, aligned):
+    x0, ws, bs, g = cross_case(cuda, B, D, NL, aligned)
+    _, ss = _cross_fwd_kernel(x0, ws, bs, residuals=True)      # the forward kernel's ss
     n = dcn_cross_bwd.launches
-    got = dcn_cross_bwd(x0, ws, xs, ss, g)
+    got = dcn_cross_bwd(x0, ws, bs, ss, g)
     assert dcn_cross_bwd.launches == n + 1
-    for name, a, b in zip(("dx0", "dws", "dbs"), got, cross_bwd_plain(x0, ws, xs, ss, g)):
+    for name, a, b in zip(("dx0", "dws", "dbs"), got, cross_bwd_rebuild_plain(x0, ws, bs, ss, g)):
         assert_close_to_scale(a, b, name)
 
 
 @pytest.mark.cuda
-def test_dcn_bwd_kernel_is_deterministic(cuda):
-    x0, ws, bs = on(cuda, *cross_inputs(512, 112, 3))
-    g = torch.from_numpy(np.random.default_rng(2).standard_normal((512, 112), np.float32)).to(cuda)
-    _, xs, ss = cross_fwd_plain(x0, ws, bs)
-    first, second = dcn_cross_bwd(x0, ws, xs, ss, g), dcn_cross_bwd(x0, ws, xs, ss, g)
+def test_dcn_bwd_graphs_on_one_capture_stream_run_at_once(cuda):
+    """Every graph ``torch.cuda.graph`` captures without a stream is captured
+    on one class-wide stream; each captured call takes counters of its own,
+    so two such graphs replayed at once on two streams give the answers a
+    call alone gives, replay after replay."""
+    cases = [cross_case(cuda, B, 112, 3, True, seed=B) for B in (512, 6400)]
+    args = [(x0, ws, bs, cross_fwd_plain(x0, ws, bs)[2], g) for x0, ws, bs, g in cases]
+    want = [dcn_cross_bwd(*a) for a in args]
+    graphs, outs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()], []
+    for graph, a in zip(graphs, args):
+        with torch.cuda.graph(graph):
+            outs.append(dcn_cross_bwd(*a))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(20):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+        for s in streams:
+            torch.cuda.current_stream().wait_stream(s)
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            for a, b in zip(got, w):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [512, 6400])
+def test_dcn_bwd_kernel_is_deterministic(cuda, B):
+    """Two calls, and a CUDA graph of a call replayed three times, give the
+    same bits; a replay runs one kernel and no memset (the arrival counters
+    are reset by the kernel itself)."""
+    x0, ws, bs, g = cross_case(cuda, B, 112, 3, True, seed=2)
+    ss = cross_fwd_plain(x0, ws, bs)[2]
+    args = (x0, ws, bs, ss, g)
+    first, second = dcn_cross_bwd(*args), dcn_cross_bwd(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dcn_cross_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dcn_cross_bwd(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(first, replayed):
+            assert torch.equal(a, b)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(ran) == 1 and "dcn_cross_bwd_kernel" in next(iter(ran)), ran
+    assert list(ran.values()) == [1], ran
+    for a, b in zip(first, replayed):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,NL", [(512, 112, 3), (6401, 113, 3), (1, 112, 3)])
+def test_dcn_bwd_counter_returns_to_zero(cuda, B, D, NL):
+    """The last block at each ticket of a launch sets it back to 0."""
+    x0, ws, bs, g = cross_case(cuda, B, D, NL, True, seed=3)
+    ss = cross_fwd_plain(x0, ws, bs)[2]
+    for _ in range(50):
+        dcn_cross_bwd(x0, ws, bs, ss, g)
+    torch.cuda.synchronize()
+    assert not arrival_counter(x0.device, stream_ptr(x0)).any()
+
+
+@pytest.mark.cuda
+def test_dcn_bwd_on_two_streams_at_once(cuda):
+    """Calls on two streams at once own a counter each: every answer is the
+    one a call alone gives."""
+    cases = [cross_case(cuda, B, 112, 3, True, seed=B) for B in (512, 6400)]
+    args = [(x0, ws, bs, cross_fwd_plain(x0, ws, bs)[2], g) for x0, ws, bs, g in cases]
+    want = [dcn_cross_bwd(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(dcn_cross_bwd(*args[i]))
+    torch.cuda.synchronize()
+    assert arrival_counter(cuda, streams[0].cuda_stream).data_ptr() != \
+        arrival_counter(cuda, streams[1].cuda_stream).data_ptr()
+    for i in range(2):
+        for result in got[i]:
+            for a, b in zip(result, want[i]):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

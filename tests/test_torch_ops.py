@@ -96,9 +96,14 @@ def test_lookup_pool_ids_out_of_range_give_nan():
                                 torch.zeros(3, 5)), ValueError),
     (dcn_cross_bwd, lambda: (torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(2, 4, 7),
                              torch.zeros(2, 4), torch.zeros(4, 8)), ValueError),
+    (dcn_cross_bwd, lambda: (torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(2, 7),
+                             torch.zeros(2, 4), torch.zeros(4, 8)), ValueError),
+    (dcn_cross_bwd, lambda: (torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(2, 8),
+                             torch.zeros(2, 5), torch.zeros(4, 8)), ValueError),
 ], ids=["dcn-dtype", "dcn-shape", "dcn-noncontiguous", "pool-ids-dtype",
         "pool-mask-shape", "pool-ndim", "unsupported-device", "scatter-rows-dtype",
-        "scatter-vals-shape", "dcn-bwd-residual-shape"])
+        "scatter-vals-shape", "dcn-bwd-residual-shape", "dcn-bwd-bias-shape",
+        "dcn-bwd-scalars-shape"])
 def test_kernel_wrappers_reject_bad_inputs(fn, args, err):
     with pytest.raises(err):
         fn(*args())
