@@ -5,6 +5,8 @@ port, on one CUDA GPU.
     python3 chip_profile.py --block-split
     python3 chip_profile.py --pool-split
     python3 chip_profile.py --cross-split
+    python3 chip_profile.py --scatter-split
+    python3 chip_profile.py --fm-split
 
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
@@ -54,13 +56,24 @@ x 16, L 5) and ``hist`` (65,280 x 16, L 30), Zipf and uniform ids, whole
 (B 1,024, L 30), ``entities`` (B 512, L 5) and a 64-user request (B 64, L 30),
 uniform and Zipf ids.
 
-``--cross-split`` takes the DCN cross stack's kernels apart, the first
-design's (``csrc/previous/``) beside this one's, at ``chip_smoke.py``'s three
-shapes (the forward at a request's B 6,400 and at a step's B 512 with the
-backward's residuals, the backward at B 512; D 112, 3 layers): whole (graph
-replays, in turns), each launch by name from a ``torch.profiler`` trace, and
-the DCN training step's device time with each design's kernels, traced in
+``--cross-split`` takes the DCN cross stack's kernels apart at
+``chip_smoke.py``'s three shapes (the forward at a request's B 6,400 and at a
+step's B 512 with the backward's residuals, the backward at B 512; D 112, 3
+layers): whole (graph replays), each launch by name from a ``torch.profiler``
+trace, and the DCN training step's device time with them, traced.
+
+``--scatter-split`` times the row scatter at ``chip_smoke.py``'s three
+shapes (a DCN step's arena, the sparse attention step's item and user
+tables): the kernel, its first design (``csrc/previous/``), copies of the
+kernel built beside the library (64 and 128 threads a block, a relaxed load
+of the values, the values loaded only after the row ids where the warp or
+where the slot itself writes), ``index_copy_`` and the plain version, in
 turns.
+
+``--fm-split`` times the FM forward at a request's B 6,400 and a step's B
+512 (5 fields of 15): the kernel (F and D fixed at compile time), a copy
+that takes them at run time, its first design and the plain version, in
+four turns each.
 """
 
 from __future__ import annotations
@@ -269,17 +282,21 @@ def build_variant(src, tag: str, entry: str, flags=()):
     return fn
 
 
-def build_forward_variant(old: str, new: str, tag: str):
-    """``csrc/fused_attention.cu`` with ``old`` replaced by ``new``."""
+def source_variant(source: str, changes, tag: str, entry: str):
+    """``csrc/<source>`` with each ``(old, new)`` of ``changes`` applied (each
+    ``old`` must occur once), built under ``build/variants``; returns its
+    entry ``entry``."""
     from news_recsys_tpu_torch.ops import _build
 
-    text = (_build.CSRC_DIR / "fused_attention.cu").read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"variant {tag!r}: the line to change occurs {text.count(old)} times")
+    text = (_build.CSRC_DIR / source).read_text()
+    for old, new in changes:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {tag!r}: {old!r} occurs {text.count(old)} times")
+        text = text.replace(old, new)
     src = _build.BUILD_DIR / "variants" / f"{tag}.cu"
     src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(text.replace(old, new))
-    return build_variant(src, tag, "nrt_fused_block_fwd")
+    src.write_text(text)
+    return build_variant(src, tag, entry)
 
 
 def block_split(smi: str) -> None:
@@ -306,8 +323,9 @@ def block_split(smi: str) -> None:
         for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
             print(f"    {e.key[:72]:72s} {e.self_device_time_total / reps:8.2f} us/call "
                   f"({e.count // reps} launches)")
-    variants = {tag: build_forward_variant(old, new, f"variant{i}")
-                for i, (tag, (old, new)) in enumerate(FORWARD_VARIANTS.items())}
+    variants = {tag: source_variant("fused_attention.cu", [change], f"variant{i}",
+                                    "nrt_fused_block_fwd")
+                for i, (tag, change) in enumerate(FORWARD_VARIANTS.items())}
     cvt = {d: build_variant(_build.CSRC_DIR / f"fused_attention_tiled_{d}.cu", f"cvt_{d}",
                             f"nrt_fused_block_tiled_{d}", ("-DNRT_SPLIT_WITH_CVT",))
            for d in ("fwd", "bwd")}
@@ -398,92 +416,169 @@ def cross_split(smi: str) -> None:
     tx0, tws, tbs, tg = chip_smoke.cross_case(TB, chip_smoke.SEED + 7, dev)
     with torch.no_grad():
         _, ss = dk._cross_fwd_kernel(tx0, tws, tbs, residuals=True)
-        _, xs1, ss1 = chip_smoke.previous_cross_fwd(tx0, tws, tbs, residuals=True)
-    designs = {   # shape -> (first design, this one)
-        f"forward, B={serve_B}": (lambda: chip_smoke.previous_cross_fwd(x0, ws, bs),
-                                  lambda: dk._cross_fwd_kernel(x0, ws, bs, False)),
-        f"forward with residuals, B={TB}": (
-            lambda: chip_smoke.previous_cross_fwd(tx0, tws, tbs, residuals=True),
-            lambda: dk._cross_fwd_kernel(tx0, tws, tbs, True)),
-        f"backward, B={TB}": (lambda: chip_smoke.previous_cross_bwd(tx0, tws, xs1, ss1, tg),
-                              lambda: dk.dcn_cross_bwd(tx0, tws, tbs, ss, tg))}
+    kernels = {f"forward, B={serve_B}": lambda: dk._cross_fwd_kernel(x0, ws, bs, False),
+               f"forward with residuals, B={TB}": lambda: dk._cross_fwd_kernel(tx0, tws, tbs,
+                                                                                True),
+               f"backward, B={TB}": lambda: dk.dcn_cross_bwd(tx0, tws, tbs, ss, tg)}
     floor = chip_smoke.device_ms(chip_smoke.launch_empty)
     print(f"\n== the cross stack's kernels, D=112 NL=3 ({smi}); an empty kernel "
           f"{floor * 1e3:.2f} us")
     with torch.no_grad():
-        for label, (first, now) in designs.items():
-            t = [chip_smoke.device_ms(f) for f in (first, now, now, first)]
-            print(f"  {label}: first design {(t[0] + t[3]) / 2 * 1e3:.2f} us, now "
-                  f"{(t[1] + t[2]) / 2 * 1e3:.2f} us (graph replays, in turns)")
-            for name, fn in (("first design", first), ("now", now)):
-                fn()
+        for label, fn in kernels.items():
+            print(f"  {label}: {chip_smoke.device_ms(fn) * 1e3:.2f} us (graph replays)")
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
-                    print(f"    {name}: {e.key[:64]:64s} {e.self_device_time_total / reps:7.2f} "
-                          f"us ({e.count // reps} a call, eager)")
+            for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
+                print(f"    {e.key[:64]:64s} {e.self_device_time_total / reps:7.2f} us "
+                      f"({e.count // reps} a call, eager)")
 
     cross_step_split(smi)
 
 
-class _FirstDesignCross(torch.autograd.Function):
-    """The cross stack on the first design's kernels (``csrc/previous/``):
-    the forward writes xs and ss, the backward reads them."""
-
-    @staticmethod
-    def forward(ctx, x0, ws, bs):
-        out, xs, ss = chip_smoke.previous_cross_fwd(x0, ws, bs, residuals=True)
-        ctx.save_for_backward(x0, ws, xs, ss)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return chip_smoke.previous_cross_bwd(*ctx.saved_tensors, g.contiguous())
-
-
 def cross_step_split(smi: str) -> None:
-    """The DCN training step's device time with each design's cross kernels:
-    one traced epoch of TRAIN_STEPS steps each, in turns (first, now, now,
-    first), after a warm-up epoch of each."""
+    """The DCN training step's device time, and its cross kernels' part: two
+    traced epochs of TRAIN_STEPS steps after a warm-up epoch."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
-    from news_recsys_tpu_torch.ops import dcn_kernel as dk
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
 
     bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
     cfg = chip_smoke.train_config("dcn")
     ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
-    dev, now = torch.device("cuda"), dk._CrossStack
-    designs = {"first design": _FirstDesignCross, "now": now}
-    results = collections.defaultdict(list)
+    dev, runs = torch.device("cuda"), []
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
                           workdir=tmp, device=dev)
-        state = trainer.init_state()
-        try:
-            for epoch, name in enumerate(("first design", "now", "first design", "now", "now",
-                                          "first design")):
-                dk._CrossStack = designs[name]
-                if epoch < 2:
-                    state, _ = trainer.train_epoch(state, ds, epoch)           # warm-up
-                    continue
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    trainer.train_epoch(state, ds, epoch)
-                    torch.cuda.synchronize()
-                events = device_events(prof)
-                cross = [e for e in events if "dcn_cross" in e.key]
-                results[name].append((sum(e.self_device_time_total for e in events) / steps,
-                                      sum(e.self_device_time_total for e in cross) / steps,
-                                      sum(e.count for e in cross) / steps))
-        finally:
-            dk._CrossStack = now
+        state, _ = trainer.train_epoch(trainer.init_state(), ds, 0)          # warm-up
+        for epoch in (1, 2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_epoch(state, ds, epoch)
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            cross = [e for e in events if "dcn_cross" in e.key]
+            runs.append((sum(e.self_device_time_total for e in events) / steps,
+                         sum(e.self_device_time_total for e in cross) / steps,
+                         sum(e.count for e in cross) / steps))
     print(f"\n== the DCN training step, batch {bs}, traced epochs of {steps} steps ({smi})")
-    for name, runs in results.items():
-        print(f"  {name}: device time a step " + ", ".join(f"{r[0]:.1f}" for r in runs)
-              + " us; of it the cross kernels " + ", ".join(f"{r[1]:.2f}" for r in runs)
-              + f" us ({runs[0][2]:.0f} launches a step)")
+    print("  device time a step " + ", ".join(f"{r[0]:.1f}" for r in runs)
+          + " us; of it the cross kernels " + ", ".join(f"{r[1]:.2f}" for r in runs)
+          + f" us ({runs[0][2]:.0f} launches a step)")
+
+
+# copies of the scatter kernel (source text replaced: what, by what): 64 and
+# 128 threads a block; a relaxed load of the values in place of the volatile
+# one; and two that load a slot's values only after its row ids (a second
+# trip to memory), where its warp or where the slot itself has a row to
+# write (the latter is what the compiler makes of a plain load before the
+# branch)
+SCATTER_LOADS = """  const T val = load_now(vals + i);
+  if ((unsigned)row >= (unsigned)V || (has_next && next == row)) return;
+  table[(size_t)row * chunks + c] = val;"""
+SCATTER_THREADS = "constexpr int kThreads = 256;"
+SCATTER_VARIANTS = {
+    "64 threads a block": (SCATTER_THREADS, "constexpr int kThreads = 64;"),
+    "128 threads a block": (SCATTER_THREADS, "constexpr int kThreads = 128;"),
+    "relaxed.gpu load of the values": ("ld.volatile.global.v4", "ld.relaxed.gpu.global.v4"),
+    "values only where the warp writes": (SCATTER_LOADS, """\
+  const bool write = (unsigned)row < (unsigned)V && !(has_next && next == row);
+  if (!__any_sync(__activemask(), write)) return;
+  const T val = __ldg(vals + i);
+  if (write) table[(size_t)row * chunks + c] = val;"""),
+    "values only where the slot writes": (SCATTER_LOADS, """\
+  if ((unsigned)row >= (unsigned)V || (has_next && next == row)) return;
+  table[(size_t)row * chunks + c] = __ldg(vals + i);""")}
+
+
+def print_turns(times: dict) -> None:
+    for name, t in times.items():
+        print(f"    {name:36s} {np.mean(t) * 1e3:7.2f} us (graph replays; turns "
+              + ", ".join(f"{x * 1e3:.2f}" for x in t) + ")")
+
+
+def scatter_split(smi: str) -> None:
+    from news_recsys_tpu_torch.ops import stream_ptr
+    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+    from news_recsys_tpu_torch.training.scatter_layouts import scatter_layout_stats
+
+    variants = {label: source_variant("scatter_rows.cu", [change], f"scatter{i}",
+                                      "nrt_scatter_rows_set")
+                for i, (label, change) in enumerate(SCATTER_VARIANTS.items())}
+    dev = torch.device("cuda")
+    floor = chip_smoke.device_ms(chip_smoke.launch_empty)
+    print(f"\n== the row scatter ({smi}); an empty kernel {floor * 1e3:.2f} us")
+    for label, arrays in chip_smoke.scatter_cases().items():
+        table, rows, vals = (torch.from_numpy(a).to(dev) for a in arrays)
+        (V, D), S = table.shape, rows.shape[0]
+        want = scatter_rows_plain(table.clone(), rows, vals)
+        rows64 = rows.long()
+        fns = {"kernel (256 threads a block)": lambda: scatter_rows_set(table, rows, vals),
+               "first design": lambda: chip_smoke.previous_scatter(table, rows, vals)}
+        for name, fn in variants.items():
+            def launch(fn=fn, t=table):
+                rc = fn(t.data_ptr(), rows.data_ptr(), vals.data_ptr(), S, D, V, stream_ptr(t))
+                if rc:
+                    raise RuntimeError(f"a scatter variant: cudaError_t {rc}")
+            copy = table.clone()
+            launch(t=copy)
+            torch.cuda.synchronize()
+            if not torch.equal(copy, want):
+                raise AssertionError(f"{label}, {name}: the table differs from the plain one's")
+            fns[name] = launch
+        fns["index_copy_"] = lambda: table.index_copy_(0, rows64, vals)
+        fns["plain"] = lambda: scatter_rows_plain(table, rows, vals)
+        times = collections.defaultdict(list)
+        with torch.no_grad():
+            for name in [*fns, *reversed(fns)]:
+                times[name].append(chip_smoke.device_ms(fns[name]))
+        print(f"  {label}: V={V} D={D} S={S} {scatter_layout_stats(arrays[1], V)}")
+        print_turns(times)
+
+
+# a copy of the FM forward whose staged kernel takes F and D at run time
+# (source text replaced: what, by what; its loops then do not unroll)
+FM_RUN_TIME = (
+    ("template <int F, int D>\n__global__", "__global__"),
+    ("float* __restrict__ out, int B) {", "float* __restrict__ out, int B, int F, int D) {"),
+    ("fm_fwd_staged_kernel<5, 15><<<blocks, kRows * kLanes, smem, stream>>>(v, out, B);",
+     "fm_fwd_staged_kernel<<<blocks, kRows * kLanes, smem, stream>>>(v, out, B, F, D);"))
+
+
+def fm_split(smi: str) -> None:
+    from news_recsys_tpu_torch.ops import stream_ptr
+    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order, plan_fm_fwd
+
+    dev = torch.device("cuda")
+    F, D = chip_smoke.FM_F, chip_smoke.FM_D
+    run_time = source_variant("fm_second_order.cu", FM_RUN_TIME, "fm_run_time", "nrt_fm_fwd")
+    floor = chip_smoke.device_ms(chip_smoke.launch_empty)
+    print(f"\n== the FM forward, F={F} D={D} ({smi}); an empty kernel {floor * 1e3:.2f} us")
+    for B in (chip_smoke.USERS_PER_REQUEST * chip_smoke.FETCH, chip_smoke.TRAIN_BATCH):
+        v = torch.from_numpy(np.random.default_rng(chip_smoke.SEED).standard_normal(
+            (B, F, D)).astype(np.float32)).to(dev)
+        out, want = torch.empty(B, device=dev), fm_second_order(v)
+
+        def launch_run_time():
+            rc = run_time(v.data_ptr(), out.data_ptr(), B, F, D, stream_ptr(v))
+            if rc:
+                raise RuntimeError(f"the run-time FM forward: cudaError_t {rc}")
+
+        launch_run_time()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"B={B}: the run-time copy's bits differ from the kernel's")
+        fns = {"kernel (F 5, D 15 at compile time)": lambda: fm_second_order(v),
+               "F, D at run time": launch_run_time,
+               "first design": lambda: chip_smoke.previous_fm_fwd(v),
+               "plain": lambda: fm_plain(v)}
+        times = collections.defaultdict(list)
+        with torch.no_grad():
+            for name in [*fns, *reversed(fns), *fns, *reversed(fns)]:
+                times[name].append(chip_smoke.device_ms(fns[name]))
+        print(f"  B={B}: plan {plan_fm_fwd(B, F, D)._asdict()}")
+        print_turns(times)
 
 
 def main(argv=None) -> None:
@@ -496,6 +591,10 @@ def main(argv=None) -> None:
                    help="take the lookup + pool's kernels apart instead")
     p.add_argument("--cross-split", action="store_true",
                    help="take the cross stack's kernels apart instead")
+    p.add_argument("--scatter-split", action="store_true",
+                   help="time the row scatter's designs at its shapes instead")
+    p.add_argument("--fm-split", action="store_true",
+                   help="time the FM forward against a copy with F, D at run time instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -509,6 +608,12 @@ def main(argv=None) -> None:
         return
     if args.cross_split:
         cross_split(smi)
+        return
+    if args.scatter_split:
+        scatter_split(smi)
+        return
+    if args.fm_split:
+        fm_split(smi)
         return
     for ranker in ("dcn", "attention"):
         profile_serving(smi, ranker, args)

@@ -24,11 +24,12 @@ phase fails:
    from this run's inputs) and, where one PyTorch call computes the same
    function, that call's time; the fused block runs both its routes (tiled
    and general) against the plain version and times them in the same run;
-   the cross stack's forward (a request's B 6,400; a step's B 512, which also
-   writes the backward's residuals) and backward (B 512) also run the first
-   design's kernels (``csrc/previous/``, built beside the others) and time
-   them (``previous_ms``); and one empty kernel, the floor of a launch
-   (``launch_floor_ms``);
+   the row scatter runs at the DCN arena's shape and at the sparse attention
+   step's two (each table handed all 16,384 slots of one seeded batch's
+   joint dedup), the FM forward at a request's B 6,400 and a step's B 512,
+   and both also run their first design's kernels (``csrc/previous/``,
+   built beside the others) in the same turns (``previous_ms``); and one
+   empty kernel, the floor of a launch (``launch_floor_ms``);
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -230,7 +231,7 @@ def scaled_tol(want: torch.Tensor) -> dict:
 
 def check_kernels(dev) -> list:
     from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
-    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order
+    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order, plan_fm_fwd
     rng = np.random.default_rng(SEED)
     B, D, NL = USERS_PER_REQUEST * FETCH, 112, 3
     bound = np.sqrt(6 / (D + 1))
@@ -244,12 +245,11 @@ def check_kernels(dev) -> list:
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
          (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
-         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None,
-         lambda *a: previous_cross_fwd(*a)[0]),
+         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None, None),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
          f"B={B} F={FM_F} D={FM_D}",
-         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None, None),
+         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None, previous_fm_fwd),
     ]
     out = []
     with torch.inference_mode():
@@ -264,10 +264,13 @@ def check_kernels(dev) -> list:
             if before is None:
                 t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
             else:
+                if not torch.equal(kernel(*args), got):
+                    raise AssertionError(f"{name}: two runs gave different bits")
                 torch.testing.assert_close(before(*args), want, **tol)
                 t = [device_ms(lambda: f(*args))
                      for f in (plain, kernel, before, before, kernel, plain)]
-                extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_v1.cu")
+                extra = {**previous_entry(t, "fm_fwd_v1.cu"),
+                         "plan": plan_fm_fwd(*v.shape)._asdict()}
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
             out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
                                      "cuda_graph", shape, work,
@@ -275,80 +278,84 @@ def check_kernels(dev) -> list:
     return out
 
 
-def previous_entry(first_ms: float, second_ms: float, source: str) -> dict:
+def previous_entry(t: list, source: str) -> dict:
     """The first design's time (``previous_ms``, the mean of its two turns)
-    and source, for a kernel entry."""
-    ms = (first_ms + second_ms) / 2
-    log(f"  the first design's kernel ({source}) {ms * 1e3:.2f} us")
-    return {"previous_ms": ms, "previous_source": f"news_recsys_tpu_torch/csrc/previous/{source}"}
+    and source, for a kernel entry, taken out of ``t``: device ms of plain,
+    kernel, first design, first design, kernel, plain, in that order. Both
+    designs' turns ride along (``turns_ms``, ``previous_turns_ms``), so a
+    reader sees the spread the comparison has to beat."""
+    first = [t.pop(2), t.pop(2)]
+    ms = sum(first) / 2
+    log(f"  the first design's kernel ({source}) {ms * 1e3:.2f} us (turns "
+        f"{first[0] * 1e3:.2f}, {first[1] * 1e3:.2f}); the kernel's turns {t[1] * 1e3:.2f}, "
+        f"{t[2] * 1e3:.2f}")
+    return {"previous_ms": ms, "previous_turns_ms": first, "turns_ms": t[1:3],
+            "previous_source": f"news_recsys_tpu_torch/csrc/previous/{source}"}
 
 
-def previous_cross_fwd(x0, ws, bs, residuals: bool = False):
-    """The first design's forward (``csrc/previous/dcn_cross_v1.cu``), timed
-    beside its redesign; nothing in the port calls it. (out, xs, ss): with
-    ``residuals`` it also writes every layer's input xs (NL, B, D) and ss."""
+def previous_fm_fwd(v):
+    """The FM forward's first design (``csrc/previous/fm_fwd_v1.cu``: a warp a
+    row, a lane a column), timed beside its redesign; nothing in the port
+    calls it."""
     from news_recsys_tpu_torch.ops import _build, stream_ptr
-    (B, D), NL = x0.shape, ws.shape[0]
-    out = torch.empty_like(x0)
-    xs = x0.new_empty((NL, B, D)) if residuals else None
-    ss = x0.new_empty((NL, B)) if residuals else None
-    rc = _build.previous_library().nrt_dcn_cross_fwd_v1(
-        x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), out.data_ptr(),
-        xs.data_ptr() if residuals else None, ss.data_ptr() if residuals else None, B, D, NL,
-        stream_ptr(x0))
+    B, F, D = v.shape
+    out = v.new_empty((B,))
+    rc = _build.previous_library().nrt_fm_fwd_v1(v.data_ptr(), out.data_ptr(), B, F, D,
+                                                  stream_ptr(v))
     if rc:
-        raise RuntimeError(f"nrt_dcn_cross_fwd_v1: cudaError_t {rc}")
-    return out, xs, ss
+        raise RuntimeError(f"nrt_fm_fwd_v1: cudaError_t {rc}")
+    return out
 
 
-def previous_cross_bwd(x0, ws, xs, ss, g):
-    """The first design's backward (``csrc/previous/dcn_cross_bwd_v1.cu``: it
-    reads xs, and sums per-block partials in a second launch); timed beside
+def previous_scatter(table, rows, vals):
+    """The row scatter's first design (``csrc/previous/scatter_rows_v1.cu``:
+    every slot writes, its row id loaded before its values); timed beside
     its redesign."""
     from news_recsys_tpu_torch.ops import _build, stream_ptr
-    (B, D), NL = x0.shape, ws.shape[0]
-    nblk = max(1, min(-(-B // 8), 264))
-    dx0, dws, dbs = torch.empty_like(x0), torch.empty_like(ws), torch.empty_like(ws)
-    partial = x0.new_empty((nblk, 2, NL, D))
-    rc = _build.previous_library().nrt_dcn_cross_bwd_v1(
-        x0.data_ptr(), ws.data_ptr(), xs.data_ptr(), ss.data_ptr(), g.data_ptr(), dx0.data_ptr(),
-        dws.data_ptr(), dbs.data_ptr(), partial.data_ptr(), B, D, NL, nblk, stream_ptr(x0))
+    (V, D), S = table.shape, rows.shape[0]
+    rc = _build.previous_library().nrt_scatter_rows_set_v1(
+        table.data_ptr(), rows.data_ptr(), vals.data_ptr(), S, D, V, stream_ptr(table))
     if rc:
-        raise RuntimeError(f"nrt_dcn_cross_bwd_v1: cudaError_t {rc}")
-    return dx0, dws, dbs
+        raise RuntimeError(f"nrt_scatter_rows_set_v1: cudaError_t {rc}")
+    return table
 
 
 def check_fm_training_kernels(dev) -> tuple:
     """The FM second order at the training shape (batch 512, 5 fields, 15
-    latent columns): the forward against ``fm_plain``, the backward against
-    ``fm_bwd_plain`` with two runs bit-identical. Returns (the forward's
-    error and times at this shape, the backward's entry)."""
+    latent columns): the forward against ``fm_plain`` and its first design,
+    the backward against ``fm_bwd_plain``, each with two runs bit-identical.
+    Returns (the forward's error and times at this shape, the backward's
+    entry)."""
     from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
-                                                     fm_second_order_bwd)
+                                                     fm_second_order_bwd, plan_fm_fwd)
 
     rng = np.random.default_rng(SEED + 12)
     B, shape = TRAIN_BATCH, f"B={TRAIN_BATCH} F={FM_F} D={FM_D}"
     v = torch.from_numpy(rng.standard_normal((B, FM_F, FM_D), np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal(B, np.float32)).to(dev)
     with torch.no_grad():
-        out, out_want = fm_second_order(v), fm_plain(v)
+        out, out_want, out_again = fm_second_order(v), fm_plain(v), fm_second_order(v)
+        out_before = previous_fm_fwd(v)
         dv, dv_want, again = fm_second_order_bwd(v, g), fm_bwd_plain(v, g), \
             fm_second_order_bwd(v, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, out_want, **scaled_tol(out_want))
+    torch.testing.assert_close(out_before, out_want, **scaled_tol(out_want))
     torch.testing.assert_close(dv, dv_want, **scaled_tol(dv_want))
-    if not torch.equal(dv, again):
-        raise AssertionError("fm_second_order_bwd: two runs gave different bits")
+    if not (torch.equal(dv, again) and torch.equal(out, out_again)):
+        raise AssertionError("fm_second_order: two runs gave different bits")
     fwd_err, bwd_err = float((out - out_want).abs().max()), float((dv - dv_want).abs().max())
     with torch.no_grad():
-        t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, fm_second_order,
-                                               fm_plain)]
+        t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, previous_fm_fwd,
+                                               previous_fm_fwd, fm_second_order, fm_plain)]
+        previous = previous_entry(t, "fm_fwd_v1.cu")
         fwd = {"shape": shape, "max_abs_err": fwd_err, "ms": (t[1] + t[2]) / 2,
-               "plain_ms": (t[0] + t[3]) / 2,
-               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D)}
+               "plain_ms": (t[0] + t[3]) / 2, "call_ms": call_ms(lambda: fm_second_order(v)),
+               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), **previous,
+               "plan": plan_fm_fwd(*v.shape)._asdict()}
         log(f"kernel fm_second_order [{shape}]: max_abs_err {fwd_err:.3e}; device time "
             f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us, "
-            f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}")
+            f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}; plan {fwd['plan']}")
         t = [device_ms(lambda: f(v, g)) for f in (fm_bwd_plain, fm_second_order_bwd,
                                                   fm_second_order_bwd, fm_bwd_plain)]
         calls = [call_ms(lambda: f(v, g)) for f in (fm_second_order_bwd, fm_bwd_plain)]
@@ -374,107 +381,119 @@ def cross_case(B: int, seed: int, dev) -> tuple:
 
 
 def check_training_kernels(dev) -> list:
-    """The training path's kernels at its shapes: the cross stack's forward
-    in the mode that writes the backward's residuals (``ss``) and its
-    backward fed those residuals (batch 512, D 112, 3 layers), each beside
-    the first design's (which writes and reads ``xs`` too), and the row
-    scatter (arena 159,360 x 32, 1,024 sorted slots with duplicates, as the
-    dedup gives them)."""
+    """The DCN training path's cross stack kernels at its shapes: the
+    forward in the mode that writes the backward's residuals (``ss``) and
+    its backward fed those residuals (batch 512, D 112, 3 layers)."""
     from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_rebuild_plain,
                                                       cross_fwd_plain, dcn_cross_bwd)
-    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
 
     B, D, NL = TRAIN_BATCH, 112, 3
     shape = f"B={B} D={D} NL={NL}"
     x0, ws, bs, g = cross_case(B, SEED + 7, dev)
     fwd_kernel = lambda: _cross_fwd_kernel(x0, ws, bs, residuals=True)           # noqa: E731
     fwd_plain = lambda: cross_fwd_plain(x0, ws, bs)                              # noqa: E731
-    fwd_before = lambda: previous_cross_fwd(x0, ws, bs, residuals=True)          # noqa: E731
     with torch.no_grad():
-        (out, ss), (want_out, want_xs, want_ss), before = fwd_kernel(), fwd_plain(), fwd_before()
+        (out, ss), (want_out, _, want_ss) = fwd_kernel(), fwd_plain()
     torch.cuda.synchronize()
     fwd_err = max(float((a - b).abs().max()) for a, b in ((out, want_out), (ss, want_ss)))
-    for part, a, b in (("out", out, want_out), ("ss", ss, want_ss),
-                       *zip(("first design's out", "xs", "ss"), before, (want_out, want_xs,
-                                                                         want_ss))):
+    for part, a, b in (("out", out, want_out), ("ss", ss, want_ss)):
         torch.testing.assert_close(a, b, msg=lambda m: f"cross forward {part}: {m}", **DCN_TOL)
     with torch.no_grad():
-        t = [device_ms(f) for f in (fwd_plain, fwd_kernel, fwd_before, fwd_before, fwd_kernel,
-                                    fwd_plain)]
-        extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_v1.cu")
+        t = [device_ms(f) for f in (fwd_plain, fwd_kernel, fwd_kernel, fwd_plain)]
         calls = [call_ms(f) for f in (fwd_kernel, fwd_plain)]
-    # out and ss written; the first design also wrote xs (NL, B, D)
+    # out and ss written
     work = least_time(4 * (2 * B * D + NL * B + 2 * NL * D), 5 * NL * B * D)
-    old_work = least_time(4 * (2 * B * D + NL * B * D + NL * B + 2 * NL * D), 5 * NL * B * D)
-    log(f"  bound with the first design's residuals (xs too): {old_work['bound_ms'] * 1e3:.2f} us")
     fwd = report_kernel(
         "dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
         "news_recsys_tpu/ops/dcn_kernel.py:51", fwd_err, f"out and ss, tol {DCN_TOL}", t, calls,
-        "cuda_graph", f"{shape} residuals", work, mode="residuals for the backward (ss)",
-        first_design_bound_ms=old_work["bound_ms"], **extra)
+        "cuda_graph", f"{shape} residuals", work, mode="residuals for the backward (ss)")
 
     bwd_args = (x0, ws, bs, ss, g)                  # the forward kernel's own ss
-    before_args = (x0, ws, before[1], before[2], g)  # the first design's xs, ss
     with torch.no_grad():
         got, want = dcn_cross_bwd(*bwd_args), cross_bwd_rebuild_plain(*bwd_args)
-        again, old = dcn_cross_bwd(*bwd_args), previous_cross_bwd(*before_args)
+        again = dcn_cross_bwd(*bwd_args)
     torch.cuda.synchronize()
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     bwd_scale = max(float(b.abs().max()) for b in want)
-    for a, b, c in zip(got, want, old):
+    for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
-        torch.testing.assert_close(c, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("dcn_cross_bwd: two runs gave different bits")
-
-    rng = np.random.default_rng(SEED + 18)
-    V, Ds, S = 159360, 32, 2 * TRAIN_BATCH
-    table = torch.from_numpy(rng.standard_normal((V, Ds), np.float32)).to(dev)
-    rows = np.sort(rng.integers(1, V, S)).astype(np.int32)
-    rows[1::7] = rows[0::7][: len(rows[1::7])]          # duplicates, still sorted
-    rows.sort()
-    vals = rng.standard_normal((S, Ds)).astype(np.float32)[np.searchsorted(rows, rows)]
-    rows, vals = torch.from_numpy(rows).to(dev), torch.from_numpy(vals).to(dev)
-    with torch.no_grad():
-        t_kernel, t_plain = table.clone(), table.clone()
-        scatter_rows_set(t_kernel, rows, vals)
-        scatter_rows_plain(t_plain, rows, vals)
-    torch.cuda.synchronize()
-    scatter_err = float((t_kernel - t_plain).abs().max())
-    if not torch.equal(t_kernel, t_plain):
-        raise AssertionError("scatter_rows_set: the table differs from the plain version's")
-
     with torch.no_grad():
         kernel = lambda: dcn_cross_bwd(*bwd_args)                                # noqa: E731
         plain = lambda: cross_bwd_rebuild_plain(*bwd_args)                       # noqa: E731
-        previous = lambda: previous_cross_bwd(*before_args)                      # noqa: E731
-        t = [device_ms(f) for f in (plain, kernel, previous, previous, kernel, plain)]
-        extra = previous_entry(t.pop(2), t.pop(2), "dcn_cross_bwd_v1.cu")
+        t = [device_ms(f) for f in (plain, kernel, kernel, plain)]
         calls = [call_ms(f) for f in (kernel, plain)]
-        # x0, g, ss, ws and bs read, dx0, dws and dbs written; the first
-        # design also read xs (NL, B, D) and wrote no bs
-        old_work = least_time(4 * ((3 + NL) * B * D + NL * B + 3 * NL * D), 8 * NL * B * D)
-        log(f"  bound with the first design's residuals (xs read): "
-            f"{old_work['bound_ms'] * 1e3:.2f} us")
+        # x0, g, ss, ws and bs read, dx0, dws and dbs written
         bwd = report_kernel(
             "dcn_cross_bwd", "news_recsys_tpu_torch/csrc/dcn_cross_bwd.cu",
             "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
             f"bit-identical", t, calls, "cuda_graph", shape,
-            least_time(4 * (3 * B * D + NL * B + 4 * NL * D), 8 * NL * B * D),
-            first_design_bound_ms=old_work["bound_ms"], **extra)
-        scatter = (lambda: scatter_rows_set(t_kernel, rows, vals),
-                   lambda: scatter_rows_plain(t_plain, rows, vals))
-        t = [device_ms(scatter[i]) for i in (1, 0, 0, 1)]
-        calls = [call_ms(f) for f in scatter]
+            least_time(4 * (3 * B * D + NL * B + 4 * NL * D), 8 * NL * B * D))
+    return [fwd, bwd]
+
+
+def scatter_cases() -> dict:
+    """The row scatter's shapes on the main paths, by label: a DCN step's
+    arena (1,024 slots) and the sparse attention step's item and user tables
+    (16,384 joint slots of one seeded ``zoo.attention_arrays`` batch of 512)."""
+    from news_recsys_tpu_torch.training.scatter_layouts import (arena_scatter_case,
+                                                                attention_scatter_layouts)
+    from news_recsys_tpu_torch.zoo import attention_arrays, attention_config
+    cases = {"arena": arena_scatter_case(SEED + 18, 2 * TRAIN_BATCH)}
+    layouts = attention_scatter_layouts(attention_config(batch_size=TRAIN_BATCH),
+                                        attention_arrays(TRAIN_BATCH, seed=SEED + 19), SEED + 19)
+    for t, case in layouts.items():
+        cases[f"attention {t}"] = case
+    return cases
+
+
+def check_scatter(dev) -> list:
+    """The row scatter at every shape of :func:`scatter_cases`: the kernel and
+    its first design against the plain version bit for bit (two runs of the
+    kernel too), each table written from the same start; times of plain,
+    kernel, first design and ``index_copy_`` in the same turns."""
+    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+    from news_recsys_tpu_torch.training.scatter_layouts import scatter_layout_stats
+
+    out = []
+    for label, (table_np, rows_np, vals_np) in scatter_cases().items():
+        table, rows, vals = (torch.from_numpy(a).to(dev) for a in (table_np, rows_np, vals_np))
+        (V, D), S = table.shape, rows.shape[0]
+        stats = scatter_layout_stats(rows_np, V)
+        with torch.no_grad():
+            t_plain = scatter_rows_plain(table.clone(), rows, vals)
+            t_kernel = scatter_rows_set(table.clone(), rows, vals)
+            t_again = scatter_rows_set(table.clone(), rows, vals)
+            t_before = previous_scatter(table.clone(), rows, vals)
+        torch.cuda.synchronize()
+        for what, got in (("the kernel", t_kernel), ("a second run", t_again),
+                          ("the first design", t_before)):
+            if not torch.equal(got, t_plain):
+                raise AssertionError(f"scatter_rows_set [{label}]: {what}'s table differs "
+                                     f"from the plain version's")
+        err = float((t_kernel - t_plain).abs().max())
+        kernel = lambda: scatter_rows_set(t_kernel, rows, vals)                 # noqa: E731
+        plain = lambda: scatter_rows_plain(t_plain, rows, vals)                 # noqa: E731
+        before = lambda: previous_scatter(t_before, rows, vals)                 # noqa: E731
         rows64 = rows.long()
-        library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))   # rows in range
-        written = int(torch.unique(rows).numel())
-        return [fwd, bwd, report_kernel(
+        with torch.no_grad():
+            t = [device_ms(f) for f in (plain, kernel, before, before, kernel, plain)]
+            extra = previous_entry(t, "scatter_rows_v1.cu")
+            calls = [call_ms(f) for f in (kernel, plain)]
+            # every row in range here: the one call that writes table[rows] = vals
+            library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))
+        log(f"  scatter [{label}]: {stats}")
+        out.append(report_kernel(
             "scatter_rows_set", "news_recsys_tpu_torch/csrc/scatter_rows.cu",
-            "news_recsys_tpu/ops/scatter_rows.py:68", scatter_err, "bit-identical", t, calls,
-            "cuda_graph", f"V={V} D={Ds} S={S}",
-            least_time(4 * (S * Ds + S + written * Ds), 0), library)]
+            "news_recsys_tpu/ops/scatter_rows.py:68", err, "bit-identical; two runs too", t,
+            calls, "cuda_graph", f"{label}: V={V} D={D} S={S}",
+            # rows read once; of vals the row of one slot a distinct row (the
+            # contract makes the others copies of it); a row written a distinct row
+            least_time(4 * (S + 2 * stats["distinct_rows"] * D), 0), library,
+            case=label, **stats, **extra))
+    return out
 
 
 def block_case(B: int, seed: int, dev) -> tuple:
@@ -952,9 +971,10 @@ def ptxas_report(report: str, part: str) -> dict:
 
 
 def build_kernels(dev: torch.device) -> None:
-    """Build and load the kernels and the cross stack kernels' first design
-    (``csrc/previous``, timed beside their redesign): ``nvcc`` on two threads (each waits for its
-    subprocesses, one per source), PyTorch's start-up on this one meanwhile."""
+    """Build and load the kernels and the first design of the row scatter and
+    the FM forward (``csrc/previous``, timed beside their redesign): ``nvcc``
+    on two threads (each waits for its subprocesses, one per source),
+    PyTorch's start-up on this one meanwhile."""
     from news_recsys_tpu_torch.ops import _build
     t0 = time.perf_counter()
     built = {}
@@ -977,9 +997,10 @@ def build_kernels(dev: torch.device) -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
         f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
-    cross = ptxas_report(report, "dcn_cross")
-    log("  cross stack kernels (registers, spilled bytes): " + "; ".join(
-        f"{n[:70]} {r} {s}" for n, (r, s) in cross.items()))
+    for part in ("scatter_rows", "fm_fwd"):
+        kernels = ptxas_report(report, part)
+        log(f"  {part} kernels (registers, spilled bytes): " + "; ".join(
+            f"{n[:70]} {r} {s}" for n, (r, s) in kernels.items()))
 
 
 def ranker_config(ranker: str):
@@ -1368,6 +1389,7 @@ def run(dev: torch.device) -> None:
     timed("build", build_kernels, dev)
     kernels = timed("kernels of serving", check_kernels, dev)
     kernels += timed("kernels of DCN training", check_training_kernels, dev)
+    kernels += timed("the row scatter", check_scatter, dev)
     fm_train_fwd, fm_bwd = timed("kernels of FM training", check_fm_training_kernels, dev)
     next(k for k in kernels if k["name"] == "fm_second_order")["at_train_shape"] = fm_train_fwd
     kernels.append(fm_bwd)

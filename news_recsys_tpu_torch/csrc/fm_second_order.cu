@@ -11,25 +11,117 @@
 // and writes one, the backward reads F*D + 1 and writes F*D; either does ~3
 // flops per element read, far below the ~20 flop/byte where fp32 CUDA cores
 // become the limit. At the DeepFM shapes (F 5, D 15) the forward reads
-// 1.9 MB at B 6,400 and 154 KB at B 512. The design touches each element of
-// v once and keeps every sum in registers:
-//   - one warp per batch row, a lane per column d, looping over d in steps
-//     of 32 when D > 32;
-//   - each lane sums s_d = sum_f v and q_d = sum_f v^2 down its column, so
-//     the F-reduction needs no communication;
-//   - the forward ends with one warp-shuffle sum of s_d^2 - q_d; the
-//     backward recomputes s_d the same way and writes (s_d - v_fd) * g_b.
+// 1.9 MB at B 6,400 and 154 KB at B 512: at those sizes the time is the
+// launch and one trip to memory, and what the design can win is lanes that
+// wait on nothing.
+//
+// The forward has two paths, picked by shape in nrt_fm_fwd and stated by
+// ops/fm_kernel.py::plan_fm_fwd:
+//   - staged, at DeepFM's 5 fields of 15 columns: a block of 32 rows reads
+//     its span of 32 x 75 floats, contiguous in v, into shared memory with
+//     16-byte cp.async copies (a ragged head and tail of at most 3 floats
+//     each as 4-byte copies); then 8 lanes a row each sum s_d = sum_f v and
+//     q_d = sum_f v^2 over every 8th column from shared memory and meet in
+//     a butterfly of 3 shuffles, so no lane waits on a 15-column chain and
+//     all but one of a row's 8 lanes hold two of its 15 columns. A row is
+//     300 bytes, not 16-byte aligned, but 32 rows put every block's span on
+//     16 bytes, and the odd row stride puts a warp's 32 reads in at most 2
+//     to a bank. F and D are fixed at compile time, so both loops unroll
+//     and a lane's 10 loads issue back to back: 0.2-0.25 us faster than the
+//     same kernel with F and D at run time, which was no faster than the
+//     general path at B 512 (chip_profile.py --fm-split). A block is 256
+//     threads (B 6,400: 200 blocks; B 512: 16), which measured faster than
+//     one block an SM at both; 9.4 KB of shared memory;
+//   - general (every other shape): one warp a row, a lane a column, looping
+//     over d in steps of 32, and one warp-shuffle sum, as the first design
+//     did.
+// The backward: one warp a row, as above; it recomputes s_d the same way and
+// writes (s_d - v_fd) * g_b.
 // Every reduction stays inside one row, in a fixed order: no atomics, and
 // two runs give the same bits.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 8;  // rows per block
 
+constexpr int kRows = 32;   // a staged block's rows
+constexpr int kLanes = 8;   // lanes a row
+
+// the shared memory a staged block takes: its span of kRows rows of fd
+// floats and up to 3 floats in front of it, in whole float4s
+size_t staged_smem_bytes(int fd) { return 16 * (((size_t)kRows * fd + 6) / 4); }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Copies the n floats at src into dst + lead, where lead = (src / 4) % 4
+// puts both ends of every 16-byte copy on a 16-byte boundary (dst is one):
+// scalars up to src's first boundary, float4s, scalars after the last.
+// Returns lead once every thread's copies have landed.
+__device__ __forceinline__ int stage_span(float* dst, const float* src, int n) {
+  const int lead = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min(n, (4 - lead) & 3);
+  const int body = (n - head) >> 2;
+  const int tail = head + 4 * body;
+  for (int i = threadIdx.x; i < body; i += blockDim.x)
+    cp_async16(dst + lead + head + 4 * i, src + head + 4 * i);
+  if ((int)threadIdx.x < head) cp_async4(dst + lead + threadIdx.x, src + threadIdx.x);
+  if ((int)threadIdx.x < n - tail)
+    cp_async4(dst + lead + tail + threadIdx.x, src + tail + threadIdx.x);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  return lead;
+}
+
+// Lane j of a row sums columns j, j + 8, ... in order, each over f in
+// order, and the row's 8 lanes (side by side in one warp) meet in a
+// butterfly of shuffles: the same order on every run.
+template <int F, int D>
+__global__ void __launch_bounds__(kRows * kLanes)
+fm_fwd_staged_kernel(const float* __restrict__ v, float* __restrict__ out, int B) {
+  extern __shared__ float4 smem4[];
+  float* span = reinterpret_cast<float*>(smem4);
+  const int fd = F * D;
+  const long long b0 = (long long)blockIdx.x * kRows;
+  const int rows = (int)min((long long)kRows, B - b0);
+  const int lead = stage_span(span, v + b0 * fd, rows * fd);
+  const int r = threadIdx.x / kLanes, j = threadIdx.x % kLanes;
+  float acc = 0.f;  // lanes past the last row add 0 and leave nothing
+  if (r < rows) {
+    const float* x = span + lead + r * fd;
+#pragma unroll
+    for (int m = 0; m < (D + kLanes - 1) / kLanes; ++m) {
+      const int d = j + kLanes * m;
+      if (d < D) {
+        float s = 0.f, q = 0.f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float xv = x[f * D + d];
+          s = __fadd_rn(s, xv);
+          q = __fmaf_rn(xv, xv, q);
+        }
+        acc = __fadd_rn(acc, __fmaf_rn(s, s, -q));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+  if (r < rows && j == 0) out[b0 + r] = 0.5f * acc;
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
-fm_fwd_kernel(const float* __restrict__ v, float* __restrict__ out, int B, int F, int D) {
+fm_fwd_general_kernel(const float* __restrict__ v, float* __restrict__ out, int B, int F, int D) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= B) return;  // whole warp leaves together; no barrier follows
@@ -71,12 +163,17 @@ unsigned grid_for(int B) { return (unsigned)((B + kWarps - 1) / kWarps); }
 
 }  // namespace
 
-// v (B, F, D) float32, out (B,) float32; contiguous, on the device.
-// Returns the cudaError_t of the launch.
-extern "C" int nrt_fm_fwd(const float* v, float* out, int B, int F, int D,
-                          cudaStream_t stream) {
+// v (B, F, D) float32, out (B,) float32; contiguous, on the device, F*D <
+// 2**31. Returns the cudaError_t of the launch.
+extern "C" int nrt_fm_fwd(const float* v, float* out, int B, int F, int D, cudaStream_t stream) {
   if (B <= 0) return (int)cudaSuccess;
-  fm_fwd_kernel<<<grid_for(B), kWarps * 32, 0, stream>>>(v, out, B, F, D);
+  if (F == 5 && D == 15) {  // DeepFM's fields and columns
+    const unsigned blocks = (unsigned)((B + kRows - 1) / kRows);
+    const size_t smem = staged_smem_bytes(F * D);
+    fm_fwd_staged_kernel<5, 15><<<blocks, kRows * kLanes, smem, stream>>>(v, out, B);
+  } else {
+    fm_fwd_general_kernel<<<grid_for(B), kWarps * 32, 0, stream>>>(v, out, B, F, D);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -67,10 +67,10 @@ SIGNATURES = {
 }
 # the previous versions' entry points (csrc/previous/), in their own library
 PREVIOUS_SIGNATURES = {
-    # x0, ws, bs, out, xs, ss, B, D, NL, stream
-    "nrt_dcn_cross_fwd_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x0, ws, xs, ss, g, dx0, dws, dbs, partial, B, D, NL, nblk, stream
-    "nrt_dcn_cross_bwd_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # table, rows, vals, S, D, V, stream
+    "nrt_scatter_rows_set_v1": [_P, _P, _P, _I, _I, _I, _P],
+    # v, out, B, F, D, stream
+    "nrt_fm_fwd_v1": [_P, _P, _I, _I, _I, _P],
 }
 # C entry point -> argument types; these launch nothing and return a size (floats or bytes)
 SIZE_FUNCTIONS = {

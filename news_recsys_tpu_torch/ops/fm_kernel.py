@@ -10,17 +10,56 @@ package's is a ``jax.custom_vjp``. Forward: ``csrc/fm_second_order.cu``,
 entry ``nrt_fm_fwd``, which replaces the Pallas kernel
 ``news_recsys_tpu/ops/fm_kernel.py::_fm_pallas``; backward:
 :func:`fm_second_order_bwd`, entry ``nrt_fm_bwd``, the JAX package's XLA
-``_bwd``. Both are bound by memory: one warp per row keeps the per-column
-sums in registers and reads each element of ``v`` once; every reduction
-stays inside a row, so a run repeats its bits. The kernels take any B (the
-Pallas path fell back to XLA when B was not a multiple of its tile).
+``_bwd``. Both are bound by memory and read each element of ``v`` once.
+At DeepFM's 5 fields of 15 columns the forward takes its staged path:
+a block copies its 32 rows' contiguous span of ``v`` into shared memory with
+16-byte copies, and 8 lanes a row sum every 8th column there and meet in
+three shuffles, so no lane waits on a whole row and one of a row's 8 lanes
+idles where 17 of a warp's 32 did; F and D are compile-time constants
+there, so its loops unroll. Every other shape takes the general path, one
+warp a row, a lane a column (the first design). The C entry picks the path
+by shape; :func:`plan_fm_fwd` states the choice and the block. The
+backward is one warp a row. Every reduction stays inside a row in a fixed
+order, so a run repeats its bits. The kernels take any B (the Pallas path
+fell back to XLA when B was not a multiple of its tile).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+
+# the forward as csrc/fm_second_order.cu launches it: (F, D) of DeepFM take
+# the staged path, a block of FM_ROWS rows of FM_LANES lanes; other shapes
+# the general one, a warp a row, FM_GENERAL_ROWS rows a block
+FM_STAGED_SHAPE = (5, 15)
+FM_ROWS = 32
+FM_LANES = 8
+FM_GENERAL_ROWS = 8
+
+
+class FmPlan(NamedTuple):
+    path: str               # "staged" or "general"
+    rows: int               # a block's
+    lanes: int              # a row's
+    threads: int
+    blocks: int
+    smem_bytes: int         # dynamic shared memory a block
+
+
+def plan_fm_fwd(B: int, F: int, D: int) -> FmPlan:
+    """The forward's launch, a pure function of the shape. A staged block's
+    shared memory is its span of ``FM_ROWS * F * D`` floats and up to 3 in
+    front of it (which put its 16-byte copies on 16-byte boundaries), in
+    whole float4s."""
+    if (F, D) != FM_STAGED_SHAPE:
+        return FmPlan("general", FM_GENERAL_ROWS, 32, 32 * FM_GENERAL_ROWS,
+                      -(-B // FM_GENERAL_ROWS), 0)
+    return FmPlan("staged", FM_ROWS, FM_LANES, FM_ROWS * FM_LANES, -(-B // FM_ROWS),
+                  16 * ((FM_ROWS * F * D + 6) // 4))
 
 
 def fm_plain(v: torch.Tensor) -> torch.Tensor:

@@ -11,15 +11,19 @@ and returns it.
 Rows outside ``[0, V)`` are dropped, in the kernel and in the plain
 version, as XLA's scatter drops rows ``>= V``. (``jnp``'s ``.at[]`` wraps a
 negative row to the end of the table; the sorted dedup never emits one,
-and the port drops it.)
+and the port drops it.) Of a run of equal rows only the last slot writes:
+under the contract that changes nothing, and outside it the last slot wins,
+as the Pallas grid's order has it, on the card and on the CPU alike.
 
 The kernel (``csrc/scatter_rows.cu``, entry ``nrt_scatter_rows_set``)
 replaces the Pallas kernel
 ``news_recsys_tpu/ops/scatter_rows.py::_scatter_pallas``. It is bound by
-memory latency: each slot's row is one coalesced write, 16 bytes a thread,
-and the table is never read. The plain version checks sortedness on the
-CPU, as the JAX interpret path does; on the card neither it nor the kernel
-synchronises.
+memory latency: a thread issues its loads of its slot's row, the next
+slot's and its 16 bytes of ``vals`` together, writes only if its slot ends
+a run, and never reads the table; 256 threads a block, a float4 a thread
+(a float where D % 4 != 0 or a base address is off 16 bytes).
+The plain version checks sortedness on the CPU, as the JAX interpret path
+does; on the card neither it nor the kernel synchronises.
 """
 
 from __future__ import annotations
@@ -29,18 +33,27 @@ import torch
 from . import check_tensor, forward_only, kernel_device, launch_count_lock, stream_ptr
 
 
+def last_of_run(rows: torch.Tensor) -> torch.Tensor:
+    """True at each slot whose next slot holds another row (and at the last)."""
+    last = torch.ones_like(rows, dtype=torch.bool)
+    last[:-1] = rows[1:] != rows[:-1]
+    return last
+
+
 def scatter_rows_plain(table: torch.Tensor, rows: torch.Tensor,
                        vals: torch.Tensor) -> torch.Tensor:
     """``table[rows] = vals`` in place in plain PyTorch, rows outside
-    ``[0, V)`` dropped: the CPU path and the kernel's oracle."""
+    ``[0, V)`` dropped and the last slot of a run of equal rows written: the
+    CPU path and the kernel's oracle."""
     rows = rows.long()
     if rows.device.type == "cpu" and bool((rows[1:] < rows[:-1]).any()):
         raise ValueError("scatter_rows_set: rows must be non-decreasing")
     if rows.numel() == 0:
         return table
     # nothing here waits for the device: a dropped slot repeats the write of
-    # a kept one (the first), or, where none is kept, what the table holds
-    keep = (rows >= 0) & (rows < table.shape[0])
+    # a kept one (the first), or, where none is kept, what the table holds;
+    # kept slots name distinct rows, so no two writes of one row differ
+    keep = (rows >= 0) & (rows < table.shape[0]) & last_of_run(rows)
     first = keep.to(torch.uint8).argmax().reshape(1)
     idx = torch.where(keep, rows, rows.index_select(0, first)).clamp(0, table.shape[0] - 1)
     src = torch.where(keep[:, None], vals, vals.index_select(0, first))

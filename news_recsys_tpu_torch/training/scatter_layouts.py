@@ -1,0 +1,67 @@
+"""The row scatter's inputs as the training steps lay them out, for holding
+:func:`~news_recsys_tpu_torch.ops.scatter_rows.scatter_rows_set` against its
+plain version and timing it at the shapes the main paths give it.
+
+A DCN step scatters 1,024 slots into its arena; the sparse attention step
+hands each of its two large tables all 16,384 joint slots of a batch of
+512, the other table's clamped to row 0 or the spare row
+(:func:`~news_recsys_tpu_torch.training.sparse_step._joint_dedup`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.embedding import padded_vocab
+from ..models.rankers import build_ranker
+from .sparse_step import _joint_dedup, _large_tables, collect_per_table
+
+
+def arena_scatter_case(seed: int, slots: int = 1024) -> tuple:
+    """(table, rows, vals) as numpy of a DCN step's scatter: the arena
+    159,360 x 32, ``slots`` sorted slots with a duplicate every 7th, equal
+    rows carrying equal values (the dedup's layout)."""
+    rng = np.random.default_rng(seed)
+    V, D = 159360, 32
+    table = rng.standard_normal((V, D), np.float32)
+    rows = np.sort(rng.integers(1, V, slots)).astype(np.int32)
+    rows[1::7] = rows[0::7][: len(rows[1::7])]          # duplicates, still sorted
+    rows.sort()
+    vals = rng.standard_normal((slots, D)).astype(np.float32)[np.searchsorted(rows, rows)]
+    return table, rows, vals
+
+
+def attention_scatter_layouts(cfg, arrays: dict, seed: int) -> dict:
+    """{table: (table (V, D), rows (S,) int32, vals (S, D))} as numpy: the
+    sparse attention step's two scatters on one batch of ``arrays``, laid
+    out by ``collect_per_table`` and ``_joint_dedup`` as its step does (each
+    table gets every joint slot, the other table's clamped to row 0 or its
+    spare row). Seeded row gradients; the values are the table's rows less
+    0.01 of the summed gradient, equal on every slot of a row as the
+    rowwise update leaves them."""
+    model = build_ranker(cfg, seed=seed, device="cpu")
+    batch = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    large = _large_tables(model.tables)
+    rng = np.random.default_rng(seed)
+    grads = {s.name: torch.from_numpy(rng.standard_normal(
+        (*batch[s.name].shape, model.tables[s.table][1]), np.float32))
+        for s in model.schema.specs if s.table in large}
+    spare = {t: padded_vocab(v) - 1 for t, (v, _) in model.tables.items()}
+    layouts = _joint_dedup(collect_per_table(model.schema, batch, grads, large),
+                           dict(model.tables), spare)
+    out = {}
+    for t, (rows, g) in sorted(layouts.items()):
+        table = model.embedder.tables[t].detach()
+        vals = table[rows.long()] - 0.01 * g
+        out[t] = (table.numpy().copy(), rows.numpy(), vals.numpy())
+    return out
+
+
+def scatter_layout_stats(rows: np.ndarray, V: int) -> dict:
+    """Distinct in-range rows, the longest run of one row, slots outside [0, V)."""
+    starts = np.flatnonzero(np.diff(rows, prepend=rows[0] - 1))
+    runs = np.diff(np.append(starts, rows.size))
+    inside = (rows >= 0) & (rows < V)
+    return {"distinct_rows": int(np.unique(rows[inside]).size),
+            "longest_run": int(runs.max()), "out_of_range": int((~inside).sum())}

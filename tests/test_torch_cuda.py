@@ -353,6 +353,147 @@ def test_scatter_kernel_unaligned_table(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+def scatter_on_card(dev, table, rows, vals, aligned=True):
+    """The kernel's table and the plain version's (on the CPU) from the same
+    start; with ``aligned`` False the table and vals lie one float off a
+    16-byte boundary, so the kernel takes its scalar path."""
+    if aligned:
+        got, r, v = on(dev, table, rows, vals)
+    else:
+        got, v, (r,) = off_by_one_float(dev, table), off_by_one_float(dev, vals), on(dev, rows)
+    n = scatter_rows_set.launches
+    assert scatter_rows_set(got, r, v) is got
+    assert scatter_rows_set.launches == n + 1
+    want = scatter_rows_plain(torch.from_numpy(table.copy()), *map(torch.from_numpy, (rows, vals)))
+    return got.cpu(), want
+
+
+def runs_of(V, D, S, run, seed=0):
+    """S sorted slots over V rows in runs of ``run`` equal rows (the last
+    run shorter), equal rows carrying equal values."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    n = -(-S // run)
+    rows = np.repeat(np.sort(rng.choice(V, n, replace=False)), run)[:S].astype(np.int32)
+    vals = rng.standard_normal((S, D)).astype(np.float32)
+    return table, rows, vals[np.searchsorted(rows, rows)]
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_one_run_of_15872_slots(cuda):
+    """The sparse attention step's user table: 15,872 slots at row 0, then
+    512 rows of their own; one write for the run."""
+    table, rows, vals = runs_of(94080, 32, 512, 1, seed=5)
+    rows = np.concatenate([np.zeros(15872, np.int32), np.sort(rows % 94079 + 1)])
+    vals = np.concatenate([np.repeat(vals[:1], 15872, axis=0), vals])
+    vals = vals[np.searchsorted(rows, rows)]
+    got, want = scatter_on_card(cuda, table, rows, vals)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], torch.from_numpy(vals[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+@pytest.mark.parametrize("S,run", [(1024, 2), (1024, 7), (1024, 8), (1024, 9), (1024, 33),
+                                   (16384, 31), (16384, 32), (16384, 33), (16384, 1000),
+                                   (16384, 16384)])
+def test_scatter_kernel_runs_across_blocks(cuda, S, run, aligned):
+    """Runs that cross the blocks' edges (256 threads: 32 slots a block at D
+    32, a float4 a thread; 8 slots a block a float a thread off the float4
+    grid), the last run cut short."""
+    table, rows, vals = runs_of(max(2 * S // run, 64), 32, S, run, seed=run)
+    got, want = scatter_on_card(cuda, table, rows, vals, aligned)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 18])
+def test_scatter_kernel_run_of_one_at_the_last_slot(cuda, D):
+    table, rows, vals = runs_of(5000, D, 1023, 3, seed=6)
+    rows = np.append(rows, 4999).astype(np.int32)
+    vals = np.concatenate([vals, np.full((1, D), 7.0, np.float32)])
+    got, want = scatter_on_card(cuda, table, rows, vals)
+    assert torch.equal(got, want)
+    assert torch.equal(got[4999], torch.full((D,), 7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+def test_scatter_kernel_drops_runs_out_of_range(cuda, aligned):
+    """Runs of rows below 0 and at or past V at both ends, the first and
+    last crossing a block's edge, next to in-range runs of the same length."""
+    V = 3000
+    table, rows, vals = runs_of(V - 1, 32, 2048, 40, seed=7)
+    rows[:100] = -5
+    rows[100:140] = -1
+    rows[-140:-100] = V
+    rows[-100:] = 2 ** 30
+    rows.sort()
+    vals = vals[np.searchsorted(rows, rows)]
+    table = np.concatenate([table, table[:1]])
+    got, want = scatter_on_card(cuda, table, rows, vals, aligned)
+    assert torch.equal(got, want)
+    assert torch.equal(got[V - 1], torch.from_numpy(table[V - 1]))
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_on_the_attention_steps_layout(cuda):
+    """Both tables of the sparse attention step (``attention_config()``,
+    batch 512): all 16,384 slots of one seeded batch through the port's own
+    ``_joint_dedup``, as ``chip_smoke.py`` times them."""
+    from news_recsys_tpu_torch.training.scatter_layouts import attention_scatter_layouts
+    from news_recsys_tpu_torch.zoo import attention_arrays, attention_config
+    layouts = attention_scatter_layouts(attention_config(batch_size=512),
+                                        attention_arrays(512, seed=3), 3)
+    assert sorted(layouts) == ["item_id", "user_id"]
+    for table, rows, vals in layouts.values():
+        assert rows.shape == (16384,)
+        got, want = scatter_on_card(cuda, table, rows, vals)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+def test_scatter_kernel_off_contract_last_slot_wins(cuda, aligned):
+    """Duplicates with different values: the last slot of each run is what
+    the table keeps, as the Pallas grid's order has it, on every run."""
+    table, rows, vals = runs_of(4000, 32, 4096, 5, seed=8)
+    vals = np.random.default_rng(9).standard_normal(vals.shape).astype(np.float32)
+    first = None
+    for _ in range(3):
+        got, want = scatter_on_card(cuda, table, rows, vals, aligned)
+        assert torch.equal(got, want)
+        assert first is None or torch.equal(got, first)
+        first = got
+    last = np.flatnonzero(np.append(rows[1:] != rows[:-1], True))
+    assert torch.equal(got[rows[last]], torch.from_numpy(vals[last]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
+def test_scatter_kernel_past_2_to_the_31_floats(cuda, aligned):
+    """S * D past 2**31 (8 GiB of values; a float a thread off the float4
+    grid, so past 2**31 threads too): every touched row, the last slots'
+    among them, holds its value, and the others are untouched."""
+    V, D, S = 4096, 32, 2 ** 26 + 5
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.randn(V, D, device=cuda, generator=gen)
+    source = torch.randn(V, D, device=cuda, generator=gen)
+    rows = torch.randint(0, V - 1, (S,), device=cuda, generator=gen, dtype=torch.int32)
+    rows = rows.sort().values
+    rows[-1] = V - 1
+    base = torch.empty(S * D + (0 if aligned else 1), device=cuda)
+    vals = base[base.numel() - S * D:].view(S, D)
+    torch.index_select(source, 0, rows.long(), out=vals)
+    assert (vals.data_ptr() % 16 == 0) == aligned
+    want = table.clone()
+    touched = rows.long().unique()
+    want[touched] = source[touched]
+    got = scatter_rows_set(table, rows, vals)
+    del base, vals
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-by-one-float"])
 @pytest.mark.parametrize("B,D,NL", CROSS_SHAPES)
@@ -519,17 +660,49 @@ def test_training_steps_on_cuda_match_cpu(cuda, arena):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 37, 512, 6400])
+@pytest.mark.parametrize("B", [1, 37, 511, 512, 6400, 6401])
 @pytest.mark.parametrize("F", [1, 2, 5, 39])
 @pytest.mark.parametrize("D", [1, 15, 16, 33, 64])
 def test_fm_kernels_match_plain(cuda, B, F, D):
+    """Both forward paths (5 x 15 staged, every other shape general); B 1,
+    37, 511, 6,401 end on a part-filled block (32 rows a block staged); a
+    second forward gives the same bits."""
     v, g = on(cuda, *fm_inputs(B, F, D))
     with torch.inference_mode():
         n = fm_second_order.launches, fm_second_order_bwd.launches
         got, dv = fm_second_order(v), fm_second_order_bwd(v, g)
         assert (fm_second_order.launches - n[0], fm_second_order_bwd.launches - n[1]) == (1, 1)
+        assert torch.equal(fm_second_order(v), got)
     assert_close_to_scale(got, fm_plain(v), "fm forward")
     assert_close_to_scale(dv, fm_bwd_plain(v, g), "fm backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,D", [(5, 15), (5, 16), (5, 14), (4, 15), (15, 5), (1, 75)])
+def test_fm_forward_at_the_edge_of_its_paths(cuda, F, D):
+    """5 x 15 takes the staged path; its neighbours, its transpose and a row
+    of the same 75 floats the general one."""
+    from news_recsys_tpu_torch.ops.fm_kernel import plan_fm_fwd
+    v, _ = on(cuda, *fm_inputs(700, F, D, seed=3))
+    assert plan_fm_fwd(700, F, D).path == ("staged" if (F, D) == (5, 15) else "general")
+    with torch.inference_mode():
+        got = fm_second_order(v)
+        assert torch.equal(fm_second_order(v), got)
+    assert_close_to_scale(got, fm_plain(v), "fm forward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 512, 6400])
+def test_fm_forward_unaligned_rows(cuda, B):
+    """``v`` one float off a 16-byte boundary: every block's span starts and
+    ends off the float4 grid, so the staged copy takes its scalar head and
+    tail."""
+    v_np, _ = fm_inputs(B, 5, 15, seed=4)
+    v = off_by_one_float(cuda, v_np)
+    with torch.inference_mode():
+        got = fm_second_order(v)
+        assert torch.equal(fm_second_order(v), got)
+    assert_close_to_scale(got, fm_plain(v), "fm forward")
 
 
 @pytest.mark.cuda
