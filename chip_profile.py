@@ -58,22 +58,27 @@ uniform and Zipf ids.
 
 ``--cross-split`` takes the DCN cross stack's kernels apart at
 ``chip_smoke.py``'s three shapes (the forward at a request's B 6,400 and at a
-step's B 512 with the backward's residuals, the backward at B 512; D 112, 3
-layers): whole (graph replays), each launch by name from a ``torch.profiler``
-trace, and the DCN training step's device time with them, traced.
+step's B 512 with the backward's residuals, the backward at B 512 and 6,400;
+D 112, 3 layers): whole (graph replays), each launch by name from a
+``torch.profiler`` trace; the backward (its sum kernel by programmatic
+dependent launch) against a copy that launches the sum kernel plainly after
+the rows kernel, bit for bit (eager and in a CUDA graph) and in four turns
+each; and the DCN training step's device time with them, traced.
 
 ``--scatter-split`` times the row scatter at ``chip_smoke.py``'s three
 shapes (a DCN step's arena, the sparse attention step's item and user
-tables): the kernel, its first design (``csrc/previous/``), copies of the
-kernel built beside the library (64 and 128 threads a block, a relaxed load
-of the values, the values loaded only after the row ids where the warp or
-where the slot itself writes), ``index_copy_`` and the plain version, in
-turns.
+tables): the kernel, copies of it built beside the library (64 and 128
+threads a block, a relaxed load of the values, the values loaded only after
+the row ids where the warp or where the slot itself writes), ``index_copy_``
+and the plain version, in turns.
 
-``--fm-split`` times the FM forward at a request's B 6,400 and a step's B
-512 (5 fields of 15): the kernel (F and D fixed at compile time), a copy
-that takes them at run time, its first design and the plain version, in
-four turns each.
+``--fm-split`` times the FM kernels (5 fields of 15) in four turns each: the
+forward at a request's B 6,400 and a step's B 512, the kernel (F and D fixed
+at compile time) against a copy that takes them at run time; the backward
+at B 512 and 6,400, the kernel against copies of its staged path with the
+other of 8, 16 and 32 rows a block and a copy that takes the general path (a
+warp a row) at 5 x 15; each against the plain version, bit for bit among the
+staged copies.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402
+from news_recsys_tpu_torch.ops import fm_kernel  # noqa: E402
 from news_recsys_tpu_torch.serving import _user_batch_from_json  # noqa: E402
 
 TRAIN_STEPS = 24            # steps in each profiled training epoch
@@ -407,6 +413,24 @@ def pool_split(smi: str) -> None:
                   f"longest_run={longest}: {t * 1e3:.2f} us")
 
 
+# a copy of the cross backward that launches its sum kernel plainly, not by
+# programmatic dependent launch (source text replaced: what, by what)
+CROSS_PLAIN_LAUNCH = ("  config.numAttrs = 1;", "  config.numAttrs = 0;")
+
+
+def cross_bwd_variant(entry, *args):
+    """:func:`dcn_cross_bwd` on ``args`` through ``entry``, the C entry of a
+    copy of its source (``_launch_cross_bwd``: the wrapper's plan and
+    buffers)."""
+    from news_recsys_tpu_torch.ops.dcn_kernel import _launch_cross_bwd
+
+    def checked(*a):
+        rc = entry(*a)
+        if rc:
+            raise RuntimeError(f"a copy of the cross backward: cudaError_t {rc}")
+    return _launch_cross_bwd(checked, *args)
+
+
 def cross_split(smi: str) -> None:
     from news_recsys_tpu_torch.ops import dcn_kernel as dk
 
@@ -435,6 +459,30 @@ def cross_split(smi: str) -> None:
             for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total):
                 print(f"    {e.key[:64]:64s} {e.self_device_time_total / reps:7.2f} us "
                       f"({e.count // reps} a call, eager)")
+
+    plain_launch = source_variant("dcn_cross_bwd.cu", [CROSS_PLAIN_LAUNCH], "cross_plain_launch",
+                                  "nrt_dcn_cross_bwd")
+    for B, seed in ((TB, chip_smoke.SEED + 7), (serve_B, chip_smoke.SEED)):
+        bx0, bws, bbs, bg = chip_smoke.cross_case(B, seed, dev)
+        with torch.no_grad():
+            args = (bx0, bws, bbs, dk._cross_fwd_kernel(bx0, bws, bbs, residuals=True)[1], bg)
+            want = dk.dcn_cross_bwd(*args)
+            for how, got in (
+                    ("eager", cross_bwd_variant(plain_launch, *args)),
+                    ("graph replay", chip_smoke.graph_replay(cross_bwd_variant, plain_launch,
+                                                             *args)),
+                    ("the kernel's graph replay", chip_smoke.graph_replay(dk.dcn_cross_bwd,
+                                                                          *args))):
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"B={B}: {how} differs from an eager call")
+            fns = {"sum by dependent launch (shipped)": lambda: dk.dcn_cross_bwd(*args),
+                   "sum by a plain launch": lambda: cross_bwd_variant(plain_launch, *args)}
+            times = collections.defaultdict(list)
+            for name in [*fns, *reversed(fns), *fns, *reversed(fns)]:
+                times[name].append(chip_smoke.device_ms(fns[name]))
+        print(f"  backward, B={B}: plan {dk._plan(bx0, 3, True, True)._asdict()}; bit for bit "
+              f"equal, eager and graph replay")
+        print_turns(times)
 
     cross_step_split(smi)
 
@@ -514,8 +562,7 @@ def scatter_split(smi: str) -> None:
         (V, D), S = table.shape, rows.shape[0]
         want = scatter_rows_plain(table.clone(), rows, vals)
         rows64 = rows.long()
-        fns = {"kernel (256 threads a block)": lambda: scatter_rows_set(table, rows, vals),
-               "first design": lambda: chip_smoke.previous_scatter(table, rows, vals)}
+        fns = {"kernel (256 threads a block)": lambda: scatter_rows_set(table, rows, vals)}
         for name, fn in variants.items():
             def launch(fn=fn, t=table):
                 rc = fn(t.data_ptr(), rows.data_ptr(), vals.data_ptr(), S, D, V, stream_ptr(t))
@@ -546,15 +593,32 @@ FM_RUN_TIME = (
      "fm_fwd_staged_kernel<<<blocks, kRows * kLanes, smem, stream>>>(v, out, B, F, D);"))
 
 
+# copies of the FM backward (source text replaced: what, by what): the
+# staged block's other row counts, and the general path at 5 x 15
+FM_BWD_ROWS = f"constexpr int kBwdRows = {fm_kernel.FM_BWD_ROWS};"
+FM_BWD_VARIANTS = {
+    f"{rows} rows a block": [(FM_BWD_ROWS, f"constexpr int kBwdRows = {rows};")]
+    for rows in (8, 16, 32) if rows != fm_kernel.FM_BWD_ROWS}
+FM_BWD_VARIANTS["general path (a warp a row)"] = [
+    ("  if (F == 5 && D == 15) {  // DeepFM's fields and columns\n"
+     "    const unsigned blocks = (unsigned)((B + kBwdRows - 1) / kBwdRows);",
+     "  if (false) {\n    const unsigned blocks = (unsigned)((B + kBwdRows - 1) / kBwdRows);")]
+
+
 def fm_split(smi: str) -> None:
     from news_recsys_tpu_torch.ops import stream_ptr
-    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order, plan_fm_fwd
+    from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
+                                                     fm_second_order_bwd, plan_fm_bwd,
+                                                     plan_fm_fwd)
 
     dev = torch.device("cuda")
     F, D = chip_smoke.FM_F, chip_smoke.FM_D
     run_time = source_variant("fm_second_order.cu", FM_RUN_TIME, "fm_run_time", "nrt_fm_fwd")
+    bwd_variants = {label: source_variant("fm_second_order.cu", changes, f"fm_bwd{i}",
+                                          "nrt_fm_bwd")
+                    for i, (label, changes) in enumerate(FM_BWD_VARIANTS.items())}
     floor = chip_smoke.device_ms(chip_smoke.launch_empty)
-    print(f"\n== the FM forward, F={F} D={D} ({smi}); an empty kernel {floor * 1e3:.2f} us")
+    print(f"\n== the FM kernels, F={F} D={D} ({smi}); an empty kernel {floor * 1e3:.2f} us")
     for B in (chip_smoke.USERS_PER_REQUEST * chip_smoke.FETCH, chip_smoke.TRAIN_BATCH):
         v = torch.from_numpy(np.random.default_rng(chip_smoke.SEED).standard_normal(
             (B, F, D)).astype(np.float32)).to(dev)
@@ -571,13 +635,38 @@ def fm_split(smi: str) -> None:
             raise AssertionError(f"B={B}: the run-time copy's bits differ from the kernel's")
         fns = {"kernel (F 5, D 15 at compile time)": lambda: fm_second_order(v),
                "F, D at run time": launch_run_time,
-               "first design": lambda: chip_smoke.previous_fm_fwd(v),
                "plain": lambda: fm_plain(v)}
         times = collections.defaultdict(list)
         with torch.no_grad():
             for name in [*fns, *reversed(fns), *fns, *reversed(fns)]:
                 times[name].append(chip_smoke.device_ms(fns[name]))
-        print(f"  B={B}: plan {plan_fm_fwd(B, F, D)._asdict()}")
+        print(f"  forward, B={B}: plan {plan_fm_fwd(B, F, D)._asdict()}")
+        print_turns(times)
+    for B in (chip_smoke.TRAIN_BATCH, chip_smoke.USERS_PER_REQUEST * chip_smoke.FETCH):
+        rng = np.random.default_rng(chip_smoke.SEED + 12)
+        v = torch.from_numpy(rng.standard_normal((B, F, D)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(B).astype(np.float32)).to(dev)
+        dv, want = torch.empty_like(v), fm_second_order_bwd(v, g)
+        torch.testing.assert_close(want, fm_bwd_plain(v, g), **chip_smoke.scaled_tol(want))
+        fns = {f"kernel ({fm_kernel.FM_BWD_ROWS} rows a block)": lambda: fm_second_order_bwd(v, g)}
+        for label, fn in bwd_variants.items():
+            def launch(fn=fn, label=label):
+                rc = fn(v.data_ptr(), g.data_ptr(), dv.data_ptr(), B, F, D, stream_ptr(v))
+                if rc:
+                    raise RuntimeError(f"the FM backward, {label}: cudaError_t {rc}")
+            launch()
+            torch.cuda.synchronize()
+            if label.startswith("general"):
+                torch.testing.assert_close(dv, want, **chip_smoke.scaled_tol(want))
+            elif not torch.equal(dv, want):
+                raise AssertionError(f"B={B}, {label}: the copy's bits differ from the kernel's")
+            fns[label] = launch
+        fns["plain"] = lambda: fm_bwd_plain(v, g)
+        times = collections.defaultdict(list)
+        with torch.no_grad():
+            for name in [*fns, *reversed(fns), *fns, *reversed(fns)]:
+                times[name].append(chip_smoke.device_ms(fns[name]))
+        print(f"  backward, B={B}: plan {plan_fm_bwd(B, F, D)._asdict()}")
         print_turns(times)
 
 
@@ -594,7 +683,7 @@ def main(argv=None) -> None:
     p.add_argument("--scatter-split", action="store_true",
                    help="time the row scatter's designs at its shapes instead")
     p.add_argument("--fm-split", action="store_true",
-                   help="time the FM forward against a copy with F, D at run time instead")
+                   help="time the FM kernels against copies of other designs instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")

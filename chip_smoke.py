@@ -12,9 +12,8 @@ phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
-   one nvcc per source in parallel, ``csrc/previous`` into a library of its
-   own at the same time; PyTorch's own start-up on the card is paid
-   meanwhile);
+   one nvcc per source in parallel; PyTorch's own start-up on the card is
+   paid meanwhile);
 3. holds each of the nine kernels against its plain PyTorch version on the
    card at its path's shapes, and times both (device time from CUDA graph
    replays, and wall time per call with host overhead); beside them the bound (the
@@ -26,10 +25,10 @@ phase fails:
    and general) against the plain version and times them in the same run;
    the row scatter runs at the DCN arena's shape and at the sparse attention
    step's two (each table handed all 16,384 slots of one seeded batch's
-   joint dedup), the FM forward at a request's B 6,400 and a step's B 512,
-   and both also run their first design's kernels (``csrc/previous/``,
-   built beside the others) in the same turns (``previous_ms``); and one
-   empty kernel, the floor of a launch (``launch_floor_ms``);
+   joint dedup), the FM forward at a request's B 6,400 and a step's B 512;
+   the FM and cross stack backwards also against their own second run bit
+   for bit, the cross backward against a CUDA-graph replay of itself too;
+   and one empty kernel, the floor of a launch (``launch_floor_ms``);
 4. serving: builds the cascade (DSSM of configs/dssm.yaml, 65,238 items,
    fetch 100; the DCN of zoo.mind_config("dcn"), then the DeepFM of
    zoo.mind_ranker_config("deepfm")) on the card, saves it as a bundle,
@@ -60,7 +59,9 @@ phase fails:
    card against CPU;
 8. checks that each path launched the kernels it runs, the new paths as
    many times as they should: the counts are set to 0 just before a path is
-   driven and read just after.
+   driven and read just after; then traces one CUDA-graph replay of the
+   cross backward with ``torch.profiler``, which must run its two device
+   kernels once each (``device_kernels``).
 
 Its last three lines are the card, a JSON line of the kernels and their
 times (and the launch floor), and ``{"ok": true, "device": {...}}``.
@@ -205,7 +206,8 @@ def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
                   library_ms=None, **extra) -> dict:
     """Log a kernel's check and times, and return its entry of the
     ``kernels`` line. ``times``: device ms of plain, kernel, kernel, plain
-    (the two orders average out drift); ``calls``: ms per call with host
+    (the two orders average out drift; the kernel's two ride along as
+    ``turns_ms``); ``calls``: ms per call with host
     overhead of kernel and plain; ``work``: :func:`least_time` of this run's
     inputs; ``library_ms``: device ms of the one PyTorch call that computes
     the same function, where there is one."""
@@ -219,7 +221,8 @@ def report_kernel(name, source, replaces, err, tol, times, calls, timing, shape,
         f"{work['bound_ms'] * 1e3:.2f} us by {work['bound_by']}, library call {lib}; per call "
         f"with host overhead kernel {calls[0] * 1e3:.2f} us, plain {calls[1] * 1e3:.2f} us")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "turns_ms": [times[1], times[2]], **work,
             "library_ms": library_ms, "timing": timing, "shape": shape, "call_ms": calls[0],
             "plain_call_ms": calls[1], **extra}
 
@@ -245,89 +248,39 @@ def check_kernels(dev) -> list:
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
          (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
-         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None, None),
+         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
          f"B={B} F={FM_F} D={FM_D}",
-         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None, previous_fm_fwd),
+         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None),
     ]
+    log(f"  fm_second_order [B={B}]: plan {plan_fm_fwd(*v.shape)._asdict()}")
     out = []
     with torch.inference_mode():
-        for name, source, replaces, kernel, plain, args, tol, shape, work, library, before \
-                in cases:
+        for name, source, replaces, kernel, plain, args, tol, shape, work, library in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             tol = tol(want) if callable(tol) else tol
             torch.testing.assert_close(got, want, **tol)
-            extra = {}
-            if before is None:
-                t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
-            else:
-                if not torch.equal(kernel(*args), got):
-                    raise AssertionError(f"{name}: two runs gave different bits")
-                torch.testing.assert_close(before(*args), want, **tol)
-                t = [device_ms(lambda: f(*args))
-                     for f in (plain, kernel, before, before, kernel, plain)]
-                extra = {**previous_entry(t, "fm_fwd_v1.cu"),
-                         "plan": plan_fm_fwd(*v.shape)._asdict()}
+            if not torch.equal(kernel(*args), got):
+                raise AssertionError(f"{name}: two runs gave different bits")
+            t = [device_ms(lambda: f(*args)) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(lambda: f(*args)) for f in (kernel, plain)]
             out.append(report_kernel(name, source, replaces, err, f"tol {tol}", t, calls,
                                      "cuda_graph", shape, work,
-                                     device_ms(library) if library else None, **extra))
+                                     device_ms(library) if library else None))
     return out
-
-
-def previous_entry(t: list, source: str) -> dict:
-    """The first design's time (``previous_ms``, the mean of its two turns)
-    and source, for a kernel entry, taken out of ``t``: device ms of plain,
-    kernel, first design, first design, kernel, plain, in that order. Both
-    designs' turns ride along (``turns_ms``, ``previous_turns_ms``), so a
-    reader sees the spread the comparison has to beat."""
-    first = [t.pop(2), t.pop(2)]
-    ms = sum(first) / 2
-    log(f"  the first design's kernel ({source}) {ms * 1e3:.2f} us (turns "
-        f"{first[0] * 1e3:.2f}, {first[1] * 1e3:.2f}); the kernel's turns {t[1] * 1e3:.2f}, "
-        f"{t[2] * 1e3:.2f}")
-    return {"previous_ms": ms, "previous_turns_ms": first, "turns_ms": t[1:3],
-            "previous_source": f"news_recsys_tpu_torch/csrc/previous/{source}"}
-
-
-def previous_fm_fwd(v):
-    """The FM forward's first design (``csrc/previous/fm_fwd_v1.cu``: a warp a
-    row, a lane a column), timed beside its redesign; nothing in the port
-    calls it."""
-    from news_recsys_tpu_torch.ops import _build, stream_ptr
-    B, F, D = v.shape
-    out = v.new_empty((B,))
-    rc = _build.previous_library().nrt_fm_fwd_v1(v.data_ptr(), out.data_ptr(), B, F, D,
-                                                  stream_ptr(v))
-    if rc:
-        raise RuntimeError(f"nrt_fm_fwd_v1: cudaError_t {rc}")
-    return out
-
-
-def previous_scatter(table, rows, vals):
-    """The row scatter's first design (``csrc/previous/scatter_rows_v1.cu``:
-    every slot writes, its row id loaded before its values); timed beside
-    its redesign."""
-    from news_recsys_tpu_torch.ops import _build, stream_ptr
-    (V, D), S = table.shape, rows.shape[0]
-    rc = _build.previous_library().nrt_scatter_rows_set_v1(
-        table.data_ptr(), rows.data_ptr(), vals.data_ptr(), S, D, V, stream_ptr(table))
-    if rc:
-        raise RuntimeError(f"nrt_scatter_rows_set_v1: cudaError_t {rc}")
-    return table
 
 
 def check_fm_training_kernels(dev) -> tuple:
     """The FM second order at the training shape (batch 512, 5 fields, 15
-    latent columns): the forward against ``fm_plain`` and its first design,
-    the backward against ``fm_bwd_plain``, each with two runs bit-identical.
-    Returns (the forward's error and times at this shape, the backward's
-    entry)."""
+    latent columns): the forward against ``fm_plain``, the backward against
+    ``fm_bwd_plain``, each with two runs bit-identical. Returns (the
+    forward's error and times at this shape, the backward's entry)."""
     from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
-                                                     fm_second_order_bwd, plan_fm_fwd)
+                                                     fm_second_order_bwd, plan_fm_bwd,
+                                                     plan_fm_fwd)
 
     rng = np.random.default_rng(SEED + 12)
     B, shape = TRAIN_BATCH, f"B={TRAIN_BATCH} F={FM_F} D={FM_D}"
@@ -335,30 +288,29 @@ def check_fm_training_kernels(dev) -> tuple:
     g = torch.from_numpy(rng.standard_normal(B, np.float32)).to(dev)
     with torch.no_grad():
         out, out_want, out_again = fm_second_order(v), fm_plain(v), fm_second_order(v)
-        out_before = previous_fm_fwd(v)
         dv, dv_want, again = fm_second_order_bwd(v, g), fm_bwd_plain(v, g), \
             fm_second_order_bwd(v, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, out_want, **scaled_tol(out_want))
-    torch.testing.assert_close(out_before, out_want, **scaled_tol(out_want))
     torch.testing.assert_close(dv, dv_want, **scaled_tol(dv_want))
     if not (torch.equal(dv, again) and torch.equal(out, out_again)):
         raise AssertionError("fm_second_order: two runs gave different bits")
     fwd_err, bwd_err = float((out - out_want).abs().max()), float((dv - dv_want).abs().max())
     with torch.no_grad():
-        t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, previous_fm_fwd,
-                                               previous_fm_fwd, fm_second_order, fm_plain)]
-        previous = previous_entry(t, "fm_fwd_v1.cu")
+        t = [device_ms(lambda: f(v)) for f in (fm_plain, fm_second_order, fm_second_order,
+                                               fm_plain)]
         fwd = {"shape": shape, "max_abs_err": fwd_err, "ms": (t[1] + t[2]) / 2,
-               "plain_ms": (t[0] + t[3]) / 2, "call_ms": call_ms(lambda: fm_second_order(v)),
-               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), **previous,
-               "plan": plan_fm_fwd(*v.shape)._asdict()}
+               "plain_ms": (t[0] + t[3]) / 2, "turns_ms": t[1:3],
+               "call_ms": call_ms(lambda: fm_second_order(v)),
+               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D)}
         log(f"kernel fm_second_order [{shape}]: max_abs_err {fwd_err:.3e}; device time "
             f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us, "
-            f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}; plan {fwd['plan']}")
+            f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}; plan "
+            f"{plan_fm_fwd(*v.shape)._asdict()}")
         t = [device_ms(lambda: f(v, g)) for f in (fm_bwd_plain, fm_second_order_bwd,
                                                   fm_second_order_bwd, fm_bwd_plain)]
         calls = [call_ms(lambda: f(v, g)) for f in (fm_second_order_bwd, fm_bwd_plain)]
+    log(f"  fm_second_order_bwd [{shape}]: plan {plan_fm_bwd(*v.shape)._asdict()}")
     return fwd, report_kernel(
         "fm_second_order_bwd", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
         "news_recsys_tpu/ops/fm_kernel.py:69", bwd_err,
@@ -384,8 +336,9 @@ def check_training_kernels(dev) -> list:
     """The DCN training path's cross stack kernels at its shapes: the
     forward in the mode that writes the backward's residuals (``ss``) and
     its backward fed those residuals (batch 512, D 112, 3 layers)."""
-    from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_rebuild_plain,
-                                                      cross_fwd_plain, dcn_cross_bwd)
+    from news_recsys_tpu_torch.ops.dcn_kernel import (_aligned, _cross_fwd_kernel, _plan,
+                                                      cross_bwd_rebuild_plain, cross_fwd_plain,
+                                                      dcn_cross_bwd)
 
     B, D, NL = TRAIN_BATCH, 112, 3
     shape = f"B={B} D={D} NL={NL}"
@@ -419,6 +372,10 @@ def check_training_kernels(dev) -> list:
         torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("dcn_cross_bwd: two runs gave different bits")
+    if not all(torch.equal(a, b) for a, b in zip(got, graph_replay(dcn_cross_bwd, *bwd_args))):
+        raise AssertionError("dcn_cross_bwd: a CUDA-graph replay differs from an eager call")
+    plan = _plan(x0, NL, _aligned(x0, ws, bs, g), True)
+    log(f"  dcn_cross_bwd [{shape}]: plan {plan._asdict()}")
     with torch.no_grad():
         kernel = lambda: dcn_cross_bwd(*bwd_args)                                # noqa: E731
         plain = lambda: cross_bwd_rebuild_plain(*bwd_args)                       # noqa: E731
@@ -429,9 +386,63 @@ def check_training_kernels(dev) -> list:
             "dcn_cross_bwd", "news_recsys_tpu_torch/csrc/dcn_cross_bwd.cu",
             "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
-            f"bit-identical", t, calls, "cuda_graph", shape,
+            f"bit-identical, a graph replay too", t, calls, "cuda_graph", shape,
             least_time(4 * (3 * B * D + NL * B + 4 * NL * D), 8 * NL * B * D))
     return [fwd, bwd]
+
+
+def capture(fn, *args):
+    """``fn(*args)`` captured in a CUDA graph after a warm-up call on a side
+    stream: (the graph, its outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
+def graph_replay(fn, *args):
+    """``fn(*args)`` captured in a CUDA graph and replayed once; returns the
+    graph's outputs."""
+    graph, out = capture(fn, *args)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# the device kernels one call of the cross backward runs at batch 512: the
+# per-row kernel and the sum of its block partials (by dependent launch)
+CROSS_BWD_KERNELS = ("dcn_cross_bwd_rows_kernel", "dcn_cross_bwd_sum_kernel")
+
+
+def trace_cross_bwd(dev) -> int:
+    """The device kernels of one CUDA-graph replay of the DCN training path's
+    cross backward (batch 512, D 112, 3 layers), from a ``torch.profiler``
+    trace: fails unless it ran each of CROSS_BWD_KERNELS once and nothing
+    else; returns how many kernels ran. Run after every timed phase, so no
+    timing runs with the profiler set up."""
+    from news_recsys_tpu_torch.ops.dcn_kernel import _cross_fwd_kernel, dcn_cross_bwd
+
+    x0, ws, bs, g = cross_case(TRAIN_BATCH, SEED + 7, dev)
+    with torch.no_grad():
+        ss = _cross_fwd_kernel(x0, ws, bs, residuals=True)[1]
+    graph, _ = capture(dcn_cross_bwd, x0, ws, bs, ss, g)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    log(f"  dcn_cross_bwd [B={TRAIN_BATCH}], one graph replay traced: {ran}")
+    if (sorted(ran.values()) != [1, 1]
+            or not all(any(k in key for key in ran) for k in CROSS_BWD_KERNELS)):
+        raise AssertionError(f"dcn_cross_bwd: a graph replay ran {ran}, not "
+                             f"{' and '.join(CROSS_BWD_KERNELS)} once each")
+    return sum(ran.values())
 
 
 def scatter_cases() -> dict:
@@ -450,10 +461,9 @@ def scatter_cases() -> dict:
 
 
 def check_scatter(dev) -> list:
-    """The row scatter at every shape of :func:`scatter_cases`: the kernel and
-    its first design against the plain version bit for bit (two runs of the
-    kernel too), each table written from the same start; times of plain,
-    kernel, first design and ``index_copy_`` in the same turns."""
+    """The row scatter at every shape of :func:`scatter_cases`: the kernel
+    against the plain version bit for bit (two runs of it too), each table
+    written from the same start; times of plain, kernel and ``index_copy_``."""
     from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
     from news_recsys_tpu_torch.training.scatter_layouts import scatter_layout_stats
 
@@ -466,21 +476,17 @@ def check_scatter(dev) -> list:
             t_plain = scatter_rows_plain(table.clone(), rows, vals)
             t_kernel = scatter_rows_set(table.clone(), rows, vals)
             t_again = scatter_rows_set(table.clone(), rows, vals)
-            t_before = previous_scatter(table.clone(), rows, vals)
         torch.cuda.synchronize()
-        for what, got in (("the kernel", t_kernel), ("a second run", t_again),
-                          ("the first design", t_before)):
+        for what, got in (("the kernel", t_kernel), ("a second run", t_again)):
             if not torch.equal(got, t_plain):
                 raise AssertionError(f"scatter_rows_set [{label}]: {what}'s table differs "
                                      f"from the plain version's")
         err = float((t_kernel - t_plain).abs().max())
         kernel = lambda: scatter_rows_set(t_kernel, rows, vals)                 # noqa: E731
         plain = lambda: scatter_rows_plain(t_plain, rows, vals)                 # noqa: E731
-        before = lambda: previous_scatter(t_before, rows, vals)                 # noqa: E731
         rows64 = rows.long()
         with torch.no_grad():
-            t = [device_ms(f) for f in (plain, kernel, before, before, kernel, plain)]
-            extra = previous_entry(t, "scatter_rows_v1.cu")
+            t = [device_ms(f) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(f) for f in (kernel, plain)]
             # every row in range here: the one call that writes table[rows] = vals
             library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))
@@ -492,7 +498,7 @@ def check_scatter(dev) -> list:
             # rows read once; of vals the row of one slot a distinct row (the
             # contract makes the others copies of it); a row written a distinct row
             least_time(4 * (S + 2 * stats["distinct_rows"] * D), 0), library,
-            case=label, **stats, **extra))
+            case=label, **stats))
     return out
 
 
@@ -546,7 +552,8 @@ def block_routes(B: int, backward: bool, dev) -> dict:
     plan = plan_shape(B, BLOCK_L, BLOCK_D, BLOCK_F, BLOCK_H, sms, backward)
     if plan.route != "tiled":
         raise AssertionError(f"the ranker's block must take the tiled route, got {plan}")
-    return {"kernel_route": plan.route, "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
+    log(f"  fused block {'backward' if backward else 'forward'} [B={B}]: plan {plan}")
+    return {"kernel_route": plan.route,
             "source": BLOCK_SOURCES[plan.route].format("bwd" if backward else "fwd"),
             "general_source": BLOCK_SOURCES["general"]}
 
@@ -971,33 +978,26 @@ def ptxas_report(report: str, part: str) -> dict:
 
 
 def build_kernels(dev: torch.device) -> None:
-    """Build and load the kernels and the first design of the row scatter and
-    the FM forward (``csrc/previous``, timed beside their redesign): ``nvcc``
-    on two threads (each waits for its subprocesses, one per source),
-    PyTorch's start-up on this one meanwhile."""
+    """Build and load the kernels: ``nvcc`` on a thread (which waits for its
+    subprocesses, one per source), PyTorch's start-up on this one meanwhile."""
     from news_recsys_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    built = {}
-    threads = [threading.Thread(target=lambda k=k, a=a: built.__setitem__(k, _build.build(*a)))
-               for k, a in (("kernels", ()),
-                            ("previous", (_build.PREVIOUS_DIR, _build.PREVIOUS_LIB_NAME)))]
-    for th in threads:
-        th.start()
+    built = []
+    thread = threading.Thread(target=lambda: built.append(_build.build()))
+    thread.start()
     start_s = start_pytorch(dev)
-    for th in threads:
-        th.join()
-    if len(built) != 2:
+    thread.join()
+    if not built:
         raise RuntimeError("the kernels did not build (nvcc's report is above)")
-    lib = built["kernels"]
+    lib = built[0]
     _build.library()
-    _build.previous_library()
     report = (lib.parent / "build.log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
     log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
         f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
-    for part in ("scatter_rows", "fm_fwd"):
+    for part in ("fm_bwd", "dcn_cross_bwd"):
         kernels = ptxas_report(report, part)
         log(f"  {part} kernels (registers, spilled bytes): " + "; ".join(
             f"{n[:70]} {r} {s}" for n, (r, s) in kernels.items()))
@@ -1409,6 +1409,8 @@ def run(dev: torch.device) -> None:
              "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
                                             smi, "attention@adamw")}
     check_launches(paths)
+    next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
+        timed("trace of the cross backward", trace_cross_bwd, dev)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

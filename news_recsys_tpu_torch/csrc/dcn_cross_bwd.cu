@@ -15,53 +15,54 @@
 // What bounds it on the H100: at B 512, D 112 it moves 0.7 MB, 0.2 us at
 // full bandwidth; what it costs is latency: a chain of dependent steps per
 // row, and sums over the whole batch for dw and db, which no block holds.
-// The design, one launch:
-//   - rows: one chunk a lane (dcn_cross.cuh; D 112: a float4 on each of 32
-//     lanes), since a lane's chain of steps is what a row waits on when an SM
-//     has few warps (with 8 lanes of 4 float4s the whole kernel took 8.92 us
-//     against 7.03 in the run below); every load of a row (x0, g, its NL
-//     scalars s_l, one a lane) is issued before its first shuffle, and the
-//     weights come in beside them by cp.async. The ds_l are taken top-down (they need only g, x0
-//     and w), then x_l is rebuilt bottom-up for dw_l += x_l ds_l; lane l of
-//     a row holds s_l and ds_l and a layer reads them by shuffle, so the
+// The design, two launches:
+//   - rows (dcn_cross_bwd_rows_kernel): one chunk a lane (dcn_cross.cuh; D
+//     112: a float4 on each of 32 lanes), since a lane's chain of steps is
+//     what a row waits on when an SM has few warps (with 8 lanes of 4 float4s
+//     the one-launch backward took 8.92 us against 7.03 on an NVIDIA H100
+//     80GB HBM3, 700 W); every load of a row (x0, g, its NL scalars s_l, one
+//     a lane) is issued before its first shuffle, and the weights come in
+//     beside them by cp.async. The ds_l are taken top-down (they need only g,
+//     x0 and w), then x_l is rebuilt bottom-up for dw_l += x_l ds_l; lane l
+//     of a row holds s_l and ds_l and a layer reads them by shuffle, so the
 //     layer loops stay loops (NL <= the row's lanes, 32);
 //   - batch sums on chip: each warp adds its rows' dw/db terms into its own
 //     row of shared memory (the first row stores, so nothing is zeroed), and
-//     the block sums its warps' rows in warp order;
-//   - blocks form clusters (8 at B 512); after a cluster barrier block `rank`
-//     sums share `rank` of the columns over the cluster's blocks in rank
-//     order, read through distributed shared memory (ld.shared::cluster), and
-//     writes that share of the cluster's partial: blocks / cluster partials
-//     reach device memory, not one a block;
-//   - the last cluster to finish share `rank` (a ticket on counter `rank`,
-//     one of the counters the wrapper gives the launch, ops/dcn_kernel.py::
-//     arrival_counter) sums that share of the cluster partials in cluster
-//     order, its threads splitting the partials and adding their runs in
-//     order, and writes dws/dbs. It sets the counter back to 0, so the next
-//     call and a CUDA-graph replay need no memset. A ticket past the last
-//     cluster means two launches shared a counter: the kernel traps.
-// Every sum is taken in an order fixed by the plan, so two runs give the
-// same bits. Other ways for the blocks' sums to meet were measured in one run
-// on an NVIDIA H100 80GB HBM3 (700 W) at B 512: every block's partial in
-// device memory behind the cluster barrier 7.25 us, a cooperative launch's
-// grid barrier 9.03, this way 7.03, and the first design's two launches (a
-// kernel of block partials, then a kernel that sums them) 6.64: each wait on
-// other SMs costs about a microsecond here.
-
-#include <cooperative_groups.h>
+//     the block sums its warps' rows in warp order and writes that partial
+//     (2*NL*D floats) to device memory, one a block in block order; with one
+//     block the partial is the answer and there is no second launch;
+//   - sums (dcn_cross_bwd_sum_kernel): kSumBlocks blocks share the columns;
+//     in each, the threads split the partials into runs of consecutive
+//     blocks, add each run in block order with kBatch loads in flight, and
+//     add the runs' sums in run order (split_sum), and write dws/dbs.
+// Every sum is taken in an order fixed by the plan, so two runs give the same
+// bits and a CUDA-graph replay equals an eager call; nothing is carried from
+// one call to the next (no counter, no memset). The sum kernel is launched by
+// programmatic dependent launch: the rows kernel lets it start once every
+// block has written its partial, and it waits for the rows kernel's memory
+// with griddepcontrol.wait, so its launch overlaps the rows kernel's tail.
+// On an NVIDIA H100 80GB HBM3 (700 W; chip_profile.py --cross-split, two
+// runs) that measured 5.51-5.53 us at B 512 against 5.76-5.87 for a plain
+// second launch, bit for bit the same, eager and in a CUDA graph.
+//
+// A single launch (blocks in clusters summed through distributed shared
+// memory, the last cluster at an arrival counter summing the cluster
+// partials) was slower than two launches in every run on the same card:
+// 6.76-6.79 us at B 512 against these two launches' 5.18-5.21, in turns in
+// one run of chip_smoke.py each; each wait on other SMs inside a kernel cost
+// about a microsecond, more than the second launch's gap.
 
 #include "dcn_cross.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace dcn;
 
 constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on the H100
-constexpr int kMaxCluster = 8;           // the portable cluster size: a counter a rank
 constexpr int kBatch = 8;                // loads in flight a thread in the sums
 constexpr int kMaxWarps = 16;
+constexpr int kSumBlocks = 8;            // the sum kernel's blocks: a share of the columns each
+constexpr int kSumThreads = 256;
 
 // v summed over the warp's 32 / G groups (an xor butterfly: every group gets
 // the same bits), then stored by group gq for its slots k with k % (32 / G)
@@ -127,30 +128,6 @@ __device__ __forceinline__ void ordered_sum(float (&a)[VW], int n, Src src) {
   }
 }
 
-// VW floats of block `rank`'s shared memory at the address of `local` in
-// this block's (distributed shared memory)
-template <int VW>
-__device__ __forceinline__ void load_remote(float (&r)[VW], const float* local, int rank) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(local));
-  asm volatile("mapa.shared::cluster.u32 %0, %0, %1;\n" : "+r"(addr) : "r"(rank));
-  if constexpr (VW == 4) {
-    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3]) : "r"(addr) : "memory");
-  } else {
-    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(r[0]) : "r"(addr) : "memory");
-  }
-}
-
-// the ticket of a block on counter c: acq_rel at device scope, so it
-// publishes what this block wrote (and saw through a barrier) and acquires
-// what the blocks before it published
-__device__ __forceinline__ int take_ticket(int* c) {
-  int ticket;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(ticket) : "l"(c)
-               : "memory");
-  return ticket;
-}
-
 // dst(e, sum_{q < P} src[q*E + e]) for the chunks e of [lo, hi), by the
 // whole block: each thread sums a run of partials in q order, and the runs'
 // sums are added in run order (a fixed order, so the bits repeat); scratch
@@ -187,20 +164,24 @@ __device__ __forceinline__ void split_sum(const float* src, int P, int E, int lo
   }
 }
 
+// the chunk of dw (NL, D) then db (NL, D) at e into dws or dbs
+template <int VW>
+__device__ __forceinline__ void store_grads(float* dws, float* dbs, int ND, int e,
+                                            const float (&a)[VW]) {
+  store<VW>(e < ND ? dws + e : dbs + (e - ND), a);
+}
+
 template <int VW, int G, int S>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-dcn_cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
-                     const float* __restrict__ bs, const float* __restrict__ ss,
-                     const float* __restrict__ g, float* __restrict__ dx0,
-                     float* __restrict__ dws, float* __restrict__ dbs,
-                     float* __restrict__ partial, int* __restrict__ counter, int B, int D,
-                     int NL) {
+dcn_cross_bwd_rows_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
+                          const float* __restrict__ bs, const float* __restrict__ ss,
+                          const float* __restrict__ g, float* __restrict__ dx0,
+                          float* __restrict__ dws, float* __restrict__ dbs,
+                          float* __restrict__ partial, int B, int D, int NL) {
   constexpr int R = 32 / G;                      // rows a warp
   // ws (NL, D) and bs (NL, D), then an accumulator row of E = 2*NL*D floats
   // a warp: dw (NL, D), then db (NL, D)
   extern __shared__ __align__(16) float smem[];
-  __shared__ int last;
-  __shared__ __align__(16) float scratch[kMaxWarps * 32 * VW];
   const int ND = NL * D;
   const int E = 2 * ND;
   const int nchunk = D / VW;
@@ -231,9 +212,7 @@ dcn_cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
   stage_weights<VW>(sw, ws, bs, ND);
   weights_ready();
 
-  // a row's dx0 is stored while the next row is worked on, and the last
-  // row's after the cluster's sum: stores in flight would hold up the
-  // barriers' release
+  // a row's dx0 is stored while the next row is worked on
   float dx[S][VW];
   long long dx_base = -1;
   auto store_dx = [&]() {
@@ -307,132 +286,110 @@ dcn_cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ ws,
     dx_base = live ? row * D : -1;
     fresh = false;
   }
+  store_dx();
   if (fresh) {                                     // a warp that got no row
     const float zero[VW] = {};
     for (int e = (threadIdx.x & 31) * VW; e < E; e += 32 * VW) store<VW>(dw_acc + e, zero);
   }
   __syncthreads();
 
-  // the block's partial, its warps' rows summed in warp order, into its
-  // first row for the cluster to read (with one block, it is the answer)
+  // the block's partial, its warps' rows summed in warp order, to device
+  // memory in block order (with one block, it is the answer)
   const bool alone = gridDim.x == 1;
-  auto to_grads = [&](int e, const float (&a)[VW]) {
-    store<VW>(e < ND ? dws + e : dbs + (e - ND), a);
-  };
   for (int e = threadIdx.x * VW; e < E; e += blockDim.x * VW) {
     float a[VW];
     ordered_sum<VW>(a, warps, [&](float (&t)[VW], int q) { load<VW>(t, rows + q * E + e); });
     if (alone) {
-      to_grads(e, a);
+      store_grads<VW>(dws, dbs, ND, e, a);
     } else {
-      store<VW>(rows + e, a);
+      store<VW>(partial + (long long)blockIdx.x * E + e, a);
     }
   }
-  if (alone) {
-    store_dx();
-    return;
-  }
+  // the sum kernel may start (under programmatic dependent launch); it waits
+  // for this grid's memory before it reads a partial
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
-  // the cluster's partial: share `rank` of the columns summed over the
-  // cluster's blocks in rank order through distributed shared memory; the
-  // last cluster at counter `rank` sums that share of the cluster partials
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int clusters = gridDim.x / C;
-  const int per = (E / VW + C - 1) / C * VW;
-  const int lo = min(E, rank * per), hi = min(E, lo + per);
-  cluster.sync();
-  float* dst = partial + (long long)(blockIdx.x / C) * E;
-  for (int e = lo + threadIdx.x * VW; e < hi; e += blockDim.x * VW) {
-    float a[VW];
-    ordered_sum<VW>(a, C, [&](float (&t)[VW], int q) { load_remote<VW>(t, rows + e, q); });
-    if (clusters == 1) {
-      to_grads(e, a);
-    } else {
-      store<VW>(dst + e, a);
-    }
-  }
-  // this block is done with the others' shared memory (the sums consumed
-  // the loads); none leaves before all are
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  if (clusters > 1) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int ticket = take_ticket(counter + rank);
-      if (ticket >= clusters) __trap();            // another launch took this counter
-      last = ticket == clusters - 1;
-      if (last) atomicExch(counter + rank, 0);     // every cluster has arrived
-    }
-    __syncthreads();
-    if (last) split_sum<VW>(partial, clusters, E, lo, hi, scratch, to_grads);
-  }
-  store_dx();
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+// dws/dbs: the P block partials summed; each block takes a share of the
+// columns
+template <int VW>
+__global__ void __launch_bounds__(kSumThreads)
+dcn_cross_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dws,
+                         float* __restrict__ dbs, int P, int ND) {
+  __shared__ __align__(16) float scratch[kSumThreads * VW];
+  // every partial of the rows kernel is written and visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int E = 2 * ND;
+  const int per = (E / VW + gridDim.x - 1) / gridDim.x * VW;
+  const int lo = min(E, (int)blockIdx.x * per), hi = min(E, lo + per);
+  split_sum<VW>(partial, P, E, lo, hi, scratch,
+                [&](int e, const float (&a)[VW]) { store_grads<VW>(dws, dbs, ND, e, a); });
+}
+
+// a launch's error, also where a refused call left it as the runtime's last
+// one (taken, so that the next launch does not report it again)
+cudaError_t launch_error(cudaError_t err) {
+  const cudaError_t last_error = cudaGetLastError();
+  return err != cudaSuccess ? err : last_error;
 }
 
 template <int VW, int G, int S>
 cudaError_t launch(const float* x0, const float* ws, const float* bs, const float* ss,
-                   const float* g, float* dx0, float* dws, float* dbs, float* partial,
-                   int* counter, int B, int D, int NL, int warps, int blocks, int cluster,
-                   cudaStream_t stream) {
-  constexpr size_t kStatic = 16 + kMaxWarps * 32 * VW * sizeof(float);  // last, scratch
+                   const float* g, float* dx0, float* dws, float* dbs, float* partial, int B,
+                   int D, int NL, int warps, int blocks, cudaStream_t stream) {
   const size_t smem = (size_t)(warps + 1) * 2 * NL * D * sizeof(float);
-  if (smem + kStatic > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (smem > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  auto rows_kernel = dcn_cross_bwd_rows_kernel<VW, G, S>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    rows_kernel<<<blocks, warps * 32, smem, stream>>>(x0, ws, bs, ss, g, dx0, dws, dbs, partial,
+                                                      B, D, NL);
+  err = launch_error(err);
+  if (err != cudaSuccess || blocks == 1) return err;
+  const int ND = NL * D;
+  // the sum kernel may start while the rows kernel's blocks end
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(blocks);
-  config.blockDim = dim3(warps * 32);
-  config.dynamicSmemBytes = smem;
+  config.gridDim = dim3(2 * ND / VW < kSumBlocks ? 2 * ND / VW : kSumBlocks);
+  config.blockDim = dim3(kSumThreads);
   config.stream = stream;
   config.attrs = attr;
   config.numAttrs = 1;
-  auto kernel = dcn_cross_bwd_kernel<VW, G, S>;
-  cudaError_t err = cudaSuccess;
-  if (smem + kStatic > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&config, kernel, x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter,
-                             B, D, NL);
-  // a refused call also leaves its error as the runtime's last one: take it,
-  // so that the next launch does not report it again
-  const cudaError_t last_error = cudaGetLastError();
-  return err != cudaSuccess ? err : last_error;
+  return launch_error(cudaLaunchKernelEx(&config, dcn_cross_bwd_sum_kernel<VW>,
+                                         (const float*)partial, dws, dbs, blocks, ND));
 }
 
 }  // namespace
 
 // x0 (B, D), ws (NL, D), bs (NL, D), ss (NL, B), g (B, D) in; dx0 (B, D), dws
-// (NL, D), dbs (NL, D) out; partial (the cluster partials of ops/
-// dcn_kernel.py::cross_partials, 2, NL, D) scratch, uninitialised; counter:
-// 8 int32, a ticket a cluster rank, 0 at the call and 0 again at its end, used
-// by no other launch in flight. All float32 but the counter, contiguous, on
-// the device. The launch is the wrapper's plan (ops/dcn_kernel.py::
-// plan_cross): vector (1: float4 chunks, which needs D % 4 == 0 and x0, ws,
-// bs, g, dx0 16-byte aligned), group (lanes a row) and slots (chunks a lane),
-// one of NRT_CROSS_BWD_LAYOUTS with group * slots chunks covering a row,
-// warps a block (1-16), blocks (any number >= 1: rows are spread over them)
-// and cluster (a power of two up to 8, dividing blocks); 1 <= NL <= group,
-// and (warps + 1) * 2*NL*D floats of shared memory must fit a block beside its
-// static scratch (227 KB in all). Returns the cudaError_t of the launch.
+// (NL, D), dbs (NL, D) out; partial (blocks, 2, NL, D) scratch, uninitialised
+// (none with one block: ops/dcn_kernel.py::cross_partials). All float32,
+// contiguous, on the device. The launch is the wrapper's plan (ops/
+// dcn_kernel.py::plan_cross): vector (1: float4 chunks, which needs D % 4 ==
+// 0 and x0, ws, bs, g, dx0, dws, dbs, partial 16-byte aligned), group (lanes
+// a row) and slots (chunks a lane), one of NRT_CROSS_BWD_LAYOUTS with group *
+// slots chunks covering a row, warps a block (1-16) and blocks (any number >=
+// 1: rows are spread over them); 1 <= NL <= group, and (warps + 1) * 2*NL*D
+// floats of shared memory must fit a block (227 KB). Two launches on stream
+// (one with one block). Returns the cudaError_t of the launches.
 extern "C" int nrt_dcn_cross_bwd(const float* x0, const float* ws, const float* bs,
                                  const float* ss, const float* g, float* dx0, float* dws,
-                                 float* dbs, float* partial, int* counter, int B, int D, int NL,
-                                 int vector, int group, int slots, int warps, int blocks,
-                                 int cluster, cudaStream_t stream) {
+                                 float* dbs, float* partial, int B, int D, int NL, int vector,
+                                 int group, int slots, int warps, int blocks,
+                                 cudaStream_t stream) {
   const int vw = vector ? 4 : 1;
   if (D <= 0 || NL < 1 || NL > group || warps < 1 || warps > kMaxWarps || blocks < 1 ||
-      (vector && D % 4 != 0) || (long long)group * slots < D / vw || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 || blocks % cluster != 0)
+      (vector && D % 4 != 0) || (long long)group * slots < D / vw)
     return (int)cudaErrorInvalidValue;
 #define NRT_CROSS_BWD_CASE(VW_, G_, S_)                                                     \
   if (vw == VW_ && group == G_ && slots == S_)                                              \
-    return (int)launch<VW_, G_, S_>(x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter, B, D, \
-                                    NL, warps, blocks, cluster, stream);
+    return (int)launch<VW_, G_, S_>(x0, ws, bs, ss, g, dx0, dws, dbs, partial, B, D, NL,    \
+                                    warps, blocks, stream);
   NRT_CROSS_BWD_LAYOUTS(NRT_CROSS_BWD_CASE)
 #undef NRT_CROSS_BWD_CASE
   return (int)cudaErrorInvalidValue;

@@ -11,34 +11,49 @@
 // and writes one, the backward reads F*D + 1 and writes F*D; either does ~3
 // flops per element read, far below the ~20 flop/byte where fp32 CUDA cores
 // become the limit. At the DeepFM shapes (F 5, D 15) the forward reads
-// 1.9 MB at B 6,400 and 154 KB at B 512: at those sizes the time is the
-// launch and one trip to memory, and what the design can win is lanes that
-// wait on nothing.
+// 1.9 MB at B 6,400 and 154 KB at B 512, the backward moves 309 KB at B 512:
+// at those sizes the time is the launch and one trip to memory, and what the
+// design can win is lanes that wait on nothing and loads that issue together.
 //
-// The forward has two paths, picked by shape in nrt_fm_fwd and stated by
-// ops/fm_kernel.py::plan_fm_fwd:
-//   - staged, at DeepFM's 5 fields of 15 columns: a block of 32 rows reads
-//     its span of 32 x 75 floats, contiguous in v, into shared memory with
-//     16-byte cp.async copies (a ragged head and tail of at most 3 floats
-//     each as 4-byte copies); then 8 lanes a row each sum s_d = sum_f v and
-//     q_d = sum_f v^2 over every 8th column from shared memory and meet in
-//     a butterfly of 3 shuffles, so no lane waits on a 15-column chain and
-//     all but one of a row's 8 lanes hold two of its 15 columns. A row is
-//     300 bytes, not 16-byte aligned, but 32 rows put every block's span on
-//     16 bytes, and the odd row stride puts a warp's 32 reads in at most 2
-//     to a bank. F and D are fixed at compile time, so both loops unroll
-//     and a lane's 10 loads issue back to back: 0.2-0.25 us faster than the
-//     same kernel with F and D at run time, which was no faster than the
-//     general path at B 512 (chip_profile.py --fm-split). A block is 256
-//     threads (B 6,400: 200 blocks; B 512: 16), which measured faster than
-//     one block an SM at both; 9.4 KB of shared memory;
+// Both kernels have two paths, picked by shape in nrt_fm_fwd / nrt_fm_bwd and
+// stated by ops/fm_kernel.py::plan_fm_fwd / plan_fm_bwd:
+//   - staged, at DeepFM's 5 fields of 15 columns, F and D fixed at compile
+//     time so every loop unrolls and a thread's loads issue back to back
+//     (with F and D at run time the staged forward lost its whole gain over
+//     the general path at B 512; chip_profile.py --fm-split). A block copies
+//     its rows' span of v, contiguous in memory, into shared memory with
+//     16-byte cp.async copies (stage_span: a ragged head and tail of at most
+//     3 floats each as 4-byte copies), then:
+//       forward: a block of 32 rows, 8 lanes a row; each lane sums s_d =
+//       sum_f v and q_d = sum_f v^2 over every 8th column and the row's 8
+//       lanes meet in a butterfly of 3 shuffles, so no lane waits on a
+//       15-column chain and all but one of a row's 8 lanes hold two of its
+//       15 columns (a warp a row left 17 of 32 lanes idle). A block is 256
+//       threads (B 6,400: 200 blocks; B 512: 16); 9.4 KB of shared memory;
+//       backward: dv has v's layout, so it is a staged elementwise pass. A
+//       block of kBwdRows rows (a multiple of 4, so its span of kBwdRows x 75
+//       floats is whole float4s) copies g's kBwdRows values beside the span;
+//       after one barrier kBwdRows x 15 threads fill a table of s_d in shared
+//       memory, and after a second each thread makes a float4 of dv and
+//       writes it with one 16-byte store (scalar stores for a ragged head and
+//       tail where dv is off the float4 grid). The first design, a warp a row
+//       and a lane a column, left 17 of 32 lanes idle, issued a lane's 10
+//       loads one after another and stored 4-byte scalars along 60-byte row
+//       segments. Of 8, 16 and 32 rows a block, each with s_d summed again
+//       for every element (5 loads, no second barrier) or from the table, 8
+//       rows with the table measured fastest on an NVIDIA H100 80GB HBM3
+//       (700 W; chip_profile.py --fm-split): 2.03 us at B 512 (the others
+//       2.03-2.54, the general path 2.19) and 2.89 at B 6,400 (3.21-3.81;
+//       3.43). More warps a block wait longer on one SM, and the table cost
+//       less than summing each element's column again;
 //   - general (every other shape): one warp a row, a lane a column, looping
-//     over d in steps of 32, and one warp-shuffle sum, as the first design
-//     did.
-// The backward: one warp a row, as above; it recomputes s_d the same way and
-// writes (s_d - v_fd) * g_b.
+//     over d in steps of 32, as the first design did; the forward ends in one
+//     warp-shuffle sum, the backward recomputes s_d the same way and writes
+//     (s_d - v_fd) * g_b.
 // Every reduction stays inside one row, in a fixed order: no atomics, and
-// two runs give the same bits.
+// two runs give the same bits. The staged backward sums s_d over f in order
+// with __fadd_rn and takes (s - v) * g with __fsub_rn / __fmul_rn, no
+// contraction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,12 +62,24 @@ namespace {
 
 constexpr int kWarps = 8;  // rows per block
 
-constexpr int kRows = 32;   // a staged block's rows
+constexpr int kRows = 32;   // a staged forward block's rows
 constexpr int kLanes = 8;   // lanes a row
+
+constexpr int kBwdRows = 8;   // a staged backward block's rows (a multiple of 4)
+static_assert(kBwdRows % 4 == 0, "a backward block's span must be whole float4s");
 
 // the shared memory a staged block takes: its span of kRows rows of fd
 // floats and up to 3 floats in front of it, in whole float4s
 size_t staged_smem_bytes(int fd) { return 16 * (((size_t)kRows * fd + 6) / 4); }
+
+// a staged backward block's threads: a float4 of its span each
+constexpr int bwd_threads(int fd) { return 32 * ((kBwdRows * fd / 4 + 31) / 32); }
+
+// the shared memory a staged backward block takes: its span as above, g's
+// kBwdRows values and the table of s (kBwdRows x d)
+size_t staged_bwd_smem_bytes(int fd, int d) {
+  return 16 * (((size_t)kBwdRows * fd + 6) / 4) + 4 * (size_t)kBwdRows * (1 + d);
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -141,9 +168,57 @@ fm_fwd_general_kernel(const float* __restrict__ v, float* __restrict__ out, int 
   if (lane == 0) out[row] = 0.5f * acc;
 }
 
+// sum_f p[f * D] in f order, rounded at each add
+template <int F, int D>
+__device__ __forceinline__ float column_sum(const float* p) {
+  float s = p[0];
+#pragma unroll
+  for (int f = 1; f < F; ++f) s = __fadd_rn(s, p[f * D]);
+  return s;
+}
+
+// Element e of the block's span (row e / FD, column e % FD % D) gets (s - v) * g,
+// s from the block's table st.
+template <int F, int D, int R>
+__global__ void __launch_bounds__(32 * ((R * F * D / 4 + 31) / 32))
+fm_bwd_staged_kernel(const float* __restrict__ v, const float* __restrict__ g,
+                     float* __restrict__ dv, int B) {
+  constexpr int FD = F * D;
+  extern __shared__ float4 smem4[];
+  float* span = reinterpret_cast<float*>(smem4);
+  float* gs = span + 4 * ((R * FD + 6) / 4);
+  float* st = gs + R;
+  const long long b0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, B - b0);
+  if ((int)threadIdx.x < rows) cp_async4(gs + threadIdx.x, g + b0 + threadIdx.x);
+  const float* x = span + stage_span(span, v + b0 * FD, rows * FD);  // waits for g too
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D;
+    st[i] = column_sum<F, D>(x + r * FD + (i - r * D));
+  }
+  __syncthreads();
+  auto grad = [&](int e) {
+    const int r = e / FD, d = (e - r * FD) % D;
+    return __fmul_rn(__fsub_rn(st[r * D + d], x[e]), gs[r]);
+  };
+  // dv's span: scalars up to its first 16-byte boundary, float4s, scalars after
+  float* out = dv + b0 * FD;
+  const int n = rows * FD;
+  const int head = min(n, (4 - (int)((reinterpret_cast<uintptr_t>(out) >> 2) & 3)) & 3);
+  const int body = (n - head) >> 2;
+  const int tail = head + 4 * body;
+  for (int i = threadIdx.x; i < body; i += blockDim.x) {
+    const int e = head + 4 * i;
+    *reinterpret_cast<float4*>(out + e) = make_float4(grad(e), grad(e + 1), grad(e + 2),
+                                                      grad(e + 3));
+  }
+  if ((int)threadIdx.x < head) out[threadIdx.x] = grad(threadIdx.x);
+  if ((int)threadIdx.x < n - tail) out[tail + threadIdx.x] = grad(tail + threadIdx.x);
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
-fm_bwd_kernel(const float* __restrict__ v, const float* __restrict__ g,
-              float* __restrict__ dv, int B, int F, int D) {
+fm_bwd_general_kernel(const float* __restrict__ v, const float* __restrict__ g,
+                      float* __restrict__ dv, int B, int F, int D) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= B) return;
@@ -177,11 +252,17 @@ extern "C" int nrt_fm_fwd(const float* v, float* out, int B, int F, int D, cudaS
   return (int)cudaGetLastError();
 }
 
-// v (B, F, D), g (B,), dv (B, F, D), float32; contiguous, on the device.
-// Returns the cudaError_t of the launch.
+// v (B, F, D), g (B,), dv (B, F, D), float32; contiguous, on the device, F*D <
+// 2**31. Returns the cudaError_t of the launch.
 extern "C" int nrt_fm_bwd(const float* v, const float* g, float* dv, int B, int F, int D,
                           cudaStream_t stream) {
   if (B <= 0) return (int)cudaSuccess;
-  fm_bwd_kernel<<<grid_for(B), kWarps * 32, 0, stream>>>(v, g, dv, B, F, D);
+  if (F == 5 && D == 15) {  // DeepFM's fields and columns
+    const unsigned blocks = (unsigned)((B + kBwdRows - 1) / kBwdRows);
+    fm_bwd_staged_kernel<5, 15, kBwdRows>
+        <<<blocks, bwd_threads(F * D), staged_bwd_smem_bytes(F * D, D), stream>>>(v, g, dv, B);
+  } else {
+    fm_bwd_general_kernel<<<grid_for(B), kWarps * 32, 0, stream>>>(v, g, dv, B, F, D);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,12 +8,6 @@ package's own sources, into ``news_recsys_tpu_torch/build/<digest>/``: the
 digest covers the sources, their headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and
 a stale library is never loaded. Building needs no PyTorch headers, which
 keeps it to seconds.
-
-``csrc/previous/*.cu`` holds the first design of redesigned kernels, kept
-until the next change to them so that ``chip_smoke.py`` and
-``chip_profile.py`` can time both in one run; they build the same way into a
-library of their own, ``libnrt_previous.so`` (:func:`previous_library`),
-which nothing in the package calls.
 """
 
 from __future__ import annotations
@@ -30,8 +24,6 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libnrt_kernels.so"
-PREVIOUS_DIR = CSRC_DIR / "previous"
-PREVIOUS_LIB_NAME = "libnrt_previous.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,10 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x0, ws, bs, out, ss, B, D, NL, vector, group, slots, warps, blocks, stream
     "nrt_dcn_cross_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x0, ws, bs, ss, g, dx0, dws, dbs, partial, counter, B, D, NL, vector, group, slots,
-    # warps, blocks, cluster, stream
-    "nrt_dcn_cross_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
+    # x0, ws, bs, ss, g, dx0, dws, dbs, partial, B, D, NL, vector, group, slots, warps,
+    # blocks, stream
+    "nrt_dcn_cross_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # table, ids, mask, out, B, L, D, V, stream
     "nrt_lookup_pool_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, rows, vals, S, D, V, stream
@@ -65,13 +57,6 @@ SIGNATURES = {
     # stream: one empty kernel, the floor of a launch
     "nrt_empty": [_P],
 }
-# the previous versions' entry points (csrc/previous/), in their own library
-PREVIOUS_SIGNATURES = {
-    # table, rows, vals, S, D, V, stream
-    "nrt_scatter_rows_set_v1": [_P, _P, _P, _I, _I, _I, _P],
-    # v, out, B, F, D, stream
-    "nrt_fm_fwd_v1": [_P, _P, _I, _I, _I, _P],
-}
 # C entry point -> argument types; these launch nothing and return a size (floats or bytes)
 SIZE_FUNCTIONS = {
     # L, D, F, backward
@@ -85,11 +70,10 @@ SIZE_FUNCTIONS = {
 
 _lock = threading.Lock()
 _library = None
-_previous = None
 
 
-def sources(directory: Path = CSRC_DIR):
-    return sorted(directory.glob("*.cu"))
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -112,26 +96,26 @@ def nvcc_command(nvcc: str, output: Path, objects) -> list:
     return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
 
 
-def library_path(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
+def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in (*sources(directory), *sorted(CSRC_DIR.glob("*.cuh"))):     # headers too
+    for src in (*sources(), *sorted(CSRC_DIR.glob("*.cuh"))):     # headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / h.hexdigest()[:16] / name
+    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
 
 
-def build(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
-    """Compile the sources of ``directory`` into the library ``name`` unless
-    this digest is built; returns its path.
+def build() -> Path:
+    """Compile the sources into the library unless this digest is built;
+    returns its path.
 
     The compiler's report (registers, shared memory, spills per kernel) is
     kept beside it in ``build.log``.
     """
-    lib = library_path(directory, name)
+    lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    nvcc, tag, srcs = nvcc_path(), f"{os.getpid()}.tmp", sources(directory)
+    nvcc, tag, srcs = nvcc_path(), f"{os.getpid()}.tmp", sources()
     objects = [lib.parent / f"{src.stem}.{tag}.o" for src in srcs]
     procs = [subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -139,7 +123,7 @@ def build(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
     logs = [p.communicate()[0] for p in procs]      # waits for every nvcc
     failed = [(src.name, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
               if p.returncode != 0]
-    tmp = lib.with_name(f"{name}.{tag}")
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
     link = None if failed else subprocess.run(nvcc_command(nvcc, tmp, objects),
                                               capture_output=True, text=True)
     (lib.parent / "build.log").write_text("".join(logs) + (link.stdout + link.stderr
@@ -155,39 +139,22 @@ def build(directory: Path = CSRC_DIR, name: str = LIB_NAME) -> Path:
     return lib
 
 
-def _load(path: Path, signatures: dict) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at the first call in the process."""
     global _library
     with _lock:
         if _library is None:
-            lib = _load(build(), SIGNATURES)
-            for name, argtypes in SIZE_FUNCTIONS.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_longlong
+            lib = ctypes.CDLL(str(build()))
+            for functions, restype in ((SIGNATURES, ctypes.c_int),
+                                       (SIZE_FUNCTIONS, ctypes.c_longlong)):
+                for name, argtypes in functions.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
             lib.nrt_error_string.argtypes = [ctypes.c_int]
             lib.nrt_error_string.restype = ctypes.c_char_p
             _library = lib
         return _library
-
-
-def previous_library() -> ctypes.CDLL:
-    """The previous kernels' library (``csrc/previous/``), built at the first
-    call in the process."""
-    global _previous
-    with _lock:
-        if _previous is None:
-            _previous = _load(build(PREVIOUS_DIR, PREVIOUS_LIB_NAME), PREVIOUS_SIGNATURES)
-        return _previous
 
 
 def launch(name: str, *args) -> None:

@@ -14,17 +14,17 @@ follow into shared memory beside them, and a group of lanes owns a row
 (16-byte loads where the shape allows). When a gradient is needed it also
 writes ``ss`` (NL, B), each layer's scalar ``s_l = x_l . w_l``, and nothing
 else. Backward: :func:`dcn_cross_bwd`, ``csrc/dcn_cross_bwd.cu``, the
-analytic VJP of the JAX package's ``_bwd`` in one launch: it rebuilds each
-``x_l`` from x0, ``ss`` and ``bs`` by the forward's own recurrence
-(:func:`rebuild_xs` is the plain version) and sums dw and db over the batch
-on chip, the blocks in thread-block clusters that meet at arrival counters
-no two launches in flight share (:func:`arrival_counter`). :func:`plan_cross`
-lays out both launches from the shape alone.
+analytic VJP of the JAX package's ``_bwd`` in two launches: the first
+rebuilds each ``x_l`` from x0, ``ss`` and ``bs`` by the forward's own
+recurrence (:func:`rebuild_xs` is the plain version), writes dx0, and sums
+each block's dw and db on chip into a partial a block; the second, by
+programmatic dependent launch (its launch overlaps the first's tail), sums
+the partials in an order fixed by the plan. :func:`plan_cross` lays out both
+kernels' launches from the shape alone.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
@@ -35,11 +35,8 @@ MAX_D = 256                    # a row in at most 32 lanes of 8 floats
 FWD_SMEM_BYTES = 48 * 1024     # the forward's weights in shared memory
 MAX_LAYERS = 32                # the backward holds a row's NL scalars in its lanes
 SMEM_BYTES = 232448            # a block's shared memory on the H100
-BWD_STATIC_BYTES = 16 + 16 * 32 * 4 * 4   # the backward's static shared memory
 FWD_WARPS = 4
 BWD_WARPS = 8
-BWD_CLUSTER = 8                # blocks a cluster at most (the portable size); a counter a rank
-COUNTER_SLOTS = 1024           # launches' counters a device allocates at once (32 KB)
 
 
 class CrossPlan(NamedTuple):
@@ -49,8 +46,7 @@ class CrossPlan(NamedTuple):
     slots: int         # chunks a lane
     warps: int         # warps a block
     blocks: int
-    cluster: int       # blocks a cluster (the backward's; 1 in the forward)
-    partials: int      # cluster partials the backward writes to device memory
+    partials: int      # block partials the backward writes to device memory
     smem_bytes: int    # dynamic shared memory a block: the weights, and the
                        # backward's dw/db sums, a row of them a warp
 
@@ -67,8 +63,8 @@ def plan_cross(B: int, D: int, NL: int, aligned: bool, sms: int, backward: bool)
     one chunk a lane, up to 32 lanes (several a lane past 32 chunks), and at
     least NL lanes (they hold the row's NL scalars), which keeps each lane's
     chain of dependent steps short; BWD_WARPS warps a block (more rows loop,
-    past two blocks an SM) and clusters of up to BWD_CLUSTER blocks, whose
-    sums meet in distributed shared memory (``csrc/dcn_cross_bwd.cu``)."""
+    past two blocks an SM), each writing its dw/db partial for the second
+    launch to sum (``csrc/dcn_cross_bwd.cu``)."""
     vector = aligned and D % 4 == 0
     chunks = D // 4 if vector else D
     weights = 4 * 2 * NL * D
@@ -78,24 +74,21 @@ def plan_cross(B: int, D: int, NL: int, aligned: bool, sms: int, backward: bool)
         slots = 1 << (-(-chunks // group) - 1).bit_length()
         warps_needed = max(1, -(-B // (32 // group)))
         warps = min(FWD_WARPS, warps_needed)
-        return CrossPlan(vector, group, slots, warps, -(-warps_needed // warps), 1, 0, weights)
+        return CrossPlan(vector, group, slots, warps, -(-warps_needed // warps), 0, weights)
     group = min(32, 1 << (max(chunks, NL) - 1).bit_length())
     slots = 1 << (-(-chunks // group) - 1).bit_length()
     warps_needed = max(1, -(-B // (32 // group)))
-    fit = (SMEM_BYTES - BWD_STATIC_BYTES) // weights - 1      # dw/db rows beside the weights
+    fit = SMEM_BYTES // weights - 1                 # dw/db rows beside the weights
     warps = max(1, min(BWD_WARPS, warps_needed, fit))
     blocks = min(-(-warps_needed // warps), 2 * sms)
-    cluster = min(BWD_CLUSTER, 1 << (blocks.bit_length() - 1))
-    blocks = -(-blocks // cluster) * cluster
-    return CrossPlan(vector, group, slots, warps, blocks, cluster,
-                     cross_partials(blocks, cluster), weights * (warps + 1))
+    return CrossPlan(vector, group, slots, warps, blocks, cross_partials(blocks),
+                     weights * (warps + 1))
 
 
-def cross_partials(blocks: int, cluster: int) -> int:
+def cross_partials(blocks: int) -> int:
     """The partials (2*NL*D floats each) the backward writes to device
-    memory: one a cluster; none when one cluster holds the whole batch."""
-    n = blocks // cluster
-    return n if n > 1 else 0
+    memory: one a block; none with one block, whose partial is the answer."""
+    return blocks if blocks > 1 else 0
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -201,64 +194,15 @@ def _cross_fwd_kernel(x0, ws, bs, residuals: bool):
     return out, ss
 
 
-_counter_lock = threading.Lock()
-_free_counters: dict = {}      # device index -> zeroed counters no launch has taken
-_stream_counters: dict = {}    # (device index, stream handle) -> that stream's counters
-
-
-def arrival_counter(device: torch.device, stream: int) -> torch.Tensor:
-    """Arrival counters for one backward launch on ``stream`` (a CUDA stream
-    handle) on ``device``: BWD_CLUSTER int32, one for each rank of a cluster,
-    0 between launches.
-
-    With more than one cluster, the blocks of rank r take a ticket from
-    counter r to find the last of them to finish, which sums share r of the
-    cluster partials and sets the counter back to 0, so no call and no
-    CUDA-graph replay needs a memset. No two launches in flight share
-    counters:
-
-    - an eager call takes its stream's counters, and the launches of one
-      stream run one after another;
-    - a call recorded into a CUDA graph takes counters of its own, kept for
-      the life of the process, and CUDA runs the launches of one graph one
-      after another too, on whatever stream each is replayed. So a replay
-      shares counters neither with the calls of the stream it was captured
-      on nor with another graph: not even with the graphs ``torch.cuda.graph``
-      captures on its one default stream.
-
-    If two launches shared counters all the same (one graph instantiated
-    twice through the CUDA API and run at once), a ticket would pass the
-    last cluster, and the kernel traps rather than sum partials that are not
-    all there. Counters are allocated and zeroed COUNTER_SLOTS at a time,
-    outside any capture; a capture that finds none left raises."""
-    capturing = torch.cuda.is_current_stream_capturing()
-    key = (device.index, stream)
-    with _counter_lock:
-        if not capturing and key in _stream_counters:
-            return _stream_counters[key]
-        free = _free_counters.setdefault(device.index, [])
-        if not capturing and len(free) < COUNTER_SLOTS // 2:
-            free.extend(torch.zeros((COUNTER_SLOTS, BWD_CLUSTER), dtype=torch.int32,
-                                    device=device).unbind())
-            torch.cuda.synchronize(device)              # zero before any stream reads them
-        if not free:
-            raise RuntimeError("dcn_cross_bwd: no arrival counters are left for a CUDA-graph "
-                               "capture: call it once outside the capture first, which "
-                               "allocates them")
-        counter = free.pop()
-        if not capturing:
-            _stream_counters[key] = counter
-        return counter
-
-
 def dcn_cross_bwd(x0, ws, bs, ss, g):
     """The cross stack's VJP from the forward's residuals: x0 (B, D), ws and
     bs (NL, D), ss (NL, B), g (B, D), float32 -> (dx0, dws, dbs).
 
-    On CUDA tensors it launches ``nrt_dcn_cross_bwd`` once: the layer inputs
-    are rebuilt from ``ss`` and ``bs``, dws/dbs are summed in an order fixed
-    by :func:`plan_cross`, so a run repeats its bits. Its arrival counters
-    come from :func:`arrival_counter`."""
+    On CUDA tensors it calls ``nrt_dcn_cross_bwd``, which launches two
+    kernels (one with one block): the layer inputs are rebuilt from ``ss``
+    and ``bs``, and dws/dbs are summed in an order fixed by
+    :func:`plan_cross`, so a run repeats its bits and nothing carries from
+    one call to the next."""
     for t, name in ((x0, "x0"), (ws, "ws"), (bs, "bs"), (ss, "ss"), (g, "g")):
         check_tensor(t, name, torch.float32, 2)
     B, D = x0.shape
@@ -272,18 +216,27 @@ def dcn_cross_bwd(x0, ws, bs, ss, g):
     _check_limits(D, NL, backward=True)
     from ._build import launch
 
+    out = _launch_cross_bwd(lambda *a: launch("nrt_dcn_cross_bwd", *a), x0, ws, bs, ss, g)
+    with launch_count_lock:
+        dcn_cross_bwd.launches += 1
+    return out
+
+
+def _launch_cross_bwd(entry, x0, ws, bs, ss, g):
+    """The body of :func:`dcn_cross_bwd` on checked CUDA tensors: allocates
+    the outputs and the partials, lays out the launch by :func:`plan_cross`
+    and calls ``entry`` (a callable that takes ``nrt_dcn_cross_bwd``'s
+    arguments and raises if the launch fails) -> (dx0, dws, dbs). It counts
+    nothing; ``chip_profile.py`` passes the entry of a copy of the source."""
+    B, D = x0.shape
+    NL = ws.shape[0]
     dx0 = torch.empty_like(x0)
     dws, dbs = torch.empty_like(ws), torch.empty_like(ws)
     plan = _plan(x0, NL, _aligned(x0, ws, bs, g, dx0), True)
     partial = x0.new_empty((plan.partials, 2, NL, D))          # none with one block
-    stream = stream_ptr(x0)
-    counter = arrival_counter(x0.device, stream)
-    launch("nrt_dcn_cross_bwd", x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), ss.data_ptr(),
-           g.data_ptr(), dx0.data_ptr(), dws.data_ptr(), dbs.data_ptr(), partial.data_ptr(),
-           counter.data_ptr(), B, D, NL, int(plan.vector), plan.group, plan.slots, plan.warps,
-           plan.blocks, plan.cluster, stream)
-    with launch_count_lock:
-        dcn_cross_bwd.launches += 1
+    entry(x0.data_ptr(), ws.data_ptr(), bs.data_ptr(), ss.data_ptr(), g.data_ptr(),
+          dx0.data_ptr(), dws.data_ptr(), dbs.data_ptr(), partial.data_ptr(), B, D, NL,
+          int(plan.vector), plan.group, plan.slots, plan.warps, plan.blocks, stream_ptr(x0))
     return dx0, dws, dbs
 
 

@@ -10,18 +10,26 @@ package's is a ``jax.custom_vjp``. Forward: ``csrc/fm_second_order.cu``,
 entry ``nrt_fm_fwd``, which replaces the Pallas kernel
 ``news_recsys_tpu/ops/fm_kernel.py::_fm_pallas``; backward:
 :func:`fm_second_order_bwd`, entry ``nrt_fm_bwd``, the JAX package's XLA
-``_bwd``. Both are bound by memory and read each element of ``v`` once.
-At DeepFM's 5 fields of 15 columns the forward takes its staged path:
-a block copies its 32 rows' contiguous span of ``v`` into shared memory with
-16-byte copies, and 8 lanes a row sum every 8th column there and meet in
-three shuffles, so no lane waits on a whole row and one of a row's 8 lanes
-idles where 17 of a warp's 32 did; F and D are compile-time constants
-there, so its loops unroll. Every other shape takes the general path, one
-warp a row, a lane a column (the first design). The C entry picks the path
-by shape; :func:`plan_fm_fwd` states the choice and the block. The
-backward is one warp a row. Every reduction stays inside a row in a fixed
-order, so a run repeats its bits. The kernels take any B (the Pallas path
-fell back to XLA when B was not a multiple of its tile).
+``_bwd``. Both are bound by memory and read each element of ``v`` once; at
+DeepFM's sizes (a few hundred KB) what they cost is the launch and one trip
+to memory, so the designs keep every lane at work and issue a thread's loads
+together.
+
+At DeepFM's 5 fields of 15 columns both take a staged path, F and D fixed
+at compile time so their loops unroll: a block copies its rows' contiguous
+span of ``v`` into shared memory with 16-byte copies. The forward (32 rows
+a block) then sums each row over 8 lanes, every 8th column each, which meet
+in three shuffles, so one of a row's 8 lanes idles where 17 of a warp's 32
+did. The backward (``FM_BWD_ROWS`` rows a block, ``g``'s values copied
+beside the span) is an elementwise pass over the span: a table of the
+rows' ``sum_f v`` in shared memory, then a float4 of ``dv`` a thread,
+written with one 16-byte store.
+Every other shape takes the general path, one warp a row, a lane a column
+(the first design). The C entries pick the path by shape; :func:`plan_fm_fwd`
+and :func:`plan_fm_bwd` state the choice and the block. Every reduction
+stays inside a row in a fixed order, so a run repeats its bits. The kernels
+take any B (the Pallas path fell back to XLA when B was not a multiple of
+its tile).
 """
 
 from __future__ import annotations
@@ -39,13 +47,17 @@ FM_STAGED_SHAPE = (5, 15)
 FM_ROWS = 32
 FM_LANES = 8
 FM_GENERAL_ROWS = 8
+# the backward's staged block: FM_BWD_ROWS rows (a multiple of 4), a float4 of
+# their span a thread
+FM_BWD_ROWS = 8
 
 
 class FmPlan(NamedTuple):
     path: str               # "staged" or "general"
     rows: int               # a block's
-    lanes: int              # a row's
-    threads: int
+    threads: int            # a block's: the forward's FM_LANES (staged) or 32
+                            # (general) a row; the staged backward's a float4
+                            # of the block's span each, in whole warps
     blocks: int
     smem_bytes: int         # dynamic shared memory a block
 
@@ -56,10 +68,23 @@ def plan_fm_fwd(B: int, F: int, D: int) -> FmPlan:
     front of it (which put its 16-byte copies on 16-byte boundaries), in
     whole float4s."""
     if (F, D) != FM_STAGED_SHAPE:
-        return FmPlan("general", FM_GENERAL_ROWS, 32, 32 * FM_GENERAL_ROWS,
+        return FmPlan("general", FM_GENERAL_ROWS, 32 * FM_GENERAL_ROWS,
                       -(-B // FM_GENERAL_ROWS), 0)
-    return FmPlan("staged", FM_ROWS, FM_LANES, FM_ROWS * FM_LANES, -(-B // FM_ROWS),
+    return FmPlan("staged", FM_ROWS, FM_ROWS * FM_LANES, -(-B // FM_ROWS),
                   16 * ((FM_ROWS * F * D + 6) // 4))
+
+
+def plan_fm_bwd(B: int, F: int, D: int) -> FmPlan:
+    """The backward's launch, a pure function of the shape. A staged block
+    makes a float4 of its span a thread, in whole warps; its shared memory is
+    the span as the forward's, ``g``'s FM_BWD_ROWS values and a table of the
+    FM_BWD_ROWS x D sums ``sum_f v``."""
+    if (F, D) != FM_STAGED_SHAPE:
+        return FmPlan("general", FM_GENERAL_ROWS, 32 * FM_GENERAL_ROWS,
+                      -(-B // FM_GENERAL_ROWS), 0)
+    threads = 32 * -(-(FM_BWD_ROWS * F * D // 4) // 32)
+    smem = 16 * ((FM_BWD_ROWS * F * D + 6) // 4) + 4 * FM_BWD_ROWS * (1 + D)
+    return FmPlan("staged", FM_BWD_ROWS, threads, -(-B // FM_BWD_ROWS), smem)
 
 
 def fm_plain(v: torch.Tensor) -> torch.Tensor:

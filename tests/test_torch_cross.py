@@ -22,12 +22,11 @@ import pytest
 import torch
 
 from news_recsys_tpu.ops import dcn_kernel as jdcn
-from news_recsys_tpu_torch.ops.dcn_kernel import (BWD_CLUSTER, BWD_STATIC_BYTES, FWD_SMEM_BYTES,
-                                                  MAX_D, MAX_LAYERS, SMEM_BYTES, CrossPlan,
-                                                  _check_limits, cross_bwd_plain,
-                                                  cross_bwd_rebuild_plain, cross_fwd_plain,
-                                                  cross_partials, dcn_cross_bwd, plan_cross,
-                                                  rebuild_xs)
+from news_recsys_tpu_torch.ops.dcn_kernel import (BWD_WARPS, FWD_SMEM_BYTES, MAX_D, MAX_LAYERS,
+                                                  SMEM_BYTES, CrossPlan, _check_limits,
+                                                  cross_bwd_plain, cross_bwd_rebuild_plain,
+                                                  cross_fwd_plain, cross_partials, dcn_cross_bwd,
+                                                  plan_cross, rebuild_xs)
 
 from tests.test_torch_cuda import cross_inputs
 
@@ -66,21 +65,21 @@ def test_rebuilt_xs_equal_the_forwards_bit_for_bit(B, D, NL):
 # a warp, 4 warps a block); D 113 and a misaligned D 112 take the scalar
 # path, 16 lanes of up to 8 floats. The backward puts one chunk on a lane
 # (D 112: 32 lanes, 28 busy; the scalar path 4 floats a lane), 8 warps a
-# block, clusters of 8 summed through distributed shared memory: a partial
-# a cluster reaches device memory.
+# block, at most two blocks an SM (more rows loop); each block writes a
+# partial to device memory for the second launch to sum, none with one block.
 PLANS = {
-    (512, 112, True, False): CrossPlan(True, 8, 4, 4, 32, 1, 0, 2688),
-    (6400, 112, True, False): CrossPlan(True, 8, 4, 4, 400, 1, 0, 2688),
-    (1, 112, True, False): CrossPlan(True, 8, 4, 1, 1, 1, 0, 2688),
-    (512, 112, False, False): CrossPlan(False, 16, 8, 4, 64, 1, 0, 2688),
-    (6400, 113, True, False): CrossPlan(False, 16, 8, 4, 800, 1, 0, 2712),
-    (512, 112, True, True): CrossPlan(True, 32, 1, 8, 64, 8, 8, 24192),
-    (6400, 112, True, True): CrossPlan(True, 32, 1, 8, 264, 8, 33, 24192),
-    (1, 112, True, True): CrossPlan(True, 32, 1, 1, 1, 1, 0, 5376),
-    (512, 112, False, True): CrossPlan(False, 32, 4, 8, 64, 8, 8, 24192),
-    (6400, 113, True, True): CrossPlan(False, 32, 4, 8, 264, 8, 33, 24408),
-    (1, 113, False, True): CrossPlan(False, 32, 4, 1, 1, 1, 0, 5424),
-    (513, 112, True, True): CrossPlan(True, 32, 1, 8, 72, 8, 9, 24192),
+    (512, 112, True, False): CrossPlan(True, 8, 4, 4, 32, 0, 2688),
+    (6400, 112, True, False): CrossPlan(True, 8, 4, 4, 400, 0, 2688),
+    (1, 112, True, False): CrossPlan(True, 8, 4, 1, 1, 0, 2688),
+    (512, 112, False, False): CrossPlan(False, 16, 8, 4, 64, 0, 2688),
+    (6400, 113, True, False): CrossPlan(False, 16, 8, 4, 800, 0, 2712),
+    (512, 112, True, True): CrossPlan(True, 32, 1, 8, 64, 64, 24192),
+    (6400, 112, True, True): CrossPlan(True, 32, 1, 8, 264, 264, 24192),
+    (1, 112, True, True): CrossPlan(True, 32, 1, 1, 1, 0, 5376),
+    (512, 112, False, True): CrossPlan(False, 32, 4, 8, 64, 64, 24192),
+    (6400, 113, True, True): CrossPlan(False, 32, 4, 8, 264, 264, 24408),
+    (1, 113, False, True): CrossPlan(False, 32, 4, 1, 1, 0, 5424),
+    (513, 112, True, True): CrossPlan(True, 32, 1, 8, 65, 65, 24192),
 }
 
 
@@ -95,8 +94,8 @@ def test_plan_cross(B, D, aligned, backward):
     rows_per_block = plan.warps * 32 // plan.group
     if backward:
         assert plan.group == min(32, 1 << (chunks - 1).bit_length())
-        assert plan.blocks % plan.cluster == 0
-        assert plan.partials == cross_partials(plan.blocks, plan.cluster)
+        assert plan.partials == cross_partials(plan.blocks)
+        assert plan.partials == (plan.blocks if plan.blocks > 1 else 0)
         assert plan.smem_bytes == 4 * 2 * 3 * D * (plan.warps + 1) <= SMEM_BYTES
         assert plan.blocks <= 2 * H100_SMS
     else:
@@ -109,16 +108,19 @@ def test_plan_cross(B, D, aligned, backward):
                                   (200, 4), (256, 6), (64, 32), (256, 24)])
 def test_plan_cross_backward_fits_every_shape(B, D, NL):
     """Every shape of the kernels' domain: a row's lanes hold it and its NL
-    scalars, shared memory fits a block, clusters are whole and portable, and
-    the blocks' rows cover the batch (more rows loop)."""
+    scalars, shared memory fits a block, every block but a lone one writes a
+    partial for the second launch, and the blocks' rows cover the batch
+    where two blocks an SM hold it (more rows loop)."""
     for aligned in (True, False):
         plan = plan_cross(B, D, NL, aligned, H100_SMS, True)
         chunks = D // 4 if plan.vector else D
         assert plan.group * plan.slots >= chunks and NL <= plan.group <= 32
-        assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= BWD_CLUSTER
-        assert plan.blocks % plan.cluster == 0 and plan.blocks <= 2 * H100_SMS
-        assert 1 <= plan.warps <= 8
-        assert plan.smem_bytes + BWD_STATIC_BYTES <= SMEM_BYTES
+        assert plan.partials == (plan.blocks if plan.blocks > 1 else 0)
+        assert 1 <= plan.blocks <= 2 * H100_SMS
+        assert 1 <= plan.warps <= BWD_WARPS
+        rows = plan.blocks * plan.warps * (32 // plan.group)
+        assert rows >= B or plan.blocks == 2 * H100_SMS
+        assert plan.smem_bytes <= SMEM_BYTES
         assert plan.vector == (aligned and D % 4 == 0)
 
 

@@ -20,6 +20,7 @@ weights whose gradient cancels near 1e-8).
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -28,12 +29,11 @@ import torch
 from news_recsys_tpu_torch.config import config_from_dict
 from news_recsys_tpu_torch.data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from news_recsys_tpu_torch.models.rankers import build_ranker
-from news_recsys_tpu_torch.ops import stream_ptr
-from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, arrival_counter,
-                                                  cross_bwd_rebuild_plain, cross_fwd_plain,
-                                                  cross_plain, dcn_cross_bwd, dcn_cross_stack)
+from news_recsys_tpu_torch.ops.dcn_kernel import (_cross_fwd_kernel, cross_bwd_rebuild_plain,
+                                                  cross_fwd_plain, cross_plain, dcn_cross_bwd,
+                                                  dcn_cross_stack)
 from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
-                                                 fm_second_order_bwd)
+                                                 fm_second_order_bwd, plan_fm_bwd, plan_fm_fwd)
 from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, _general_ws_floats,
                                                        block_bwd_plain, block_plain,
                                                        fused_transformer_block,
@@ -510,9 +510,9 @@ def test_dcn_bwd_kernel_matches_plain(cuda, B, D, NL, aligned):
 @pytest.mark.cuda
 def test_dcn_bwd_graphs_on_one_capture_stream_run_at_once(cuda):
     """Every graph ``torch.cuda.graph`` captures without a stream is captured
-    on one class-wide stream; each captured call takes counters of its own,
-    so two such graphs replayed at once on two streams give the answers a
-    call alone gives, replay after replay."""
+    on one class-wide stream; two such graphs replayed at once on two
+    streams give the answers a call alone gives, replay after replay (each
+    call's partials are its own)."""
     cases = [cross_case(cuda, B, 112, 3, True, seed=B) for B in (512, 6400)]
     args = [(x0, ws, bs, cross_fwd_plain(x0, ws, bs)[2], g) for x0, ws, bs, g in cases]
     want = [dcn_cross_bwd(*a) for a in args]
@@ -540,8 +540,7 @@ def test_dcn_bwd_graphs_on_one_capture_stream_run_at_once(cuda):
 @pytest.mark.parametrize("B", [512, 6400])
 def test_dcn_bwd_kernel_is_deterministic(cuda, B):
     """Two calls, and a CUDA graph of a call replayed three times, give the
-    same bits; a replay runs one kernel and no memset (the arrival counters
-    are reset by the kernel itself)."""
+    same bits; a replay runs the two kernels, once each, and no memset."""
     x0, ws, bs, g = cross_case(cuda, B, 112, 3, True, seed=2)
     ss = cross_fwd_plain(x0, ws, bs)[2]
     args = (x0, ws, bs, ss, g)
@@ -566,28 +565,41 @@ def test_dcn_bwd_kernel_is_deterministic(cuda, B):
         torch.cuda.synchronize()
     ran = {e.key: e.count for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA}
-    assert len(ran) == 1 and "dcn_cross_bwd_kernel" in next(iter(ran)), ran
-    assert list(ran.values()) == [1], ran
+    assert len(ran) == 2 and list(ran.values()) == [1, 1], ran
+    for part in ("dcn_cross_bwd_rows_kernel", "dcn_cross_bwd_sum_kernel"):
+        assert any(part in k for k in ran), ran
     for a, b in zip(first, replayed):
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,D,NL", [(512, 112, 3), (6401, 113, 3), (1, 112, 3)])
-def test_dcn_bwd_counter_returns_to_zero(cuda, B, D, NL):
-    """The last block at each ticket of a launch sets it back to 0."""
+def test_dcn_bwd_eager_calls_and_a_graph_replay_repeat_the_first_bits(cuda, B, D, NL):
+    """Nothing carries from one call to the next: 50 eager calls and a
+    CUDA-graph replay each give the bits of the first call (two launches,
+    or one with one block)."""
     x0, ws, bs, g = cross_case(cuda, B, D, NL, True, seed=3)
-    ss = cross_fwd_plain(x0, ws, bs)[2]
-    for _ in range(50):
-        dcn_cross_bwd(x0, ws, bs, ss, g)
+    args = (x0, ws, bs, cross_fwd_plain(x0, ws, bs)[2], g)
+    first = dcn_cross_bwd(*args)
+    calls = [dcn_cross_bwd(*args) for _ in range(50)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dcn_cross_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dcn_cross_bwd(*args)
+    graph.replay()
     torch.cuda.synchronize()
-    assert not arrival_counter(x0.device, stream_ptr(x0)).any()
+    for result in [*calls, replayed]:
+        for a, b in zip(result, first):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_dcn_bwd_on_two_streams_at_once(cuda):
-    """Calls on two streams at once own a counter each: every answer is the
-    one a call alone gives."""
+    """Calls on two streams at once each get the answer a call alone gives."""
     cases = [cross_case(cuda, B, 112, 3, True, seed=B) for B in (512, 6400)]
     args = [(x0, ws, bs, cross_fwd_plain(x0, ws, bs)[2], g) for x0, ws, bs, g in cases]
     want = [dcn_cross_bwd(*a) for a in args]
@@ -601,8 +613,6 @@ def test_dcn_bwd_on_two_streams_at_once(cuda):
             with torch.cuda.stream(s):
                 got[i].append(dcn_cross_bwd(*args[i]))
     torch.cuda.synchronize()
-    assert arrival_counter(cuda, streams[0].cuda_stream).data_ptr() != \
-        arrival_counter(cuda, streams[1].cuda_stream).data_ptr()
     for i in range(2):
         for result in got[i]:
             for a, b in zip(result, want[i]):
@@ -706,10 +716,101 @@ def test_fm_forward_unaligned_rows(cuda, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,D", [(5, 15), (5, 16)])
+@pytest.mark.parametrize("B", [1, 512, 6401])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_fm_plans_are_the_launches(cuda, tmp_path, backward, B, F, D):
+    """``plan_fm_fwd`` / ``plan_fm_bwd`` restate the choice the C entries
+    make: a ``torch.profiler`` trace of one call shows one kernel of the
+    plan's path, with its blocks, threads and shared memory (the staged
+    kernels have no static shared memory, so all of it is the plan's)."""
+    v, g = on(cuda, *fm_inputs(B, F, D, seed=9))
+    plan = (plan_fm_bwd if backward else plan_fm_fwd)(B, F, D)
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fm_second_order_bwd(v, g) if backward else fm_second_order(v)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    assert len(kernels) == 1, kernels
+    name, args = kernels[0]["name"], kernels[0]["args"]
+    assert f"fm_{'bwd' if backward else 'fwd'}_{plan.path}_kernel" in name, name
+    assert args["grid"] == [plan.blocks, 1, 1], args
+    assert args["block"] == [plan.threads, 1, 1], args
+    assert args["shared memory"] == plan.smem_bytes, args
+
+
+@pytest.mark.cuda
 def test_fm_kernels_are_deterministic(cuda):
     v, g = on(cuda, *fm_inputs(6400, 5, 15, seed=1))
     assert torch.equal(fm_second_order(v), fm_second_order(v))
     assert torch.equal(fm_second_order_bwd(v, g), fm_second_order_bwd(v, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 511, 512, 6401])
+def test_fm_backward_staged_ragged_last_block(cuda, B):
+    """5 x 15 takes the backward's staged path; B 1, 3, 511 and 6,401 end on
+    a part-filled block, whose span ends off the float4 grid; reruns repeat
+    the bits."""
+    v, g = on(cuda, *fm_inputs(B, 5, 15, seed=5))
+    assert plan_fm_bwd(B, 5, 15).path == "staged"
+    n = fm_second_order_bwd.launches
+    dv = fm_second_order_bwd(v, g)
+    assert fm_second_order_bwd.launches == n + 1
+    assert torch.equal(fm_second_order_bwd(v, g), dv)
+    assert_close_to_scale(dv, fm_bwd_plain(v, g), "fm backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 37, 512, 6400])
+def test_fm_backward_unaligned_rows(cuda, B, offset):
+    """``v`` and ``g`` 1-3 floats off a 16-byte boundary: every block's span
+    is staged with a scalar head and tail; ``dv`` (a fresh tensor) and a
+    view into a buffer ``offset`` floats in get the same bits."""
+    v_np, g_np = fm_inputs(B, 5, 15, seed=6)
+    base = torch.zeros(v_np.size + offset, device=cuda)
+    v = base[offset:].view(v_np.shape)
+    v.copy_(torch.from_numpy(v_np))
+    gbase = torch.zeros(B + offset, device=cuda)
+    g = gbase[offset:]
+    g.copy_(torch.from_numpy(g_np))
+    assert v.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
+    dv = fm_second_order_bwd(v, g)
+    assert_close_to_scale(dv, fm_bwd_plain(v, g), "fm backward")
+    aligned = fm_second_order_bwd(*on(cuda, v_np, g_np))
+    assert torch.equal(dv, aligned)
+
+
+@pytest.mark.cuda
+def test_deepfm_at_full_width_trains_through_the_staged_backward(cuda):
+    """2 sparse steps of the full-width DeepFM (5 fields of 16: the FM
+    kernels at 5 x 15), card against CPU; each step launches the staged
+    backward once."""
+    from news_recsys_tpu_torch.zoo import mind_ranker_config
+    cfg = mind_ranker_config("deepfm")
+    ds = train_dataset(cfg, 1024, seed=8)
+    packer = BatchPacker(ds)
+    cpu_model = build_ranker(cfg, seed=2, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg) for d, m in models.items()}
+    idx = np.random.default_rng(2).permutation(1024).reshape(2, 512)
+    before = fm_second_order_bwd.launches
+    for rows in idx:
+        for d in ("cpu", "cuda"):
+            dev = torch.device(d)
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(dev),
+                                 torch.from_numpy(packer.float_mat[rows]).to(dev),
+                                 torch.ones(512, device=dev), packer.layout_key())
+            steps[d](states[d], batch, AucHist.zeros(dev))
+    assert fm_second_order_bwd.launches - before == 2
+    assert plan_fm_bwd(512, 5, 15).path == "staged"
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **TRAIN_TOL)
 
 
 @pytest.mark.cuda

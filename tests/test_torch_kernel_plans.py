@@ -1,9 +1,9 @@
-"""The FM forward's launch plan, and the row scatter's and the FM forward's
+"""The FM kernels' launch plans, and the row scatter's and the FM forward's
 plain versions against the JAX package on the layouts the main paths give
 them.
 
 The CUDA kernels cannot run here. What surrounds them can: the pure-Python
-plan that ``csrc/fm_second_order.cu`` follows (the path, rows a block and
+plans that ``csrc/fm_second_order.cu`` follows (the path, rows a block and
 shared memory), the scatter's layouts, and the plain versions, which are the
 kernels' oracles on the card.
 JAX runs its Pallas kernels in interpret mode (``interpret=True`` or
@@ -11,6 +11,9 @@ JAX runs its Pallas kernels in interpret mode (``interpret=True`` or
 is held to equality; the FM second order sums in another order than XLA:
 rtol 1e-6 and an atol of 1e-6 of the largest value.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +23,8 @@ import torch
 from news_recsys_tpu.ops import fm_kernel as jfm
 from news_recsys_tpu.ops import scatter_rows as jscatter
 from news_recsys_tpu_torch.config import config_from_dict, config_to_dict
-from news_recsys_tpu_torch.ops.fm_kernel import (FM_GENERAL_ROWS, FM_LANES, FM_ROWS, FmPlan,
-                                                 fm_plain, plan_fm_fwd)
+from news_recsys_tpu_torch.ops.fm_kernel import (FM_BWD_ROWS, FM_GENERAL_ROWS, FM_LANES, FM_ROWS,
+                                                 FmPlan, fm_plain, plan_fm_bwd, plan_fm_fwd)
 from news_recsys_tpu_torch.ops.scatter_rows import last_of_run, scatter_rows_plain
 from news_recsys_tpu_torch.training.scatter_layouts import (arena_scatter_case,
                                                             attention_scatter_layouts,
@@ -137,11 +140,11 @@ def test_last_of_run(rows, want):
 
 
 @pytest.mark.parametrize("B,plan", [
-    (6400, FmPlan("staged", 32, 8, 256, 200, 9616)),      # a DeepFM request
-    (512, FmPlan("staged", 32, 8, 256, 16, 9616)),        # a DeepFM step, a validation batch
-    (1, FmPlan("staged", 32, 8, 256, 1, 9616)),
-    (511, FmPlan("staged", 32, 8, 256, 16, 9616)),
-    (6401, FmPlan("staged", 32, 8, 256, 201, 9616)),
+    (6400, FmPlan("staged", 32, 256, 200, 9616)),         # a DeepFM request
+    (512, FmPlan("staged", 32, 256, 16, 9616)),           # a DeepFM step, a validation batch
+    (1, FmPlan("staged", 32, 256, 1, 9616)),
+    (511, FmPlan("staged", 32, 256, 16, 9616)),
+    (6401, FmPlan("staged", 32, 256, 201, 9616)),
 ])
 def test_plan_fm_fwd_at_the_deepfm_shapes(B, plan):
     assert plan_fm_fwd(B, 5, 15) == plan
@@ -159,13 +162,61 @@ def test_plan_fm_fwd_fits_its_kernel(B, F, D):
     plan = plan_fm_fwd(B, F, D)
     assert (plan.blocks - 1) * plan.rows < B <= plan.blocks * plan.rows
     if (F, D) != (5, 15):
-        assert plan == FmPlan("general", FM_GENERAL_ROWS, 32, 32 * FM_GENERAL_ROWS,
+        assert plan == FmPlan("general", FM_GENERAL_ROWS, 32 * FM_GENERAL_ROWS,
                               -(-B // FM_GENERAL_ROWS), 0)
         return
-    assert plan[:4] == ("staged", FM_ROWS, FM_LANES, 256)
+    assert plan[:3] == ("staged", FM_ROWS, FM_ROWS * FM_LANES) == ("staged", 32, 256)
     assert plan.rows * F * D * 4 % 16 == 0
     assert plan.smem_bytes % 16 == 0 and 4 * (plan.rows * F * D + 3) <= plan.smem_bytes
     assert plan.smem_bytes < 4 * (plan.rows * F * D + 3) + 16 and plan.smem_bytes <= 48 * 1024
+
+
+# -- the FM backward ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,plan", [
+    (6400, FmPlan("staged", 8, 160, 800, 2928)),         # a batch of 6,400
+    (512, FmPlan("staged", 8, 160, 64, 2928)),           # a DeepFM step
+    (1, FmPlan("staged", 8, 160, 1, 2928)),
+    (3, FmPlan("staged", 8, 160, 1, 2928)),
+])
+def test_plan_fm_bwd_at_the_deepfm_shapes(B, plan):
+    """The shipped block: 8 rows, 150 float4s of span on 160 threads; the
+    span of 600 floats and 3 in front (2,416 bytes), g's 8 values and the
+    table of 8 x 15 sums."""
+    assert plan_fm_bwd(B, 5, 15) == plan
+
+
+@pytest.mark.parametrize("B", [1, 3, 37, 511, 512, 6400, 6401, 100000])
+@pytest.mark.parametrize("F,D", [(1, 15), (5, 15), (5, 16), (5, 33), (5, 64), (16, 16),
+                                 (4, 15), (1, 75), (15, 5), (5, 14), (0, 15), (200, 1)])
+def test_plan_fm_bwd_fits_its_kernel(B, F, D):
+    """DeepFM's 5 x 15 takes the staged path, every other shape the general
+    one (a warp a row, as the first design); a staged block's rows fill whole
+    float4s, its threads hold a float4 of its span each in whole warps, its
+    shared memory (span, 3 floats in front, g's values and the table of
+    sums) fits 48 KB, so it needs no attribute; the blocks cover B."""
+    plan = plan_fm_bwd(B, F, D)
+    assert (plan.blocks - 1) * plan.rows < B <= plan.blocks * plan.rows
+    if (F, D) != (5, 15):
+        assert plan == FmPlan("general", FM_GENERAL_ROWS, 32 * FM_GENERAL_ROWS,
+                              -(-B // FM_GENERAL_ROWS), 0)
+        return
+    assert plan.path == "staged" and plan.rows == FM_BWD_ROWS and plan.rows % 4 == 0
+    span4 = plan.rows * F * D // 4
+    assert plan.threads % 32 == 0 and plan.threads - 32 < span4 <= plan.threads
+    want = 4 * (plan.rows * F * D + 3) + 4 * plan.rows * (1 + D)
+    assert want <= plan.smem_bytes < want + 16 and plan.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("name,value", [("kBwdRows", str(FM_BWD_ROWS)), ("kRows", str(FM_ROWS)),
+                                        ("kLanes", str(FM_LANES))])
+def test_fm_plans_follow_the_kernel_source(name, value):
+    """The constants the plans state are the ones ``csrc/fm_second_order.cu``
+    is built with."""
+    src = (Path(__file__).parent.parent / "news_recsys_tpu_torch" / "csrc" /
+           "fm_second_order.cu").read_text()
+    assert re.findall(rf"constexpr \w+ {name} = (\w+);", src) == [value]
 
 
 @pytest.mark.parametrize("mode", ["interpret", ""], ids=["pallas", "xla"])
