@@ -6,9 +6,9 @@ Drives the port's paths once at the full width of the repo's MIND
 models, from seeded random weights: serving (the recall -> rank cascade,
 with a DCN, a DeepFM and an attention ranker), training (the DCN, DeepFM and
 attention rankers' sparse step under ``Trainer.fit``, DeepFM's with
-validation; the attention ranker's all-dense AdamW step) and a few steps of
-each other ranker of the zoo. Fails (non-zero exit, no result line) if any
-phase fails:
+validation; the attention ranker's all-dense AdamW step), a few steps of
+each other ranker of the zoo, and the command line from synthetic raw files
+to predictions. Fails (non-zero exit, no result line) if any phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
@@ -57,7 +57,21 @@ phase fails:
 7. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 and the scoreboard
    attention recipe of zoo.mind_ranker_config): 2 steps each at full width,
    card against CPU;
-8. checks that each path launched the kernels it runs, the new paths as
+8. the command line (``cli``), through ``news_recsys_tpu_torch.cli.main`` in
+   a temporary directory: ``synth`` (20,000 news, 20,000 users, 40,000 +
+   8,000 impressions, seed 3), ``preprocess`` and ``fe`` with a copy of
+   configs/dcn.yaml (paths into the directory, ``max_epoch`` 2,
+   ``ckpt_every_steps`` 100, every other field as shipped: user 94,058 x 32
+   and item 65,239 x 32 in the arena, the all-dense AdamW step, batch 512);
+   ``train`` for 2 epochs on the card, each validated (finite AUC, GAUC,
+   NDCG@10); the same cut at ``max_step`` 150 into a second dir and
+   ``train --resume`` there with the shipped ``max_step``, whose
+   ``epoch_001.pt`` must equal the straight run's within the training
+   tolerance; ``predict`` of the dev split on the card and on the CPU from
+   the same checkpoint (scores within 1e-5), and once more as ``python3 -m
+   news_recsys_tpu_torch`` in a subprocess; then ``fe`` and ``train`` for an
+   epoch with a copy of configs/attention.yaml (``hist`` and ``entities``);
+9. checks that each path launched the kernels it runs, the new paths as
    many times as they should: the counts are set to 0 just before a path is
    driven and read just after; then traces one CUDA-graph replay of the
    cross backward with ``torch.profiler``, which must run its two device
@@ -135,6 +149,14 @@ DEEP = dict(rounds=7, inner=10)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+# the cli phase: synthetic raw MIND files at the size of a full training
+# run (200,326 train rows: 391 steps of 512 an epoch), the shipped configs
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+CLI_SYNTH = ["--news", "20000", "--users", "20000", "--train-impressions", "40000",
+             "--dev-impressions", "8000", "--seed", "3"]
+CLI_EPOCHS = 2
+CLI_CKPT_EVERY = 100
+CLI_CUT_STEP = 150
 
 
 def log(msg: str) -> None:
@@ -1299,6 +1321,180 @@ def zoo_phase(dev: torch.device) -> dict:
     return read_launches()
 
 
+def cli_config(tmp: str, name: str, **train) -> str:
+    """A copy of ``configs/<name>.yaml`` whose paths point into ``tmp``, with
+    ``max_epoch`` CLI_EPOCHS, ``ckpt_every_steps`` CLI_CKPT_EVERY and
+    ``train``'s fields; every other field as shipped. Returns its path."""
+    import yaml
+    with open(os.path.join(REPO_DIR, "configs", f"{name}.yaml")) as f:
+        doc = yaml.safe_load(f)
+    doc["paths"] = {"data_path": os.path.join(tmp, "Data", "MIND"),
+                    "out_basedir": os.path.join(tmp, "out")}
+    doc["train_hparams"].update(max_epoch=CLI_EPOCHS, ckpt_every_steps=CLI_CKPT_EVERY, **train)
+    path = os.path.join(tmp, f"{name}{''.join(f'_{k}{v}' for k, v in train.items())}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+def cli_run(label: str, *argv) -> float:
+    """``news_recsys_tpu_torch.cli.main(argv)``, its wall time logged and
+    returned."""
+    from news_recsys_tpu_torch.cli import main
+    t0 = time.perf_counter()
+    main(list(argv))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    log(f"cli {label}: {' '.join(argv)}: {s:.2f} s")
+    return s
+
+
+def check_cli_training(workdir: str, epochs: int, steps: int) -> list:
+    """The ``metrics.jsonl`` of a ``train`` run: ``epochs`` epochs of ``steps``
+    steps, each validated with a finite AUC, GAUC and NDCG@10; returns its
+    training lines."""
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    trained = [m for m in lines if "train_loss" in m]
+    validated = [m for m in lines if "val_auc" in m]
+    if ([m["steps"] for m in trained] != [steps] * epochs or len(validated) != epochs
+            or not all(math.isfinite(m[k]) for m in validated
+                       for k in ("val_auc", "val_gauc", "val_ndcg10"))
+            or not all(math.isfinite(m["train_loss"]) for m in trained)):
+        raise AssertionError(f"train in {workdir}: {lines}")
+    return trained
+
+
+def compare_checkpoints(a: str, b: str) -> tuple:
+    """(largest difference, bit-identical?) of two checkpoint files, every
+    tensor held to TRAIN_TOL: the card need not give the same bits twice
+    (atomics in a sum), so a resumed run is held to a straight one as the
+    card is held to the CPU."""
+    from news_recsys_tpu_torch.training.checkpoint import load_state
+
+    def leaves(x, path=""):
+        if isinstance(x, torch.Tensor):
+            yield path, x
+        elif isinstance(x, dict):
+            for k in sorted(x, key=str):
+                yield from leaves(x[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                yield from leaves(v, f"{path}/{i}")
+
+    got, want = load_state(a), load_state(b)
+    if got["step"] != want["step"] or got["kind"] != want["kind"]:
+        raise AssertionError(f"{a}: step {got['step']} ({got['kind']}), {b}: {want['step']} "
+                             f"({want['kind']})")
+    (got, want) = (dict(leaves(x)) for x in (got, want))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{a} and {b} hold other tensors")
+    err, same = 0.0, True
+    for path, w in want.items():
+        g = got[path]
+        same = same and torch.equal(g, w)
+        if g.is_floating_point():
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+            torch.testing.assert_close(g, w, msg=lambda m: f"{path}: {m}", **TRAIN_TOL)
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{path} differs")
+    return err, same
+
+
+def read_scores(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.array([json.loads(line)["score"] for line in f], np.float64)
+
+
+def cli_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """The port's command line from raw files to predictions on the card
+    (module docstring, item 8); returns the kernel launches of the commands
+    run in this process."""
+    card = str(dev)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        times = {"synth": cli_run("synth", "synth", "--out", os.path.join(tmp, "Data", "MIND"),
+                                  *CLI_SYNTH)}
+        dcn = cli_config(tmp, "dcn")
+        times["preprocess"] = cli_run("preprocess", "preprocess", "-c", dcn)
+        times["fe (dcn)"] = cli_run("fe (dcn)", "fe", "-c", dcn)
+        from news_recsys_tpu_torch.data.packed_dataset import PackedDataset
+        from news_recsys_tpu_torch.config import load_config
+        cfg = load_config(dcn)
+        n_train = len(PackedDataset.open_split(cfg, "train"))
+        n_dev = len(PackedDataset.open_split(cfg, "dev"))
+        steps = n_train // cfg.dataset.batch_size
+        log(f"cli data: {n_train} train rows ({steps} steps of {cfg.dataset.batch_size} an "
+            f"epoch), {n_dev} dev rows")
+
+        straight = os.path.join(tmp, "dcn_straight")
+        times["train (dcn)"] = cli_run("train (dcn)", "train", "-c", dcn, "--workdir", straight,
+                                       "--epochs", str(CLI_EPOCHS), "--device", card)
+        trained = check_cli_training(straight, CLI_EPOCHS, steps)
+        log(f"cli train (dcn) on {name} ({smi}): {CLI_EPOCHS} epochs of {steps} steps, each "
+            f"validated on {n_dev} rows, checkpoints every {CLI_CKPT_EVERY} steps; examples/s by "
+            f"epoch {[round(m['examples_per_sec'], 1) for m in trained]}; train_loss "
+            f"{[round(m['train_loss'], 6) for m in trained]}")
+
+        resumed = os.path.join(tmp, "dcn_resumed")
+        times["train (dcn, cut)"] = cli_run(
+            "train (dcn, cut)", "train", "-c", cli_config(tmp, "dcn", max_step=CLI_CUT_STEP),
+            "--workdir", resumed, "--epochs", str(CLI_EPOCHS), "--device", card)
+        times["train --resume (dcn)"] = cli_run(
+            "train --resume (dcn)", "train", "-c", dcn, "--workdir", resumed, "--epochs",
+            str(CLI_EPOCHS), "--device", card, "--resume")
+        with open(os.path.join(resumed, "metrics.jsonl")) as f:
+            after = [json.loads(line) for line in f if "train_loss" in line][1:]
+        first = CLI_CUT_STEP // CLI_CKPT_EVERY * CLI_CKPT_EVERY
+        if [m["steps"] for m in after] != [steps - first, steps]:
+            raise AssertionError(f"train --resume did not resume at step {first}: {after}")
+        err, same = compare_checkpoints(os.path.join(resumed, "ckpts", "epoch_001.pt"),
+                                        os.path.join(straight, "ckpts", "epoch_001.pt"))
+        log(f"cli resume: cut at step {CLI_CUT_STEP}, resumed at step {first} (epoch 0, offset "
+            f"{first} batches); epoch_001.pt vs the straight run's: max_abs_err {err:.3e} (tol "
+            f"{TRAIN_TOL}), bit-identical: {same}")
+
+        out = {d: os.path.join(tmp, f"predict_{d}.jsonl") for d in ("cuda", "cpu", "process")}
+        for d, device in (("cuda", card), ("cpu", "cpu")):
+            times[f"predict ({d})"] = cli_run(f"predict ({d})", "predict", "-c", dcn,
+                                              "--checkpoint", straight, "--output", out[d],
+                                              "--device", device)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "news_recsys_tpu_torch", "predict", "-c", dcn,
+                        "--checkpoint", straight, "--output", out["process"], "--device", card],
+                       cwd=REPO_DIR, check=True, timeout=600)
+        times["predict (python3 -m)"] = time.perf_counter() - t0
+        scores = {d: read_scores(p) for d, p in out.items()}
+        if not all(len(v) == n_dev and np.isfinite(v).all() for v in scores.values()):
+            raise AssertionError(f"predict: {[len(v) for v in scores.values()]} rows")
+        card_cpu = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+        card_process = float(np.abs(scores["cuda"] - scores["process"]).max())
+        log(f"cli predict: {n_dev} dev rows; card vs CPU max_abs_err {card_cpu:.3e}, in-process "
+            f"vs python3 -m on the card {card_process:.3e} (tol {ANSWER_TOL}); python3 -m "
+            f"predict {times['predict (python3 -m)']:.2f} s")
+        if card_cpu > ANSWER_TOL or card_process > ANSWER_TOL:
+            raise AssertionError("predict: the card's scores differ")
+
+        attention = cli_config(tmp, "attention")
+        times["fe (attention)"] = cli_run("fe (attention)", "fe", "-c", attention)
+        workdir = os.path.join(tmp, "attention")
+        times["train (attention)"] = cli_run("train (attention)", "train", "-c", attention,
+                                             "--workdir", workdir, "--epochs", "1",
+                                             "--device", card)
+        trained = check_cli_training(workdir, 1, steps)
+        log(f"cli train (attention) on {name} ({smi}): 1 epoch of {steps} steps: examples/s "
+            f"{trained[0]['examples_per_sec']:.1f}, train_loss {trained[0]['train_loss']:.6f}")
+    log(f"cli wall times (s): {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    launches = read_launches()
+    # a backward a step: the DCN's straight, cut and resumed runs, the
+    # attention ranker's epoch (whose forward pools ``entities``)
+    want = {"dcn_cross_bwd": 2 * steps + CLI_CUT_STEP + 2 * steps - first,
+            "fused_transformer_block_bwd": steps, "fused_lookup_pool_bwd": steps}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"cli: launches {launches}, expected {want}")
+    return launches
+
+
 def counted_kernels() -> dict:
     from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd, dcn_cross_stack
     from news_recsys_tpu_torch.ops.fm_kernel import fm_second_order, fm_second_order_bwd
@@ -1361,6 +1557,11 @@ PATH_KERNELS = {
                               "fused_transformer_block_bwd": DENSE_STEPS,
                               "fused_lookup_pool": DENSE_STEPS,
                               "fused_lookup_pool_bwd": DENSE_STEPS, "scatter_rows_set": 0},
+    # the command line: the DCN's and the attention ranker's all-dense steps,
+    # validations and predictions (the pool pools ``entities``)
+    "cli": {"dcn_cross_stack": None, "dcn_cross_bwd": None, "fused_transformer_block": None,
+            "fused_transformer_block_bwd": None, "fused_lookup_pool": None,
+            "fused_lookup_pool_bwd": None, "scatter_rows_set": 0},
 }
 
 
@@ -1407,7 +1608,8 @@ def run(dev: torch.device) -> None:
              "train_attention": timed("train_attention", train_phase, dev, name, smi,
                                       "attention"),
              "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
-                                            smi, "attention@adamw")}
+                                            smi, "attention@adamw"),
+             "cli": timed("cli", cli_phase, dev, name, smi)}
     check_launches(paths)
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
         timed("trace of the cross backward", trace_cross_bwd, dev)

@@ -1,25 +1,201 @@
-"""Command line of the PyTorch port: ``python -m news_recsys_tpu_torch serve``.
+"""Command line of the PyTorch port: ``python -m news_recsys_tpu_torch <command>``.
 
-``serve`` loads a bundle of this package (a recall bundle or a cascade
-bundle; ``scripts/export_torch_bundle.py`` converts the JAX package's
-bundles) and serves it over HTTP on ``--device`` (default ``cuda``). A CUDA
-device that is not there is an error, not a reason to serve on the CPU.
+The JAX package's commands, on the port: ``synth`` (synthetic MIND-format
+raw files), ``preprocess`` and ``fe`` (ID maps, exploded behaviors, packed
+features: the files the JAX package writes), ``train`` (a ranker from one
+YAML config, with a checkpoint after every epoch and ``--resume``),
+``predict`` (per-row scores of a split from a checkpoint) and ``serve``
+(a bundle of this package over HTTP; ``scripts/export_torch_bundle.py``
+converts the JAX package's bundles). ``scripts/export_torch_checkpoint.py``
+converts a JAX ``epoch_*.msgpack`` into this package's ``epoch_*.pt``.
+
+``train``, ``predict`` and ``serve`` run on ``--device`` (default ``cuda``).
+A CUDA device that is not there is an error, not a reason to run on the
+CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 
 import torch
 
+from .utils.logging import get_logger
+
+logger = get_logger("cli")
+
+DSSM_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 6 "
+                   "('Retrieval training')")
+EXPORT_SCRIPT = "scripts/export_torch_checkpoint.py"
+
+
+def _require_device(device: str) -> None:
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA GPU is visible "
+                         "(torch.cuda.is_available() is False); pass --device cpu "
+                         "to run with the plain PyTorch ops")
+
+
+def _load_warm_users(cfg):
+    path = os.path.join(cfg.paths.out_basedir, "preprocess", "train_user_ids.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return set(json.load(f))
+    logger.warning(f"train_user_ids.json not found at {path}; all users treated as warm")
+    return None
+
+
+def cmd_synth(args) -> None:
+    from .data.synthetic import generate_mind
+    generate_mind(args.out, n_news=args.news, n_users=args.users,
+                  n_impressions_train=args.train_impressions,
+                  n_impressions_dev=args.dev_impressions, seed=args.seed,
+                  adversarial=args.adversarial)
+    print(f"Synthetic MIND written to {args.out}")
+
+
+def cmd_preprocess(args) -> None:
+    from .config import load_config
+    from .data.preprocess import run_preprocess
+    cfg = load_config(args.config)
+    run_preprocess(cfg.paths.data_path, cfg.paths.out_basedir)
+
+
+def cmd_fe(args) -> None:
+    from .config import load_config
+    from .data.feature_extraction import FeatureExtractionPipeline
+    cfg = load_config(args.config)
+    FeatureExtractionPipeline(cfg, write_text=args.text, limit_rows=args.limit_rows).run()
+
+
+def cmd_train(args) -> None:
+    if args.coordinator or args.num_processes or args.process_id is not None:
+        raise SystemExit("train --coordinator/--num-processes/--process-id: training over "
+                         "several processes is not ported yet: see ROADMAP.md, queue 1, item 8 "
+                         "('Multi-device')")
+    _require_device(args.device)
+    from .config import load_config
+    from .data.packed_dataset import PackedDataset
+    from .models.rankers import build_ranker
+    from .training.trainer import Trainer
+
+    cfg = load_config(args.config)
+    name = args.model or cfg.name
+    if name == "dssm":
+        raise NotImplementedError(f"train: the DSSM {DSSM_NOT_PORTED}")
+    train_ds = PackedDataset.open_split(cfg, "train")
+    dev_ds = PackedDataset.open_split(cfg, "dev")
+    warm = _load_warm_users(cfg)
+    model = build_ranker(cfg, name, seed=cfg.train_hparams.seed, device=args.device)
+
+    # rank_cfg.random_neg_per_positive: mix label-0 rows pairing each
+    # positive's user with uniform corpus items, so the ranker can re-score
+    # retrieval candidates in the cascade (data/hist_pairs.py). Dev is untouched.
+    rneg = int((cfg.extra("rank_cfg", {}) or {}).get("random_neg_per_positive", 0))
+    if rneg > 0:
+        from .data.hist_pairs import concat_datasets, random_negative_rows
+        neg = random_negative_rows(cfg, train_ds, PackedDataset.open_split(cfg, "item"),
+                                   per_positive=rneg, seed=cfg.train_hparams.seed)
+        train_ds = concat_datasets(train_ds, neg)
+        logger.info(f"Rank train set: +{len(neg)} random corpus negatives "
+                    f"({rneg} per positive)")
+
+    trainer = Trainer(cfg, model, workdir=args.workdir, device=args.device)
+    logger.info(f"Training '{name}' on {args.device} -> {trainer.log_dir}")
+    trainer.fit(train_ds, dev_ds, warm_user_set=warm, max_epochs=args.epochs,
+                resume=args.resume)
+    print(f"Experiment dir: {trainer.log_dir}")
+
+
+def _refuse_msgpack(path: str) -> None:
+    raise SystemExit(f"{path}: a checkpoint of the JAX package (flax msgpack); convert it "
+                     f"with {EXPORT_SCRIPT} (where JAX is installed) and pass the .pt it writes")
+
+
+def _resolve_ckpt(ckpt: str) -> str:
+    """A checkpoint file, or an experiment dir's newest ``epoch_*.pt``."""
+    if os.path.isdir(ckpt):
+        cands = sorted(glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.pt"))
+                       or glob.glob(os.path.join(ckpt, "epoch_*.pt")))
+        if cands:
+            return cands[-1]
+        if (glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.msgpack"))
+                or glob.glob(os.path.join(ckpt, "epoch_*.msgpack"))):
+            _refuse_msgpack(ckpt)
+        raise FileNotFoundError(f"No epoch_*.pt under {ckpt}")
+    if ckpt.endswith(".msgpack"):
+        _refuse_msgpack(ckpt)
+    return ckpt
+
+
+def _row_decoder(cfg, ds, decode: bool):
+    """(row-index -> feature dict) with optional FeatureIdMapper decode."""
+    import numpy as np
+
+    mapper = None
+    if decode:
+        from .utils.feature_id_mapper import FeatureIdMapper
+        mapper = FeatureIdMapper.from_dir(
+            os.path.join(cfg.paths.out_basedir, "extractored_feature"))
+    feat_names = [k for k in ds.arrays if k != "label" and not k.endswith("_mask")]
+
+    def row(i):
+        out = {}
+        for k in feat_names:
+            v = ds.arrays[k][i]
+            val = v.tolist() if getattr(v, "ndim", 0) else (
+                float(v) if isinstance(v, (np.floating, float)) else int(v))
+            if mapper is not None and np.ndim(v) == 0:
+                raw = mapper.get_real_val(k, int(v))
+                if raw is not None:
+                    val = raw
+            out[k] = val
+        out["label"] = ds.arrays["label"][i].tolist()
+        return out
+
+    return row
+
+
+def cmd_predict(args) -> None:
+    """Score a feature file with a trained checkpoint: checkpoint + split
+    (or npz) -> per-row sigmoid scores (jsonl), with optional raw-value
+    decode, in the JAX package's format."""
+    import tempfile
+
+    _require_device(args.device)
+    from .config import load_config
+    from .data.packed_dataset import PackedDataset
+    from .models.rankers import build_ranker
+    from .training.trainer import Trainer
+
+    cfg = load_config(args.config)
+    name = args.model or cfg.name
+    if name == "dssm":
+        raise NotImplementedError(f"predict: the DSSM's tower embeddings {DSSM_NOT_PORTED}")
+    ckpt = _resolve_ckpt(args.checkpoint)
+    ds = (PackedDataset.load(args.input) if args.input
+          else PackedDataset.open_split(cfg, args.split))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, build_ranker(cfg, name, device=args.device), workdir=tmp,
+                          device=args.device)
+        trainer.load_checkpoint(trainer.init_state(), ckpt)
+        scores = trainer.predict(ds)
+
+    row = _row_decoder(cfg, ds, args.decode)
+    out_path = args.output or "predictions.jsonl"
+    with open(out_path, "w") as f:
+        for i in range(len(ds)):
+            rec = row(i)
+            rec["score"] = float(scores[i])
+            f.write(json.dumps(rec) + "\n")
+    print(f"Wrote {len(ds)} scored rows -> {out_path}")
+
 
 def cmd_serve(args) -> None:
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA GPU is visible "
-                         "(torch.cuda.is_available() is False); pass --device cpu "
-                         "to serve with the plain PyTorch ops")
+    _require_device(args.device)
     from .serving import CascadeRecommender, Recommender, serve_http
 
     with open(os.path.join(args.bundle, "meta.json")) as f:
@@ -42,6 +218,61 @@ def cmd_serve(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="news_recsys_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("synth", help="generate synthetic MIND-format data")
+    s.add_argument("--out", required=True)
+    s.add_argument("--news", type=int, default=2000)
+    s.add_argument("--users", type=int, default=1000)
+    s.add_argument("--train-impressions", type=int, default=5000)
+    s.add_argument("--dev-impressions", type=int, default=1500)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--adversarial", action="store_true",
+                   help="inject real-MIND text quirks (embedded quotes, empty "
+                        "abstracts, cross-split divergent duplicates, empty histories)")
+    s.set_defaults(fn=cmd_synth)
+
+    s = sub.add_parser("preprocess", help="build ID maps + exploded behaviors")
+    s.add_argument("-c", "--config", required=True)
+    s.set_defaults(fn=cmd_preprocess)
+
+    s = sub.add_parser("fe", help="feature extraction")
+    s.add_argument("-c", "--config", required=True)
+    s.add_argument("--text", action="store_true", help="also write reference text format")
+    s.add_argument("--limit-rows", type=int, default=0,
+                   help="sample: only the first N exploded rows per split, cut on an "
+                        "impression boundary (0 = full)")
+    s.set_defaults(fn=cmd_fe)
+
+    s = sub.add_parser("train", help="train a ranker")
+    s.add_argument("-c", "--config", required=True)
+    s.add_argument("-m", "--model", default=None, help="override config model name")
+    s.add_argument("--workdir", default=None)
+    s.add_argument("--epochs", type=int, default=None)
+    s.add_argument("--resume", action="store_true",
+                   help="resume from the newest step checkpoint in workdir")
+    s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
+    s.add_argument("--coordinator", default=None,
+                   help="multi-process training (not ported: exits with an error)")
+    s.add_argument("--num-processes", type=int, default=None)
+    s.add_argument("--process-id", type=int, default=None)
+    s.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("predict", help="score a feature file with a trained ranker")
+    s.add_argument("-c", "--config", required=True)
+    s.add_argument("-m", "--model", default=None, help="override config model name")
+    s.add_argument("--checkpoint", required=True,
+                   help="epoch_*.pt file or experiment dir (newest epoch used)")
+    s.add_argument("--split", default="dev", help="feature split to score (default dev)")
+    s.add_argument("--input", default=None,
+                   help="explicit .npz feature file instead of --split")
+    s.add_argument("--output", default=None, help="output jsonl (default predictions.jsonl)")
+    s.add_argument("--decode", action="store_true",
+                   help="decode ids back to raw values via FeatureIdMapper")
+    s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
+    s.add_argument("--no-mesh", action="store_true",
+                   help="accepted as the JAX package takes it; one device, no mesh to turn off")
+    s.set_defaults(fn=cmd_predict)
+
     s = sub.add_parser("serve", help="serve a recall or cascade bundle over HTTP")
     s.add_argument("--bundle", required=True, help="bundle directory of this package")
     s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")

@@ -1,0 +1,133 @@
+"""Checkpoints of the port's training states: save, strict restore, resume.
+
+Port of :mod:`news_recsys_tpu.training.checkpoint` (Orbax) on
+``torch.save``. A state is stored as a plain dict (:func:`state_dict`):
+
+- all-dense (:class:`~.dense_step.DenseTrainState`): ``kind`` "dense", the
+  model's ``state_dict``, AdamW's ``state_dict`` and ``step``;
+- sparse (:class:`~.sparse_step.SparseTrainState`): ``kind`` "sparse", the
+  model's ``state_dict``, ``dense_opt`` (AdamW's ``state_dict``, or None when
+  the state has no AdamW), the AdaGrad accumulators ``emb_acc`` and ``step``.
+
+A file is read onto the CPU with ``torch.load(weights_only=True)`` and copied
+into a live state of the same kind and shapes (:func:`load_state_dict`). AdamW
+is loaded from the CPU on purpose: its ``load_state_dict`` moves the moments
+to the parameters' device and leaves the ``step`` counts where they are, on
+the CPU, where a non-capturable AdamW requires them (loaded onto the card it
+refuses them: "state_steps should not be CUDA tensors").
+
+:class:`CheckpointManager` keeps step-indexed files under one directory and
+deletes none, as the JAX package's ``max_to_keep=None`` keeps every step.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import List, Optional
+
+import torch
+
+STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+
+
+def state_kind(state) -> str:
+    """"sparse" for a state with AdaGrad accumulators, else "dense"."""
+    return "sparse" if hasattr(state, "emb_acc") else "dense"
+
+
+def state_dict(state) -> dict:
+    """The checkpoint of ``state``: its tensors (on their devices) and step."""
+    out = {"kind": state_kind(state), "model": state.model.state_dict(), "step": int(state.step)}
+    if out["kind"] == "sparse":
+        out["dense_opt"] = None if state.dense_opt is None else state.dense_opt.state_dict()
+        out["emb_acc"] = dict(state.emb_acc)
+    else:
+        out["opt"] = state.opt.state_dict()
+    return out
+
+
+def _load_adamw(opt, saved, what: str) -> None:
+    if (opt is None) != (saved is None):
+        raise ValueError(f"{what}: AdamW is {'absent' if saved is None else 'present'} in the "
+                         f"checkpoint, {'absent' if opt is None else 'present'} in the state")
+    if opt is None:
+        return
+    opt.load_state_dict(saved)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            for key in ("exp_avg", "exp_avg_sq"):
+                m = opt.state.get(p, {}).get(key)
+                if m is not None and m.shape != p.shape:
+                    raise ValueError(f"{what}: AdamW's {key} has shape {tuple(m.shape)} for a "
+                                     f"parameter of shape {tuple(p.shape)}")
+
+
+def load_state_dict(state, blob: dict):
+    """Copy the checkpoint ``blob`` into ``state`` in place and return it.
+    Strict: the kinds must match, the model's parameters by name and shape
+    (``load_state_dict(strict=True)``), AdamW's parameters by count and its
+    moments by shape, the accumulators by table and shape."""
+    kind = state_kind(state)
+    if blob.get("kind") != kind:
+        raise ValueError(f"a {blob.get('kind')!r} checkpoint does not load into a {kind!r} "
+                         "training state")
+    state.model.load_state_dict(blob["model"], strict=True)
+    if kind == "sparse":
+        _load_adamw(state.dense_opt, blob["dense_opt"], "dense_opt")
+        saved = blob["emb_acc"]
+        if set(saved) != set(state.emb_acc):
+            raise ValueError(f"accumulators {sorted(saved)} do not match the large tables "
+                             f"{sorted(state.emb_acc)}")
+        for name, acc in state.emb_acc.items():
+            if saved[name].shape != acc.shape:
+                raise ValueError(f"accumulator {name}: shape {tuple(saved[name].shape)}, the "
+                                 f"table has {tuple(acc.shape)}")
+            acc.copy_(saved[name])
+    else:
+        _load_adamw(state.opt, blob["opt"], "opt")
+    state.step = int(blob["step"])
+    return state
+
+
+def save_state(path: str, state) -> str:
+    """Write ``state``'s checkpoint to ``path`` (through a temporary file, so
+    a reader never sees half a checkpoint); returns ``path``."""
+    tmp = f"{path}.tmp"
+    torch.save(state_dict(state), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_state(path: str) -> dict:
+    """A checkpoint file's dict, every tensor on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class CheckpointManager:
+    """Step-indexed checkpoint files ``step_<step>.pt`` under ``directory``."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:09d}.pt")
+
+    def save(self, step: int, state) -> None:
+        save_state(self.path(step), state)
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint at ``step`` (default: the latest) into ``state``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"No checkpoints under {self.directory}")
+        return load_state_dict(state, load_state(self.path(step)))
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(STEP_FILE.match, os.listdir(self.directory))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None

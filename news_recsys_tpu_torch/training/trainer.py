@@ -1,5 +1,5 @@
 """Training runtime for the rankers: the binned train AUC, the epoch loop,
-prediction and validation.
+prediction, validation, checkpoints and resume.
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
 (``embedding_optimizer="rowwise_adagrad"``, :mod:`.sparse_step`) or the
@@ -8,13 +8,16 @@ chooses by :attr:`Trainer.sparse_embeddings`, and its device-resident epoch:
 the packed dataset goes to the device once, and each step gathers its batch
 rows there. Steps run eagerly, one Python call each (JAX scanned them in
 one compiled chunk). Validation scores the dev set on the device and runs
-the host metric engine (:mod:`.metrics`) at every size. ``train.log``,
-``val_log.log`` and ``metrics.jsonl`` keep the JAX package's format.
+the host metric engine (:mod:`.metrics`) at every size. The experiment dir
+keeps the JAX package's layout and formats: ``train.log``, ``val_log.log``,
+``metrics.jsonl`` beside a TensorBoard events file, ``model_info.log``, and
+``ckpts/`` with a checkpoint after every epoch (``epoch_<NNN>.pt``) and,
+every ``ckpt_every_steps`` steps, step checkpoints under ``ckpts/steps/``
+(:mod:`.checkpoint`), from which ``fit(resume=True)`` continues the same
+data order.
 
-Not ported yet (ROADMAP.md, queue 1, item 2): checkpoints and resume
-(``fit(resume=True)`` raises),
-TensorBoard, ``model_info.log``, the device metric engine
-(``training/metrics_device.py``), and the slab-streamed path for datasets
+Not ported yet (ROADMAP.md, queue 1, item 2f): the device metric engine
+(``training/metrics_device.py``) and the slab-streamed path for datasets
 larger than ``device_resident_bytes``.
 """
 
@@ -32,6 +35,8 @@ import torch
 from ..config import Config
 from ..data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from ..utils.logging import get_logger
+from ..utils.tensorboard import SummaryWriter
+from .checkpoint import CheckpointManager, load_state, load_state_dict, save_state
 from .metrics import compute_user_metrics, format_validation_block
 
 __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
@@ -40,7 +45,7 @@ __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
 logger = get_logger("trainer")
 
 AUC_BINS = 4096
-RUNTIME_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 2 "
+RUNTIME_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 2f "
                       "('Training slice, runtime')")
 
 
@@ -96,13 +101,17 @@ class Trainer:
                            else make_train_step)(self.model, cfg)
         ts = time.strftime("%Y%m%d-%H%M%S")
         self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
-        os.makedirs(self.log_dir, exist_ok=True)
+        self.ckpt_dir = os.path.join(self.log_dir, "ckpts")
+        os.makedirs(self.ckpt_dir, exist_ok=True)
         self.val_log_path = os.path.join(self.log_dir, "val_log.log")
         self.train_log_path = os.path.join(self.log_dir, "train.log")
         self.metrics_path = os.path.join(self.log_dir, "metrics.jsonl")
         open(self.val_log_path, "a").close()
         self.global_step = 0
         self._packed: Dict[int, tuple] = {}
+        self._ckpt_mgr = None
+        self._last_step_ckpt = 0       # where the ckpt_every_steps cadence counts from
+        self._tb = None
 
     @property
     def sparse_embeddings(self) -> bool:
@@ -113,7 +122,27 @@ class Trainer:
         from .sparse_step import init_sparse_state
 
         init = init_sparse_state if self.sparse_embeddings else init_dense_state
-        return init(self.model, self.cfg)
+        state = init(self.model, self.cfg)
+        self._write_model_info()
+        return state
+
+    def _write_model_info(self) -> None:
+        """The parameter table of ``model_info.log`` as the JAX package writes
+        it: one line a leaf of its parameter tree, under the flax paths and
+        shapes that :mod:`..convert` maps the parameters to, in the tree's
+        (sorted) order."""
+        from ..convert import params_to_flax     # convert imports the steps, which import us
+
+        flat = params_to_flax(self.model)
+        lines = ["  | Name | Shape | Params"]
+        total = 0
+        for path in sorted(flat, key=lambda p: tuple(p.split("/"))):
+            n = int(np.prod(flat[path].shape))
+            total += n
+            lines.append(f"  | params/{path} | {tuple(flat[path].shape)} | {n:,}")
+        lines.append(f"  Total params: {total:,}")
+        with open(os.path.join(self.log_dir, "model_info.log"), "w") as f:
+            f.write("\n".join(lines) + "\n")
 
     def _device_matrices(self, ds: PackedDataset):
         """(packer, int matrix, float matrix) of ``ds``, the matrices uploaded
@@ -153,6 +182,7 @@ class Trainer:
             batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
             loss, _ = self.train_step(state, batch, hist)
             self.global_step += 1
+            self._maybe_step_checkpoint(state)
         loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
         dt = time.perf_counter() - t0
         metrics = {"train_loss": loss_val, "train_auc": binned_auc_value(hist),
@@ -168,8 +198,16 @@ class Trainer:
         return state, metrics
 
     def _log_scalars(self, **scalars) -> None:
+        """One line of ``metrics.jsonl``, and the finite numbers among
+        ``scalars`` in the TensorBoard events file beside it."""
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps({"step": self.global_step, **scalars}) + "\n")
+        if self._tb is None:
+            self._tb = SummaryWriter(self.log_dir)
+        for key, val in scalars.items():
+            if isinstance(val, (int, float)) and val == val:
+                self._tb.add_scalar(key, float(val), self.global_step)
+        self._tb.flush()
 
     def predict(self, ds: PackedDataset, batch_size: Optional[int] = None) -> np.ndarray:
         """Sigmoid scores (float32) of every row of ``ds`` in row order, at
@@ -206,27 +244,108 @@ class Trainer:
                           val_ndcg10=results["Overall"]["NDCG@10"])
         return results
 
+    # -- checkpoints -----------------------------------------------------------
+
+    def checkpoint_manager(self):
+        """The manager of the step checkpoints under ``<ckpt_dir>/steps``."""
+        if self._ckpt_mgr is None:
+            self._ckpt_mgr = CheckpointManager(os.path.join(self.ckpt_dir, "steps"))
+        return self._ckpt_mgr
+
+    def _maybe_step_checkpoint(self, state) -> None:
+        """A step checkpoint every ``train_hparams.ckpt_every_steps`` steps,
+        on multiples of the cadence counted from step 0. With ``fit(resume=
+        True)`` this gives mid-epoch resume; the step count in the state
+        keeps the lr schedule exact across restarts."""
+        every = self.cfg.train_hparams.ckpt_every_steps
+        if every > 0 and self.global_step - self._last_step_ckpt >= every:
+            self.save_step_checkpoint(state, self.global_step)
+            self._last_step_ckpt = self.global_step
+
+    def save_step_checkpoint(self, state, step: int) -> None:
+        """The port's ``save_checkpoint_sharded``: ``state`` as the step
+        checkpoint ``step`` (one device holds the whole state here)."""
+        self.checkpoint_manager().save(step, state)
+
+    def restore_latest(self, state):
+        """Load the newest step checkpoint into ``state``; returns (state,
+        whether one was restored). Works for dense and sparse states."""
+        mgr = self.checkpoint_manager()
+        if mgr.latest_step() is None:
+            return state, False
+        state = mgr.restore(state)
+        self.global_step = state.step
+        self._reset_step_ckpt_origin()
+        logger.info(f"Restored checkpoint at step {self.global_step}")
+        return state, True
+
+    def _reset_step_ckpt_origin(self) -> None:
+        """Re-anchor the step checkpoint cadence after a restore: later
+        checkpoints land on ``ckpt_every_steps`` multiples counted from 0,
+        not ``ckpt_every_steps`` steps after the restored one."""
+        every = self.cfg.train_hparams.ckpt_every_steps
+        self._last_step_ckpt = ((self.global_step // every) * every
+                                if every > 0 else self.global_step)
+
+    def save_checkpoint(self, state, epoch: int) -> str:
+        """``state`` as ``<ckpt_dir>/epoch_<NNN>.pt``; returns the path."""
+        return save_state(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.pt"), state)
+
+    def load_checkpoint(self, state, path: str):
+        """Strict restore of a checkpoint file into ``state`` (the reference's
+        ``load_model``, ``base_model.py:531-536``); the trainer's step
+        follows the checkpoint's."""
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"Checkpoint not found: {path}")
+        state = load_state_dict(state, load_state(path))
+        self.global_step = state.step
+        self._reset_step_ckpt_origin()
+        return state
+
+    # -- fit -------------------------------------------------------------------
+
     def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
             warm_user_set: Optional[Set[int]] = None, state=None,
             max_epochs: Optional[int] = None, resume: bool = False):
         """Train ``state`` (default: :meth:`init_state`, the model's current
         parameters) for ``max_epochs`` (default ``train_hparams.max_epoch``)
         or until ``max_step``, validating on ``dev_ds`` after every
-        ``val_freq``-th epoch. The reference's arguments, in its order;
-        ``resume`` (restore the latest checkpoint) is not ported yet."""
-        if resume:
-            raise NotImplementedError("fit(resume=True): checkpoints and resume "
-                                      + RUNTIME_NOT_PORTED)
+        ``val_freq``-th epoch and writing a checkpoint after every epoch. The
+        reference's arguments, in its order. ``resume`` loads the newest step
+        checkpoint into the state and continues where it stopped: the step
+        count maps back to (epoch, batches into it) of the same data order,
+        so no row is trained twice or left out, and a run already at
+        ``max_step`` trains nothing."""
         if state is None:
             state = self.init_state()
         elif state.model is not self.model:
             raise ValueError("fit: the state's model is not this trainer's")
         hp = self.cfg.train_hparams
         max_epochs = hp.max_epoch if max_epochs is None else max_epochs
-        for epoch in range(max_epochs):
+        start_epoch, skip = 0, 0
+        if resume:
+            state, restored = self.restore_latest(state)
+            if restored:
+                # Every epoch before the current one trained all its batches
+                # (train_epoch's max_step cap can only cut a session's last
+                # epoch, and fit stops there), so the divmod is exact even
+                # across sessions cut by max_step.
+                steps_per_epoch = max(1, len(train_ds) // self.cfg.dataset.batch_size)
+                start_epoch, skip = divmod(self.global_step, steps_per_epoch)
+                logger.info(f"Resuming at step {self.global_step} "
+                            f"(epoch {start_epoch}, offset {skip} batches)")
+        for epoch in range(start_epoch, max_epochs):
             if self.global_step >= hp.max_step:
+                # e.g. restored at max_step: a 0-step epoch would validate and
+                # checkpoint the same state again under the next epoch number
+                logger.info(f"Already at max_step={hp.max_step}; nothing to train.")
                 break
-            state, _ = self.train_epoch(state, train_ds, epoch)
+            state, _ = self.train_epoch(state, train_ds, epoch,
+                                        skip_steps=skip if epoch == start_epoch else 0)
             if dev_ds is not None and (epoch + 1) % hp.val_freq == 0:
                 self.validate(state, dev_ds, epoch, warm_user_set)
+            self.save_checkpoint(state, epoch)
+            if self.global_step >= hp.max_step:
+                logger.info(f"Reached max_step={hp.max_step}; stopping.")
+                break
         return state

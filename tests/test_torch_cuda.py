@@ -16,7 +16,9 @@ column (and D columns) in another order than PyTorch: rtol 1e-5 and an atol
 of 1e-5 of the largest value. Training on the card against the CPU: rtol 1e-5, atol 5e-5
 after 4 steps (cuBLAS and the CPU sum the matmuls in other orders, and Adam
 divides each step by ``|g| + 1e-8``, which amplifies those differences in
-weights whose gradient cancels near 1e-8).
+weights whose gradient cancels near 1e-8). A checkpoint moves between the
+card and the CPU with every tensor's bits; a state restored on the card and
+trained on is held to the CPU's continuation with the same TRAIN_TOL.
 """
 
 import copy
@@ -44,8 +46,9 @@ from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                          fused_lookup_pool_bwd, pool_bwd_plain,
                                                          reference_lookup_pool)
 from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+from news_recsys_tpu_torch.training.checkpoint import load_state, state_dict
 from news_recsys_tpu_torch.training.sparse_step import init_sparse_state, make_sparse_train_step
-from news_recsys_tpu_torch.training.trainer import AucHist
+from news_recsys_tpu_torch.training.trainer import AucHist, Trainer
 
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 DCN_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -1360,3 +1363,78 @@ def test_pool_kernel_unaligned_table(cuda, D):
     with torch.inference_mode():
         torch.testing.assert_close(fused_lookup_pool(view, ids, mask),
                                    reference_lookup_pool(view, ids, mask), **POOL_TOL)
+
+
+# -- checkpoints between the card and the CPU ------------------------------------
+
+
+CKPT_STEPS = {"sparse": {}, "dense": {"embedding_optimizer": "adamw"}}
+
+
+def checkpoint_tensors(blob, path="state"):
+    """{path: tensor} of a checkpoint dict, every tensor on the CPU."""
+    if isinstance(blob, torch.Tensor):
+        return {path: blob.detach().cpu()}
+    out = {}
+    if isinstance(blob, dict):
+        for k, v in blob.items():
+            out.update(checkpoint_tensors(v, f"{path}/{k}"))
+    return out
+
+
+def assert_same_checkpoint(a, b):
+    a, b = checkpoint_tensors(a), checkpoint_tensors(b)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", list(CKPT_STEPS))
+def test_checkpoint_moves_between_the_card_and_the_cpu(cuda, tmp_path, step):
+    """A checkpoint written on the card loads into a state on the CPU, and
+    one written on the CPU into a state on the card: every tensor arrives
+    with its bits, AdamW's step counts on the CPU."""
+    cfg = train_cfg(False, **CKPT_STEPS[step])
+    ds = train_dataset(cfg, 128, seed=21)                        # 2 steps
+    for src, dst in ((cuda, torch.device("cpu")), (torch.device("cpu"), cuda)):
+        trainer = Trainer(cfg, build_ranker(cfg, seed=1, device=src),
+                          workdir=str(tmp_path / f"{src.type}_src"), device=src)
+        state, _ = trainer.train_epoch(trainer.init_state(), ds, 0)
+        path = trainer.save_checkpoint(state, 0)
+        other = Trainer(cfg, build_ranker(cfg, seed=2, device=dst),
+                        workdir=str(tmp_path / f"{dst.type}_dst"), device=dst)
+        loaded = other.load_checkpoint(other.init_state(), path)
+        assert other.global_step == loaded.step == 2
+        assert all(p.device.type == dst.type for p in loaded.model.parameters())
+        assert_same_checkpoint(state_dict(loaded), state_dict(state))
+        opt = loaded.dense_opt if step == "sparse" else loaded.opt
+        assert all(s["step"].device.type == "cpu" and s["exp_avg"].device.type == dst.type
+                   for s in opt.state.values())
+        assert_same_checkpoint(load_state(path), state_dict(state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", list(CKPT_STEPS))
+def test_adamw_restored_on_the_card_takes_steps(cuda, tmp_path, step):
+    """A state written on the CPU, loaded on the card, trains on (a
+    non-capturable AdamW refuses step counts on the card) and stays with
+    the CPU's continuation of the same state within TRAIN_TOL."""
+    cfg = train_cfg(False, **CKPT_STEPS[step])
+    ds = train_dataset(cfg, 256, seed=22)                        # 4 steps an epoch
+    cpu = Trainer(cfg, build_ranker(cfg, seed=3, device="cpu"), workdir=str(tmp_path / "cpu"),
+                  device="cpu")
+    state, _ = cpu.train_epoch(cpu.init_state(), ds, 0)
+    path = cpu.save_checkpoint(state, 0)
+    card = Trainer(cfg, build_ranker(cfg, seed=4, device=cuda), workdir=str(tmp_path / "card"),
+                   device=cuda)
+    on_card = card.load_checkpoint(card.init_state(), path)
+    on_card, metrics = card.train_epoch(on_card, ds, 1)
+    state, want = cpu.train_epoch(state, ds, 1)
+    assert metrics["steps"] == want["steps"] == 4 and on_card.step == state.step == 8
+    assert np.isfinite(metrics["train_loss"])
+    got, want = checkpoint_tensors(state_dict(on_card)), checkpoint_tensors(state_dict(state))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], msg=k, **TRAIN_TOL)
+

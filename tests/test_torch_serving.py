@@ -225,16 +225,18 @@ def test_http_shim_rejects_bad_requests(server, users_json, extra, match):
 
 
 def test_port_imports_no_jax():
-    """The port, chip_smoke.py and chip_profile.py load without JAX and
-    without any module of the JAX package: the port keeps its own copies of
-    the backend-free modules the two share (tests/test_torch_shared.py)."""
+    """The port, chip_smoke.py and chip_profile.py load without JAX (nor
+    flax, optax or orbax), without pandas, which the card's machine need not
+    have, and without any module of the JAX package: the port keeps its own
+    copies of the backend-free modules the two share
+    (tests/test_torch_shared.py) and reads and writes MIND files on numpy."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import news_recsys_tpu_torch as p, chip_smoke, chip_profile\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'news_recsys_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'news_recsys_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -251,7 +253,8 @@ def test_port_imports_no_jax():
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
         assert not [m for m in names if m and m.split(".")[0] in
-                    ("jax", "jaxlib", "flax", "optax", "news_recsys_tpu")], path
+                    ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
+                     "news_recsys_tpu")], path
 
 
 def test_serve_cli_refuses_missing_gpu(stacks, tmp_path):

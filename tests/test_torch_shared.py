@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's backend-free modules, held to
 the originals on the CPU: ``config``, ``zoo``, ``data.packed_dataset``,
-``training.metrics`` and ``utils.logging``.
+``data.synthetic``, ``data.text_format``, ``data.hist_pairs``,
+``training.metrics``, ``utils.logging``, ``utils.feature_id_mapper`` and
+``utils.tensorboard``.
 
 The port imports nothing of the JAX package, so it keeps a copy of what the
 two share. The reference is frozen; these tests are what keeps a copy from
@@ -11,6 +13,7 @@ equality: nothing is summed in another order.
 
 import dataclasses
 import glob
+import json
 import logging
 import os
 
@@ -19,14 +22,24 @@ import pytest
 
 from news_recsys_tpu import config as jconfig
 from news_recsys_tpu import zoo as jzoo
+from news_recsys_tpu.data import hist_pairs as jpairs
 from news_recsys_tpu.data import packed_dataset as jpacked
+from news_recsys_tpu.data import synthetic as jsynth
+from news_recsys_tpu.data import text_format as jtext
 from news_recsys_tpu.training import metrics as jmetrics
+from news_recsys_tpu.utils import feature_id_mapper as jmapper
 from news_recsys_tpu.utils import logging as jlogging
+from news_recsys_tpu.utils import tensorboard as jtb
 from news_recsys_tpu_torch import config as tconfig
 from news_recsys_tpu_torch import zoo as tzoo
+from news_recsys_tpu_torch.data import hist_pairs as tpairs
 from news_recsys_tpu_torch.data import packed_dataset as tpacked
+from news_recsys_tpu_torch.data import synthetic as tsynth
+from news_recsys_tpu_torch.data import text_format as ttext
 from news_recsys_tpu_torch.training import metrics as tmetrics
+from news_recsys_tpu_torch.utils import feature_id_mapper as tmapper
 from news_recsys_tpu_torch.utils import logging as tlogging
+from news_recsys_tpu_torch.utils import tensorboard as ttb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -240,3 +253,122 @@ def test_logger_copy():
     for colour in (True, False):
         assert tlogging.ColoredFormatter(colour).format(record) == \
             jlogging.ColoredFormatter(colour).format(record)
+
+
+# -- the data pipeline's shared modules ------------------------------------------
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(n_news=300, n_users=120, n_impressions_train=400, n_impressions_dev=150, seed=0),
+    dict(n_news=500, n_users=200, n_impressions_train=900, n_impressions_dev=300, seed=3,
+         adversarial=True),
+    dict(n_news=20, n_users=5, n_impressions_train=30, n_impressions_dev=10, max_history=3,
+         max_candidates=2, seed=7)])
+def test_synthetic_files_equal(tmp_path, kwargs):
+    tsynth.generate_mind(str(tmp_path / "port"), **kwargs)
+    jsynth.generate_mind(str(tmp_path / "jax"), **kwargs)
+    for sub in ("MINDsmall_train", "MINDsmall_dev"):
+        for name in ("news.tsv", "behaviors.tsv"):
+            got = (tmp_path / "port" / sub / name).read_bytes()
+            assert got == (tmp_path / "jax" / sub / name).read_bytes(), (sub, name)
+    assert tsynth.CATEGORIES == jsynth.CATEGORIES
+    assert (tsynth.L_BIAS, tsynth.L_LATENT, tsynth.L_CATMATCH, tsynth.L_ITEM) == (
+        jsynth.L_BIAS, jsynth.L_LATENT, jsynth.L_CATMATCH, jsynth.L_ITEM)
+
+
+def text_features(n, seed, multi_label=False):
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, 40, (n, 5)).astype(np.int32)
+    hist[np.arange(5)[None, :] >= rng.integers(0, 6, n)[:, None]] = 0
+    return {"user_id": rng.integers(1, 50, n).astype(np.int32),
+            "item_id": rng.integers(1, 40, n).astype(np.int32),
+            "price": np.round(rng.random(n), 2).astype(np.float32),
+            "hist": hist, "hist_mask": (hist != 0).astype(np.float32),
+            "label": (np.round(rng.random((n, 3)), 2) if multi_label
+                      else (rng.random((n, 1)) < 0.3)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("multi_label", [False, True])
+def test_text_format_equal(tmp_path, multi_label):
+    feats = text_features(33, 4, multi_label)
+    names = ["user_id", "item_id", "price", "hist"]
+    ttext.write_text_features(tmp_path / "port.txt", feats, names)
+    jtext.write_text_features(tmp_path / "jax.txt", feats, names)
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+
+
+def pair_datasets(module, n, seed):
+    """(train, item) datasets of ``module``'s PackedDataset: users with
+    histories over a 60-item corpus, some ids outside it."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, 70, (n, 6)).astype(np.int32)
+    hist[np.arange(6)[None, :] >= rng.integers(0, 7, n)[:, None]] = 0
+    train = {"user_id": rng.integers(1, 15, n).astype(np.int32),
+             "item_id": rng.integers(1, 61, n).astype(np.int32),
+             "category": rng.integers(1, 9, n).astype(np.int32),
+             "hist": hist, "hist_mask": (hist != 0).astype(np.float32),
+             "label": (rng.random((n, 1)) < 0.3).astype(np.float32)}
+    items = {"item_id": np.arange(1, 61, dtype=np.int32),
+             "category": rng.integers(1, 9, 60).astype(np.int32),
+             "label": np.full((60, 1), -1.0, np.float32)}
+    return module.PackedDataset(train), module.PackedDataset(items)
+
+
+def test_hist_pairs_equal():
+    cfg = tconfig.config_from_dict({
+        "features": {"sparse_feature_names": ["user_id", "item_id", "category"],
+                     "array_feature_names": ["hist"], "array_max_length": {"hist": 6},
+                     "item_feature_names": ["item_id", "category"],
+                     "user_feature_names": ["user_id", "hist"]},
+        "embeddings": {"embedding_size": {"user_id": 4, "item_id": 4, "category": 4},
+                       "embedding_table_size": {"user_id": 15, "item_id": 61, "category": 9},
+                       "share_emb_table_features": {"hist": "item_id"}}})
+    (ttrain, titems), (jtrain, jitems) = (pair_datasets(m, 90, 6) for m in (tpacked, jpacked))
+    assert_batches_equal(tpairs.positives_only(ttrain).arrays,
+                         jpairs.positives_only(jtrain).arrays)
+    assert_batches_equal(tpairs.concat_datasets(ttrain, ttrain).arrays,
+                         jpairs.concat_datasets(jtrain, jtrain).arrays)
+    assert_batches_equal(tpairs.random_negative_rows(cfg, ttrain, titems, 3, seed=2).arrays,
+                         jpairs.random_negative_rows(to_jax(cfg), jtrain, jitems, 3,
+                                                     seed=2).arrays)
+    assert_batches_equal(tpairs.hist_augmented_pairs(cfg, ttrain, titems).arrays,
+                         jpairs.hist_augmented_pairs(to_jax(cfg), jtrain, jitems).arrays)
+    for module, train in ((tpairs, ttrain), (jpairs, jtrain)):
+        with pytest.raises(ValueError, match="Column mismatch"):
+            module.concat_datasets(train, type(train)({"label": train.arrays["label"]}))
+
+
+def test_feature_id_mapper_equal(tmp_path):
+    idx2val = {"category": {"1": "news", "2": "sports"}, "user_id": {}}
+    val2idx = {"category": [{"news": 1, "sports": 2}, 2], "user_id": [{}, 0], "plain": {"7": 3}}
+    for name, obj in (("embedding_idx_2_original_val_dict.json", idx2val),
+                      ("original_val_2_embedding_idx_dict.json", val2idx)):
+        (tmp_path / name).write_text(json.dumps(obj))
+    got, want = (m.FeatureIdMapper.from_dir(str(tmp_path)) for m in (tmapper, jmapper))
+    for feature, value in (("category", "sports"), ("category", "nope"), ("plain", 7),
+                           ("missing", "x")):
+        assert got.get_emb_idx(feature, value) == want.get_emb_idx(feature, value)
+    for feature, idx in (("category", 2), ("category", 9), ("user_id", 1), ("missing", 1)):
+        assert got.get_real_val(feature, idx) == want.get_real_val(feature, idx)
+    with pytest.raises(FileNotFoundError):
+        tmapper.FeatureIdMapper(str(tmp_path / "no.json"), str(tmp_path / "no.json"))
+
+
+def test_tensorboard_records_equal(tmp_path, monkeypatch):
+    """Same scalars at the same clock: the same bytes in the events file."""
+    for module in (ttb, jtb):
+        monkeypatch.setattr(module.time, "time", lambda: 1700000000.25)
+        monkeypatch.setattr(module.socket, "gethostname", lambda: "host")
+    data = bytes(range(256)) * 3
+    assert ttb.crc32c(data) == jtb.crc32c(data) and ttb._masked_crc(data) == jtb._masked_crc(data)
+    assert ttb._event(2 ** 40, "val_auc", 0.625) == jtb._event(2 ** 40, "val_auc", 0.625)
+    for module, tag in ((ttb, "port"), (jtb, "jax")):
+        writer = module.SummaryWriter(str(tmp_path / tag))
+        for step, (key, value) in enumerate([("train_loss", 0.5), ("epoch", 3.0),
+                                             ("val_auc", float("inf"))]):
+            writer.add_scalar(key, value, step)
+        writer.flush()
+        writer.close()
+    (port,), (jax,) = (os.listdir(tmp_path / t) for t in ("port", "jax"))
+    assert port == jax == "events.out.tfevents.1700000000.host"
+    assert (tmp_path / "port" / port).read_bytes() == (tmp_path / "jax" / jax).read_bytes()

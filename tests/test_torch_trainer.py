@@ -28,7 +28,7 @@ from news_recsys_tpu.zoo import MIND_FEATURES, MIND_TABLE_SIZE
 from news_recsys_tpu_torch.convert import (dense_state_from_jax, params_from_flax,
                                            sparse_state_from_jax)
 from news_recsys_tpu_torch.models.rankers import build_ranker
-from news_recsys_tpu_torch.training.trainer import RUNTIME_NOT_PORTED, Trainer
+from news_recsys_tpu_torch.training.trainer import Trainer
 from news_recsys_tpu_torch.zoo import mind_config
 
 from tests.test_torch_cuda import train_cfg, train_dataset
@@ -155,12 +155,3 @@ def test_fit_continues_from_a_given_state(monkeypatch, tmp_path, step):
     with pytest.raises(ValueError, match="not this trainer's"):
         other.fit(ds, state=state, max_epochs=1)
 
-
-def test_fit_resume_is_not_ported_yet(tmp_path):
-    """Resuming needs checkpoints, queue 1 item 2a."""
-    cfg = train_cfg(False)
-    trainer = Trainer(cfg, build_ranker(cfg, device="cpu"), workdir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2") as e:
-        trainer.fit(train_dataset(cfg, 100, seed=1), resume=True)
-    assert RUNTIME_NOT_PORTED in str(e.value)
-    assert trainer.global_step == 0
