@@ -31,7 +31,10 @@ Training: the full-width DCN, DeepFM and attention rankers of
 embedding_optimizer="rowwise_adagrad")``, ``mind_ranker_config("deepfm")``,
 ``attention_config()``, and ``mind_ranker_config("attention@adamw")`` on the
 all-dense step, whose spans are forward, backward, AdamW over every
-parameter and the AUC; batch 512) under ``Trainer.train_epoch``,
+parameter and the AUC; batch 512) under ``Trainer.train_epoch``, and the
+DSSM of configs/dssm.yaml (``chip_smoke.dssm_config()``, the all-dense
+step: towers, loss, backward, AdamW; and its rowwise AdaGrad variant,
+``dssm@rowwise``) under ``DSSMTrainer.train_epoch``,
 after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
 (24) steps: plain (ms per step, nothing added), layers (gather, fields,
 forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
@@ -175,16 +178,32 @@ def traced_kernels(casc, reqs) -> list:
     return device_events(prof)
 
 
-# the kernel of each profiled ranker's forward (and backward)
+# the kernel of each profiled model's forward (and backward)
 FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM", "attention": "fused block",
-                   "attention@adamw": "fused block"}
+                   "attention@adamw": "fused block", "dssm": "pool",
+                   "dssm@rowwise": "no"}
 
 
 def train_spans(trainer, state, ranker: str) -> list:
     """(object, attribute, label) of each layer of the ranker's step."""
-    from news_recsys_tpu_torch.training import dense_step, sparse_step
+    from news_recsys_tpu_torch.models import dssm
+    from news_recsys_tpu_torch.training import dense_step, retrieval, sparse_step
 
     kernel = FORWARD_KERNELS[ranker]
+    if ranker == "dssm":
+        return [(trainer.model, "forward", "towers (embed, pool kernel, MLPs)"),
+                (dssm, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
+                (torch.Tensor, "backward", "backward (incl. the pool bwd kernel)"),
+                (state.opt, "step", "AdamW over every parameter")]
+    if ranker == "dssm@rowwise":
+        return [(retrieval, "gather_large_rows", "gather (large-table rows)"),
+                (retrieval, "fields_from_rows", "fields (small-table gathers, pooling)"),
+                (trainer.model, "towers_from_fields", "towers (MLPs)"),
+                (retrieval, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
+                (torch.Tensor, "backward", "backward"),
+                (state.dense_opt, "step", "dense AdamW"),
+                (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
+                (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel")]
     if not trainer.sparse_embeddings:
         return [(trainer.model, "forward", f"forward (embed, pool, {kernel} kernel, MLP)"),
                 (torch.Tensor, "backward", f"backward (incl. {kernel} and pool bwd kernels)"),
@@ -220,16 +239,26 @@ def train_layer_times(trainer, state, ds, epoch, ranker: str) -> dict:
 
 
 def profile_training(smi: str, ranker: str = "dcn") -> None:
+    from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
 
     bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
-    cfg = chip_smoke.train_config(ranker)
-    ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
     dev = torch.device("cuda")
+    if ranker.startswith("dssm"):
+        cfg = chip_smoke.dssm_config("rowwise_adagrad" if ranker == "dssm@rowwise" else "adamw")
+        ds = PackedDataset(chip_smoke.dssm_arrays(bs * steps, chip_smoke.SEED + 20))
+    else:
+        cfg = chip_smoke.train_config(ranker)
+        ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
-                          workdir=tmp, device=dev)
+        if ranker.startswith("dssm"):
+            trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=chip_smoke.SEED + 25, device=dev),
+                                  workdir=tmp, device=dev)
+        else:
+            trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
+                              workdir=tmp, device=dev)
         state = trainer.init_state()
         state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
         _, plain = trainer.train_epoch(state, ds, 1)

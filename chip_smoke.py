@@ -6,9 +6,10 @@ Drives the port's paths once at the full width of the repo's MIND
 models, from seeded random weights: serving (the recall -> rank cascade,
 with a DCN, a DeepFM and an attention ranker), training (the DCN, DeepFM and
 attention rankers' sparse step under ``Trainer.fit``, DeepFM's with
-validation; the attention ranker's all-dense AdamW step), a few steps of
-each other ranker of the zoo, and the command line from synthetic raw files
-to predictions. Fails (non-zero exit, no result line) if any phase fails:
+validation; the attention ranker's all-dense AdamW step; the DSSM's
+retrieval training under ``DSSMTrainer.fit``), a few steps of each other
+ranker of the zoo, and the command line from synthetic raw files to
+predictions, retrieval and the ItemCF baseline. Fails (non-zero exit, no result line) if any phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
@@ -56,7 +57,16 @@ to predictions. Fails (non-zero exit, no result line) if any phase fails:
    ``Trainer.fit`` for an epoch and a timed warm one);
 7. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 and the scoreboard
    attention recipe of zoo.mind_ranker_config): 2 steps each at full width,
-   card against CPU;
+   card against CPU; the DSSM of configs/dssm.yaml (user 94,058 x 16, item
+   65,239 x 16, ``hist`` of 30 pooled over the item table, rate 8, logQ) on
+   32 batches of 512 clicked rows with histories of 0-30: 4 steps of its
+   all-dense AdamW step and 4 of its rowwise AdaGrad variant, card against
+   CPU from the same state before each step (gradients, and the weights
+   but those whose gradient was under ~1e-7 so far, where Adam amplifies
+   rounding); ``DSSMTrainer.fit`` for an epoch with a retrieval validation
+   of 1,024 queries over 65,238 items, whose encodings and HR@10 (on
+   targets drawn from the CPU's own candidate lists) must equal the CPU's
+   but for ties at the cut; and a timed warm epoch;
 8. the command line (``cli``), through ``news_recsys_tpu_torch.cli.main`` in
    a temporary directory: ``synth`` (20,000 news, 20,000 users, 40,000 +
    8,000 impressions, seed 3), ``preprocess`` and ``fe`` with a copy of
@@ -71,6 +81,11 @@ to predictions. Fails (non-zero exit, no result line) if any phase fails:
    the same checkpoint (scores within 1e-5), and once more as ``python3 -m
    news_recsys_tpu_torch`` in a subprocess; then ``fe`` and ``train`` for an
    epoch with a copy of configs/attention.yaml (``hist`` and ``entities``);
+   then with a copy of configs/dssm.yaml ``fe``, ``train`` for an epoch
+   (click positives plus leave-one-out history pairs, logQ; its
+   ``retrieval_eval.json`` checked and its bundle loaded and asked),
+   ``predict -m dssm`` on the card and on the CPU (embeddings and cosines
+   within 1e-5) and ``itemcf`` on the host;
 9. checks that each path launched the kernels it runs, the new paths as
    many times as they should: the counts are set to 0 just before a path is
    driven and read just after; then traces one CUDA-graph replay of the
@@ -121,6 +136,10 @@ CHECK_STEPS = 4
 # the matmuls in other orders, and Adam divides each step by |g| + 1e-8,
 # which amplifies those differences in weights whose gradient cancels there
 TRAIN_TOL = dict(rtol=1e-5, atol=5e-5)
+# an AdamW second moment under this (b2 0.999): the weight's gradient was
+# under ~1e-7 in every step so far, a sum that cancelled to within ~100x
+# the card's and the CPU's rounding differences (compare_dssm_training_with_cpu)
+ROUNDING_NU = 1e-17
 # the cross stack's backward sums 512 terms per weight in per-block
 # partials: rtol 1e-5 and an atol of 1e-5 of the largest gradient
 BWD_RTOL = 1e-5
@@ -133,6 +152,8 @@ DEV_USERS, DEV_ROWS = 256, 32
 VAL_TOL = 1e-4
 ZOO_CHECK_STEPS = 2
 DENSE_STEPS = 16                # steps in an epoch of the all-dense path
+DSSM_STEPS = 32                 # a DSSM epoch: 32 batches of 512
+DSSM_QUERIES = 1024             # the DSSM validation's query rows
 # the fused block, kernel vs plain on the card: the JAX package's tolerances
 # for its kernel (float32, other summation orders; gradients are sums over
 # B*L rows, held to an atol of 2e-5 of the largest value)
@@ -469,16 +490,23 @@ def trace_cross_bwd(dev) -> int:
 
 def scatter_cases() -> dict:
     """The row scatter's shapes on the main paths, by label: a DCN step's
-    arena (1,024 slots) and the sparse attention step's item and user tables
-    (16,384 joint slots of one seeded ``zoo.attention_arrays`` batch of 512)."""
+    arena (1,024 slots), the sparse attention step's item and user tables
+    (16,384 joint slots of one seeded ``zoo.attention_arrays`` batch of 512)
+    and the rowwise DSSM step's (D 16, 16,384 joint slots of a
+    :func:`dssm_arrays` batch of 512)."""
     from news_recsys_tpu_torch.training.scatter_layouts import (arena_scatter_case,
-                                                                attention_scatter_layouts)
+                                                                attention_scatter_layouts,
+                                                                dssm_scatter_layouts)
     from news_recsys_tpu_torch.zoo import attention_arrays, attention_config
     cases = {"arena": arena_scatter_case(SEED + 18, 2 * TRAIN_BATCH)}
     layouts = attention_scatter_layouts(attention_config(batch_size=TRAIN_BATCH),
                                         attention_arrays(TRAIN_BATCH, seed=SEED + 19), SEED + 19)
     for t, case in layouts.items():
         cases[f"attention {t}"] = case
+    layouts = dssm_scatter_layouts(dssm_config("rowwise_adagrad"),
+                                   dssm_arrays(TRAIN_BATCH, SEED + 27), SEED + 27)
+    for t, case in layouts.items():
+        cases[f"dssm {t}"] = case
     return cases
 
 
@@ -1321,6 +1349,248 @@ def zoo_phase(dev: torch.device) -> dict:
     return read_launches()
 
 
+def dssm_config(optimizer: str = "adamw"):
+    """configs/dssm.yaml (``zoo.mind_dssm_config()``: user 94,058 x 16, item
+    65,239 x 16, ``hist`` of 30 over the item table, towers 48 ->
+    128-128-64-16, rate 8, temperature 0.1, logQ) at batch TRAIN_BATCH, on
+    ``optimizer``: the all-dense ``adamw`` as shipped, or ``rowwise_adagrad``
+    on the user and item tables."""
+    from news_recsys_tpu_torch.config import config_from_dict, config_to_dict
+    from news_recsys_tpu_torch.zoo import mind_dssm_config
+
+    raw = config_to_dict(mind_dssm_config())
+    raw["train_hparams"]["embedding_optimizer"] = optimizer
+    return config_from_dict(raw)
+
+
+def dssm_arrays(rows: int, seed: int) -> dict:
+    """Synthetic DSSM training rows: :func:`ranking_arrays`, every row a click
+    (the shipped recipe trains on click positives only), and a click history
+    ``hist`` of 0-30 items over the item table."""
+    from news_recsys_tpu_torch.zoo import DSSM_HIST_LEN, MIND_TABLE_SIZE
+    arrays = ranking_arrays(rows, seed)
+    rng = np.random.default_rng(seed + 1000)
+    hist = rng.integers(1, MIND_TABLE_SIZE["item_id"], (rows, DSSM_HIST_LEN)).astype(np.int32)
+    hist[np.arange(DSSM_HIST_LEN)[None, :] >= rng.integers(0, DSSM_HIST_LEN + 1, rows)[:, None]] = 0
+    arrays["hist"], arrays["hist_mask"] = hist, (hist != 0).astype(np.float32)
+    arrays["label"][:] = 1.0
+    return arrays
+
+
+def compare_dssm_training_with_cpu(dev: torch.device, cfg, ds) -> None:
+    """CHECK_STEPS DSSM steps on the card and on the CPU, the same batches and
+    negative permutations, each step from the same state (the CPU's, copied
+    to the card before it): the loss, every gradient (rtol 1e-5, atol 1e-5
+    of the largest) and, after the step, every parameter and accumulator
+    within TRAIN_TOL, but for the parameters whose AdamW second moment is
+    positive and under ROUNDING_NU. Those are the weights whose gradient
+    was near rounding noise (|g| < ~1e-7 in every step so far): Adam's
+    update, lr * g / (|g| + 1e-8), turns a 1e-9 difference between the
+    card's and the CPU's sums into up to 1e-4 there (on the H100 an
+    ``item_fc`` weight whose gradient was 1.9e-9 ended 1.6e-4 apart after
+    the first step); their gradients are held with every other. A straight
+    run would carry such a move into every later step."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm, item_log_q
+    from news_recsys_tpu_torch.training import retrieval
+    from news_recsys_tpu_torch.training.dense_step import init_dense_state
+    from news_recsys_tpu_torch.training.sparse_step import init_sparse_state
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, unpack_batch
+
+    d_cfg = cfg.extra("dssm_cfg", {})
+    rate = d_cfg["negative_sample_rate"]
+    logq = item_log_q(ds, cfg.embeddings.embedding_table_size["item_id"])
+    cpu_model = build_dssm(cfg, seed=SEED + 21, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    dense = cfg.train_hparams.embedding_optimizer == "adamw"
+    init, make = ((init_dense_state, retrieval.make_dssm_train_step) if dense else
+                  (init_sparse_state, retrieval.make_dssm_sparse_train_step))
+    runs = {d: (init(m, cfg), make(m, cfg, d_cfg["temperature"],
+                                   logq_table=torch.from_numpy(logq).to(devices[d])))
+            for d, m in models.items()}
+    negatives = {d: retrieval.draw_negatives(SEED + 22, 0, CHECK_STEPS, TRAIN_BATCH, rate,
+                                             devices[d])
+                 for d in models}
+    packer = BatchPacker(ds)
+    idx = np.random.default_rng(SEED + 23).permutation(packer.n)[: CHECK_STEPS * TRAIN_BATCH]
+    (cpu, _), (card, _) = runs["cpu"], runs["cuda"]
+    opts = [(getattr(st, "opt", None) or st.dense_opt) for st in (cpu, card)]
+    losses = {"cpu": [], "cuda": []}
+    err = {"params": 0.0, "grads": 0.0, "accumulators": 0.0}
+    exempt = 0
+    for rows in idx.reshape(CHECK_STEPS, TRAIN_BATCH):
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        opts[1].load_state_dict(copy.deepcopy(opts[0].state_dict()))
+        for name, acc in getattr(card, "emb_acc", {}).items():
+            acc.copy_(cpu.emb_acc[name])
+        for d, device in devices.items():
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(device),
+                                 torch.from_numpy(packer.float_mat[rows]).to(device),
+                                 torch.ones(TRAIN_BATCH, device=device), packer.layout_key())
+            state, step = runs[d]
+            losses[d].append(float(step(state, batch, negatives[d])[0]))
+        want = dict(models["cpu"].named_parameters())
+        for n, p in models["cuda"].named_parameters():
+            w = want[n].detach()
+            if want[n].grad is not None:
+                g, wg = p.grad.cpu(), want[n].grad
+                err["grads"] = max(err["grads"], float((g - wg).abs().max()))
+                torch.testing.assert_close(g, wg, msg=f"{n}.grad", **scaled_tol(wg))
+            nu = opts[0].state.get(want[n], {}).get("exp_avg_sq")
+            held = (torch.ones_like(w, dtype=torch.bool) if nu is None
+                    else (nu == 0) | (nu >= ROUNDING_NU))
+            exempt += int((~held).sum())
+            got = p.detach().cpu()
+            err["params"] = max(err["params"], float((got - w)[held].abs().max()))
+            torch.testing.assert_close(got[held], w[held], msg=n, **TRAIN_TOL)
+        for n, acc in getattr(card, "emb_acc", {}).items():
+            err["accumulators"] = max(err["accumulators"],
+                                      float((acc.cpu() - cpu.emb_acc[n]).abs().max()))
+            torch.testing.assert_close(acc.cpu(), cpu.emb_acc[n], msg=n, **TRAIN_TOL)
+        if card.step != cpu.step:
+            raise AssertionError(f"steps: card {card.step}, CPU {cpu.step}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TRAIN_TOL)
+    log(f"training dssm ({cfg.train_hparams.embedding_optimizer}, rate {rate}, logQ), card vs "
+        f"CPU, {CHECK_STEPS} steps at batch {TRAIN_BATCH}, each from the CPU's state: tables "
+        f"{sorted(cpu_model.tables.items())}; max_abs_err gradients {err['grads']:.3e}, "
+        f"tables + towers {err['params']:.3e}, AdaGrad accumulators "
+        f"{err['accumulators']:.3e} (tol {TRAIN_TOL}; weights left out, second moment in "
+        f"(0, {ROUNDING_NU}): {exempt}); losses {losses['cuda']} vs {losses['cpu']}")
+
+
+def dssm_eval_sets(seed: int) -> tuple:
+    """(item corpus, query rows, histories): the 65,238 items of
+    :func:`build_cascade`'s corpus and DSSM_QUERIES clicked rows of
+    :func:`dssm_arrays`, each history the row's ``hist`` ids."""
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+    from news_recsys_tpu_torch.zoo import MIND_TABLE_SIZE
+
+    rng = np.random.default_rng(seed)
+    n_items = MIND_TABLE_SIZE["item_id"] - 1
+    items = {"item_id": np.arange(1, n_items + 1, dtype=np.int32),
+             "category": rng.integers(1, MIND_TABLE_SIZE["category"], n_items).astype(np.int32),
+             "subcategory": rng.integers(1, MIND_TABLE_SIZE["subcategory"],
+                                         n_items).astype(np.int32),
+             "label": np.zeros((n_items, 1), np.float32)}
+    query = dssm_arrays(DSSM_QUERIES, seed + 1)
+    histories = [[int(x) for x in h[h > 0]] for h in query["hist"]]
+    return PackedDataset(items), PackedDataset(query), histories
+
+
+def kept_candidates(device, corpus, users, item_ids, histories, n: int) -> tuple:
+    """(ids, scores), each (Q, n): every query row's first ``n`` candidates
+    once its history is taken out, searched on ``device`` as
+    ``evaluate_retrieval`` searches."""
+    from news_recsys_tpu_torch.ops.topk import TopKSearcher
+
+    searcher = TopKSearcher(device=device)
+    searcher.update_embedding(corpus)
+    idx, scores = searcher.search(users, n + max(len(h) for h in histories))
+    ids, kept_scores = [], []
+    for r, h in enumerate(histories):
+        keep = ~np.isin(item_ids[idx[r]], h)
+        ids.append(item_ids[idx[r]][keep][:n])
+        kept_scores.append(scores[r][keep][:n])
+    return np.stack(ids), np.stack(kept_scores)
+
+
+def check_dssm_validation(trainer, items, query, histories) -> None:
+    """The card's encodings of ``trainer``'s model against a CPU copy's
+    (ANSWER_TOL), and the retrieval evaluation of both on targets drawn
+    from the CPU's own candidate lists (a kept rank in [0, 2K) a query, so
+    that half of them hit): each device's HR@K must be its rows' hits, and
+    a row's hit may differ between the two only where its target's score
+    ties the K-th kept candidate's (within ANSWER_TOL)."""
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer, evaluate_retrieval
+
+    item_ids = items.arrays["item_id"].astype(np.int64)
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = DSSMTrainer(trainer.cfg, copy.deepcopy(trainer.model).to("cpu"), workdir=tmp,
+                          device="cpu")
+        trainers = {"cuda": trainer, "cpu": cpu}
+        enc = {d: (t.encode_item_corpus(items), t.encode_users(query))
+               for d, t in trainers.items()}
+        kept = {d: kept_candidates(t.device, *enc[d], item_ids, histories, 2 * K)
+                for d, t in trainers.items()}
+        rng = np.random.default_rng(SEED + 26)
+        targets = kept["cpu"][0][np.arange(len(histories)), rng.integers(0, 2 * K,
+                                                                         len(histories))]
+        t0 = time.perf_counter()
+        hr = {"cuda": evaluate_retrieval(trainer, items, query, targets, histories, K)}
+        val_s = time.perf_counter() - t0
+        hr["cpu"] = evaluate_retrieval(cpu, items, query, targets, histories, K)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(enc["cuda"], enc["cpu"]))
+    hits = {d: (kept[d][0][:, :K] == targets[:, None]).any(axis=1) for d in kept}
+    position = {int(i): j for j, i in enumerate(item_ids)}
+    corpus, users = enc["cpu"]
+    gaps = [abs(float(users[r] @ corpus[position[int(targets[r])]]) - kept["cpu"][1][r, K - 1])
+            for r in np.flatnonzero(hits["cuda"] != hits["cpu"])]
+    if (err > ANSWER_TOL or any(g > ANSWER_TOL for g in gaps)
+            or any(hr[d][f"HR@{K}"] != float(hits[d].mean()) for d in hr)):
+        raise AssertionError(f"DSSM validation, card vs CPU: encodings max_abs_err {err}, "
+                             f"{hr}, hits {[h.mean() for h in hits.values()]}, gaps {gaps}")
+    log(f"DSSM validation ({len(histories)} queries, {len(item_ids)} items, targets at kept "
+        f"ranks 0-{2 * K - 1} of the CPU's lists) on the card in {val_s * 1e3:.1f} ms: "
+        f"HR@{K} {hr['cuda'][f'HR@{K}']:.4f} (CPU {hr['cpu'][f'HR@{K}']:.4f}; rows differing "
+        f"by a tie at the cut: {len(gaps)}); encodings card vs CPU max_abs_err {err:.3e} "
+        f"(tol {ANSWER_TOL})")
+
+
+def train_dssm_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """The DSSM of configs/dssm.yaml trained on the card: CHECK_STEPS steps
+    of its all-dense step and of the rowwise AdaGrad variant against the
+    CPU, then ``DSSMTrainer.fit`` for an epoch of DSSM_STEPS with a retrieval
+    validation, checked against the CPU, and a timed warm epoch. Returns the
+    kernel launches of the rowwise steps (``train_dssm_rowwise``) and of the
+    fit (``train_dssm``)."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
+    cfg = dssm_config()
+    ds = PackedDataset(dssm_arrays(TRAIN_BATCH * DSSM_STEPS, SEED + 20))
+    timed(f"train_dssm: {CHECK_STEPS} all-dense steps card vs CPU",
+          compare_dssm_training_with_cpu, dev, cfg, ds)
+    reset_launches()
+    timed(f"train_dssm: {CHECK_STEPS} rowwise steps card vs CPU",
+          compare_dssm_training_with_cpu, dev, dssm_config("rowwise_adagrad"), ds)
+    paths = {"train_dssm_rowwise": read_launches()}
+    items, query, histories = dssm_eval_sets(SEED + 24)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=SEED + 25, device=dev), workdir=tmp,
+                              device=dev)
+        trainer.set_eval_data(items, histories=histories, k=K)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit(ds, query, max_epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        paths["train_dssm"] = read_launches()
+        with open(trainer.metrics_path) as f:
+            lines = [json.loads(line) for line in f]
+        first = next(m for m in lines if "train_loss" in m)
+        val = [m for m in lines if "val_hr_at_10" in m]
+        block = open(trainer.val_log_path).read()
+        if (first["steps"] != DSSM_STEPS or not math.isfinite(first["train_loss"])
+                or "train_auc" in first or len(val) != 1 or block.count("Retrieval:") != 1
+                or not math.isfinite(val[0]["val_hr_at_10"])):
+            raise AssertionError(f"DSSMTrainer.fit: {lines}\n{block}")
+        log(f"DSSMTrainer.fit (dssm, adamw) on {name}: {DSSM_STEPS} steps of batch "
+            f"{TRAIN_BATCH} and a validation in {fit_s:.2f} s (first epoch, warm-up included); "
+            f"train_loss {first['train_loss']:.6f}, val HR@{K} {val[0]['val_hr_at_10']:.4f}; "
+            f"launches in that epoch: {paths['train_dssm']}")
+        check_dssm_validation(trainer, items, query, histories)
+        _, warm_epoch = trainer.train_epoch(state, ds, epoch=1)
+        if not math.isfinite(warm_epoch["train_loss"]):
+            raise AssertionError(f"train_epoch: {warm_epoch}")
+    rate = warm_epoch["examples_per_sec"]
+    log(f"training throughput (dssm, adamw) on {name} ({smi}): batch {TRAIN_BATCH}, a warm "
+        f"epoch of {warm_epoch['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s "
+        f"({TRAIN_BATCH / rate * 1e3:.3f} ms a step), {rate:.0f} examples/s")
+    return paths
+
+
 def cli_config(tmp: str, name: str, **train) -> str:
     """A copy of ``configs/<name>.yaml`` whose paths point into ``tmp``, with
     ``max_epoch`` CLI_EPOCHS, ``ckpt_every_steps`` CLI_CKPT_EVERY and
@@ -1484,15 +1754,83 @@ def cli_phase(dev: torch.device, name: str, smi: str) -> dict:
         trained = check_cli_training(workdir, 1, steps)
         log(f"cli train (attention) on {name} ({smi}): 1 epoch of {steps} steps: examples/s "
             f"{trained[0]['examples_per_sec']:.1f}, train_loss {trained[0]['train_loss']:.6f}")
+        dssm_steps_run = cli_dssm(tmp, card, name, smi, times)
     log(f"cli wall times (s): {json.dumps({k: round(v, 3) for k, v in times.items()})}")
     launches = read_launches()
     # a backward a step: the DCN's straight, cut and resumed runs, the
-    # attention ranker's epoch (whose forward pools ``entities``)
+    # attention ranker's epoch (whose forward pools ``entities``), the
+    # DSSM's epoch (whose user tower pools ``hist``)
     want = {"dcn_cross_bwd": 2 * steps + CLI_CUT_STEP + 2 * steps - first,
-            "fused_transformer_block_bwd": steps, "fused_lookup_pool_bwd": steps}
+            "fused_transformer_block_bwd": steps,
+            "fused_lookup_pool_bwd": steps + dssm_steps_run}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"cli: launches {launches}, expected {want}")
     return launches
+
+
+def cli_dssm(tmp: str, card: str, name: str, smi: str, times: dict) -> int:
+    """The DSSM's commands in the ``cli`` phase's directory: ``fe`` and
+    ``train --epochs 1`` of a copy of configs/dssm.yaml (its
+    ``retrieval_eval.json`` and bundle checked, the bundle loaded and asked),
+    ``predict -m dssm`` on the card and on the CPU (embeddings and cosines
+    within ANSWER_TOL) and ``itemcf``; returns the DSSM epoch's steps."""
+    from news_recsys_tpu_torch.serving import Recommender
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+    from news_recsys_tpu_torch.config import load_config
+
+    dssm = cli_config(tmp, "dssm")
+    times["fe (dssm)"] = cli_run("fe (dssm)", "fe", "-c", dssm)
+    workdir = os.path.join(tmp, "dssm")
+    times["train (dssm)"] = cli_run("train (dssm)", "train", "-c", dssm, "--workdir", workdir,
+                                    "--epochs", "1", "--device", card)
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    (trained,), val = [m for m in lines if "train_loss" in m], \
+        [m for m in lines if "val_hr_at_10" in m]
+    with open(os.path.join(workdir, "retrieval_eval.json")) as f:
+        res = json.load(f)
+    if (set(res) != {"HR@10", "num_queries"} or res["num_queries"] <= 0
+            or len(val) != 1 or val[0]["val_hr_at_10"] != res["HR@10"]
+            or not math.isfinite(trained["train_loss"])
+            or not os.path.exists(os.path.join(workdir, "ckpts", "epoch_000.pt"))):
+        raise AssertionError(f"train (dssm): {res}, {lines}")
+    cfg = load_config(dssm)
+    dev_ds = PackedDataset.open_split(cfg, "dev")
+    rec = Recommender.load(os.path.join(workdir, "bundle"), device=card)
+    users = {k: v[:USERS_PER_REQUEST] for k, v in dev_ds.arrays.items()}
+    ids, _ = rec.recommend(users, k=K, histories=[list(h[h > 0]) for h in users["hist"]])
+    if [len(r) for r in ids] != [K] * USERS_PER_REQUEST:
+        raise AssertionError(f"the DSSM bundle answered {ids}")
+    log(f"cli train (dssm) on {name} ({smi}): 1 epoch of {trained['steps']} steps "
+        f"(click positives + history pairs, logQ): examples/s "
+        f"{trained['examples_per_sec']:.1f}, train_loss {trained['train_loss']:.6f}; "
+        f"retrieval_eval.json {res}; the bundle served {USERS_PER_REQUEST} dev users")
+
+    out = {d: os.path.join(tmp, f"predict_dssm_{d}.jsonl") for d in ("cuda", "cpu")}
+    for d, device in (("cuda", card), ("cpu", "cpu")):
+        times[f"predict -m dssm ({d})"] = cli_run(
+            f"predict -m dssm ({d})", "predict", "-c", dssm, "-m", "dssm", "--checkpoint",
+            workdir, "--output", out[d], "--device", device)
+    rows = {}
+    for d, path in out.items():
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        rows[d] = {k: np.array([r[k] for r in recs], np.float64)
+                   for k in ("user_embedding", "item_embedding", "score")}
+    err = {k: float(np.abs(rows["cuda"][k] - rows["cpu"][k]).max()) for k in rows["cpu"]}
+    if (len(rows["cuda"]["score"]) != len(dev_ds) or max(err.values()) > ANSWER_TOL
+            or not np.isfinite(rows["cuda"]["score"]).all()):
+        raise AssertionError(f"predict -m dssm, card vs CPU: {err}")
+    log(f"cli predict -m dssm: {len(dev_ds)} dev rows; card vs CPU max_abs_err {err} "
+        f"(tol {ANSWER_TOL})")
+
+    times["itemcf"] = cli_run("itemcf", "itemcf", "-c", dssm)
+    with open(os.path.join(cfg.paths.out_basedir, "itemcf", "metrics.json")) as f:
+        itemcf = json.load(f)
+    if not (itemcf["queries"] > 0 and 0.0 <= itemcf["HR@10"] <= itemcf["HR@50"] <= 1.0):
+        raise AssertionError(f"itemcf: {itemcf}")
+    log(f"cli itemcf (host): {itemcf}")
+    return int(trained["steps"])
 
 
 def counted_kernels() -> dict:
@@ -1557,8 +1895,17 @@ PATH_KERNELS = {
                               "fused_transformer_block_bwd": DENSE_STEPS,
                               "fused_lookup_pool": DENSE_STEPS,
                               "fused_lookup_pool_bwd": DENSE_STEPS, "scatter_rows_set": 0},
-    # the command line: the DCN's and the attention ranker's all-dense steps,
-    # validations and predictions (the pool pools ``entities``)
+    # the DSSM's all-dense step pools ``hist`` (65,280 x 16, L 30) once a
+    # step and runs the pool's backward once a step; its validation pools
+    # each batch of 512 queries once; the rowwise variant pools in plain ops
+    # on the gathered rows and scatters the user and item tables a step
+    "train_dssm": {"fused_lookup_pool": DSSM_STEPS + -(-DSSM_QUERIES // TRAIN_BATCH),
+                   "fused_lookup_pool_bwd": DSSM_STEPS, "scatter_rows_set": 0},
+    "train_dssm_rowwise": {"scatter_rows_set": 2 * CHECK_STEPS, "fused_lookup_pool": 0,
+                           "fused_lookup_pool_bwd": 0},
+    # the command line: the DCN's, the attention ranker's and the DSSM's
+    # all-dense steps, validations and predictions (the pool pools
+    # ``entities`` and ``hist``)
     "cli": {"dcn_cross_stack": None, "dcn_cross_bwd": None, "fused_transformer_block": None,
             "fused_transformer_block_bwd": None, "fused_lookup_pool": None,
             "fused_lookup_pool_bwd": None, "scatter_rows_set": 0},
@@ -1609,6 +1956,7 @@ def run(dev: torch.device) -> None:
                                       "attention"),
              "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
                                             smi, "attention@adamw"),
+             **timed("train_dssm", train_dssm_phase, dev, name, smi),
              "cli": timed("cli", cli_phase, dev, name, smi)}
     check_launches(paths)
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \

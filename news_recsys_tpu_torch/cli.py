@@ -2,12 +2,15 @@
 
 The JAX package's commands, on the port: ``synth`` (synthetic MIND-format
 raw files), ``preprocess`` and ``fe`` (ID maps, exploded behaviors, packed
-features: the files the JAX package writes), ``train`` (a ranker from one
-YAML config, with a checkpoint after every epoch and ``--resume``),
-``predict`` (per-row scores of a split from a checkpoint) and ``serve``
-(a bundle of this package over HTTP; ``scripts/export_torch_bundle.py``
-converts the JAX package's bundles). ``scripts/export_torch_checkpoint.py``
-converts a JAX ``epoch_*.msgpack`` into this package's ``epoch_*.pt``.
+features: the files the JAX package writes), ``train`` (a ranker, or the
+DSSM with a retrieval block every epoch, ``retrieval_eval.json`` and a
+serving bundle, from one YAML config, with a checkpoint after every epoch
+and ``--resume``), ``predict`` (per-row scores of a split from a
+checkpoint; the DSSM's tower embeddings and their cosine), ``itemcf`` (the
+non-neural recall baseline, on the host) and ``serve`` (a bundle of this
+package over HTTP; ``scripts/export_torch_bundle.py`` converts the JAX
+package's bundles). ``scripts/export_torch_checkpoint.py`` converts a JAX
+``epoch_*.msgpack`` into this package's ``epoch_*.pt``.
 
 ``train``, ``predict`` and ``serve`` run on ``--device`` (default ``cuda``).
 A CUDA device that is not there is an error, not a reason to run on the
@@ -27,8 +30,6 @@ from .utils.logging import get_logger
 
 logger = get_logger("cli")
 
-DSSM_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 6 "
-                   "('Retrieval training')")
 EXPORT_SCRIPT = "scripts/export_torch_checkpoint.py"
 
 
@@ -84,9 +85,10 @@ def cmd_train(args) -> None:
 
     cfg = load_config(args.config)
     name = args.model or cfg.name
-    if name == "dssm":
-        raise NotImplementedError(f"train: the DSSM {DSSM_NOT_PORTED}")
     train_ds = PackedDataset.open_split(cfg, "train")
+    if name == "dssm":
+        _train_dssm(cfg, args, train_ds)
+        return
     dev_ds = PackedDataset.open_split(cfg, "dev")
     warm = _load_warm_users(cfg)
     model = build_ranker(cfg, name, seed=cfg.train_hparams.seed, device=args.device)
@@ -108,6 +110,65 @@ def cmd_train(args) -> None:
     trainer.fit(train_ds, dev_ds, warm_user_set=warm, max_epochs=args.epochs,
                 resume=args.resume)
     print(f"Experiment dir: {trainer.log_dir}")
+
+
+def _train_dssm(cfg, args, train_ds) -> None:
+    """The DSSM from ``cfg`` on ``args.device``: per-epoch retrieval
+    validation on the dev positives (histories removed), then
+    ``retrieval_eval.json`` and the serving bundle ``<log_dir>/bundle``."""
+    from .data.packed_dataset import PackedDataset
+    from .models.dssm import build_dssm
+    from .serving import Recommender
+    from .training.retrieval import DSSMTrainer, evaluate_retrieval
+
+    model = build_dssm(cfg, seed=cfg.train_hparams.seed, device=args.device)
+    trainer = DSSMTrainer(cfg, model, workdir=args.workdir, device=args.device)
+    logger.info(f"Training DSSM on {args.device} -> {trainer.log_dir}")
+    item_ds = PackedDataset.open_split(cfg, "item")
+    dev_ds = PackedDataset.open_split(cfg, "dev")
+
+    # dssm_cfg.hist_augment: leave-one-out history pairs as extra InfoNCE
+    # positives (data/hist_pairs.py); it implies training on click
+    # positives only, as train_on: positives does (the loss masks label-0
+    # rows anyway)
+    dcfg = cfg.extra("dssm_cfg", {}) or {}
+    if dcfg.get("hist_augment", False) or dcfg.get("train_on", "all") == "positives":
+        from .data.hist_pairs import concat_datasets, hist_augmented_pairs, positives_only
+        base = positives_only(train_ds)
+        logger.info(f"DSSM train set: {len(base)} click positives "
+                    f"(of {len(train_ds)} exploded rows)")
+        if dcfg.get("hist_augment", False):
+            aug = hist_augmented_pairs(cfg, train_ds, item_ds)
+            base = concat_datasets(base, aug)
+            logger.info(f"DSSM train set: +{len(aug)} leave-one-out history pairs")
+        train_ds = base
+    pos = dev_ds.arrays["label"][:, 0] == 1
+    query = PackedDataset({k: v[pos] for k, v in dev_ds.arrays.items()})
+    histories = _dev_histories(cfg, pos)
+    trainer.set_eval_data(item_ds, histories=histories, k=10)
+
+    trainer.fit(train_ds, dev_ds=query, max_epochs=args.epochs, resume=args.resume)
+
+    res = evaluate_retrieval(trainer, item_ds, query, target_item_ids=query.arrays["item_id"],
+                             histories=histories, k=10)
+    print(json.dumps(res))
+    with open(os.path.join(trainer.log_dir, "retrieval_eval.json"), "w") as f:
+        json.dump(res, f)
+    bundle = Recommender(cfg, model, item_ds, device=args.device).save(
+        os.path.join(trainer.log_dir, "bundle"))
+    print(f"Serving bundle: {bundle}")
+
+
+def _dev_histories(cfg, row_mask) -> list:
+    """Per-row clicked-history id lists of ``dev_behaviors_processed.csv``,
+    the rows where ``row_mask`` holds."""
+    from .data.feature_extraction import read_behaviors
+    path = os.path.join(cfg.paths.out_basedir, "preprocess", "dev_behaviors_processed.csv")
+    return [_history_ids(h) for h, m in zip(read_behaviors(path)["history"], row_mask) if m]
+
+
+def _history_ids(history: str) -> list:
+    return [int(x) for x in history.split(" ")] if history else []
 
 
 def _refuse_msgpack(path: str) -> None:
@@ -173,11 +234,12 @@ def cmd_predict(args) -> None:
 
     cfg = load_config(args.config)
     name = args.model or cfg.name
-    if name == "dssm":
-        raise NotImplementedError(f"predict: the DSSM's tower embeddings {DSSM_NOT_PORTED}")
     ckpt = _resolve_ckpt(args.checkpoint)
     ds = (PackedDataset.load(args.input) if args.input
           else PackedDataset.open_split(cfg, args.split))
+    if name == "dssm":
+        _predict_dssm(cfg, args, ds, ckpt)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg, build_ranker(cfg, name, device=args.device), workdir=tmp,
                           device=args.device)
@@ -192,6 +254,87 @@ def cmd_predict(args) -> None:
             rec["score"] = float(scores[i])
             f.write(json.dumps(rec) + "\n")
     print(f"Wrote {len(ds)} scored rows -> {out_path}")
+
+
+def _predict_dssm(cfg, args, ds, ckpt: str) -> None:
+    """Per-row L2-normalised user and item tower embeddings of ``ds`` and
+    their cosine, from a weights-only DSSM checkpoint, in the JAX package's
+    format (embeddings rounded to 6 places)."""
+    import tempfile
+
+    from .models.dssm import build_dssm
+    from .training.retrieval import DSSMTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = DSSMTrainer(cfg, build_dssm(cfg, device=args.device), workdir=tmp,
+                              device=args.device)
+        trainer.load_params(trainer.init_state(), ckpt)
+        u, i = trainer.encode_users(ds), trainer.encode_item_corpus(ds)
+    scores = (u * i).sum(axis=1)
+
+    row = _row_decoder(cfg, ds, args.decode)
+    out_path = args.output or "predictions.jsonl"
+    with open(out_path, "w") as f:
+        for k in range(len(ds)):
+            rec = row(k)
+            rec["user_embedding"] = [round(float(x), 6) for x in u[k]]
+            rec["item_embedding"] = [round(float(x), 6) for x in i[k]]
+            rec["score"] = float(scores[k])
+            f.write(json.dumps(rec) + "\n")
+    print(f"Wrote {len(ds)} scored rows (user/item embeddings + cosine) -> {out_path}")
+
+
+def cmd_itemcf(args) -> None:
+    """The non-neural ItemCF recall baseline, on the host: fit on the train
+    behaviors, HR@k on (at most ``--max-queries``) dev positives, their
+    history from the row itself; writes ``<out_basedir>/itemcf/metrics.json``."""
+    import time
+
+    import numpy as np
+
+    from .config import load_config
+    from .data.feature_extraction import read_behaviors
+    from .models.itemcf import ItemCF, interactions_from_behaviors
+
+    cfg = load_config(args.config)
+    pre = os.path.join(cfg.paths.out_basedir, "preprocess")
+    t0 = time.time()
+    train = read_behaviors(os.path.join(pre, "train_behaviors_processed.csv"))
+    dev = read_behaviors(os.path.join(pre, "dev_behaviors_processed.csv"))
+    uids, items = interactions_from_behaviors(train["history"], train["user_id"],
+                                              train["item_id"], train["label"])
+    logger.info(f"ItemCF: {uids.size} train interactions "
+                f"({len(train['label'])} behaviors rows) in {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    cf = ItemCF(max_history=args.max_history,
+                max_neighbors=args.neighbors).fit_pairs(uids, items)
+    fit_s = time.time() - t0
+    logger.info(f"ItemCF fit in {fit_s:.1f}s")
+
+    # eval queries: dev positives, history from the row itself; the draw is
+    # DataFrame.sample(n=, random_state=0)'s (pandas/core/sample.py)
+    pos = np.flatnonzero(dev["label"] == 1)
+    if args.max_queries and len(pos) > args.max_queries:
+        pos = pos[np.random.RandomState(0).choice(len(pos), size=args.max_queries,
+                                                  replace=False)]
+    targets = dev["item_id"][pos]
+    histories = [_history_ids(h) for h in dev["history"][pos]]
+
+    t0 = time.time()
+    ks = sorted({int(k) for k in args.k.split(",")})
+    topk = cf.recall_batch(histories, max(ks))
+    metrics = {f"HR@{k}": float((topk[:, :k] == targets[:, None]).any(axis=1).mean())
+               for k in ks}
+    eval_s = time.time() - t0
+    out = {"model": "itemcf", "queries": len(histories), "fit_seconds": round(fit_s, 2),
+           "eval_seconds": round(eval_s, 2), "neighbors": args.neighbors,
+           "max_history": args.max_history, **{k: round(v, 5) for k, v in metrics.items()}}
+    out_dir = os.path.join(cfg.paths.out_basedir, "itemcf")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps(out))
 
 
 def cmd_serve(args) -> None:
@@ -243,7 +386,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "impression boundary (0 = full)")
     s.set_defaults(fn=cmd_fe)
 
-    s = sub.add_parser("train", help="train a ranker")
+    s = sub.add_parser("train", help="train a ranker or the DSSM")
     s.add_argument("-c", "--config", required=True)
     s.add_argument("-m", "--model", default=None, help="override config model name")
     s.add_argument("--workdir", default=None)
@@ -257,7 +400,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--process-id", type=int, default=None)
     s.set_defaults(fn=cmd_train)
 
-    s = sub.add_parser("predict", help="score a feature file with a trained ranker")
+    s = sub.add_parser("predict", help="score a feature file with a trained ranker "
+                                       "(-m dssm: tower embeddings and their cosine)")
     s.add_argument("-c", "--config", required=True)
     s.add_argument("-m", "--model", default=None, help="override config model name")
     s.add_argument("--checkpoint", required=True,
@@ -272,6 +416,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--no-mesh", action="store_true",
                    help="accepted as the JAX package takes it; one device, no mesh to turn off")
     s.set_defaults(fn=cmd_predict)
+
+    s = sub.add_parser("itemcf", help="ItemCF recall baseline: fit train, HR@k on dev "
+                                      "(on the host)")
+    s.add_argument("-c", "--config", required=True)
+    s.add_argument("--neighbors", type=int, default=200, help="per-item similarity prune")
+    s.add_argument("--max-history", type=int, default=200)
+    s.add_argument("--max-queries", type=int, default=50000,
+                   help="subsample dev positives (0 = all)")
+    s.add_argument("--k", default="10,50", help="comma-separated HR cutoffs")
+    s.set_defaults(fn=cmd_itemcf)
 
     s = sub.add_parser("serve", help="serve a recall or cascade bundle over HTTP")
     s.add_argument("--bundle", required=True, help="bundle directory of this package")

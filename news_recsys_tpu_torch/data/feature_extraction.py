@@ -45,6 +45,22 @@ BEHAVIOR_COLS = ["impression_id", "user_id", "time", "history", "item_id", "labe
 UNKNOWN = "unknown"
 
 
+def behaviors_columns(rows) -> Dict[str, np.ndarray]:
+    """The columns of ``<split>_behaviors_processed.csv`` rows (as
+    :func:`.preprocess.read_tsv` reads them): int64 ids, times and labels,
+    and ``history`` as its raw click string ("" for none)."""
+    cols = dict(zip(BEHAVIOR_COLS, zip(*rows))) if rows else {c: () for c in BEHAVIOR_COLS}
+    out = {c: np.array([int(v) for v in cols[c]], dtype=np.int64)
+           for c in ("impression_id", "user_id", "time", "item_id", "label")}
+    out["history"] = np.array([v or "" for v in cols["history"]], dtype=object)
+    return out
+
+
+def read_behaviors(path) -> Dict[str, np.ndarray]:
+    """:func:`behaviors_columns` of a whole processed behaviors file."""
+    return behaviors_columns(read_tsv(path, len(BEHAVIOR_COLS)))
+
+
 # ---------------------------------------------------------------------------
 # Vocab management (reference: feature_extractor_base.py:140-172, 272-287)
 # ---------------------------------------------------------------------------
@@ -422,14 +438,7 @@ class FeatureExtractionPipeline:
             logger.warning(f"{split}: --limit-rows {self.limit_rows} sampling "
                            f"active ({len(rows)} rows kept, cut on an "
                            "impression boundary)")
-        if not rows:
-            return None
-        cols = dict(zip(BEHAVIOR_COLS, zip(*rows)))
-        out = {c: np.array([int(v) for v in cols[c]], dtype=np.int64)
-               for c in ("impression_id", "user_id", "time", "item_id", "label")}
-        # history stays a raw string (ExtractionContext.history_exploded)
-        out["history"] = np.array([v or "" for v in cols["history"]], dtype=object)
-        return out
+        return behaviors_columns(rows) if rows else None
 
     def _extract_split(self, behaviors, items: ItemTable, names: List[str],
                        with_label: bool) -> Dict[str, np.ndarray]:

@@ -2,8 +2,8 @@
 
 The port's own copy of :mod:`news_recsys_tpu.data.hist_pairs` (numpy only;
 ``tests/test_torch_shared.py`` holds it to the original). ``train`` uses
-:func:`random_negative_rows` and :func:`concat_datasets`; the DSSM helpers
-wait for the DSSM trainer (ROADMAP.md, queue 1, item 6).
+:func:`random_negative_rows` and :func:`concat_datasets` for the rankers, and
+:func:`positives_only` and :func:`hist_augmented_pairs` for the DSSM.
 
 Round-4 evidence (``artifacts/rankers_fullscale_r04.json`` category-ceiling
 analysis): label-supervised InfoNCE starves at MIND's ~1.35 labels/item

@@ -52,9 +52,11 @@ def offset_ids(spec, ids: torch.Tensor) -> torch.Tensor:
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows ``table[ids]`` (..., D); ids outside [0, V) read NaN, as
-    ``jnp.take`` fills them."""
+    ``jnp.take`` fills them. Gathered by ``F.embedding``, whose backward
+    gives the same bits every run on the CPU too (``table[ids]``'s,
+    ``index_put_`` with accumulate, does not there)."""
     V = table.shape[0]
-    emb = table[ids.clamp(0, V - 1).long()]
+    emb = torch.nn.functional.embedding(ids.clamp(0, V - 1).long(), table)
     return emb.masked_fill(((ids < 0) | (ids >= V))[..., None], float("nan"))
 
 

@@ -48,7 +48,9 @@ def reference_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
     """Gather then pool in plain PyTorch: the CPU path and the kernel's oracle."""
     V = table.shape[0]
     bad = (ids < 0) | (ids >= V)
-    rows = table[ids.clamp(0, V - 1).long()]                       # (B, L, D)
+    # F.embedding, not table[ids]: the indexing's backward (index_put_ with
+    # accumulate) sums in a run-dependent order on the CPU
+    rows = torch.nn.functional.embedding(ids.clamp(0, V - 1).long(), table)   # (B, L, D)
     rows = rows.masked_fill(bad[..., None], float("nan"))
     w = mask * (ids != 0).to(mask.dtype)
     return (rows * w[..., None]).sum(dim=1) / (w.sum(dim=1, keepdim=True) + EPS)

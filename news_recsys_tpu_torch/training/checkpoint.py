@@ -9,6 +9,10 @@ Port of :mod:`news_recsys_tpu.training.checkpoint` (Orbax) on
   model's ``state_dict``, ``dense_opt`` (AdamW's ``state_dict``, or None when
   the state has no AdamW), the AdaGrad accumulators ``emb_acc`` and ``step``.
 
+A weights-only checkpoint (:func:`save_weights`, the DSSM's per-epoch
+file, as the JAX package's ``save_weights_only`` writes) has ``kind``
+"weights" and the model's ``state_dict`` alone.
+
 A file is read onto the CPU with ``torch.load(weights_only=True)`` and copied
 into a live state of the same kind and shapes (:func:`load_state_dict`). AdamW
 is loaded from the CPU on purpose: its ``load_state_dict`` moves the moments
@@ -102,6 +106,24 @@ def save_state(path: str, state) -> str:
 def load_state(path: str) -> dict:
     """A checkpoint file's dict, every tensor on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_weights(path: str, model) -> str:
+    """``model``'s parameters alone as a ``kind`` "weights" checkpoint at
+    ``path`` (through a temporary file); returns ``path``."""
+    tmp = f"{path}.tmp"
+    torch.save({"kind": "weights", "model": model.state_dict()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_weights(model, blob: dict):
+    """Copy a weights-only checkpoint ``blob`` into ``model`` in place
+    (strict, by name and shape); returns ``model``."""
+    if blob.get("kind") != "weights":
+        raise ValueError(f"a {blob.get('kind')!r} checkpoint is not a weights-only one")
+    model.load_state_dict(blob["model"], strict=True)
+    return model
 
 
 class CheckpointManager:

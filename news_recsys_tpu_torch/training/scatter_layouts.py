@@ -5,7 +5,9 @@ plain version and timing it at the shapes the main paths give it.
 A DCN step scatters 1,024 slots into its arena; the sparse attention step
 hands each of its two large tables all 16,384 joint slots of a batch of
 512, the other table's clamped to row 0 or the spare row
-(:func:`~news_recsys_tpu_torch.training.sparse_step._joint_dedup`).
+(:func:`~news_recsys_tpu_torch.training.sparse_step._joint_dedup`), and so
+does the rowwise DSSM step (``item_id`` and ``hist`` in the item table,
+``user_id`` in the user table, D 16).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.dssm import build_dssm
 from ..models.embedding import padded_vocab
 from ..models.rankers import build_ranker
 from .sparse_step import _joint_dedup, _large_tables, collect_per_table
@@ -41,15 +44,33 @@ def attention_scatter_layouts(cfg, arrays: dict, seed: int) -> dict:
     0.01 of the summed gradient, equal on every slot of a row as the
     rowwise update leaves them."""
     model = build_ranker(cfg, seed=seed, device="cpu")
+    return _layouts(model, [model.schema], arrays, seed)
+
+
+def dssm_scatter_layouts(cfg, arrays: dict, seed: int) -> dict:
+    """:func:`attention_scatter_layouts` of the rowwise DSSM step: the user
+    tower's features, then the item tower's not in it (each collected once,
+    as ``training/retrieval.py`` collects them)."""
+    model = build_dssm(cfg, seed=seed, device="cpu")
+    seen = {s.name for s in model.user_schema.specs}
+    i_only = model.item_schema.subset([s.name for s in model.item_schema.specs
+                                       if s.name not in seen])
+    return _layouts(model, [model.user_schema, i_only], arrays, seed)
+
+
+def _layouts(model, schemas, arrays: dict, seed: int) -> dict:
     batch = {k: torch.from_numpy(a) for k, a in arrays.items()}
     large = _large_tables(model.tables)
     rng = np.random.default_rng(seed)
     grads = {s.name: torch.from_numpy(rng.standard_normal(
         (*batch[s.name].shape, model.tables[s.table][1]), np.float32))
-        for s in model.schema.specs if s.table in large}
+        for schema in schemas for s in schema.specs if s.table in large}
     spare = {t: padded_vocab(v) - 1 for t, (v, _) in model.tables.items()}
-    layouts = _joint_dedup(collect_per_table(model.schema, batch, grads, large),
-                           dict(model.tables), spare)
+    per_table: dict = {}
+    for schema in schemas:
+        for t, pairs in collect_per_table(schema, batch, grads, large).items():
+            per_table.setdefault(t, []).extend(pairs)
+    layouts = _joint_dedup(per_table, dict(model.tables), spare)
     out = {}
     for t, (rows, g) in sorted(layouts.items()):
         table = model.embedder.tables[t].detach()

@@ -91,14 +91,10 @@ class Trainer:
     """
 
     def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cuda"):
-        from .dense_step import make_train_step
-        from .sparse_step import make_sparse_train_step
-
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
-        self.train_step = (make_sparse_train_step if self.sparse_embeddings
-                           else make_train_step)(self.model, cfg)
+        self.train_step = self._make_train_step()
         ts = time.strftime("%Y%m%d-%H%M%S")
         self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
         self.ckpt_dir = os.path.join(self.log_dir, "ckpts")
@@ -112,6 +108,15 @@ class Trainer:
         self._ckpt_mgr = None
         self._last_step_ckpt = 0       # where the ckpt_every_steps cadence counts from
         self._tb = None
+
+    def _make_train_step(self):
+        """``step(state, batch, carry) -> (loss, aux)``: the ranker's sparse
+        or all-dense step, its carry the epoch's AUC histogram."""
+        from .dense_step import make_train_step
+        from .sparse_step import make_sparse_train_step
+
+        return (make_sparse_train_step if self.sparse_embeddings
+                else make_train_step)(self.model, self.cfg)
 
     @property
     def sparse_embeddings(self) -> bool:
@@ -158,6 +163,17 @@ class Trainer:
                                     torch.from_numpy(packer.float_mat).to(self.device))
         return self._packed[id(ds)][1:]
 
+    # Epoch-loop carry hooks, as the JAX trainer's: every step of an epoch
+    # gets the carry; the ranking trainer carries the binned AUC histogram,
+    # the DSSM trainer the epoch's negative permutations. ``first_step`` (the
+    # state's step) and ``steps`` (the epoch's step count) are the port's
+    # addition: the DSSM carry draws them all and uploads them at once.
+    def _epoch_carry(self, epoch: int, first_step: int, steps: int):
+        return AucHist.zeros(self.device)
+
+    def _carry_metrics(self, carry) -> Dict[str, float]:
+        return {"train_auc": binned_auc_value(carry)}
+
     def train_epoch(self, state, ds: PackedDataset, epoch: int, skip_steps: int = 0):
         """One epoch in the permutation the JAX trainer draws; returns
         (state, metrics). ``skip_steps`` leaves out the first batches of that
@@ -175,17 +191,17 @@ class Trainer:
         idx = torch.from_numpy(order[start * bs:(start + nb) * bs].reshape(nb, bs)).to(
             self.device)                                                     # one upload
         ones = torch.ones(bs, device=self.device)
-        hist = AucHist.zeros(self.device)
+        carry = self._epoch_carry(epoch, state.step, nb)
         t0 = time.perf_counter()
         loss = None
         for i in range(nb):
             batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
-            loss, _ = self.train_step(state, batch, hist)
+            loss, _ = self.train_step(state, batch, carry)
             self.global_step += 1
             self._maybe_step_checkpoint(state)
         loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
         dt = time.perf_counter() - t0
-        metrics = {"train_loss": loss_val, "train_auc": binned_auc_value(hist),
+        metrics = {"train_loss": loss_val, **self._carry_metrics(carry),
                    "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
         self._log_scalars(epoch=epoch, **metrics)
         with open(self.train_log_path, "a") as f:
@@ -193,8 +209,9 @@ class Trainer:
             for k, v in metrics.items():
                 f.write(f"  {k}: {v:.4f}\n")
             f.write("-" * 20 + "\n")
-        logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f} "
-                    f"auc~{metrics['train_auc']:.4f} ex/s={metrics['examples_per_sec']:.0f}")
+        extra = f" auc~{metrics['train_auc']:.4f}" if "train_auc" in metrics else ""
+        logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f}{extra} "
+                    f"ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
 
     def _log_scalars(self, **scalars) -> None:
@@ -213,6 +230,13 @@ class Trainer:
         """Sigmoid scores (float32) of every row of ``ds`` in row order, at
         ``eval_batch_size`` (else ``batch_size``) rows a forward; the tail
         batch is padded with the last row and trimmed, as in JAX."""
+        return self._map_rows(ds, lambda batch: torch.sigmoid(self.model(batch)),
+                              batch_size).cpu().numpy()
+
+    def _map_rows(self, ds: PackedDataset, fn, batch_size: Optional[int] = None) -> torch.Tensor:
+        """``fn(batch)`` over every row of ``ds`` in row order, on the device,
+        at ``eval_batch_size`` (else ``batch_size``) rows a call; the tail
+        batch is padded with the last row and trimmed, as in JAX."""
         bs = batch_size or self.cfg.dataset.eval_batch_size or self.cfg.dataset.batch_size
         packer, int_dev, float_dev = self._device_matrices(ds)
         layout = packer.layout_key()
@@ -220,10 +244,8 @@ class Trainer:
         idx = torch.arange(nb * bs, device=self.device).clamp_(max=packer.n - 1).view(nb, bs)
         ones = torch.ones(bs, device=self.device)
         with torch.inference_mode():
-            scores = [torch.sigmoid(self.model(unpack_batch(int_dev[i], float_dev[i], ones,
-                                                            layout)))
-                      for i in idx]
-            return torch.cat(scores)[: packer.n].cpu().numpy()
+            return torch.cat([fn(unpack_batch(int_dev[i], float_dev[i], ones, layout))
+                              for i in idx])[: packer.n]
 
     def validate(self, state, ds: PackedDataset, epoch: int,
                  warm_user_set: Optional[Set[int]] = None) -> Dict[str, Dict[str, float]]:

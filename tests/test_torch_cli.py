@@ -8,7 +8,7 @@ run cut by ``max_step`` and resumed equals the straight run bit for bit; and
 on a checkpoint the JAX package trained, converted by
 ``scripts/export_torch_checkpoint.py``, the port's ``predict`` writes the
 JAX ``predict``'s rows with scores within 1e-5 (float32, other summation
-orders).
+orders). The DSSM and ``itemcf`` commands are in tests/test_torch_cli_dssm.py.
 """
 
 import glob
@@ -199,17 +199,6 @@ def test_train_mixes_random_negatives(workspace, tmp_path):
     assert trained["steps"] == rows // 64 > len(train) // 64
 
 
-def test_dssm_is_not_ported_yet(workspace, tmp_path):
-    tmp, cfg_path, _, _ = workspace
-    dssm = tmp_path / "dssm.yaml"
-    dssm.write_text(open(cfg_path).read().replace("name: deep", "name: dssm"))
-    for argv in (["train", "-c", str(dssm)], ["train", "-c", cfg_path, "-m", "dssm"],
-                 ["predict", "-c", cfg_path, "-m", "dssm", "--checkpoint", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 6"):
-            cli(argv + ["--device", "cpu", "--workdir" if argv[0] == "train" else "--output",
-                        str(tmp_path / "out")])
-
-
 def test_train_refuses_several_processes(workspace):
     _, cfg_path, _, _ = workspace
     for flags in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
@@ -226,6 +215,7 @@ def test_missing_card_is_an_error(workspace, straight, tmp_path):
         pytest.skip("a GPU is visible: --device cuda would run")
     _, cfg_path, _, _ = workspace
     for argv in (["train", "-c", cfg_path, "--workdir", str(tmp_path / "w")],
+                 ["train", "-c", cfg_path, "-m", "dssm", "--workdir", str(tmp_path / "w")],
                  ["predict", "-c", cfg_path, "--checkpoint", straight, "--output",
                   str(tmp_path / "p.jsonl")]):
         proc = subprocess.run([sys.executable, "-m", "news_recsys_tpu_torch", *argv],

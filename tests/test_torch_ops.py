@@ -196,3 +196,33 @@ def test_topk_searcher_matches_jax():
     jidx, jscores = jsearcher.search(queries, k=7)
     np.testing.assert_allclose(scores, jscores, **TOL)
     np.testing.assert_array_equal(idx, jidx)    # random scores: no ties
+
+
+@pytest.mark.parametrize("op", ["pool at the DSSM's hist shape", "take of 4,096 ids"])
+def test_cpu_gather_backward_repeats_its_bits(op):
+    """The CPU paths' table gradients are the same bits every run: the
+    pool's plain version at B 512, L 30 over 65,280 rows (the DSSM's
+    ``hist``), and ``take`` over 4,096 ids with repeats. Gathered by
+    ``table[ids]``, their backward (``index_put_`` with accumulate) summed
+    in a run-dependent order on the CPU, so a resumed run could drift from
+    a straight one."""
+    from news_recsys_tpu_torch.models.embedding import take
+
+    gen = torch.Generator().manual_seed(0)
+    if op.startswith("pool"):
+        ids = torch.randint(1, 65239, (512, 30), generator=gen).int()
+        mask = (torch.rand(512, 30, generator=gen) < 0.7).float()
+        g = torch.randn(512, 16, generator=gen)
+        f = lambda t: (fused_lookup_pool(t, ids, mask) * g).sum()          # noqa: E731
+    else:
+        ids = torch.randint(1, 200, (4096,), generator=gen)
+        g = torch.randn(4096, 16, generator=gen)
+        f = lambda t: (take(t, ids) * g).sum()                             # noqa: E731
+    table = torch.randn(65280, 16, generator=gen)
+    grads = []
+    for _ in range(8):
+        t = table.clone().requires_grad_()
+        f(t).backward()
+        grads.append(t.grad)
+    for grad in grads[1:]:
+        assert torch.equal(grad, grads[0])

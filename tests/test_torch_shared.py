@@ -2,7 +2,9 @@
 the originals on the CPU: ``config``, ``zoo``, ``data.packed_dataset``,
 ``data.synthetic``, ``data.text_format``, ``data.hist_pairs``,
 ``training.metrics``, ``utils.logging``, ``utils.feature_id_mapper`` and
-``utils.tensorboard``.
+``utils.tensorboard``; and the numpy parts of the retrieval slice:
+``models.itemcf``, ``models.dssm.item_log_q`` and
+``training.retrieval.dedup_hit_rate``.
 
 The port imports nothing of the JAX package, so it keeps a copy of what the
 two share. The reference is frozen; these tests are what keeps a copy from
@@ -26,6 +28,9 @@ from news_recsys_tpu.data import hist_pairs as jpairs
 from news_recsys_tpu.data import packed_dataset as jpacked
 from news_recsys_tpu.data import synthetic as jsynth
 from news_recsys_tpu.data import text_format as jtext
+from news_recsys_tpu.models import dssm as jdssm
+from news_recsys_tpu.models import itemcf as jitemcf
+from news_recsys_tpu.training import retrieval as jretrieval
 from news_recsys_tpu.training import metrics as jmetrics
 from news_recsys_tpu.utils import feature_id_mapper as jmapper
 from news_recsys_tpu.utils import logging as jlogging
@@ -36,6 +41,9 @@ from news_recsys_tpu_torch.data import hist_pairs as tpairs
 from news_recsys_tpu_torch.data import packed_dataset as tpacked
 from news_recsys_tpu_torch.data import synthetic as tsynth
 from news_recsys_tpu_torch.data import text_format as ttext
+from news_recsys_tpu_torch.models import dssm as tdssm
+from news_recsys_tpu_torch.models import itemcf as titemcf
+from news_recsys_tpu_torch.training import retrieval as tretrieval
 from news_recsys_tpu_torch.training import metrics as tmetrics
 from news_recsys_tpu_torch.utils import feature_id_mapper as tmapper
 from news_recsys_tpu_torch.utils import logging as tlogging
@@ -336,6 +344,35 @@ def test_hist_pairs_equal():
     for module, train in ((tpairs, ttrain), (jpairs, jtrain)):
         with pytest.raises(ValueError, match="Column mismatch"):
             module.concat_datasets(train, type(train)({"label": train.arrays["label"]}))
+
+
+@pytest.mark.parametrize("copy", ["itemcf", "item_log_q", "dedup_hit_rate"])
+def test_retrieval_copies_equal(copy):
+    """``ItemCF`` and ``dedup_hit_rate`` are the originals line for line;
+    ``item_log_q`` (its docstring reworded) gives the original's table. Each
+    also on seeded inputs."""
+    import inspect
+
+    rng = np.random.default_rng(12)
+    if copy == "itemcf":
+        assert inspect.getsource(titemcf.ItemCF) == inspect.getsource(jitemcf.ItemCF)
+        uids, items = rng.integers(1, 30, 600), rng.integers(1, 80, 600)
+        got = titemcf.ItemCF(max_history=20, max_neighbors=15).fit_pairs(uids, items)
+        want = jitemcf.ItemCF(max_history=20, max_neighbors=15).fit_pairs(uids, items)
+        hists = [list(rng.integers(1, 90, rng.integers(0, 9))) for _ in range(40)]
+        np.testing.assert_array_equal(got.recall_batch(hists, 12), want.recall_batch(hists, 12))
+    elif copy == "item_log_q":
+        ds = tpacked.PackedDataset({"item_id": rng.integers(0, 200, 5000).astype(np.int32),
+                                    "label": np.zeros((5000, 1), np.float32)})
+        np.testing.assert_array_equal(tdssm.item_log_q(ds, 150), jdssm.item_log_q(ds, 150))
+    else:
+        assert inspect.getsource(tretrieval.dedup_hit_rate) == \
+            inspect.getsource(jretrieval.dedup_hit_rate)
+        retrieved = rng.integers(1, 50, (70, 15))
+        hists = [list(rng.integers(1, 50, rng.integers(0, 5))) for _ in range(70)]
+        targets = rng.integers(1, 50, 70)
+        assert tretrieval.dedup_hit_rate(retrieved, targets, hists, 10) == \
+            jretrieval.dedup_hit_rate(retrieved, targets, hists, 10)
 
 
 def test_feature_id_mapper_equal(tmp_path):
