@@ -7,6 +7,7 @@ port, on one CUDA GPU.
     python3 chip_profile.py --cross-split
     python3 chip_profile.py --scatter-split
     python3 chip_profile.py --fm-split
+    python3 chip_profile.py --routes
 
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
@@ -34,8 +35,11 @@ all-dense step, whose spans are forward, backward, AdamW over every
 parameter and the AUC; batch 512) under ``Trainer.train_epoch``, and the
 DSSM of configs/dssm.yaml (``chip_smoke.dssm_config()``, the all-dense
 step: towers, loss, backward, AdamW; and its rowwise AdaGrad variant,
-``dssm@rowwise``) under ``DSSMTrainer.train_epoch``,
-after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
+``dssm@rowwise``) under ``DSSMTrainer.train_epoch``, and the optimizer
+variants of ``chip_smoke.py``'s ``train_variants`` phase (the DCN on
+``sparse_adamw``, with K-step write-back without its step checkpoints, with
+bfloat16 tables and towers at batch 512 and 8,192; the DSSM on
+``sparse_adamw``), after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
 (24) steps: plain (ms per step, nothing added), layers (gather, fields,
 forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
 wrapped with card syncs), traced (device time per step, top kernels). The
@@ -82,6 +86,15 @@ at B 512 and 6,400, the kernel against copies of its staged path with the
 other of 8, 16 and 32 rows a block and a copy that takes the general path (a
 warp a row) at 5 x 15; each against the plain version, bit for bit among the
 staged copies.
+
+``--routes`` times rowwise AdaGrad's two update routes for one table at the
+path shapes (the DCN's arena at batch 512 and 8,192: 1,024 and 16,384
+slots; the sparse attention step's item table: 15,872 slots): the sorted
+route (sort, segment sum, update, row scatter kernel) against the dense
+full-table route, in turns, eager (CUDA events) and as graph replays, with
+the host waits of each; then the sparse attention step and the rowwise DSSM
+step whole with their item table on either route, in turns;
+``training/sparse_step.py``'s ``DENSE_UPDATE_MIN_SHARE`` comes from it.
 """
 
 from __future__ import annotations
@@ -181,7 +194,24 @@ def traced_kernels(casc, reqs) -> list:
 # the kernel of each profiled model's forward (and backward)
 FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM", "attention": "fused block",
                    "attention@adamw": "fused block", "dssm": "pool",
-                   "dssm@rowwise": "no"}
+                   "dssm@rowwise": "no", "dcn@sparse_adamw": "cross", "dcn@K4": "cross",
+                   "dcn@bf16": "cross", "dcn_b8192@bf16": "cross", "dssm@sparse_adamw": "no"}
+
+
+def rowwise_spans(cfg) -> list:
+    """The rowwise update's two spans for ``cfg``: its dedup (the sorted or
+    the unique-row layout) and its optimizer (AdaGrad or Adam, with the
+    row scatter kernel or a plain write). K-step write-back runs both inside
+    its flush, every K steps."""
+    from news_recsys_tpu_torch.training import sparse_step
+
+    adam = cfg.train_hparams.embedding_optimizer == "sparse_adamw"
+    bf16 = cfg.mesh.param_dtype == "bfloat16"
+    write = "plain write" if bf16 else "scatter kernel"
+    return [(sparse_step, "_unique_rows" if bf16 else "_joint_dedup",
+             f"dedup ({'unique rows' if bf16 else 'sort'} + segment sum)"),
+            (sparse_step, "rowwise_adam_update" if adam else "rowwise_adagrad_update",
+             f"rowwise {'Adam' if adam else 'AdaGrad'} + {write}")]
 
 
 def train_spans(trainer, state, ranker: str) -> list:
@@ -195,15 +225,14 @@ def train_spans(trainer, state, ranker: str) -> list:
                 (dssm, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
                 (torch.Tensor, "backward", "backward (incl. the pool bwd kernel)"),
                 (state.opt, "step", "AdamW over every parameter")]
-    if ranker == "dssm@rowwise":
+    if ranker.startswith("dssm@"):
         return [(retrieval, "gather_large_rows", "gather (large-table rows)"),
                 (retrieval, "fields_from_rows", "fields (small-table gathers, pooling)"),
                 (trainer.model, "towers_from_fields", "towers (MLPs)"),
                 (retrieval, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
                 (torch.Tensor, "backward", "backward"),
                 (state.dense_opt, "step", "dense AdamW"),
-                (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
-                (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel")]
+                *rowwise_spans(trainer.cfg)]
     if not trainer.sparse_embeddings:
         return [(trainer.model, "forward", f"forward (embed, pool, {kernel} kernel, MLP)"),
                 (torch.Tensor, "backward", f"backward (incl. {kernel} and pool bwd kernels)"),
@@ -214,8 +243,7 @@ def train_spans(trainer, state, ranker: str) -> list:
             (trainer.model, "forward_from_fields", f"forward ({kernel} kernel + MLP)"),
             (torch.Tensor, "backward", f"backward (incl. {kernel} bwd kernel)"),
             (state.dense_opt, "step", "dense AdamW"),
-            (sparse_step, "_joint_dedup", "dedup (sort + segment sum)"),
-            (sparse_step, "rowwise_adagrad_update", "rowwise update + scatter kernel"),
+            *rowwise_spans(trainer.cfg),
             (sparse_step, "binned_auc_update", "AUC histogram")]
 
 
@@ -239,18 +267,26 @@ def train_layer_times(trainer, state, ds, epoch, ranker: str) -> dict:
 
 
 def profile_training(smi: str, ranker: str = "dcn") -> None:
+    from news_recsys_tpu_torch.config import config_from_dict, config_to_dict
     from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
     from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
 
-    bs, steps = chip_smoke.TRAIN_BATCH, TRAIN_STEPS
+    steps = TRAIN_STEPS
     dev = torch.device("cuda")
-    if ranker.startswith("dssm"):
+    if ranker in chip_smoke.VARIANTS:
+        raw = config_to_dict(chip_smoke.variant_config(ranker))
+        raw["train_hparams"]["ckpt_every_steps"] = 0          # no checkpoint writes timed
+        cfg = config_from_dict(raw)
+    elif ranker.startswith("dssm"):
         cfg = chip_smoke.dssm_config("rowwise_adagrad" if ranker == "dssm@rowwise" else "adamw")
-        ds = PackedDataset(chip_smoke.dssm_arrays(bs * steps, chip_smoke.SEED + 20))
     else:
         cfg = chip_smoke.train_config(ranker)
+    bs = cfg.dataset.batch_size
+    if ranker.startswith("dssm"):
+        ds = PackedDataset(chip_smoke.dssm_arrays(bs * steps, chip_smoke.SEED + 20))
+    else:
         ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
     with tempfile.TemporaryDirectory() as tmp:
         if ranker.startswith("dssm"):
@@ -699,6 +735,171 @@ def fm_split(smi: str) -> None:
         print_turns(times)
 
 
+# the rowwise AdaGrad update's path shapes: (model, batch, table); the DCN's
+# arena at bench.py's two batches, the sparse attention step's item table
+# (item_id and the unpooled history of 30: 15,872 slots of a batch of 512)
+ROUTE_SHAPES = {"DCN arena, batch 512": ("dcn", 512, "arena_d32"),
+                "DCN arena, batch 8,192": ("dcn", 8192, "arena_d32"),
+                "attention item table, batch 512": ("attention", 512, "item_id")}
+
+
+def event_ms(fn, rounds: int = 7, inner: int = 20) -> float:
+    """Median over ``rounds`` of the CUDA-event time of ``inner`` eager calls,
+    a call: the update as the eager step runs it, launch overhead and any
+    wait for the host included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+SYNC_CALLS = 5
+
+
+def syncs(fn) -> list:
+    """Where SYNC_CALLS calls of ``fn`` made the host wait for the card: the
+    file and line of the Python call of each operation that synchronised."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(SYNC_CALLS):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{'/'.join(w.filename.split('/')[-3:])}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def route_split(smi: str) -> None:
+    """Rowwise AdaGrad's two routes for one table at ROUTE_SHAPES: the sorted
+    route (the joint dedup's sort and segment sum, then the update and the
+    row scatter kernel) and the dense full-table route (a (V, D) segment
+    sum, then a pass over every row), in turns, each from its own copy of
+    the table; after one call both hold the same table (within 1e-5). Times:
+    CUDA events over eager calls (what the eager step pays) and, where the
+    route captures, CUDA-graph replays (the device alone); and how often a
+    call makes the host wait for the card."""
+    from news_recsys_tpu_torch.config import table_specs
+    from news_recsys_tpu_torch.models.embedding import padded_vocab
+    from news_recsys_tpu_torch.training.scatter_layouts import update_route_case
+    from news_recsys_tpu_torch.training.sparse_step import (_joint_dedup,
+                                                            dense_rowwise_adagrad_update,
+                                                            rowwise_adagrad_update)
+    from news_recsys_tpu_torch.zoo import attention_arrays, attention_config, mind_config
+
+    dev = torch.device("cuda")
+    print(f"\n== rowwise AdaGrad update routes ({smi})")
+    for label, (model, bs, name) in ROUTE_SHAPES.items():
+        if model == "dcn":
+            cfg = mind_config("dcn", batch_size=bs, embedding_optimizer="rowwise_adagrad")
+            arrays = chip_smoke.ranking_arrays(bs, chip_smoke.SEED + 40)
+        else:
+            cfg = attention_config(batch_size=bs)
+            arrays = attention_arrays(bs, seed=chip_smoke.SEED + 40)
+        table_np, ids_np, g_np = update_route_case(cfg, arrays, chip_smoke.SEED + 41, name)
+        (V, D), S = table_np.shape, ids_np.shape[0]
+        vocab = table_specs(cfg)[name][0]
+        ids, g = (torch.from_numpy(a).to(dev) for a in (ids_np, g_np))
+        spec, spare = {name: (vocab, D)}, {name: padded_vocab(vocab) - 1}
+        copies = {r: (torch.from_numpy(table_np).to(dev), torch.full((V,), 0.1, device=dev))
+                  for r in ("sorted", "dense")}
+
+        def sorted_route(t=copies["sorted"]):
+            rows, grads = _joint_dedup({name: [(ids, g)]}, spec, spare)[name]
+            rowwise_adagrad_update(t[0], t[1], rows, grads, 1e-3)
+
+        def dense_route(t=copies["dense"]):
+            dense_rowwise_adagrad_update(t[0], t[1], ids, g, 1e-3, max_id=vocab - 1)
+
+        routes = {"sorted": sorted_route, "dense": dense_route}
+        for route in routes.values():
+            route()
+        torch.testing.assert_close(copies["sorted"][0][:vocab], copies["dense"][0][:vocab],
+                                   rtol=1e-5, atol=1e-5)
+        turns = {r: [] for r in routes}
+        for r in ("sorted", "dense", "dense", "sorted"):
+            turns[r].append(event_ms(routes[r]))
+        graph = {}
+        for r, fn in routes.items():
+            try:
+                graph[r] = chip_smoke.device_ms(fn, rounds=7, inner=10)
+            except RuntimeError as e:                      # a route that cannot be captured
+                graph[r] = f"not capturable ({str(e).splitlines()[0][:60]})"
+        rows, grads = _joint_dedup({name: [(ids, g)]}, spec, spare)[name]
+        waits = {**{r: syncs(fn) for r, fn in routes.items()},
+                 "sorted route's dedup": syncs(lambda: _joint_dedup({name: [(ids, g)]}, spec,
+                                                                    spare)),
+                 "sorted route's update": syncs(lambda: rowwise_adagrad_update(
+                     *copies["sorted"], rows, grads, 1e-3))}
+        distinct = int(np.unique(ids_np[(ids_np > 0) & (ids_np < vocab)]).size)
+        print(f"  {label}: V {V} D {D}, {S} slots, {distinct} distinct rows")
+        for r in routes:
+            print(f"    {r:6s} route: eager {min(turns[r]):8.3f} ms a call (turns "
+                  f"{', '.join(f'{t:.3f}' for t in turns[r])}); graph replay "
+                  f"{graph[r] if isinstance(graph[r], str) else f'{graph[r]:.3f} ms'}; host "
+                  f"waits in {SYNC_CALLS} calls {len(waits[r])} {waits[r]}")
+        for part in ("sorted route's dedup", "sorted route's update"):
+            print(f"    host waits in {SYNC_CALLS} calls of the {part}: {len(waits[part])} "
+                  f"{waits[part]}")
+    for ranker in ("attention", "dssm@rowwise"):
+        step_routes(smi, ranker)
+
+def step_routes(smi: str, ranker: str) -> None:
+    """The ranker's whole training step (batch 512, epochs of TRAIN_STEPS)
+    with its item table on the dense route (the port's choice) and on the
+    sorted route (``DENSE_UPDATE_MIN_SHARE`` set past 1 for the epoch), in
+    turns: wall ms a step of an untraced epoch and device ms a step of a
+    traced one."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training import sparse_step
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    dev, bs, steps = torch.device("cuda"), chip_smoke.TRAIN_BATCH, TRAIN_STEPS
+    share = {"dense": sparse_step.DENSE_UPDATE_MIN_SHARE, "sorted": 2.0}
+    times = {r: [] for r in share}
+    with tempfile.TemporaryDirectory() as tmp:
+        if ranker == "dssm@rowwise":
+            cfg = chip_smoke.dssm_config("rowwise_adagrad")
+            ds = PackedDataset(chip_smoke.dssm_arrays(bs * steps, chip_smoke.SEED + 20))
+            trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=chip_smoke.SEED + 25, device=dev),
+                                  workdir=tmp, device=dev)
+        else:
+            cfg = chip_smoke.train_config(ranker)
+            ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
+            trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
+                              workdir=tmp, device=dev)
+        state = trainer.init_state()
+        state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
+        try:
+            for epoch, route in enumerate(("dense", "sorted", "sorted", "dense"), 1):
+                sparse_step.DENSE_UPDATE_MIN_SHARE = share[route]
+                _, plain = trainer.train_epoch(state, ds, epoch)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    trainer.train_epoch(state, ds, epoch)
+                    torch.cuda.synchronize()
+                dev_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / steps
+                times[route].append((bs / plain["examples_per_sec"] * 1e3, dev_ms))
+        finally:
+            sparse_step.DENSE_UPDATE_MIN_SHARE = share["dense"]
+    print(f"  {ranker} step, batch {bs}, the item table's update route ({smi}):")
+    for route, runs in times.items():
+        print(f"    {route:6s}: wall {', '.join(f'{w:.3f}' for w, _ in runs)} ms a step; device "
+              f"{', '.join(f'{d:.3f}' for _, d in runs)} ms a step")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--users", default="64,256,1024")
@@ -713,6 +914,8 @@ def main(argv=None) -> None:
                    help="time the row scatter's designs at its shapes instead")
     p.add_argument("--fm-split", action="store_true",
                    help="time the FM kernels against copies of other designs instead")
+    p.add_argument("--routes", action="store_true",
+                   help="time rowwise AdaGrad's sorted and dense routes at the path shapes")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -732,6 +935,9 @@ def main(argv=None) -> None:
         return
     if args.fm_split:
         fm_split(smi)
+        return
+    if args.routes:
+        route_split(smi)
         return
     for ranker in ("dcn", "attention"):
         profile_serving(smi, ranker, args)

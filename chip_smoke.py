@@ -86,7 +86,17 @@ predictions, retrieval and the ItemCF baseline. Fails (non-zero exit, no result 
    ``retrieval_eval.json`` checked and its bundle loaded and asked),
    ``predict -m dssm`` on the card and on the CPU (embeddings and cosines
    within 1e-5) and ``itemcf`` on the host;
-9. checks that each path launched the kernels it runs, the new paths as
+9. the optimizer variants (``train_variants``), each at full width with
+   its own timed warm epoch: the DCN of zoo.mind_config("dcn") on
+   ``sparse_adamw`` (the table and both (V, D) moments written by the row
+   scatter kernel), on ``rowwise_adagrad`` with K-step write-back (K 4, an
+   epoch of 30 steps, a step checkpoint every 6 that cuts a group, and a run
+   cut at step 18 and resumed that must equal the straight one bit for bit),
+   with bfloat16 tables and towers at batch 512 and 8,192 (bench.py's bf16
+   lines; the unique-row layout, stochastic rounding, no scatter), and the
+   DSSM of configs/dssm.yaml on ``sparse_adamw``; each held to the CPU from
+   the same state before every step and with the same rounding bits;
+10. checks that each path launched the kernels it runs, the new paths as
    many times as they should: the counts are set to 0 just before a path is
    driven and read just after; then traces one CUDA-graph replay of the
    cross backward with ``torch.profiler``, which must run its two device
@@ -154,6 +164,21 @@ ZOO_CHECK_STEPS = 2
 DENSE_STEPS = 16                # steps in an epoch of the all-dense path
 DSSM_STEPS = 32                 # a DSSM epoch: 32 batches of 512
 DSSM_QUERIES = 1024             # the DSSM validation's query rows
+# the train_variants phase: the DCN and the DSSM on the sparse step's other
+# optimizer settings. K-step write-back (K 4) trains an epoch of 30 steps
+# (not a multiple of 4) with a step checkpoint every 6 steps, which cuts
+# every second group: the trainer flushes there, two steps into it, so each
+# 6-step chunk applies twice; a run cut at step 18 and resumed must equal the
+# straight run bit for bit
+LAZY_K, LAZY_STEPS, LAZY_CKPT_EVERY, LAZY_CUT = 4, 30, 6, 18
+LAZY_APPLIES = LAZY_STEPS // LAZY_CKPT_EVERY * -(-LAZY_CKPT_EVERY // LAZY_K)
+B8192, B8192_STEPS, B8192_CHECK_STEPS = 8192, 16, 2
+VARIANTS = ("dcn@sparse_adamw", "dcn@K4", "dcn@bf16", "dcn_b8192@bf16", "dssm@sparse_adamw")
+# bfloat16 towers, card vs CPU: their matmuls round to 8 bits of mantissa
+# on both, in other orders; after a step from the same state a weight may
+# move by up to ~3 lr (Adam's largest move) the other way where its
+# gradient is within that rounding of 0
+BF16_TOWER_TOL = dict(rtol=2e-2, atol=1e-2)
 # the fused block, kernel vs plain on the card: the JAX package's tolerances
 # for its kernel (float32, other summation orders; gradients are sums over
 # B*L rows, held to an atol of 2e-5 of the largest value)
@@ -1192,7 +1217,7 @@ def serve_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> 
 def compare_training_with_cpu(dev: torch.device, cfg, ds, n_steps: int = CHECK_STEPS) -> None:
     """``n_steps`` training steps (sparse, or all-dense for ``adamw``) on the
     card and on the CPU from the same seeded state and the same batches:
-    every parameter (both take the sorted route, so every table row) and
+    every parameter (both take the same update route, so every table row) and
     accumulator within TRAIN_TOL."""
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.dense_step import init_dense_state, make_train_step
@@ -1383,7 +1408,8 @@ def compare_dssm_training_with_cpu(dev: torch.device, cfg, ds) -> None:
     to the card before it): the loss, every gradient (rtol 1e-5, atol 1e-5
     of the largest) and, after the step, every parameter and accumulator
     within TRAIN_TOL, but for the parameters whose AdamW second moment is
-    positive and under ROUNDING_NU. Those are the weights whose gradient
+    positive and under ROUNDING_NU (AdamW's, or ``sparse_adamw``'s per
+    table element). Those are the weights whose gradient
     was near rounding noise (|g| < ~1e-7 in every step so far): Adam's
     update, lr * g / (|g| + 1e-8), turns a 1e-9 difference between the
     card's and the CPU's sums into up to 1e-4 there (on the H100 an
@@ -1421,8 +1447,7 @@ def compare_dssm_training_with_cpu(dev: torch.device, cfg, ds) -> None:
     for rows in idx.reshape(CHECK_STEPS, TRAIN_BATCH):
         models["cuda"].load_state_dict(models["cpu"].state_dict())
         opts[1].load_state_dict(copy.deepcopy(opts[0].state_dict()))
-        for name, acc in getattr(card, "emb_acc", {}).items():
-            acc.copy_(cpu.emb_acc[name])
+        copy_rowwise_state(cpu, card)
         for d, device in devices.items():
             batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(device),
                                  torch.from_numpy(packer.float_mat[rows]).to(device),
@@ -1436,24 +1461,19 @@ def compare_dssm_training_with_cpu(dev: torch.device, cfg, ds) -> None:
                 g, wg = p.grad.cpu(), want[n].grad
                 err["grads"] = max(err["grads"], float((g - wg).abs().max()))
                 torch.testing.assert_close(g, wg, msg=f"{n}.grad", **scaled_tol(wg))
-            nu = opts[0].state.get(want[n], {}).get("exp_avg_sq")
-            held = (torch.ones_like(w, dtype=torch.bool) if nu is None
-                    else (nu == 0) | (nu >= ROUNDING_NU))
+            held = held_weights(w, adam_nu(cpu, opts[0], n, want[n]))
             exempt += int((~held).sum())
             got = p.detach().cpu()
             err["params"] = max(err["params"], float((got - w)[held].abs().max()))
             torch.testing.assert_close(got[held], w[held], msg=n, **TRAIN_TOL)
-        for n, acc in getattr(card, "emb_acc", {}).items():
-            err["accumulators"] = max(err["accumulators"],
-                                      float((acc.cpu() - cpu.emb_acc[n]).abs().max()))
-            torch.testing.assert_close(acc.cpu(), cpu.emb_acc[n], msg=n, **TRAIN_TOL)
+        err["accumulators"] = max(err["accumulators"], check_rowwise_state(card, cpu))
         if card.step != cpu.step:
             raise AssertionError(f"steps: card {card.step}, CPU {cpu.step}")
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TRAIN_TOL)
     log(f"training dssm ({cfg.train_hparams.embedding_optimizer}, rate {rate}, logQ), card vs "
         f"CPU, {CHECK_STEPS} steps at batch {TRAIN_BATCH}, each from the CPU's state: tables "
         f"{sorted(cpu_model.tables.items())}; max_abs_err gradients {err['grads']:.3e}, "
-        f"tables + towers {err['params']:.3e}, AdaGrad accumulators "
+        f"tables + towers {err['params']:.3e}, rowwise optimizer state "
         f"{err['accumulators']:.3e} (tol {TRAIN_TOL}; weights left out, second moment in "
         f"(0, {ROUNDING_NU}): {exempt}); losses {losses['cuda']} vs {losses['cpu']}")
 
@@ -1589,6 +1609,278 @@ def train_dssm_phase(dev: torch.device, name: str, smi: str) -> dict:
         f"epoch of {warm_epoch['steps']} steps: {rate / TRAIN_BATCH:.1f} steps/s "
         f"({TRAIN_BATCH / rate * 1e3:.3f} ms a step), {rate:.0f} examples/s")
     return paths
+
+
+ROWWISE_KEYS = ("emb_acc", "emb_mu", "emb_nu")
+
+
+def copy_rowwise_state(src, dst) -> None:
+    """The CPU state ``src``'s rowwise optimizer state, apply counter and
+    pending rows into the card's ``dst`` (a sparse state; nothing for a
+    dense one)."""
+    from news_recsys_tpu_torch.training.sparse_step import PendingRows
+
+    for key in ROWWISE_KEYS:
+        for name, t in getattr(dst, key, {}).items():
+            t.copy_(getattr(src, key)[name])
+    if getattr(src, "pending", None) is not None:
+        p, dev = src.pending, next(dst.model.parameters()).device
+        dst.pending = PendingRows({t: v.to(dev, copy=True) for t, v in p.ids.items()},
+                                  {t: v.to(dev, copy=True) for t, v in p.grads.items()},
+                                  p.valid.to(dev, copy=True), p.count)
+    if hasattr(dst, "applies"):
+        dst.applies = src.applies
+
+
+def check_rowwise_state(card, cpu) -> float:
+    """The rowwise optimizer state, card against CPU, within TRAIN_TOL on
+    the tables' addressable rows; returns the largest difference."""
+    err = 0.0
+    vocab = {t: v for t, (v, _) in cpu.model.tables.items()}
+    for key in ROWWISE_KEYS:
+        for name, t in getattr(card, key, {}).items():
+            got, want = t.cpu()[: vocab[name]], getattr(cpu, key)[name][: vocab[name]]
+            err = max(err, float((got - want).abs().max()))
+            torch.testing.assert_close(got, want, msg=f"{key} {name}", **TRAIN_TOL)
+    return err
+
+
+def adam_nu(state, opt, name: str, param):
+    """The Adam second moment of a parameter after the step: AdamW's, or for
+    a large table on ``sparse_adamw`` its per-element ``emb_nu``; None."""
+    nu = opt.state.get(param, {}).get("exp_avg_sq") if opt is not None else None
+    table = name[len("embedder.tables."):]
+    if nu is None and table in getattr(state, "emb_nu", {}):
+        nu = state.emb_nu[table]
+    return nu
+
+
+def held_weights(w: torch.Tensor, nu) -> torch.Tensor:
+    """The weights held to TRAIN_TOL: all but those whose Adam second moment
+    is positive and under ROUNDING_NU (a gradient within rounding of 0 in
+    every step so far, which Adam's first steps amplify)."""
+    if nu is None:
+        return torch.ones_like(w, dtype=torch.bool)
+    return ((nu == 0) | (nu >= ROUNDING_NU)).reshape(w.shape)
+
+
+def same_noise(seed: int):
+    """One rounding-noise function for both devices: drawn on the CPU and
+    copied, so the card and the CPU round bfloat16 rows with the same bits."""
+    from news_recsys_tpu_torch.training.sparse_step import rounding_noise
+
+    cpu = rounding_noise(seed)
+    return lambda step, index, shape, device: cpu(step, index, shape, "cpu").to(device)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in bfloat16 ulps of two bfloat16 tensors."""
+    def ordered(t):
+        u = t.cpu().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def variant_config(name: str):
+    """The train_variants phase's configs: ``dssm@sparse_adamw`` is
+    :func:`dssm_config` on ``sparse_adamw``; the others
+    ``zoo.mind_config("dcn")`` (arena 159,360 x 32) at batch TRAIN_BATCH on
+    ``sparse_adamw``, with K-step write-back (``K4``: K LAZY_K, a step
+    checkpoint every LAZY_CKPT_EVERY steps), or with bfloat16 tables and
+    towers on ``rowwise_adagrad`` (``bf16``; ``dcn_b8192@bf16`` at batch
+    8,192): bench.py's two bf16 lines."""
+    from news_recsys_tpu_torch.config import config_from_dict, config_to_dict
+    from news_recsys_tpu_torch.zoo import mind_config
+
+    if name == "dssm@sparse_adamw":
+        return dssm_config("sparse_adamw")
+    bf16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"} if "bf16" in name else {}
+    raw = config_to_dict(mind_config(
+        "dcn", batch_size=B8192 if "b8192" in name else TRAIN_BATCH,
+        embedding_optimizer="sparse_adamw" if "sparse_adamw" in name else "rowwise_adagrad",
+        embedding_update_period=LAZY_K if "K4" in name else 1, **bf16))
+    if "K4" in name:
+        raw["train_hparams"]["ckpt_every_steps"] = LAZY_CKPT_EVERY
+    return config_from_dict(raw)
+
+
+def compare_variant_with_cpu(dev: torch.device, cfg, ds, n_steps: int) -> None:
+    """``n_steps`` sparse steps of a DCN variant on the card and on the CPU,
+    the same batches and rounding noise, each step from the CPU's state
+    copied to the card before it (with K > 1 its pending rows too; a
+    combined update after every K steps and after the last): the losses,
+    every parameter and the rowwise optimizer state. Tolerances: float32
+    within TRAIN_TOL but for weights whose Adam second moment is in (0,
+    ROUNDING_NU) (AdamW's, or ``sparse_adamw``'s per table element); a
+    bfloat16 table within one ulp on its addressable rows; with bfloat16
+    towers every float32 parameter (the towers, the cross stack and the
+    small tables, all stepped on the towers' gradients) and the losses
+    within BF16_TOWER_TOL."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
+                                                            make_sparse_train_step)
+    from news_recsys_tpu_torch.training.trainer import AucHist, BatchPacker, unpack_batch
+
+    cpu_model = build_ranker(cfg, seed=SEED + 31, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    noise = same_noise(SEED + 32)
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg, noise=noise) for d, m in models.items()}
+    cpu, card = states["cpu"], states["cuda"]
+    K, bs = cfg.train_hparams.embedding_update_period, cfg.dataset.batch_size
+    tower_tol = BF16_TOWER_TOL if cfg.mesh.compute_dtype == "bfloat16" else TRAIN_TOL
+    vocab = {f"embedder.tables.{t}": v for t, (v, _) in cpu_model.tables.items()}
+    packer = BatchPacker(ds)
+    idx = np.random.default_rng(SEED + 33).permutation(packer.n)[: n_steps * bs]
+    losses = {"cpu": [], "cuda": []}
+    err = {"params": 0.0, "state": 0.0, "ulps": 0, "bf16 values": 0, "bf16 exact": 0}
+    exempt = 0
+    for i, rows in enumerate(idx.reshape(n_steps, bs)):
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        card.dense_opt.load_state_dict(copy.deepcopy(cpu.dense_opt.state_dict()))
+        copy_rowwise_state(cpu, card)
+        card.step = cpu.step
+        for d, device in devices.items():
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(device),
+                                 torch.from_numpy(packer.float_mat[rows]).to(device),
+                                 torch.ones(bs, device=device), packer.layout_key())
+            losses[d].append(float(steps[d](states[d], batch, AucHist.zeros(device))[0]))
+            if K > 1 and (states[d].step % K == 0 or i == n_steps - 1):
+                steps[d].flush(states[d])
+        want = dict(models["cpu"].named_parameters())
+        for n, p in models["cuda"].named_parameters():
+            w, got = want[n].detach(), p.detach().cpu()
+            if p.dtype == torch.bfloat16:
+                ulps = bf16_ulps(got[: vocab[n]], w[: vocab[n]])
+                err["ulps"] = max(err["ulps"], int(ulps.max()))
+                err["bf16 values"] += ulps.numel()
+                err["bf16 exact"] += int((ulps == 0).sum())
+                if int(ulps.max()) > 1:
+                    raise AssertionError(f"{n}: {int(ulps.max())} bfloat16 ulps apart")
+                continue
+            held = held_weights(w, adam_nu(cpu, cpu.dense_opt, n, want[n]))
+            exempt += int((~held).sum())
+            err["params"] = max(err["params"], float((got - w)[held].abs().max()))
+            torch.testing.assert_close(got[held], w[held], msg=n, **tower_tol)
+        err["state"] = max(err["state"], check_rowwise_state(card, cpu))
+        if (card.step, card.applies) != (cpu.step, cpu.applies):
+            raise AssertionError(f"steps, applies: card {card.step, card.applies}, "
+                                 f"CPU {cpu.step, cpu.applies}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], **tower_tol)
+    log(f"training {cfg.name} ({cfg.train_hparams.embedding_optimizer}, K "
+        f"{K}, tables {cfg.mesh.param_dtype}, towers {cfg.mesh.compute_dtype}), card vs CPU, "
+        f"{n_steps} steps at batch {bs}, each from the CPU's state, the same rounding bits: "
+        f"max_abs_err float32 parameters {err['params']:.3e} (tol {TRAIN_TOL}, towers "
+        f"{tower_tol}; weights left out, Adam second moment in (0, {ROUNDING_NU}): {exempt}), "
+        f"rowwise optimizer state {err['state']:.3e}; bfloat16 tables: at most {err['ulps']} "
+        f"ulp apart, {err['bf16 exact']} of {err['bf16 values']} values bit-identical; "
+        f"applies {card.applies}; losses {losses['cuda']} vs {losses['cpu']}")
+
+
+def check_lazy_resume(dev: torch.device, cfg, ds, tmp: str) -> None:
+    """K-step write-back cut at step LAZY_CUT (a step checkpoint, two steps
+    into a group) and resumed, against the straight run: the tables, every
+    other parameter, the accumulators and the apply counter bit for bit."""
+    from news_recsys_tpu_torch.config import config_from_dict, config_to_dict
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.checkpoint import state_dict
+    from news_recsys_tpu_torch.training.trainer import Trainer
+
+    raw = config_to_dict(cfg)
+    raw["train_hparams"]["max_step"] = LAZY_CUT
+    runs = {}
+    for label, run_cfg in (("straight", cfg), ("cut", config_from_dict(raw))):
+        trainer = Trainer(run_cfg, build_ranker(cfg, seed=SEED + 34, device=dev),
+                          workdir=os.path.join(tmp, label), device=dev)
+        runs[label] = trainer.fit(ds, max_epochs=1)
+    trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 35, device=dev),
+                      workdir=os.path.join(tmp, "cut"), device=dev)
+    resumed = trainer.fit(ds, max_epochs=1, resume=True)
+    a, b = state_dict(runs["straight"]), state_dict(resumed)
+    diff = [f"{key} {n}" for key in ("model", *ROWWISE_KEYS) for n, t in a[key].items()
+            if not torch.equal(b[key][n], t)]
+    if diff or (a["step"], a["applies"]) != (b["step"], b["applies"]) or \
+            runs["cut"].step != LAZY_CUT:
+        raise AssertionError(f"K-step write-back resumed at step {LAZY_CUT} differs from the "
+                             f"straight run: {diff}, steps/applies {a['step'], a['applies']} vs "
+                             f"{b['step'], b['applies']}")
+    log(f"K-step write-back (K {LAZY_K}), cut at step {LAZY_CUT} of {LAZY_STEPS} (checkpoints "
+        f"every {LAZY_CKPT_EVERY}) and resumed on the card: every tensor bit-identical to the "
+        f"straight run's ({len(a['model'])} parameters, accumulators); steps {b['step']}, "
+        f"applies {b['applies']}")
+
+
+def train_variant(dev: torch.device, name: str, smi: str, tmp: str) -> dict:
+    """One variant of :func:`variant_config` on the card: card against CPU
+    from the same state before each step, ``Trainer.fit`` (the DSSM:
+    ``DSSMTrainer.fit``) for an epoch, counted, then a timed warm epoch;
+    for ``dcn@K4`` also the resumed run. Returns the epoch's launches."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    cfg = variant_config(name)
+    bs = cfg.dataset.batch_size
+    dssm = name.startswith("dssm")
+    n_steps = (DSSM_STEPS if dssm else LAZY_STEPS if "K4" in name
+               else B8192_STEPS if "b8192" in name else EARLIER_TRAIN_STEPS)
+    seed = SEED + 36 + VARIANTS.index(name)
+    ds = PackedDataset(dssm_arrays(bs * n_steps, seed) if dssm else
+                       ranking_arrays(bs * n_steps, seed))
+    if dssm:
+        timed(f"train_variants ({name}): {CHECK_STEPS} steps card vs CPU",
+              compare_dssm_training_with_cpu, dev, cfg, ds)
+    else:
+        check = (B8192_CHECK_STEPS if "b8192" in name else
+                 LAZY_CKPT_EVERY if "K4" in name else CHECK_STEPS)
+        timed(f"train_variants ({name}): {check} steps card vs CPU", compare_variant_with_cpu,
+              dev, cfg, ds, check)
+    work = os.path.join(tmp, name.replace("@", "_"))
+    if dssm:
+        trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=seed, device=dev), workdir=work,
+                              device=dev)
+    else:
+        trainer = Trainer(cfg, build_ranker(cfg, seed=seed, device=dev), workdir=work,
+                          device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(ds, max_epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    with open(trainer.metrics_path) as f:
+        first = next(json.loads(line) for line in f if "train_loss" in line)
+    bad = [n for n, p in trainer.model.named_parameters() if not torch.isfinite(p).all()]
+    if first["steps"] != n_steps or not math.isfinite(first["train_loss"]) or bad:
+        raise AssertionError(f"{name}: Trainer.fit: {first}; non-finite parameters {bad}")
+    tables = {n: (tuple(t.shape), str(t.dtype)[6:]) for n, t in
+              trainer.model.embedder.tables.items()}
+    log(f"Trainer.fit ({name}) on the card: tables {tables}; {n_steps} steps of batch {bs} in "
+        f"{fit_s:.2f} s (first epoch, warm-up included); train_loss "
+        f"{first['train_loss']:.6f}; applies {getattr(state, 'applies', 0)}; launches in that "
+        f"epoch: {launches}")
+    _, warm = trainer.train_epoch(state, ds, epoch=1)
+    if not math.isfinite(warm["train_loss"]):
+        raise AssertionError(f"{name}: train_epoch: {warm}")
+    rate = warm["examples_per_sec"]
+    log(f"training throughput ({name}) on {smi}: batch {bs}, a warm epoch of {warm['steps']} "
+        f"steps: {rate / bs:.1f} steps/s ({bs / rate * 1e3:.3f} ms a step), {rate:.0f} "
+        f"examples/s")
+    if "K4" in name:
+        timed("train_variants (dcn@K4): the resumed run", check_lazy_resume, dev, cfg, ds,
+              os.path.join(tmp, "resume"))
+    return launches
+
+
+def train_variants_phase(dev: torch.device, smi: str) -> dict:
+    """Every variant of VARIANTS trained on the card (:func:`train_variant`);
+    returns each one's launches as a path ``train_<variant>``."""
+    torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        return {f"train_{name.replace('@', '_')}": train_variant(dev, name, smi, tmp)
+                for name in VARIANTS}
 
 
 def cli_config(tmp: str, name: str, **train) -> str:
@@ -1890,7 +2182,7 @@ PATH_KERNELS = {
                         "fused_transformer_block_bwd": 0, "scatter_rows_set": 0},
     "train_attention": {"fused_transformer_block": TRAIN_STEPS,
                         "fused_transformer_block_bwd": TRAIN_STEPS,
-                        "scatter_rows_set": 2 * TRAIN_STEPS, "fused_lookup_pool": 0},
+                        "scatter_rows_set": TRAIN_STEPS, "fused_lookup_pool": 0},
     "train_attention_dense": {"fused_transformer_block": DENSE_STEPS,
                               "fused_transformer_block_bwd": DENSE_STEPS,
                               "fused_lookup_pool": DENSE_STEPS,
@@ -1898,11 +2190,28 @@ PATH_KERNELS = {
     # the DSSM's all-dense step pools ``hist`` (65,280 x 16, L 30) once a
     # step and runs the pool's backward once a step; its validation pools
     # each batch of 512 queries once; the rowwise variant pools in plain ops
-    # on the gathered rows and scatters the user and item tables a step
+    # on the gathered rows and scatters the user table a step (the item
+    # table's 15,872 slots of 65,280 rows take the dense AdaGrad route, as the
+    # sparse attention step's item table does: one scatter a step there)
     "train_dssm": {"fused_lookup_pool": DSSM_STEPS + -(-DSSM_QUERIES // TRAIN_BATCH),
                    "fused_lookup_pool_bwd": DSSM_STEPS, "scatter_rows_set": 0},
-    "train_dssm_rowwise": {"scatter_rows_set": 2 * CHECK_STEPS, "fused_lookup_pool": 0,
+    "train_dssm_rowwise": {"scatter_rows_set": CHECK_STEPS, "fused_lookup_pool": 0,
                            "fused_lookup_pool_bwd": 0},
+    # the optimizer variants' epochs: sparse_adamw writes the table and both
+    # moments through the scatter, three launches a table a step (the DSSM
+    # has two tables); K-step write-back one launch an apply; a bfloat16
+    # table takes the unique-row layout and a plain write, no scatter
+    "train_dcn_sparse_adamw": {"dcn_cross_stack": EARLIER_TRAIN_STEPS,
+                               "dcn_cross_bwd": EARLIER_TRAIN_STEPS,
+                               "scatter_rows_set": 3 * EARLIER_TRAIN_STEPS},
+    "train_dcn_K4": {"dcn_cross_stack": LAZY_STEPS, "dcn_cross_bwd": LAZY_STEPS,
+                     "scatter_rows_set": LAZY_APPLIES},
+    "train_dcn_bf16": {"dcn_cross_stack": EARLIER_TRAIN_STEPS,
+                       "dcn_cross_bwd": EARLIER_TRAIN_STEPS, "scatter_rows_set": 0},
+    "train_dcn_b8192_bf16": {"dcn_cross_stack": B8192_STEPS, "dcn_cross_bwd": B8192_STEPS,
+                             "scatter_rows_set": 0},
+    "train_dssm_sparse_adamw": {"scatter_rows_set": 3 * 2 * DSSM_STEPS, "fused_lookup_pool": 0,
+                                "fused_lookup_pool_bwd": 0},
     # the command line: the DCN's, the attention ranker's and the DSSM's
     # all-dense steps, validations and predictions (the pool pools
     # ``entities`` and ``hist``)
@@ -1957,7 +2266,8 @@ def run(dev: torch.device) -> None:
              "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
                                             smi, "attention@adamw"),
              **timed("train_dssm", train_dssm_phase, dev, name, smi),
-             "cli": timed("cli", cli_phase, dev, name, smi)}
+             "cli": timed("cli", cli_phase, dev, name, smi),
+             **timed("train_variants", train_variants_phase, dev, smi)}
     check_launches(paths)
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
         timed("trace of the cross backward", trace_cross_bwd, dev)

@@ -23,9 +23,16 @@ kernels, which the port's attention layers store as flax does.
 
 A sparse training state travels the same way (:func:`sparse_state_from_jax`,
 :func:`sparse_state_to_jax`): AdamW's moments are keyed by their
-parameter's flax path. So does the all-dense state
-(:func:`dense_state_from_jax`, :func:`dense_state_to_jax`), whose moments
-cover the whole tree.
+parameter's flax path, the rowwise optimizer's state by table. So does the
+all-dense state (:func:`dense_state_from_jax`, :func:`dense_state_to_jax`),
+whose moments cover the whole tree.
+
+A bfloat16 table (``mesh.param_dtype: bfloat16``) leaves ``jax.device_get``
+as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses, and
+numpy has no bfloat16 of its own: it crosses as its uint16 bit pattern.
+Coming in, a bfloat16 or uint16 leaf widens exactly to float32 and loads
+into the bfloat16 parameter; going out, a bfloat16 parameter is a uint16
+array (JAX takes it back with ``.view(jnp.bfloat16)``).
 """
 
 from __future__ import annotations
@@ -74,13 +81,35 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def is_bf16(a) -> bool:
+    """A bfloat16 leaf: ``ml_dtypes.bfloat16``, or its bits as uint16."""
+    a = np.asarray(a)
+    return a.dtype.name == "bfloat16" or a.dtype == np.uint16
+
+
+def as_float32(value) -> np.ndarray:
+    """A leaf as float32; a bfloat16 one (:func:`is_bf16`) widens exactly."""
+    a = np.asarray(value)
+    if is_bf16(a):
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return np.asarray(a, np.float32)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bfloat16 as its uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def port_arrays(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """{flax path: array} -> {port parameter name: float32 array}: kernels
     transposed, the per-layer cross vectors stacked."""
     state: Dict[str, np.ndarray] = {}
     cross: Dict[str, Dict[int, np.ndarray]] = {"w": {}, "b": {}}
     for path, value in flat.items():
-        value = np.asarray(value, np.float32)
+        value = as_float32(value)
         if m := _FLAX_BLOCK.match(path):
             if m.group(2) not in BLOCK_LEAVES:
                 raise KeyError(f"no port parameter for flax path {path!r}")
@@ -131,15 +160,25 @@ def flax_arrays(named: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def params_from_flax(tree: Mapping, model: nn.Module) -> nn.Module:
     """Copy flax parameters into ``model`` in place (strict: every parameter
-    of the model must be given, and nothing else); returns ``model``."""
-    state = port_arrays(flatten(tree))
+    of the model must be given, and nothing else, a bfloat16 table into a
+    bfloat16 one); returns ``model``."""
+    flat = flatten(tree)
+    own = model.state_dict()
+    for path, value in flat.items():
+        name = f"embedder.tables.{path[len('embedder/'):]}"
+        if path.startswith("embedder/") and name in own and \
+                is_bf16(value) != (own[name].dtype == torch.bfloat16):
+            raise ValueError(f"{path}: a {np.asarray(value).dtype} table does not load into "
+                             f"a {own[name].dtype} one (mesh.param_dtype differs?)")
+    state = port_arrays(flat)
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
     return model
 
 
 def params_to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`params_from_flax`: flat {flax path: array}."""
-    return flax_arrays({name: t.detach().cpu().numpy() for name, t in model.state_dict().items()})
+    """Inverse of :func:`params_from_flax`: flat {flax path: array}, a
+    bfloat16 table as its uint16 bits."""
+    return flax_arrays({name: tensor_to_numpy(t) for name, t in model.state_dict().items()})
 
 
 def flatten_sparse_state(state) -> Dict:
@@ -149,16 +188,16 @@ def flatten_sparse_state(state) -> Dict:
 
         {"params": {flax path: array},
          "dense_opt": {"count": (), "mu": {flax path: array}, "nu": {...}},
-         "emb_mu": {table: (V,)}, "step": ()}
+         "emb_mu": {table: array}, "emb_nu": {table: array}, "step": ()}
 
     ``dense_opt`` is optax's ``adamw`` state: the ``ScaleByAdamState`` of
     the dense parameters and the small tables (its ``count`` also counts the
-    schedule), keyed by the parameters' flax paths."""
+    schedule), keyed by the parameters' flax paths. ``emb_mu`` holds the
+    AdaGrad accumulators (V,) with ``emb_nu`` empty (``rowwise_adagrad``),
+    or Adam's first moments (V, D) with the second in ``emb_nu``
+    (``sparse_adamw``)."""
     if isinstance(state, Mapping):
         return state
-    if state.emb_nu:
-        raise NotImplementedError("sparse_adamw states are not ported yet: see ROADMAP.md, "
-                                  "queue 1, item 4 ('Optimizer variants')")
     adam = state.dense_opt[0]
 
     def moments(tree) -> Dict[str, np.ndarray]:
@@ -168,16 +207,27 @@ def flatten_sparse_state(state) -> Dict:
             "dense_opt": {"count": np.asarray(adam.count), "mu": moments(adam.mu),
                           "nu": moments(adam.nu)},
             "emb_mu": {k: np.asarray(v) for k, v in state.emb_mu.items()},
+            "emb_nu": {k: np.asarray(v) for k, v in state.emb_nu.items()},
             "step": np.asarray(state.step)}
+
+
+def _rowwise_state(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port state's rowwise optimizer state under the JAX names: AdaGrad's
+    accumulators as ``emb_mu``, or Adam's moments as ``emb_mu`` / ``emb_nu``."""
+    if state.emb_acc:
+        return {"emb_mu": state.emb_acc, "emb_nu": {}}
+    return {"emb_mu": state.emb_mu, "emb_nu": state.emb_nu}
 
 
 def sparse_state_from_jax(state, model: nn.Module, cfg):
     """A JAX ``SparseTrainState`` (or :func:`flatten_sparse_state`'s dict)
     as the port's: ``model`` takes the parameters in place, AdamW its
     moments and step count per parameter (optax ``count`` / ``mu`` / ``nu``
-    -> torch ``step`` / ``exp_avg`` / ``exp_avg_sq``), the AdaGrad
-    accumulators and the step carry over. Training then continues as the
-    JAX state would."""
+    -> torch ``step`` / ``exp_avg`` / ``exp_avg_sq``), the rowwise
+    optimizer's state (AdaGrad's accumulators, or Adam's moments) and the
+    step carry over. Training then continues as the JAX state would. The
+    JAX state has no apply counter for K-step write-back: the port's starts
+    at ``step // K``, as the JAX package derives it at a chunk's entry."""
     s = flatten_sparse_state(state)
     params_from_flax(s["params"], model)
     out = init_sparse_state(model, cfg)
@@ -192,12 +242,18 @@ def sparse_state_from_jax(state, model: nn.Module, cfg):
             "step": torch.tensor(count),
             "exp_avg": torch.tensor(mu[name], device=p.device),
             "exp_avg_sq": torch.tensor(nu[name], device=p.device)}
-    if set(s["emb_mu"]) != set(out.emb_acc):
-        raise KeyError(f"accumulators {sorted(s['emb_mu'])} do not match the large tables "
-                       f"{sorted(out.emb_acc)}")
-    for name, acc in s["emb_mu"].items():
-        out.emb_acc[name].copy_(torch.from_numpy(np.array(acc, np.float32)))
+    for key, live in _rowwise_state(out).items():
+        saved = s.get(key, {})
+        if set(saved) != set(live):
+            raise KeyError(f"{key} {sorted(saved)} does not match the large tables' "
+                           f"{sorted(live)} ({cfg.train_hparams.embedding_optimizer})")
+        for name, t in live.items():
+            if tuple(np.shape(saved[name])) != tuple(t.shape):
+                raise ValueError(f"{key} {name}: shape {np.shape(saved[name])}, the state "
+                                 f"has {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(as_float32(saved[name]).copy()))
     out.step = int(np.asarray(s["step"]))
+    out.applies = out.step // cfg.train_hparams.embedding_update_period
     return out
 
 
@@ -219,7 +275,8 @@ def sparse_state_to_jax(state) -> Dict:
     return {"params": params_to_flax(state.model),
             "dense_opt": {"count": np.asarray(int(steps.pop()) if steps else 0, np.int32),
                           "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
-            "emb_mu": {k: v.detach().cpu().numpy() for k, v in state.emb_acc.items()},
+            **{key: {k: tensor_to_numpy(v) for k, v in live.items()}
+               for key, live in _rowwise_state(state).items()},
             "step": np.asarray(state.step, np.int32)}
 
 

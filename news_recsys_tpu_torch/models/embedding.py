@@ -11,7 +11,12 @@ Port of :mod:`news_recsys_tpu.models.embedding`, with the same contracts:
   clamp ids outside ``[1, member_vocab)`` to padding (:func:`offset_ids`);
 - array features are masked-mean pooled with the ``+1e-8`` denominator,
   through :func:`~news_recsys_tpu_torch.ops.fused_lookup_pool.fused_lookup_pool`
-  (differentiable in the table), unless the model takes them unpooled.
+  (differentiable in the table), unless the model takes them unpooled;
+- ``table_dtype="bfloat16"`` stores the LARGE tables (vocab >=
+  ``SMALL_VOCAB_THRESHOLD``) as bfloat16 (:func:`table_storage_dtype`);
+  lookups upcast to float32 right after the gather, and a bfloat16 table
+  pools in plain ops, as the JAX package gates its pool kernel to float32
+  tables.
 
 Ids outside a table's ``[0, V)`` read as NaN rows, as ``jnp.take`` fills
 them in the JAX package.
@@ -33,6 +38,14 @@ VOCAB_PAD_MULTIPLE = 128
 # Tables with vocab below this train with dense AdamW on the sparse step
 # path; the larger ones with a rowwise optimizer (``training/sparse_step.py``).
 SMALL_VOCAB_THRESHOLD = 4096
+
+
+def table_storage_dtype(table_dtype: str, vocab: int) -> torch.dtype:
+    """A table's storage dtype: ``bfloat16`` applies to large tables only;
+    the small side tables stay float32."""
+    if table_dtype == "bfloat16" and vocab >= SMALL_VOCAB_THRESHOLD:
+        return torch.bfloat16
+    return torch.float32
 
 
 def padded_vocab(vocab: int) -> int:
@@ -62,22 +75,24 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 class EmbeddingCollection(nn.Module):
     """Owns every embedding table (``tables``: name -> (vocab, dim)), each
-    initialised N(0, init_scale) from ``generator`` with row 0 zero."""
+    initialised N(0, init_scale) from ``generator`` with row 0 zero, and
+    stored in :func:`table_storage_dtype` of ``table_dtype``."""
 
     def __init__(self, tables: Mapping[str, Tuple[int, int]], init_scale: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, table_dtype: str = "float32"):
         super().__init__()
         params = {}
         for name, (vocab, dim) in sorted(tables.items()):
             table = torch.empty(padded_vocab(vocab), dim)
             table.normal_(0.0, init_scale, generator=generator)
             table[0] = 0.0
-            params[name] = nn.Parameter(table)
+            params[name] = nn.Parameter(table.to(table_storage_dtype(table_dtype, vocab)))
         self.tables = nn.ParameterDict(params)
 
     def lookup(self, table_name: str, ids: torch.Tensor) -> torch.Tensor:
-        """Gather rows (..., D); id 0 reads zeros, ids outside [0, V) read NaN."""
-        emb = take(self.tables[table_name], ids)
+        """Gather rows (..., D) in float32; id 0 reads zeros, ids outside
+        [0, V) read NaN."""
+        emb = take(self.tables[table_name], ids).float()
         return emb * (ids != 0).to(emb.dtype)[..., None]
 
     @staticmethod
@@ -112,6 +127,9 @@ class EmbeddingCollection(nn.Module):
                 mask = batch.get(f"{spec.name}_mask")
                 if mask is None:
                     mask = val != 0
+                if self.tables[spec.table].dtype != torch.float32:
+                    parts.append(self.pool(self.lookup(spec.table, val), mask))
+                    continue
                 parts.append(fused_lookup_pool(
                     self.tables[spec.table], val.to(torch.int32).contiguous(),
                     mask.to(torch.float32).contiguous()))

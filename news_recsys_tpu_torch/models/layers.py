@@ -21,33 +21,49 @@ from ..ops.fused_attention import fused_transformer_block, mhsa_plain
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` initialised U(+-1/sqrt(fan_in)) from ``generator``."""
+    """``nn.Linear`` initialised U(+-1/sqrt(fan_in)) from ``generator``.
+
+    ``compute_dtype`` is flax's ``dtype``: the parameters stay float32, and
+    the input, weight and bias are cast to it for the matmul and the bias
+    add (rounded after each, as flax's ``Dense`` rounds them)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
         bound = 1.0 / math.sqrt(in_features)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        return x.to(dt) @ self.weight.to(dt).t() + self.bias.to(dt)
+
 
 class MLP(nn.Module):
     """Linear+ReLU stack, no activation after the last layer (``dims`` are
-    the hidden and output sizes; the input size is given)."""
+    the hidden and output sizes; the input size is given). With a
+    ``compute_dtype`` (bfloat16 towers) the matmuls run in it and the last
+    output is cast back to float32, as the JAX package's ``MLP``."""
 
     def __init__(self, in_features: int, dims: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         sizes = [in_features, *dims]
-        self.layers = nn.ModuleList(Linear(a, b, generator) for a, b in zip(sizes, sizes[1:]))
+        self.layers = nn.ModuleList(Linear(a, b, generator, compute_dtype)
+                                    for a, b in zip(sizes, sizes[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:
                 x = torch.relu(x)
-        return x
+        return x.float()
 
 
 def _uniform(shape, fan_in: int, generator: Optional[torch.Generator]) -> nn.Parameter:

@@ -46,11 +46,14 @@ class RankerBase(nn.Module):
     unpooled_arrays: Tuple[str, ...] = ()
 
     def __init__(self, tables: Mapping[str, Tuple[int, int]], schema: FeatureSchema,
-                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
+                 table_dtype: str = "float32", compute_dtype: str = "float32"):
         super().__init__()
         self.tables = dict(tables)
         self.schema = schema
-        self.embedder = EmbeddingCollection(tables, init_scale, generator)
+        # mesh.compute_dtype: the MLP towers' matmul dtype (None: float32)
+        self.tower_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
+        self.embedder = EmbeddingCollection(tables, init_scale, generator, table_dtype)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         fields = self.embedder.embed_fields(batch, self.schema,
@@ -80,9 +83,10 @@ class DeepRanker(RankerBase):
     """Concat embeddings -> MLP [128,128,128,64,1] (``deep/model.py:12-29``)."""
 
     def __init__(self, tables, schema: FeatureSchema, hidden: Sequence[int] = DEFAULT_HIDDEN,
-                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
-        self.tower = MLP(schema.total_dim, hidden, generator)
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
+                 **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
+        self.tower = MLP(schema.total_dim, hidden, generator, self.tower_dtype)
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         return self.tower(torch.cat(fields, dim=1))[:, 0]
@@ -94,11 +98,11 @@ class WideDeepRanker(RankerBase):
 
     def __init__(self, tables, schema: FeatureSchema, wide_features: Sequence[str],
                  hidden: Sequence[int] = DEFAULT_HIDDEN, init_scale: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
+                 generator: Optional[torch.Generator] = None, **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
         self.wide_features = tuple(wide_features)
         n_wide = sum(spec.name in self.wide_features for spec in schema.specs)
-        self.tower = MLP(schema.total_dim - n_wide, hidden, generator)
+        self.tower = MLP(schema.total_dim - n_wide, hidden, generator, self.tower_dtype)
         self.bias = nn.Parameter(torch.zeros(1))
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
@@ -126,8 +130,8 @@ class FMRanker(RankerBase):
     """Factorization machine on column-sliced embeddings (``fm/model.py``)."""
 
     def __init__(self, tables, schema: FeatureSchema, init_scale: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
+                 generator: Optional[torch.Generator] = None, **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
         self.bias = nn.Parameter(torch.zeros(1))
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
@@ -139,10 +143,11 @@ class DeepFMRanker(RankerBase):
     shared embeddings, summed into one logit (Guo et al. 2017)."""
 
     def __init__(self, tables, schema: FeatureSchema, hidden: Sequence[int] = DEFAULT_HIDDEN,
-                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
+                 **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
         self.bias = nn.Parameter(torch.zeros(1))
-        self.tower = MLP(schema.total_dim, hidden, generator)
+        self.tower = MLP(schema.total_dim, hidden, generator, self.tower_dtype)
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         fm = fm_first_and_second(fields, "DeepFM")
@@ -188,12 +193,13 @@ class DCNRanker(RankerBase):
 
     def __init__(self, tables, schema: FeatureSchema, cross_layers: int = 3,
                  cross_version: int = 1, hidden: Sequence[int] = DEFAULT_HIDDEN,
-                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
+                 **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
         dim = schema.total_dim
         cross = CrossNetV1 if cross_version == 1 else CrossNetV2
         self.cross = cross(dim, cross_layers, generator)
-        self.tower = MLP(2 * dim, hidden, generator)
+        self.tower = MLP(2 * dim, hidden, generator, self.tower_dtype)
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         x = torch.cat(fields, dim=1)
@@ -207,9 +213,6 @@ def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
     name = name or cfg.name
     if name not in RANKER_NAMES:
         raise ValueError(f"Unknown ranker: {name!r}")
-    if cfg.mesh.param_dtype != "float32" or cfg.mesh.compute_dtype != "float32":
-        raise NotImplementedError("bfloat16 tables and towers are not ported yet: "
-                                  "see ROADMAP.md, queue 1, 'Optimizer variants'")
     if name == "attention":
         from .seq_ranker import build_attention_ranker
 
@@ -217,7 +220,8 @@ def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
     schema = build_schema(cfg)
     common = dict(tables=table_specs(cfg), schema=schema,
                   init_scale=cfg.embeddings.init_scale,
-                  generator=torch.Generator().manual_seed(seed))
+                  generator=torch.Generator().manual_seed(seed),
+                  table_dtype=cfg.mesh.param_dtype, compute_dtype=cfg.mesh.compute_dtype)
     if name == "lr":
         model = LRRanker(**common)
     elif name == "deep":

@@ -36,8 +36,8 @@ class AttentionSeqRanker(RankerBase):
     def __init__(self, tables, schema: FeatureSchema, hist_feature: str = "hist",
                  num_layers: int = 1, num_heads: int = 2, ff_dim: int = 64,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, init_scale: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(tables, schema, init_scale, generator)
+                 generator: Optional[torch.Generator] = None, **dtypes):
+        super().__init__(tables, schema, init_scale, generator, **dtypes)
         self.hist_feature = hist_feature
         self.unpooled_arrays = (hist_feature,)
         names = list(schema.names)
@@ -45,8 +45,10 @@ class AttentionSeqRanker(RankerBase):
         dim = schema[hist_feature].dim
         self.blocks = nn.ModuleList(TransformerBlock(dim, num_heads, ff_dim, generator=generator)
                                     for _ in range(num_layers))
-        # every field but the history, then the pooled history vector
-        self.tower = MLP(schema.total_dim, hidden, generator)
+        # every field but the history, then the pooled history vector; the
+        # blocks stay float32 (``h`` is, from the float32 lookups), so they
+        # keep their kernels under bfloat16 towers
+        self.tower = MLP(schema.total_dim, hidden, generator, self.tower_dtype)
 
     def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
         h = fields[self.hist_i]                                        # (B, L, D)
@@ -86,4 +88,5 @@ def build_attention_ranker(cfg: Config, *, seed: int = 0) -> AttentionSeqRanker:
         tables=table_specs(cfg), schema=build_schema(cfg, rank_names),
         hist_feature=hist_feature, num_layers=int(acfg.get("num_layers", 1)),
         num_heads=int(acfg.get("num_heads", 2)), ff_dim=int(acfg.get("ff_dim", 64)),
-        init_scale=cfg.embeddings.init_scale, generator=torch.Generator().manual_seed(seed))
+        init_scale=cfg.embeddings.init_scale, generator=torch.Generator().manual_seed(seed),
+        table_dtype=cfg.mesh.param_dtype, compute_dtype=cfg.mesh.compute_dtype)

@@ -6,8 +6,14 @@ Port of :mod:`news_recsys_tpu.training.checkpoint` (Orbax) on
 - all-dense (:class:`~.dense_step.DenseTrainState`): ``kind`` "dense", the
   model's ``state_dict``, AdamW's ``state_dict`` and ``step``;
 - sparse (:class:`~.sparse_step.SparseTrainState`): ``kind`` "sparse", the
-  model's ``state_dict``, ``dense_opt`` (AdamW's ``state_dict``, or None when
-  the state has no AdamW), the AdaGrad accumulators ``emb_acc`` and ``step``.
+  model's ``state_dict`` (a bfloat16 table as bfloat16), ``dense_opt``
+  (AdamW's ``state_dict``, or None when the state has no AdamW), the rowwise
+  optimizer's state (``rowwise_adagrad``: the accumulators ``emb_acc``;
+  ``sparse_adamw``: the moments ``emb_mu`` and ``emb_nu``), ``step`` and the
+  K-step write-back's apply counter ``applies``. A checkpoint holds no
+  pending rows: the trainer saves only where it has flushed them. One
+  written before ``sparse_adamw`` and K-step write-back were ported (no
+  ``emb_mu``, ``emb_nu`` or ``applies``) loads as a state with none of them.
 
 A weights-only checkpoint (:func:`save_weights`, the DSSM's per-epoch
 file, as the JAX package's ``save_weights_only`` writes) has ``kind``
@@ -33,10 +39,11 @@ from typing import List, Optional
 import torch
 
 STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+MOMENTS = ("emb_acc", "emb_mu", "emb_nu")       # a sparse state's rowwise optimizer state
 
 
 def state_kind(state) -> str:
-    """"sparse" for a state with AdaGrad accumulators, else "dense"."""
+    """"sparse" for a state with rowwise optimizer state, else "dense"."""
     return "sparse" if hasattr(state, "emb_acc") else "dense"
 
 
@@ -44,8 +51,13 @@ def state_dict(state) -> dict:
     """The checkpoint of ``state``: its tensors (on their devices) and step."""
     out = {"kind": state_kind(state), "model": state.model.state_dict(), "step": int(state.step)}
     if out["kind"] == "sparse":
+        if state.pending is not None and state.pending.count:
+            raise ValueError(f"a checkpoint at step {state.step} would lose "
+                             f"{state.pending.count} steps of pending rows: flush them first")
         out["dense_opt"] = None if state.dense_opt is None else state.dense_opt.state_dict()
-        out["emb_acc"] = dict(state.emb_acc)
+        for key in MOMENTS:
+            out[key] = dict(getattr(state, key))
+        out["applies"] = int(state.applies)
     else:
         out["opt"] = state.opt.state_dict()
     return out
@@ -76,22 +88,37 @@ def load_state_dict(state, blob: dict):
     if blob.get("kind") != kind:
         raise ValueError(f"a {blob.get('kind')!r} checkpoint does not load into a {kind!r} "
                          "training state")
+    _check_dtypes(state.model, blob["model"])
     state.model.load_state_dict(blob["model"], strict=True)
     if kind == "sparse":
         _load_adamw(state.dense_opt, blob["dense_opt"], "dense_opt")
-        saved = blob["emb_acc"]
-        if set(saved) != set(state.emb_acc):
-            raise ValueError(f"accumulators {sorted(saved)} do not match the large tables "
-                             f"{sorted(state.emb_acc)}")
-        for name, acc in state.emb_acc.items():
-            if saved[name].shape != acc.shape:
-                raise ValueError(f"accumulator {name}: shape {tuple(saved[name].shape)}, the "
-                                 f"table has {tuple(acc.shape)}")
-            acc.copy_(saved[name])
+        for key in MOMENTS:
+            saved, live = blob.get(key, {}), getattr(state, key)
+            if set(saved) != set(live):
+                raise ValueError(f"{key} {sorted(saved)} does not match the state's "
+                                 f"{sorted(live)} (another embedding_optimizer?)")
+            for name, t in live.items():
+                if saved[name].shape != t.shape:
+                    raise ValueError(f"{key} {name}: shape {tuple(saved[name].shape)}, the "
+                                     f"state has {tuple(t.shape)}")
+                t.copy_(saved[name])
+        state.applies = int(blob.get("applies", 0))
+        if state.pending is not None:
+            state.pending.valid.zero_()
+            state.pending.count = 0
     else:
         _load_adamw(state.opt, blob["opt"], "opt")
     state.step = int(blob["step"])
     return state
+
+
+def _check_dtypes(model, saved: dict) -> None:
+    """A table's dtype must match (``load_state_dict`` would cast a float32
+    table into a bfloat16 one without a word)."""
+    for name, t in model.state_dict().items():
+        if name in saved and saved[name].dtype != t.dtype:
+            raise ValueError(f"{name}: the checkpoint holds {saved[name].dtype}, the model "
+                             f"{t.dtype} (mesh.param_dtype differs?)")
 
 
 def save_state(path: str, state) -> str:

@@ -3,9 +3,9 @@
 Port of :mod:`news_recsys_tpu.training.retrieval`: :class:`DSSMTrainer` is
 a :class:`~.trainer.Trainer` whose step is the two-tower one, on the
 all-dense AdamW step (:func:`make_dssm_train_step`, ``embedding_optimizer=
-"adamw"``, what ``configs/dssm.yaml`` ships) or the rowwise AdaGrad step
-(:func:`make_dssm_sparse_train_step`, the ``K == 1`` body of JAX's
-``make_dssm_sparse_chunk_fn``), with a ``Retrieval:`` block in
+"adamw"``, what ``configs/dssm.yaml`` ships) or the rowwise step on
+``rowwise_adagrad`` or ``sparse_adamw`` (:func:`make_dssm_sparse_train_step`,
+JAX's ``make_dssm_sparse_chunk_fn``, which refuses K-step write-back), with a ``Retrieval:`` block in
 ``val_log.log`` after every epoch and weights-only ``epoch_<NNN>.pt``.
 
 JAX keys each step's negatives by ``fold_in(key, state.step)``. The port
@@ -97,14 +97,20 @@ def make_dssm_train_step(model: DSSM, cfg: Config, temperature: float,
 def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
                                 loss_type: str = "infonce", margin: float = 1.0,
                                 logq_table=None):
-    """``step(state, batch, negatives) -> (loss, None)`` with rowwise
-    AdaGrad on the large tables (:mod:`.sparse_step`'s state): the loss is
-    differentiated with respect to the gathered user and item table rows
-    (no (V, D) gradient exists), AdamW steps the towers and the small
-    tables, and the touched rows are written back through the row scatter
-    kernel. ``sparse_adamw`` and K-step write-back raise ``NotImplementedError``."""
+    """``step(state, batch, negatives) -> (loss, None)`` with the rowwise
+    optimizer (``rowwise_adagrad`` or ``sparse_adamw``) on the large tables
+    (:mod:`.sparse_step`'s state and updater): the loss is differentiated
+    with respect to the gathered user and item table rows (no (V, D)
+    gradient exists), AdamW steps the towers and the small tables, and the
+    touched rows are written back through the row scatter kernel. K-step
+    write-back raises ``NotImplementedError``, as in the JAX package."""
     check_sparse(cfg)
     hp = cfg.train_hparams
+    if hp.embedding_update_period > 1:
+        raise NotImplementedError(
+            "embedding_update_period > 1 (lazy write-back) is implemented for "
+            "the ranking path only; DSSM retrieval training applies exact "
+            "per-step updates.")
     sched = hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)
     large = _large_tables(model.tables)
     table_update = make_table_updater(cfg, model.tables)
@@ -138,7 +144,7 @@ def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
             per_table = collect_per_table(u_schema, batch, grads, large)
             for t, pairs in collect_per_table(i_only, batch, grads, large).items():
                 per_table.setdefault(t, []).extend(pairs)
-            table_update(tables, state.emb_acc, per_table, lr)
+            table_update(state, per_table, state.step, lr)
         state.step += 1
         return loss.detach(), None
 

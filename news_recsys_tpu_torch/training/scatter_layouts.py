@@ -79,6 +79,23 @@ def _layouts(model, schemas, arrays: dict, seed: int) -> dict:
     return out
 
 
+def update_route_case(cfg, arrays: dict, seed: int, table: str) -> tuple:
+    """(table (V, D), ids (S,), grads (S, D)) as numpy: one large table's
+    touched slots of a batch of ``arrays`` as ``collect_per_table`` hands
+    them to the rowwise update (every feature's ids in the table's rows,
+    seeded row gradients): the input of both AdaGrad routes."""
+    model = build_ranker(cfg, seed=seed, device="cpu")
+    batch = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    large = _large_tables(model.tables)
+    rng = np.random.default_rng(seed)
+    grads = {s.name: torch.from_numpy(rng.standard_normal(
+        (*batch[s.name].shape, model.tables[s.table][1]), np.float32))
+        for s in model.schema.specs if s.table in large}
+    pairs = collect_per_table(model.schema, batch, grads, large)[table]
+    return (model.embedder.tables[table].detach().numpy().copy(),
+            torch.cat([p[0] for p in pairs]).numpy(), torch.cat([p[1] for p in pairs]).numpy())
+
+
 def scatter_layout_stats(rows: np.ndarray, V: int) -> dict:
     """Distinct in-range rows, the longest run of one row, slots outside [0, V)."""
     starts = np.flatnonzero(np.diff(rows, prepend=rows[0] - 1))

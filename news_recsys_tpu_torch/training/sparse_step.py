@@ -1,43 +1,65 @@
 """Sparse (rowwise) embedding training step for the rankers.
 
-Port of :mod:`news_recsys_tpu.training.sparse_step`, the ``K == 1`` body
-of its ``make_sparse_chunk_fn``, one step per call and eager:
+Port of :mod:`news_recsys_tpu.training.sparse_step`: the body of its
+``make_sparse_chunk_fn``, one step per call and eager, with both rowwise
+optimizers, K-step lazy write-back and bfloat16 tables.
 
 1. the step gathers the touched rows of every LARGE table (vocab >=
-   ``SMALL_VOCAB_THRESHOLD``) itself, one gather per feature, and
-   differentiates the loss with respect to those gathered rows (detached
-   copies that require grad), so no (V, D) gradient exists; the small
-   tables, the cross stack and the MLP are differentiated directly;
+   ``SMALL_VOCAB_THRESHOLD``) itself, one gather per feature (a bfloat16
+   table's rows upcast to float32 right after it), and differentiates the
+   loss with respect to those gathered rows (detached copies that require
+   grad), so no (V, D) gradient exists; the small tables, the cross stack
+   and the MLP are differentiated directly;
 2. AdamW (``torch.optim.AdamW``, optax's ``adamw`` formula) steps the dense
    parameters and the small tables;
-3. the touched ids of all large tables are sorted and deduplicated in one
-   joint id space (:func:`_joint_dedup`, the sorted layout: rows stay
-   non-decreasing, every duplicate slot carries its row's summed gradient,
-   invalid slots point at a spare row above the vocab with zero gradient);
-4. rowwise AdaGrad writes the touched rows back through
-   :func:`~news_recsys_tpu_torch.ops.scatter_rows.scatter_rows_set`.
+3. the touched ids of all large tables are deduplicated, and the rowwise
+   optimizer writes the touched rows back (:func:`make_table_updater`):
+   ``rowwise_adagrad`` (one (V,) accumulator a table) or ``sparse_adamw``
+   (per-element (V, D) float32 moments, bias correction from the step).
+
+The dedup layout follows the JAX package's gate on ``mesh.param_dtype``:
+
+- float32 (the sorted layout, :func:`_joint_dedup`): one joint id space, rows
+  non-decreasing, every duplicate slot carrying its row's summed gradient,
+  invalid slots at a spare row above the vocab with zero gradient; every
+  (V, D) write goes through the row scatter kernel
+  (:func:`~news_recsys_tpu_torch.ops.scatter_rows.scatter_rows_set`): the
+  table for AdaGrad, the table, ``mu`` and ``nu`` for Adam;
+- bfloat16 (the unique-row layout, :func:`_unique_rows`, JAX's ``"xla"``):
+  each distinct row on one slot, its first occurrence, written once by a
+  plain ``index_put_``, so each row is rounded once. A bfloat16 table's
+  updated rows are stochastically rounded (:func:`stochastic_round_bf16`)
+  with 16-bit noise from :func:`rounding_noise`; the moments and
+  accumulators stay float32.
+
+With ``embedding_update_period`` K > 1 the step only buffers its (ids,
+grads) at slot ``step mod K`` of preallocated (K, S) / (K, S, D) device
+buffers (:class:`PendingRows`); the step's ``flush`` applies one combined
+update of everything pending, with the lr at the apply step and Adam's bias
+correction and the rounding noise counted by the state's apply counter.
+:class:`~.trainer.Trainer` flushes every K steps counted from a chunk's
+start and at the chunk's end, where the JAX trainer's scanned chunks end.
+
+A table takes the dense full-table AdaGrad route
+(:func:`dense_rowwise_adagrad_update`) where an update's touched slots reach
+``DENSE_UPDATE_MIN_SHARE`` of its rows, a threshold measured on the H100
+(``PERF.md``): the sparse attention step's and the rowwise DSSM step's item
+tables take it, the DCN's arena does not.
 
 Where JAX rebuilt arrays, the port updates in place under
-``torch.no_grad()``: the tables, the accumulators, the optimizer state and
-the AUC histogram. The gathered rows are copies, so writing a table after
-``backward()`` is safe.
-
-An unpooled array feature (the attention ranker's ``hist``) keeps its
+``torch.no_grad()``: the tables, the optimizer state and the AUC histogram.
+The gathered rows are copies, so writing a table after ``backward()`` is
+safe. An unpooled array feature (the attention ranker's ``hist``) keeps its
 gathered rows (B, L, D) as the field; their gradient flattens into the
 table's B*L slots in :func:`collect_per_table`.
-
-The port stays on the sorted route for every slot count. JAX's MXU dedup
-(``_dedup_rows_matmul``, below ``MATMUL_DEDUP_MAX``) and its dense
-full-table route (``dense_rowwise_adagrad_update``, from
-``DENSE_UPDATE_MIN_SLOTS``) are TPU tuning; both give the same tables on
-every addressable row.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,7 +76,19 @@ ADAGRAD_INIT_ACC = 0.1   # TF/TPUEmbedding default initial accumulator
 ADAM_EPS = 1e-8
 OOB_ROW = 2 ** 29        # the joint dedup's spare row: above every joint id
 SENTINEL = 2 ** 30       # sort key of an invalid slot: after every real id
-NOT_PORTED = "is not ported yet: see ROADMAP.md, queue 1, item 4 ('Optimizer variants')"
+DENSE_ROUTE_INDEX = 1000  # the dense route's noise index: 1000 + its table's index
+# Rowwise AdaGrad takes the dense full-table route for a table whose touched
+# slots in an update reach this share of its rows. The JAX package compares
+# the slots alone with 4,096 (TPU tuning); on the H100 the dense route's cost
+# follows the rows it streams and the sorted route's the slots. Measured by
+# ``chip_profile.py --routes`` (PERF.md, "Update routes"): the dense route
+# wins eager and on the card at 15,872 slots of the attention item table's
+# 65,280 rows (a share of 0.24), loses on the card at 1,024 of the arena's
+# 159,360 (0.006) and ties at 16,384 (0.10), the two device times crossing
+# near 0.12.
+DENSE_UPDATE_MIN_SHARE = 1 / 8
+NOT_PORTED = "is not ported yet: see ROADMAP.md, queue 1, item 8 ('Multi-device')"
+ROWWISE = ("rowwise_adagrad", "sparse_adamw")
 
 
 def _large_tables(tables_spec) -> set:
@@ -63,43 +97,52 @@ def _large_tables(tables_spec) -> set:
 
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a training config the port does not
-    run. It runs ``rowwise_adagrad`` (this module) and the all-dense
-    ``adamw`` (:mod:`.dense_step`)."""
-    hp = cfg.train_hparams
-    if hp.embedding_optimizer not in ("rowwise_adagrad", "adamw"):
-        raise NotImplementedError(f"embedding_optimizer={hp.embedding_optimizer!r} "
-                                  + NOT_PORTED)
-    if hp.embedding_update_period != 1:
-        raise NotImplementedError(
-            f"embedding_update_period={hp.embedding_update_period} (K-step lazy write-back) "
-            + NOT_PORTED)
-    if cfg.mesh.param_dtype != "float32" or cfg.mesh.compute_dtype != "float32":
-        raise NotImplementedError("bfloat16 tables and towers " + NOT_PORTED)
+    run: a model-parallel mesh."""
     if cfg.mesh.model > 1:
         raise NotImplementedError(f"a model-parallel mesh (mesh.model={cfg.mesh.model}) "
                                   + NOT_PORTED)
 
 
 def check_sparse(cfg: Config) -> None:
-    """:func:`check_ported`, and the optimizer must be this module's."""
+    """:func:`check_ported`, and the optimizer must be one of this module's."""
     check_ported(cfg)
-    if cfg.train_hparams.embedding_optimizer != "rowwise_adagrad":
-        raise ValueError("the sparse step runs embedding_optimizer='rowwise_adagrad'; "
+    if cfg.train_hparams.embedding_optimizer not in ROWWISE:
+        raise ValueError(f"the sparse step runs embedding_optimizer in {ROWWISE}; "
                          f"{cfg.train_hparams.embedding_optimizer!r} trains on the all-dense "
                          "step (training/dense_step.py)")
+
+
+@dataclass
+class PendingRows:
+    """K-step write-back buffers on the device: per large table the ids (K,
+    S) and row gradients (K, S, D) of the steps since the last apply, at
+    slot ``step mod K``; ``valid`` (K,) marks the filled slots and ``count``
+    counts them on the host."""
+
+    ids: Dict[str, torch.Tensor]
+    grads: Dict[str, torch.Tensor]
+    valid: torch.Tensor
+    count: int = 0
 
 
 @dataclass
 class SparseTrainState:
     """The model (its parameters are the training state), one AdamW over the
     dense parameters and the small tables (None when there are none: an LR
-    whose every table is large), the large tables' rowwise AdaGrad
-    accumulators {table: (V,)}, and the number of steps taken."""
+    whose every table is large), the large tables' rowwise optimizer state
+    (``rowwise_adagrad``: the (V,) accumulators ``emb_acc``; ``sparse_adamw``:
+    the (V, D) float32 moments ``emb_mu`` and ``emb_nu``), the number of
+    steps taken and, for K-step write-back, the number of combined updates
+    applied and the pending rows."""
 
     model: nn.Module
     dense_opt: Optional[torch.optim.AdamW]
     emb_acc: Dict[str, torch.Tensor]
     step: int = 0
+    emb_mu: Dict[str, torch.Tensor] = field(default_factory=dict)
+    emb_nu: Dict[str, torch.Tensor] = field(default_factory=dict)
+    applies: int = 0
+    pending: Optional[PendingRows] = None
 
 
 def dense_parameters(model: nn.Module) -> list:
@@ -126,22 +169,28 @@ def make_dense_tx(cfg: Config, params) -> Optional[torch.optim.AdamW]:
 
 def init_sparse_state(model: nn.Module, cfg: Config) -> SparseTrainState:
     """The training state of ``model``'s current parameters. The large
-    tables stop requiring grad: the step differentiates their gathered rows."""
+    tables stop requiring grad: the step differentiates their gathered rows.
+    The optimizer state is float32 whatever the tables' dtype."""
     check_sparse(cfg)
     tables = model.embedder.tables
-    emb_acc = {}
+    emb_acc, emb_mu, emb_nu = {}, {}, {}
+    adagrad = cfg.train_hparams.embedding_optimizer == "rowwise_adagrad"
     for name in sorted(_large_tables(model.tables)):
-        tables[name].requires_grad_(False)
-        emb_acc[name] = torch.full((tables[name].shape[0],), ADAGRAD_INIT_ACC,
-                                   device=tables[name].device)
+        t = tables[name].requires_grad_(False)
+        if adagrad:
+            emb_acc[name] = torch.full((t.shape[0],), ADAGRAD_INIT_ACC, device=t.device)
+        else:
+            emb_mu[name] = torch.zeros(t.shape, device=t.device)
+            emb_nu[name] = torch.zeros(t.shape, device=t.device)
     return SparseTrainState(model, make_dense_tx(cfg, [p for _, p in dense_parameters(model)]),
-                            emb_acc)
+                            emb_acc, emb_mu=emb_mu, emb_nu=emb_nu)
 
 
 def gather_large_rows(schema, batch, tables, large) -> Dict[str, torch.Tensor]:
-    """Per-feature gathered LARGE-table rows, one gather per feature (even
-    for features sharing a table); ids outside a table read NaN."""
-    return {spec.name: take(tables[spec.table], offset_ids(spec, batch[spec.name]))
+    """Per-feature gathered LARGE-table rows in float32, one gather per
+    feature (even for features sharing a table); ids outside a table read
+    NaN."""
+    return {spec.name: take(tables[spec.table], offset_ids(spec, batch[spec.name])).float()
             for spec in schema.specs if spec.kind in (SPARSE, ARRAY) and spec.table in large}
 
 
@@ -172,15 +221,40 @@ def fields_from_rows(schema, batch, rows, tables, large, unpooled=()) -> tuple:
 
 
 def collect_per_table(schema, batch, row_grads, large) -> Dict[str, list]:
-    """Group flat (ids, row-grads) pairs by large table, in schema order."""
+    """Group flat (ids, row-grads, id offset) entries by large table, in
+    schema order. The offset tags an arena member's disjoint id range."""
     per_table: Dict[str, list] = {}
     for spec in schema.specs:
         if spec.kind not in (SPARSE, ARRAY) or spec.table not in large:
             continue
         g = row_grads[spec.name]
         per_table.setdefault(spec.table, []).append(
-            (offset_ids(spec, batch[spec.name]).reshape(-1), g.reshape(-1, g.shape[-1])))
+            (offset_ids(spec, batch[spec.name]).reshape(-1), g.reshape(-1, g.shape[-1]),
+             spec.id_offset))
     return per_table
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int, skip: int = -1) -> torch.Tensor:
+    """(n, D): the rows of ``vals`` summed by ``seg``, leaving out the slots
+    of segment ``skip``. Embedding's backward: it adds each segment's terms
+    in one order on every run, on the card too, where ``index_add_`` adds
+    by atomics in no fixed order; on the CPU it adds them in slot order."""
+    return torch.ops.aten.embedding_dense_backward(vals, seg.long(), n, skip, False)
+
+
+def _sorted_segments(ids: torch.Tensor, grads: torch.Tensor, max_id: Optional[int]):
+    """(sids, order, first, gsum): the ids sorted stably with the invalid ones
+    (padding 0, negative, above ``max_id``) as SENTINEL, the permutation,
+    the first slot of each run of equal ids, and each slot's run's summed
+    gradient."""
+    valid = ids > 0
+    if max_id is not None:
+        valid &= ids <= max_id
+    sids, order = torch.sort(torch.where(valid, ids, SENTINEL), stable=True)
+    first = torch.ones_like(sids, dtype=torch.bool)
+    first[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    return sids, order, first, segment_sum(grads[order], seg, ids.shape[0])[seg]
 
 
 def _dedup_rows(ids: torch.Tensor, grads: torch.Tensor, spare_row: int,
@@ -195,23 +269,42 @@ def _dedup_rows(ids: torch.Tensor, grads: torch.Tensor, spare_row: int,
     point at ``spare_row`` (>= every real id, so the order holds) with zero
     gradient, which rowwise AdaGrad leaves unchanged.
     """
-    valid = ids > 0
-    if max_id is not None:
-        valid &= ids <= max_id
-    sids, order = torch.sort(torch.where(valid, ids, SENTINEL), stable=True)
-    sg = grads[order]
-    first = torch.ones_like(sids, dtype=torch.bool)
-    first[1:] = sids[1:] != sids[:-1]
-    seg = torch.cumsum(first, 0) - 1
-    gsum = torch.zeros_like(sg).index_add_(0, seg, sg)
-    valid_slot = (sids < SENTINEL)
+    sids, _, _, gsum = _sorted_segments(ids, grads, max_id)
+    valid_slot = sids < SENTINEL
     rows = torch.where(valid_slot, sids, spare_row).to(torch.int32)
-    return rows, torch.where(valid_slot[:, None], gsum[seg], 0.0)
+    return rows, torch.where(valid_slot[:, None], gsum, 0.0)
+
+
+def _unique_rows_of(ids: torch.Tensor, grads: torch.Tensor, spare_row: int, max_id: int):
+    """The unique-row layout (JAX's ``"xla"`` layout): each valid id on the
+    slot of its first occurrence with its duplicates' summed gradient, every
+    other slot at ``spare_row`` with zero gradient. The slots are those of
+    JAX's sort-free dedup (``_dedup_rows_matmul``), so a slot's rounding
+    noise lands on the same row as there."""
+    sids, order, first, gsum = _sorted_segments(ids, grads, max_id)
+    active = first & (sids < SENTINEL)
+    rows = torch.empty_like(sids)
+    rows[order] = torch.where(active, sids, spare_row)      # a permutation: one write a slot
+    out = torch.empty_like(grads)
+    out[order] = torch.where(active[:, None], gsum, 0.0)
+    return rows.to(torch.int32), out
+
+
+def _unique_rows(per_table, table_vocab, spare) -> Dict[str, tuple]:
+    """{table: (rows, grads)} in the unique-row layout, each table on its
+    own. An arena's entries go in the order of their id offsets, as the JAX
+    package concatenates its per-member dedups."""
+    out = {}
+    for t, pairs in sorted(per_table.items()):
+        pairs = sorted(pairs, key=lambda p: p[2] if len(p) > 2 else 0)    # stable
+        ids, g = torch.cat([p[0] for p in pairs]), torch.cat([p[1] for p in pairs])
+        out[t] = _unique_rows_of(ids, g, spare[t], int(table_vocab[t][0]) - 1)
+    return out
 
 
 def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
     """Sort-dedup the touched ids of all large tables in one joint sort;
-    returns {table: (rows, grads)} ready to scatter.
+    returns {table: (rows, grads)} in the sorted layout, ready to scatter.
 
     One table dedups alone with ``max_id = vocab - 1``. Several tables
     share one id space: each table's ids shift into a disjoint range, grads
@@ -226,6 +319,8 @@ def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
     names = sorted(per_table)
     flat = {t: (torch.cat([p[0] for p in per_table[t]]), torch.cat([p[1] for p in per_table[t]]))
             for t in names}
+    if not names:
+        return {}
     if len(names) == 1:
         t = names[0]
         return {t: _dedup_rows(*flat[t], spare[t], max_id=int(table_vocab[t][0]) - 1)}
@@ -250,39 +345,197 @@ def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
     return out
 
 
-def rowwise_adagrad_update(table, acc, rows, grads, lr, eps=1e-10):
+def stochastic_round_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 with stochastic rounding: ``noise`` (x's shape,
+    integers in [0, 2**16)) is added below the bfloat16 mantissa boundary
+    and the low 16 bits are cut, so a value rounds up with the probability
+    of its position between its two bfloat16 neighbours; a value that
+    bfloat16 holds passes through. The JAX package draws the noise inside
+    (``jax.random.bits``); here it is an argument, the same bits give the
+    same result bit for bit."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    rounded = (bits + noise.to(torch.int32)) & -65536        # & 0xFFFF0000, wrapping as uint32
+    return rounded.view(torch.float32).to(torch.bfloat16)
+
+
+NoiseFn = Callable[[int, int, tuple, torch.device], torch.Tensor]
+
+
+def rounding_noise(seed: int) -> NoiseFn:
+    """``noise(step, index, shape, device)``: uniform 16-bit integers (int32)
+    for stochastic rounding, drawn on ``device`` by a generator seeded from
+    ``SeedSequence([seed, step, index])``, so a step's bits depend on its
+    step and table alone (a resumed run repeats them). The card's and the
+    CPU's generators give different bits for one seed: a comparison of the
+    two hands both the same noise function."""
+    generators: Dict[str, torch.Generator] = {}
+
+    def noise(step: int, index: int, shape, device) -> torch.Tensor:
+        device = torch.device(device)
+        g = generators.get(str(device))
+        if g is None:
+            g = generators[str(device)] = torch.Generator(device=device)
+        g.manual_seed(int(np.random.SeedSequence([seed, step, index]).generate_state(1)[0]))
+        return torch.randint(0, 1 << 16, tuple(shape), generator=g, device=device,
+                             dtype=torch.int32)
+
+    return noise
+
+
+def _storable(x: torch.Tensor, table: torch.Tensor, noise) -> torch.Tensor:
+    """Updated float32 rows in ``table``'s dtype: a bfloat16 table's rounded
+    stochastically with ``noise`` (x's shape)."""
+    if table.dtype != torch.bfloat16:
+        return x.to(table.dtype)
+    if noise is None:
+        raise ValueError("a bfloat16 table's write-back needs rounding noise")
+    return stochastic_round_bf16(x, noise)
+
+
+def write_rows(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``table[rows] = vals`` in place in plain PyTorch: the unique-row
+    layout's write (any dtype; a row named twice gets one of its values)."""
+    return table.index_put_((rows.long(),), vals)
+
+
+def rowwise_adagrad_update(table, acc, rows, grads, lr, eps=1e-10, noise=None,
+                           write=scatter_rows_set):
     """Rowwise AdaGrad on the given rows, in place (TPUEmbedding/torchrec
     semantics): one scalar accumulator per row, ``acc += mean(g^2)``,
-    ``p -= lr * g / (sqrt(acc) + eps)``. The table write goes through the
-    row scatter kernel; the (V,) accumulator write is a plain ``index_put_``.
-    ``rows`` must be sorted, as :func:`_dedup_rows` gives them."""
+    ``p -= lr * g / (sqrt(acc) + eps)``, in float32 whatever the table's
+    dtype (a bfloat16 table's rows are rounded with ``noise``). ``write``
+    writes the table's rows: the row scatter kernel in the sorted layout
+    (``rows`` sorted, as :func:`_dedup_rows` gives them), :func:`write_rows`
+    in the unique one; the (V,) accumulator write is a plain ``index_put_``."""
     idx = rows.long()
     acc_rows = acc[idx] + (grads * grads).mean(dim=-1)
-    p_new = table[idx] - lr * grads / (acc_rows.sqrt() + eps)[:, None]
-    scatter_rows_set(table, rows, p_new)
+    p_new = table[idx].float() - lr * grads / (acc_rows.sqrt() + eps)[:, None]
+    write(table, rows, _storable(p_new, table, noise))
     acc[idx] = acc_rows
     return table, acc
 
 
-def make_table_updater(cfg: Config, tables_spec):
-    """``update(tables, emb_acc, per_table, lr)``: rowwise AdaGrad on the
-    touched rows of the large tables, in place; ``per_table`` maps a table
-    to the (flat ids, flat row-grads) pairs of the features sharing it."""
+def rowwise_adam_update(table, mu, nu, rows, grads, lr, t, b1, b2, eps, wd, noise=None,
+                        write=scatter_rows_set):
+    """Adam on the given rows only, in place, with bias correction from
+    ``t`` (the 1-based global step, or apply count for K-step write-back)
+    and decoupled weight decay on the touched rows. Math in float32; a
+    bfloat16 table's rows are rounded with ``noise``. ``write`` writes the
+    three (V, D) row sets (table, ``mu``, ``nu``): three launches of the row
+    scatter kernel in the sorted layout."""
+    idx = rows.long()
+    p_rows = table[idx].float()
+    mu_new = b1 * mu[idx] + (1 - b1) * grads
+    nu_new = b2 * nu[idx] + (1 - b2) * grads * grads
+    mhat = mu_new / (1 - b1 ** t)
+    vhat = nu_new / (1 - b2 ** t)
+    p_new = p_rows - lr * (mhat / (vhat.sqrt() + eps) + wd * p_rows)
+    write(table, rows, _storable(p_new, table, noise))
+    write(mu, rows, mu_new)
+    write(nu, rows, nu_new)
+    return table, mu, nu
+
+
+def dense_rowwise_adagrad_update(table, acc, ids, grads, lr, eps=1e-10, max_id=None,
+                                 noise=None):
+    """Rowwise AdaGrad as a dense pass over the whole table, in place: no
+    sort, no dedup, no row scatter. Plain PyTorch, as the JAX package's is
+    XLA code.
+
+    The per-row summed gradient (V, D) comes from :func:`segment_sum` (the
+    same bits every run; padding, negative ids and ids above ``max_id``
+    add nothing), then ``acc += mean(g^2)`` and the parameter step run
+    over every row, and rows whose ``mean(g^2)`` is 0 keep their values.
+    Equal to :func:`rowwise_adagrad_update` on the deduped rows: AdaGrad
+    leaves a row with an all-zero gradient as it is. A bfloat16 table is
+    rounded with ``noise`` of the table's shape."""
+    V = table.shape[0]
+    bound = V if max_id is None else max_id + 1
+    safe = torch.where((ids > 0) & (ids < bound), ids, 0)
+    dense_g = segment_sum(grads, safe, V, skip=0)
+    g2 = (dense_g * dense_g).mean(dim=-1)
+    acc.add_(g2)
+    p_new = table.float() - lr * dense_g / (acc.sqrt() + eps)[:, None]
+    p_new = _storable(p_new, table, noise)
+    table.copy_(torch.where((g2 > 0)[:, None], p_new, table))
+    return table, acc
+
+
+def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None):
+    """``update(state, per_table, step, lr)``: the configured rowwise
+    optimizer on the touched rows of the large tables, in place;
+    ``per_table`` maps a table to the (flat ids, flat row-grads, offset)
+    entries of the features sharing it, ``step`` counts the updates before
+    this one (Adam's bias correction and the rounding noise).
+
+    A table whose slots reach ``DENSE_UPDATE_MIN_SHARE`` of its rows takes
+    the dense AdaGrad route. As in the JAX package, tables are taken in
+    sorted order, the dense route's first; a bfloat16 table's rounding noise
+    is ``noise(step, i, shape, device)`` for the ``i``-th table
+    (``DENSE_ROUTE_INDEX + i`` on the dense route, as JAX's
+    ``fold_in(step_key, 1000 + ti)``). ``noise`` defaults to
+    :func:`rounding_noise` of ``train_hparams.seed``."""
     check_sparse(cfg)
+    hp = cfg.train_hparams
+    adagrad = hp.embedding_optimizer == "rowwise_adagrad"
+    unique = cfg.mesh.param_dtype == "bfloat16"
+    write = write_rows if unique else scatter_rows_set
+    noise = noise or rounding_noise(hp.seed)
     table_vocab = dict(tables_spec)
     spare = {t: padded_vocab(v) - 1 for t, (v, d) in table_vocab.items()}
 
-    def update(tables, emb_acc, per_table, lr: float) -> None:
-        for t, (rows, grads) in sorted(_joint_dedup(per_table, table_vocab, spare).items()):
-            rowwise_adagrad_update(tables[t], emb_acc[t], rows, grads, lr)
+    def dense_route(t: str, pairs) -> bool:
+        slots = sum(p[0].shape[0] for p in pairs)
+        return adagrad and slots >= DENSE_UPDATE_MIN_SHARE * padded_vocab(table_vocab[t][0])
+
+    def noise_of(table, step: int, index: int, shape):
+        if table.dtype != torch.bfloat16:
+            return None
+        return noise(step, index, shape, table.device)
+
+    def update(state, per_table, step: int, lr: float) -> None:
+        tables = state.model.embedder.tables
+        dense = sorted(t for t, pairs in per_table.items() if dense_route(t, pairs))
+        for ti, t in enumerate(dense):
+            pairs = per_table[t]
+            dense_rowwise_adagrad_update(
+                tables[t], state.emb_acc[t], torch.cat([p[0] for p in pairs]),
+                torch.cat([p[1] for p in pairs]), lr, max_id=int(table_vocab[t][0]) - 1,
+                noise=noise_of(tables[t], step, DENSE_ROUTE_INDEX + ti, tables[t].shape))
+        rest = {t: pairs for t, pairs in per_table.items() if t not in dense}
+        layouts = (_unique_rows if unique else _joint_dedup)(rest, table_vocab, spare)
+        for ti, (t, (rows, grads)) in enumerate(sorted(layouts.items())):
+            nz = noise_of(tables[t], step, ti, grads.shape)
+            if adagrad:
+                rowwise_adagrad_update(tables[t], state.emb_acc[t], rows, grads, lr, noise=nz,
+                                       write=write)
+            else:
+                rowwise_adam_update(tables[t], state.emb_mu[t], state.emb_nu[t], rows, grads,
+                                    lr, step + 1, hp.b1, hp.b2, ADAM_EPS, hp.weight_decay,
+                                    noise=nz, write=write)
 
     return update
 
 
-def make_sparse_train_step(model: nn.Module, cfg: Config):
+def _pending_rows(per_table, K: int) -> PendingRows:
+    """Zeroed write-back buffers sized by one step's ``per_table``."""
+    ids, grads = {}, {}
+    for t, pairs in per_table.items():
+        i, g = torch.cat([p[0] for p in pairs]), torch.cat([p[1] for p in pairs])
+        ids[t] = i.new_zeros((K, *i.shape))
+        grads[t] = g.new_zeros((K, *g.shape))
+    device = next(iter(ids.values())).device
+    return PendingRows(ids, grads, torch.zeros(K, dtype=torch.bool, device=device))
+
+
+def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseFn] = None):
     """``step(state, batch, hist) -> (loss, logits)``: one training step on a
     batch dict (``unpack_batch``'s, tensors on the model's device), updating
-    ``state`` and the AUC histogram ``hist`` in place."""
+    ``state`` and the AUC histogram ``hist`` in place. With
+    ``embedding_update_period`` K > 1 the rows' update waits for
+    ``step.flush(state)``, the combined update of every pending step (the
+    identity when none is pending); with K = 1 ``flush`` does nothing.
+    ``noise``: :func:`make_table_updater`."""
     if not hasattr(model, "forward_from_fields"):
         raise NotImplementedError(f"{type(model).__name__} does not factor as "
                                   "forward_from_fields")
@@ -290,8 +543,9 @@ def make_sparse_train_step(model: nn.Module, cfg: Config):
     sched = hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)
     schema = model.schema
     large = _large_tables(model.tables)
-    table_update = make_table_updater(cfg, model.tables)
+    table_update = make_table_updater(cfg, model.tables, noise)
     unpooled = set(getattr(model, "unpooled_arrays", ()) or ())
+    K = int(hp.embedding_update_period)
 
     def sparse_train_step(state: SparseTrainState, batch, hist: AucHist):
         tables = state.model.embedder.tables
@@ -322,9 +576,40 @@ def make_sparse_train_step(model: nn.Module, cfg: Config):
                 opt.step()
             per_table = collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()},
                                           large)
-            table_update(tables, state.emb_acc, per_table, lr)
+            if K == 1:
+                table_update(state, per_table, state.step, lr)
+            else:
+                _buffer(state, per_table)
             binned_auc_update(hist, torch.sigmoid(logits), labels, weights)
         state.step += 1
         return loss.detach(), logits.detach()
 
+    def _buffer(state: SparseTrainState, per_table) -> None:
+        """This step's (ids, grads) into slot ``step mod K`` of the buffers."""
+        if state.pending is None:
+            state.pending = _pending_rows(per_table, K)
+        pend, slot = state.pending, state.step % K
+        for t, pairs in per_table.items():
+            pend.ids[t][slot].copy_(torch.cat([p[0] for p in pairs]))
+            pend.grads[t][slot].copy_(torch.cat([p[1] for p in pairs]))
+        pend.valid[slot] = True
+        pend.count += 1
+
+    def flush(state: SparseTrainState) -> None:
+        """Apply the pending rows as one update (slot order, unfilled slots'
+        ids to padding), with the lr at the current step and the apply
+        counter as Adam's step and the noise's, then empty the buffers."""
+        pend = state.pending
+        if pend is None or pend.count == 0:
+            return
+        with torch.no_grad():
+            per_table = {t: [(torch.where(pend.valid[:, None], ids, 0).reshape(-1),
+                              pend.grads[t].reshape(-1, pend.grads[t].shape[-1]))]
+                         for t, ids in pend.ids.items()}
+            table_update(state, per_table, state.applies, sched(state.step))
+            pend.valid.zero_()
+        pend.count = 0
+        state.applies += 1
+
+    sparse_train_step.flush = flush
     return sparse_train_step

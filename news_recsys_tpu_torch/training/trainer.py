@@ -2,12 +2,14 @@
 prediction, validation, checkpoints and resume.
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
-(``embedding_optimizer="rowwise_adagrad"``, :mod:`.sparse_step`) or the
+(``embedding_optimizer`` ``"rowwise_adagrad"`` or ``"sparse_adamw"``, with
+K-step write-back where ``embedding_update_period`` > 1; :mod:`.sparse_step`) or the
 all-dense one (``"adamw"``, :mod:`.dense_step`), chosen as the JAX trainer
 chooses by :attr:`Trainer.sparse_embeddings`, and its device-resident epoch:
 the packed dataset goes to the device once, and each step gathers its batch
 rows there. Steps run eagerly, one Python call each (JAX scanned them in
-one compiled chunk). Validation scores the dev set on the device and runs
+one compiled chunk; the port cuts an epoch into the same chunks, where
+K-step write-back flushes). Validation scores the dev set on the device and runs
 the host metric engine (:mod:`.metrics`) at every size. The experiment dir
 keeps the JAX package's layout and formats: ``train.log``, ``val_log.log``,
 ``metrics.jsonl`` beside a TensorBoard events file, ``model_info.log``, and
@@ -192,12 +194,22 @@ class Trainer:
             self.device)                                                     # one upload
         ones = torch.ones(bs, device=self.device)
         carry = self._epoch_carry(epoch, state.step, nb)
+        K = hp.embedding_update_period if self.sparse_embeddings else 1
         t0 = time.perf_counter()
         loss = None
-        for i in range(nb):
-            batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
-            loss, _ = self.train_step(state, batch, carry)
-            self.global_step += 1
+        pos = 0
+        while pos < nb:
+            c = self._chunk_len(nb, pos)
+            for j in range(c):
+                i = pos + j
+                batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
+                loss, _ = self.train_step(state, batch, carry)
+                if K > 1 and (j + 1) % K == 0:
+                    self.train_step.flush(state)
+            if K > 1:
+                self.train_step.flush(state)           # the chunk's tail
+            pos += c
+            self.global_step += c
             self._maybe_step_checkpoint(state)
         loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
         dt = time.perf_counter() - t0
@@ -213,6 +225,19 @@ class Trainer:
         logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f}{extra} "
                     f"ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
+
+    def _chunk_len(self, nb: int, pos: int) -> int:
+        """The next chunk's step count, as the JAX trainer's dispatches:
+        ``chunk_steps``, cut at the epoch's end and at the next
+        ``ckpt_every_steps`` boundary. Steps run one call each either way;
+        K-step write-back flushes at every chunk's end, where the JAX
+        package's scanned chunk flushes, so nothing is pending at a
+        checkpoint."""
+        c = min(self.cfg.train_hparams.chunk_steps, nb - pos)
+        every = self.cfg.train_hparams.ckpt_every_steps
+        if every > 0:
+            c = min(c, max(every - (self.global_step - self._last_step_ckpt), 1))
+        return c
 
     def _log_scalars(self, **scalars) -> None:
         """One line of ``metrics.jsonl``, and the finite numbers among

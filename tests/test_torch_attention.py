@@ -396,8 +396,10 @@ def attention_dataset(cfg, steps, seed):
 def test_attention_sparse_steps_match_jax_at_full_width(monkeypatch, steps):
     """``attention_config()``, batch 512: 15,872 item-table slots a step
     (512 x 30 history + 512 targets, duplicates many) and 512 user slots.
-    JAX takes its dense full-table route for the item table, the port its
-    sorted route: the tables agree on every addressable row."""
+    Both take their dense full-table route for the item table (the port's:
+    15,872 slots of 65,280 rows, above ``DENSE_UPDATE_MIN_SHARE``) and their
+    sorted route for the user table: the tables agree on every addressable
+    row."""
     monkeypatch.setenv("NRT_FUSED_ATTN", "off")
     cfg = tzoo.attention_config()
     ds = attention_dataset(cfg, steps, seed=3)

@@ -199,6 +199,49 @@ def test_train_mixes_random_negatives(workspace, tmp_path):
     assert trained["steps"] == rows // 64 > len(train) // 64
 
 
+@pytest.mark.parametrize("train,mesh", [
+    ({"embedding_optimizer": "sparse_adamw"}, {}),
+    ({"embedding_optimizer": "rowwise_adagrad", "embedding_update_period": 4}, {}),
+    ({"embedding_optimizer": "rowwise_adagrad"},
+     {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}),
+], ids=["sparse_adamw", "K4", "bf16"])
+def test_train_runs_each_optimizer_variant(workspace, tmp_path, train, mesh):
+    """``train`` of a config on each of the sparse step's optimizer
+    settings (the user and item tables made large enough for the rowwise
+    path): its epoch checkpoint carries the variant's state (Adam's (V, D)
+    moments; the apply counter, nothing pending; bfloat16 tables), and
+    ``predict`` reads it back."""
+    tmp, cfg_path, _, _ = workspace
+    doc = yaml.safe_load(open(cfg_path))
+    doc["embeddings"]["embedding_table_size"].update(user_id=5000, item_id=5000)
+    doc["train_hparams"].update(train)
+    doc["mesh"] = mesh
+    path = tmp_path / "variant.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    workdir = str(tmp_path / "exp")
+    cli(["train", "-c", str(path), "--workdir", workdir, "--device", "cpu", "--epochs", "1"])
+    (trained,) = [m for m in read_jsonl(os.path.join(workdir, "metrics.jsonl"))
+                  if "train_loss" in m]
+    assert np.isfinite(trained["train_loss"])
+    blob = load_state(os.path.join(workdir, "ckpts", "epoch_000.pt"))
+    assert blob["kind"] == "sparse" and blob["step"] == trained["steps"]
+    tables = {k: t for k, t in blob["model"].items() if k.startswith("embedder.tables.")}
+    large = {"embedder.tables.user_id", "embedder.tables.item_id"}
+    if "sparse_adamw" in train.values():
+        assert blob["emb_acc"] == {} and sorted(blob["emb_mu"]) == ["item_id", "user_id"]
+        assert blob["emb_nu"]["user_id"].shape == tables["embedder.tables.user_id"].shape
+    if train.get("embedding_update_period") == 4:
+        assert blob["applies"] == -(-trained["steps"] // 4)
+    want = torch.bfloat16 if mesh else torch.float32
+    assert all(t.dtype == (want if k in large else torch.float32) for k, t in tables.items())
+    out = str(tmp_path / "preds.jsonl")
+    cli(["predict", "-c", str(path), "--checkpoint", workdir, "--split", "dev", "--output", out,
+         "--device", "cpu", "--no-mesh"])
+    scores = [r["score"] for r in read_jsonl(out)]
+    assert len(scores) == len(PackedDataset.open_split(load_config(str(path)), "dev"))
+    assert np.isfinite(scores).all()
+
+
 def test_train_refuses_several_processes(workspace):
     _, cfg_path, _, _ = workspace
     for flags in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],

@@ -1438,3 +1438,104 @@ def test_adamw_restored_on_the_card_takes_steps(cuda, tmp_path, step):
     for k in want:
         torch.testing.assert_close(got[k], want[k], msg=k, **TRAIN_TOL)
 
+
+
+# -- the optimizer variants ------------------------------------------------------
+
+
+def shared_noise(seed: int):
+    """One rounding-noise function for both devices: drawn on the CPU and
+    copied, so the card and the CPU round with the same bits."""
+    from news_recsys_tpu_torch.training.sparse_step import rounding_noise
+    cpu = rounding_noise(seed)
+    return lambda step, index, shape, device: cpu(step, index, shape, "cpu").to(device)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bfloat16 ulps between two bfloat16 tensors."""
+    def ordered(t):
+        u = t.cpu().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+VARIANTS = {"sparse_adamw": (dict(embedding_optimizer="sparse_adamw"), None),
+            "K4": (dict(embedding_update_period=4), None),
+            "bf16": ({}, {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variant_steps_on_cuda_match_cpu(cuda, variant):
+    """6 steps of a sparse variant on the card and on the CPU from the same
+    state, batches and rounding noise: ``sparse_adamw`` (3 scatter launches
+    a step: the table and both moments), K = 4 (a combined update after 4
+    steps and a flush after 6) and bfloat16 tables and towers (the
+    unique-row layout and a plain write: no scatter launch). Float32 state
+    within TRAIN_TOL; a bfloat16 table within one ulp on its addressable
+    rows; bfloat16 towers within 2e-2 (their matmuls round to 8 bits)."""
+    train, mesh = VARIANTS[variant]
+    cfg = train_cfg(True, mesh=mesh, **train)
+    ds = train_dataset(cfg, 384, seed=5)
+    packer = BatchPacker(ds)
+    cpu_model = build_ranker(cfg, seed=1, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    devices = {"cpu": torch.device("cpu"), "cuda": cuda}
+    states = {d: init_sparse_state(m, cfg) for d, m in models.items()}
+    steps = {d: make_sparse_train_step(m, cfg, noise=shared_noise(7))
+             for d, m in models.items()}
+    before = scatter_rows_set.launches
+    for rows in np.random.default_rng(1).permutation(384).reshape(6, 64):
+        for d, dev in devices.items():
+            batch = unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(dev),
+                                 torch.from_numpy(packer.float_mat[rows]).to(dev),
+                                 torch.ones(64, device=dev), packer.layout_key())
+            steps[d](states[d], batch, AucHist.zeros(dev))
+            if variant == "K4" and states[d].step % 4 == 0:
+                steps[d].flush(states[d])
+    for d in ("cpu", "cuda"):
+        steps[d].flush(states[d])
+    launches = scatter_rows_set.launches - before
+    assert launches == {"sparse_adamw": 18, "K4": 2, "bf16": 0}[variant]
+    assert states["cuda"].applies == states["cpu"].applies
+    n = 5000 + 4500 - 1                                     # the arena's addressable rows
+    tol = dict(rtol=2e-2, atol=2.5e-3) if variant == "bf16" else TRAIN_TOL
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        if p.dtype == torch.bfloat16:
+            assert bf16_ulps(p.detach()[:n], want[name].detach()[:n]) <= 1, name
+        else:
+            torch.testing.assert_close(p.detach().cpu(), want[name].detach(), msg=name, **tol)
+    for key in ("emb_acc", "emb_mu", "emb_nu"):
+        for name, t in getattr(states["cuda"], key).items():
+            torch.testing.assert_close(t.cpu()[:n], getattr(states["cpu"], key)[name][:n],
+                                       msg=f"{key} {name}", **TRAIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 4096, 16384])
+def test_dedup_and_dense_route_repeat_their_bits_on_cuda(cuda, n):
+    """The duplicate sums (``segment_sum``, embedding's backward) and the
+    dense AdaGrad route give the same bits on every run on the card (runs of
+    up to n / 8 equal ids), and the CPU's values within rtol 1e-5 and an
+    atol of 1e-5 of the largest value (sums of up to 2,048 terms in another
+    order)."""
+    from news_recsys_tpu_torch.training.sparse_step import (_dedup_rows,
+                                                            dense_rowwise_adagrad_update)
+    rng = np.random.default_rng(n)
+    ids = rng.integers(1, 2000, n).astype(np.int32)
+    ids[: n // 8] = 17
+    g = rng.standard_normal((n, 16)).astype(np.float32)
+    table = rng.standard_normal((2048, 16)).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda, cuda):
+        i, gg, t = on(dev, ids, g, table.copy())
+        acc = torch.full((2048,), 0.1, device=dev)
+        rows, sums = _dedup_rows(i, gg, 2047, max_id=1999)
+        dense_rowwise_adagrad_update(t, acc, i, gg, 0.05, max_id=1999)
+        out.append([x.cpu() for x in (rows, sums, t, acc)])
+    cpu, first, again = out
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(first[0], cpu[0])
+    for name, a, b in zip(("sums", "table", "accumulators"), first[1:], cpu[1:]):
+        assert_close_to_scale(a, b, name)

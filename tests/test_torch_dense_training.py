@@ -243,7 +243,7 @@ def test_dense_step_refuses_the_rowwise_optimizer():
         tds.make_train_step(model, cfg)
     with pytest.raises(ValueError, match="sparse step"):
         tds.init_dense_state(model, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 4"):
+    with pytest.raises(ValueError, match="sparse step"):
         tds.init_dense_state(model, train_cfg(False, embedding_optimizer="sparse_adamw"))
 
 

@@ -250,9 +250,8 @@ def test_dcn_logits_match_jax_at_full_mind_width(pallas_interpret):
 
 
 @pytest.mark.parametrize("name,extra,err", [
-    ("dcn", {"mesh": {"compute_dtype": "bfloat16"}}, NotImplementedError),
     ("nope", {}, ValueError),
-])
+], ids=["nope-extra1-ValueError"])       # the id it had beside the bf16 case
 def test_build_ranker_names_what_is_not_ported(name, extra, err):
     cfg = config_from_dict({**small_dcn_raw(), **extra})
     with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else "Unknown"):

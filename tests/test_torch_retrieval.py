@@ -408,17 +408,18 @@ def test_rowwise_dssm_steps_match_jax(monkeypatch, case):
     assert sorted(state.emb_acc) == ["item_id", "user_id"]
 
 
-@pytest.mark.parametrize("train", [{"embedding_optimizer": "sparse_adamw"},
-                                   {"embedding_optimizer": "rowwise_adagrad",
-                                    "embedding_update_period": 4}], ids=["sparse_adamw", "K>1"])
+@pytest.mark.parametrize("train", [{"embedding_optimizer": "rowwise_adagrad",
+                                    "embedding_update_period": 4}], ids=["K>1"])
 def test_unported_dssm_optimizers_raise(train):
+    """K-step write-back: the JAX package's DSSM refuses it with this message."""
     raw = dssm_raw(large=True)
     raw["train_hparams"].update(train)
     cfg = tconfig.config_from_dict(raw)
     model = tdssm.build_dssm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
+    match = r"implemented for the ranking path only"
+    with pytest.raises(NotImplementedError, match=match):
         tretrieval.make_dssm_sparse_train_step(model, cfg, 0.1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=match):
         tretrieval.DSSMTrainer(cfg, model, device="cpu")
 
 

@@ -102,8 +102,9 @@ def port_state(cfg, params):
 
 
 def assert_states_close(port, jax_state, cfg, tol=TOL):
-    """Parameters (large tables on their addressable rows), AdaGrad
-    accumulators, AdamW moments and counts, and the step."""
+    """Parameters (large tables on their addressable rows), the rowwise
+    optimizer's state (AdaGrad accumulators, or Adam's two moments), AdamW
+    moments and counts, and the step."""
     got, want = sparse_state_to_jax(port), flatten_sparse_state(jax_state)
     vocab = {f"embedder/{t}": v for t, (v, d) in table_specs(cfg).items()
              if v >= tss.SMALL_VOCAB_THRESHOLD}
@@ -111,10 +112,12 @@ def assert_states_close(port, jax_state, cfg, tol=TOL):
     for path, w in want["params"].items():
         n = vocab.get(path)
         np.testing.assert_allclose(got["params"][path][:n], w[:n], err_msg=path, **tol)
-    assert sorted(got["emb_mu"]) == sorted(want["emb_mu"])
-    for t, w in want["emb_mu"].items():
-        n = vocab[f"embedder/{t}"]
-        np.testing.assert_allclose(got["emb_mu"][t][:n], w[:n], err_msg=t, **tol)
+    for section in ("emb_mu", "emb_nu"):
+        assert sorted(got[section]) == sorted(want[section]), section
+        for t, w in want[section].items():
+            n = vocab[f"embedder/{t}"]
+            np.testing.assert_allclose(got[section][t][:n], w[:n], err_msg=f"{section} {t}",
+                                       **tol)
     for key in ("mu", "nu"):
         for path, w in want["dense_opt"][key].items():
             np.testing.assert_allclose(got["dense_opt"][key][path], w,
@@ -294,9 +297,11 @@ def test_one_sparse_step_matches_jax(monkeypatch, mode, arena):
                                   np.asarray(jhist.pos) + np.asarray(jhist.neg))
 
 
-def test_sorted_route_matches_jax_dense_route(monkeypatch):
-    """4,096 arena slots a step (batch 2,048): JAX takes
-    ``dense_rowwise_adagrad_update``, the port its sorted route."""
+def route_case(monkeypatch, share):
+    """4,096 arena slots a step (batch 2,048), two steps: JAX takes
+    ``dense_rowwise_adagrad_update``; the port the route that
+    ``DENSE_UPDATE_MIN_SHARE`` = ``share`` gives."""
+    monkeypatch.setattr(tss, "DENSE_UPDATE_MIN_SHARE", share)
     cfg = train_cfg(True, batch_size=2048)
     ds = train_dataset(cfg, 4096, seed=4)
     packer = BatchPacker(ds)
@@ -307,6 +312,18 @@ def test_sorted_route_matches_jax_dense_route(monkeypatch):
     state, _, loss = port_train(cfg, port_state(cfg, params), packer, idx)
     np.testing.assert_allclose(loss, jloss, **TOL)
     assert_states_close(state, jstate, cfg)
+
+
+def test_sorted_route_matches_jax_dense_route(monkeypatch):
+    """The port's sorted route, forced, against JAX's dense route."""
+    route_case(monkeypatch, float("inf"))
+
+
+def test_dense_route_matches_jax_dense_route(monkeypatch):
+    """The port's dense route, which it takes here by default (4,096 slots
+    of the arena's 9,600 rows, above ``DENSE_UPDATE_MIN_SHARE``)."""
+    assert 4096 >= tss.DENSE_UPDATE_MIN_SHARE * 9600
+    route_case(monkeypatch, tss.DENSE_UPDATE_MIN_SHARE)
 
 
 def test_jax_state_continues_in_the_port(monkeypatch):
@@ -352,17 +369,14 @@ def test_sparse_state_round_trip(monkeypatch):
 
 
 @pytest.mark.parametrize("train,mesh", [
-    ({"embedding_optimizer": "sparse_adamw"}, {}),
-    ({"embedding_update_period": 4}, {}),
-    ({}, {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}),
     ({}, {"model": 2}),
-], ids=["sparse_adamw", "K>1", "bf16", "model-parallel"])
+], ids=["model-parallel"])
 def test_unported_options_raise(train, mesh):
     cfg = train_cfg(True, mesh=mesh, **train)
     model = build_ranker(train_cfg(True), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 8"):
         tss.make_sparse_train_step(model, cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 8"):
         tss.init_sparse_state(model, cfg)
 
 
