@@ -9,7 +9,10 @@ attention rankers' sparse step under ``Trainer.fit``, DeepFM's with
 validation; the attention ranker's all-dense AdamW step; the DSSM's
 retrieval training under ``DSSMTrainer.fit``), a few steps of each other
 ranker of the zoo, and the command line from synthetic raw files to
-predictions, retrieval and the ItemCF baseline. Fails (non-zero exit, no result line) if any phase fails:
+predictions, retrieval and the ItemCF baseline, checkpoint conversion,
+the cascade served from checkpoints and the tooling commands, and the
+training runtime (slab-streamed data, the device metric engine,
+profiling). Fails (non-zero exit, no result line) if any phase fails:
 
 1. needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
@@ -85,7 +88,17 @@ predictions, retrieval and the ItemCF baseline. Fails (non-zero exit, no result 
    (click positives plus leave-one-out history pairs, logQ; its
    ``retrieval_eval.json`` checked and its bundle loaded and asked),
    ``predict -m dssm`` on the card and on the CPU (embeddings and cosines
-   within 1e-5) and ``itemcf`` on the host;
+   within 1e-5) and ``itemcf`` on the host; then ``convert-ckpt`` of the
+   DCN run's last epoch checkpoint to per-table tables and back (bit for
+   bit on the arena's addressable rows and every other tensor) and
+   ``predict`` of the per-table one under ``arena_tables: false`` (the
+   arena run's scores within 1e-6); ``serve --ranker-ckpt <the DCN run>
+   --ranker-config <its yaml>`` on the DSSM run's bundle over HTTP, with
+   ``--backend device`` and ``host`` (every answer equal to an in-process
+   ``build_cascade``'s id for id, the two backends' recall equal but for
+   near ties); ``fe --text`` and ``open_split`` from the text splits (the
+   ``.npz`` arrays); ``log`` of the DCN run; ``visualize-history`` of the
+   raw train files;
 9. the optimizer variants (``train_variants``), each at full width with
    its own timed warm epoch: the DCN of zoo.mind_config("dcn") on
    ``sparse_adamw`` (the table and both (V, D) moments written by the row
@@ -96,7 +109,18 @@ predictions, retrieval and the ItemCF baseline. Fails (non-zero exit, no result 
    lines; the unique-row layout, stochastic rounding, no scatter), and the
    DSSM of configs/dssm.yaml on ``sparse_adamw``; each held to the CPU from
    the same state before every step and with the same rounding bits;
-10. checks that each path launched the kernels it runs, the new paths as
+10. the training runtime (``runtime``): the DCN at MIND-small widths on the
+   slab-streamed path (``device_resident_bytes`` of 3 batches of rows) and
+   on the resident path, 32 steps, ``predict`` and ``validate`` (the
+   device metric engine) bit for bit, a slab's host gather and upload timed
+   beside the step; 8.4 M rows of the attention ranker's data (2.15 GB
+   packed) that the default 2 GiB budget sends down the slab path, 64 steps
+   bit for bit against the resident path; a DSSM epoch of 16 steps on slabs
+   against the resident path, bit for bit; the device metric engine at
+   20,000, 200,000 and 2.6 M rows (users of ~37 rows, tied scores) against
+   the host engine and its own second run, both engines timed; ``Trainer(profile_steps=1)``, whose trace
+   must name the cross backward's kernel, and ``device_memory_stats()``;
+11. checks that each path launched the kernels it runs, the new paths as
    many times as they should: the counts are set to 0 just before a path is
    driven and read just after; then traces one CUDA-graph replay of the
    cross backward with ``torch.profiler``, which must run its two device
@@ -2047,16 +2071,219 @@ def cli_phase(dev: torch.device, name: str, smi: str) -> dict:
         log(f"cli train (attention) on {name} ({smi}): 1 epoch of {steps} steps: examples/s "
             f"{trained[0]['examples_per_sec']:.1f}, train_loss {trained[0]['train_loss']:.6f}")
         dssm_steps_run = cli_dssm(tmp, card, name, smi, times)
+        launches = read_launches()
+        # a backward a step: the DCN's straight, cut and resumed runs, the
+        # attention ranker's epoch (whose forward pools ``entities``), the
+        # DSSM's epoch (whose user tower pools ``hist``)
+        want = {"dcn_cross_bwd": 2 * steps + CLI_CUT_STEP + 2 * steps - first,
+                "fused_transformer_block_bwd": steps,
+                "fused_lookup_pool_bwd": steps + dssm_steps_run}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"cli: launches {launches}, expected {want}")
+        serve_launches = cli_tooling(tmp, card, name, smi, times, dcn, straight, scores["cuda"])
     log(f"cli wall times (s): {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    return {"cli": launches, "serve_ranker_ckpt": serve_launches}
+
+
+SERVE_REQUESTS = 3                  # requests to each `serve --ranker-ckpt` server
+
+
+def serve_command(argv: list) -> tuple:
+    """``news_recsys_tpu_torch.cli.main(["serve", *argv, "--port", "0"])`` on
+    a thread, as ``python -m news_recsys_tpu_torch serve`` runs it; returns
+    (url, the server, the thread) once it serves. Stop it with
+    ``server.shutdown()``."""
+    import news_recsys_tpu_torch.serving as serving
+    from news_recsys_tpu_torch.cli import main
+
+    made, real = [], serving.serve_http
+    serving.serve_http = lambda *a, **kw: made.append(real(*a, **kw)) or made[-1]
+    try:
+        thread = threading.Thread(target=main, args=(["serve", *argv, "--port", "0"],),
+                                  daemon=True)
+        thread.start()
+        deadline = time.perf_counter() + 600
+        while not made and thread.is_alive() and time.perf_counter() < deadline:
+            time.sleep(0.05)
+    finally:
+        serving.serve_http = real
+    if not made:
+        raise AssertionError(f"serve {' '.join(argv)} did not start serving")
+    return f"http://127.0.0.1:{made[0].server_address[1]}", made[0], thread
+
+
+def served_answers(argv: list, backend: str, reqs: list) -> tuple:
+    """The answers of ``serve *argv --backend backend`` to ``reqs`` over HTTP
+    and its ``/healthz``; the server is stopped after."""
+    url, server, thread = serve_command([*argv, "--backend", backend])
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        answers = [post(url, req) for req in reqs]
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the serve command did not stop")
+    return health, answers
+
+
+def recall_differs_by_ties(host, device, batch, histories) -> int:
+    """Users whose recall candidates differ between the host and device
+    searchers; fails unless every difference is a near tie (neighbouring
+    scores within ANSWER_TOL, or items scored within it of the fetch cut)."""
+    (h_ids, h_sc), (d_ids, d_sc) = (rec.recommend(batch, k=FETCH, histories=histories)
+                                    for rec in (host, device))
+    differ = 0
+    for r in range(len(d_ids)):
+        if h_ids[r] == d_ids[r]:
+            continue
+        differ += 1
+        gaps = np.abs(np.diff(d_sc[r]))
+        score = {**dict(zip(h_ids[r], h_sc[r])), **dict(zip(d_ids[r], d_sc[r]))}
+        for j, (a, b) in enumerate(zip(h_ids[r], d_ids[r])):
+            tied = ((j > 0 and gaps[j - 1] <= ANSWER_TOL) or (j < len(gaps)
+                    and gaps[j] <= ANSWER_TOL))
+            if a != b and not tied and not all(abs(score[i] - d_sc[r][-1]) <= ANSWER_TOL
+                                               for i in set(h_ids[r]) ^ set(d_ids[r])):
+                raise AssertionError(f"user {r}: host recall {h_ids[r]}, device {d_ids[r]}")
+    return differ
+
+
+def addressable(x: torch.Tensor, arena_rows: int, arena_vocab: int) -> torch.Tensor:
+    return x[:arena_vocab] if x.dim() and x.shape[0] == arena_rows else x
+
+
+def cli_tooling(tmp: str, card: str, name: str, smi: str, times: dict, dcn: str,
+                straight: str, card_scores: np.ndarray) -> dict:
+    """The tooling commands in the ``cli`` phase's directory: ``convert-ckpt``
+    of the DCN run's epoch checkpoint to per-table tables and back (the
+    arena's addressable rows and every other tensor bit for bit), ``predict``
+    of the per-table checkpoint under ``arena_tables: false`` (the arena
+    run's scores within 1e-6); ``serve --ranker-ckpt --ranker-config`` on
+    the DSSM run's bundle over HTTP, on the device and the host backends
+    (answers equal to an in-process ``build_cascade``'s, id for id; the
+    recall's ids equal but for ties); ``fe --text`` and ``open_split`` from
+    the text splits (the ``.npz`` arrays); ``log`` of the run;
+    ``visualize-history`` of the raw train files. Returns the launches of
+    the device server's requests."""
+    import contextlib
+    import io
+    import yaml
+    from news_recsys_tpu_torch.config import arena_layout, load_config, table_specs
+    from news_recsys_tpu_torch.models.embedding import padded_vocab
+    from news_recsys_tpu_torch.serving import Recommender, _user_batch_from_json, build_cascade
+    from news_recsys_tpu_torch.training.checkpoint import load_state
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+
+    cfg = load_config(dcn)
+    src = os.path.join(straight, "ckpts", f"epoch_{CLI_EPOCHS - 1:03d}.pt")
+    per_table, back = (os.path.join(tmp, f"dcn_{k}.pt") for k in ("per_table", "arena_back"))
+    times["convert-ckpt (per-table)"] = cli_run("convert-ckpt (per-table)", "convert-ckpt", "-c",
+                                                dcn, "--input", src, "--output", per_table,
+                                                "--to", "per-table")
+    times["convert-ckpt (arena)"] = cli_run("convert-ckpt (arena)", "convert-ckpt", "-c", dcn,
+                                            "--input", per_table, "--output", back, "--to", "arena")
+    (arena_name, arena_vocab), = {(a, total) for a, _, total in arena_layout(cfg).values()}
+    rows = padded_vocab(table_specs(cfg)[arena_name][0])
+    got, want = (dict(tree_leaves(load_state(p))) for p in (back, src))
+    if sorted(got) != sorted(want) or "/model/embedder.tables.user_id" not in dict(
+            tree_leaves(load_state(per_table))):
+        raise AssertionError(f"convert-ckpt: {sorted(set(got) ^ set(want))}")
+    for path, w in want.items():
+        g = got[path]
+        same = (torch.equal(addressable(g, rows, arena_vocab), addressable(w, rows, arena_vocab))
+                if isinstance(w, torch.Tensor) else g == w)
+        if not same:
+            raise AssertionError(f"convert-ckpt round trip: {path} differs")
+    doc = yaml.safe_load(open(dcn))
+    doc["embeddings"]["arena_tables"] = False
+    per_table_cfg = os.path.join(tmp, "dcn_per_table.yaml")
+    with open(per_table_cfg, "w") as f:
+        yaml.safe_dump(doc, f)
+    out = os.path.join(tmp, "predict_per_table.jsonl")
+    times["predict (per-table)"] = cli_run("predict (per-table)", "predict", "-c", per_table_cfg,
+                                           "--checkpoint", per_table, "--output", out,
+                                           "--device", card)
+    err = float(np.abs(read_scores(out) - card_scores).max())
+    if err > 1e-6:
+        raise AssertionError(f"the per-table checkpoint predicts {err} off the arena's")
+    log(f"cli convert-ckpt: {src} -> per-table -> arena: {len(want)} leaves bit-identical (the "
+        f"arena on its {arena_vocab} addressable rows of {rows}); predict of the per-table "
+        f"checkpoint under arena_tables false on the card vs the arena run's: max_abs_err "
+        f"{err:.3e} (tol 1e-6)")
+
+    bundle = os.path.join(tmp, "dssm", "bundle")
+    argv = ["--bundle", bundle, "--ranker-ckpt", straight, "--ranker-config", dcn,
+            "--device", card]
+    reqs = make_requests(SERVE_REQUESTS)
+    reset_launches()
+    t0 = time.perf_counter()
+    health, answers = served_answers(argv, "device", reqs)
+    times["serve --ranker-ckpt (device)"] = time.perf_counter() - t0
     launches = read_launches()
-    # a backward a step: the DCN's straight, cut and resumed runs, the
-    # attention ranker's epoch (whose forward pools ``entities``), the
-    # DSSM's epoch (whose user tower pools ``hist``)
-    want = {"dcn_cross_bwd": 2 * steps + CLI_CUT_STEP + 2 * steps - first,
-            "fused_transformer_block_bwd": steps,
-            "fused_lookup_pool_bwd": steps + dssm_steps_run}
-    if any(launches[k] != n for k, n in want.items()):
-        raise AssertionError(f"cli: launches {launches}, expected {want}")
+    t0 = time.perf_counter()
+    host_health, host_answers = served_answers(argv, "host", reqs)
+    times["serve --ranker-ckpt (host)"] = time.perf_counter() - t0
+    for h, backend in ((health, "device"), (host_health, "host")):
+        if h.get("backend") != backend or not h.get("cascade") or h.get("ranker") != "dcn" \
+                or h.get("fetch") != FETCH:
+            raise AssertionError(f"/healthz: {h}")
+    cascades = {b: build_cascade(bundle, straight, dcn, fetch=FETCH, backend=b, device=card)
+                for b in ("device", "host")}
+    ties = 0
+    for req, ans, host_ans in zip(reqs, answers, host_answers):
+        batch = _user_batch_from_json(cascades["device"], req["users"])
+        for b, got in (("device", ans), ("host", host_ans)):
+            want_ids, want_scores = cascades[b].recommend(batch, k=K, histories=req["histories"])
+            if got["ids"] != want_ids or np.abs(np.subtract(got["scores"], want_scores)).max() > 0:
+                raise AssertionError(f"serve --backend {b}: {got['ids']} against the "
+                                     f"in-process cascade's {want_ids}")
+        ties += recall_differs_by_ties(cascades["host"].recall, cascades["device"].recall, batch,
+                                       req["histories"])
+    log(f"cli serve --ranker-ckpt {straight} --ranker-config dcn.yaml on the DSSM bundle: "
+        f"{SERVE_REQUESTS} requests of {USERS_PER_REQUEST} users over HTTP on --backend device "
+        f"and host, every answer equal to an in-process build_cascade's id for id; host vs "
+        f"device recall (fetch {FETCH}): {ties} users differing by near ties; /healthz "
+        f"{health}; launches of the device server's requests: {launches}")
+
+    times["fe --text (dcn)"] = cli_run("fe --text (dcn)", "fe", "-c", dcn, "--text")
+    base = os.path.join(cfg.paths.out_basedir, "extractored_feature")
+    compared = {}
+    for split in ("train", "dev", "item"):
+        npz = os.path.join(base, f"{split}_features.npz")
+        want = PackedDataset.load(npz).arrays
+        os.replace(npz, npz + ".away")
+        try:
+            t0 = time.perf_counter()
+            got = PackedDataset.open_split(cfg, split).arrays
+            load_s = time.perf_counter() - t0
+        finally:
+            os.replace(npz + ".away", npz)
+        if not set(want) <= set(got) or (split != "item" and set(want) != set(got)) or any(
+                not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"open_split({split}) from the text split differs")
+        compared[split] = (len(got["label"]), round(load_s, 3))
+    log(f"cli fe --text; open_split from the .txt splits equals the .npz arrays: {compared} "
+        "(rows, load s)")
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        times["log"] = cli_run("log", "log", straight)
+    if "Best Epoch" not in report.getvalue() or "Warm Start AUC" not in report.getvalue():
+        raise AssertionError(f"log: {report.getvalue()}")
+    html_path = os.path.join(tmp, "history.html")
+    raw = os.path.join(tmp, "Data", "MIND", "MINDsmall_train")
+    times["visualize-history"] = cli_run("visualize-history", "visualize-history", "--news",
+                                         os.path.join(raw, "news.tsv"), "--behaviors",
+                                         os.path.join(raw, "behaviors.tsv"), "--output",
+                                         html_path)
+    page = open(html_path, encoding="utf-8").read()
+    if "<h3>Users (200)</h3>" not in page:
+        raise AssertionError("visualize-history: no list of 200 users")
+    title = next(line for line in report.getvalue().splitlines() if line.startswith("## "))
+    log(f"cli log: {title!r}; visualize-history: "
+        f"{os.path.getsize(html_path)} bytes, 200 users")
     return launches
 
 
@@ -2123,6 +2350,314 @@ def cli_dssm(tmp: str, card: str, name: str, smi: str, times: dict) -> int:
         raise AssertionError(f"itemcf: {itemcf}")
     log(f"cli itemcf (host): {itemcf}")
     return int(trained["steps"])
+
+
+SLAB_STEPS = EARLIER_TRAIN_STEPS    # the DCN's slab epoch at batch 512
+SLAB_BATCHES = 3                    # its device_resident_bytes: about 3 batches of rows
+BIG_ROWS, BIG_STEPS = 8_400_000, 64  # attention rows above the default 2 GiB budget
+DSSM_SLAB_STEPS = 16
+# device_metrics_min_rows, a tenth of it and MIND-small dev's size: where the
+# device engine starts to pay is measured, not carried over
+METRIC_ROWS = (20_000, 200_000, 2_600_000)
+METRIC_USER_ROWS = 37                # rows (candidates) a user
+PROFILE_STEPS = 8
+
+
+def with_train(cfg, **train):
+    import dataclasses
+    return dataclasses.replace(cfg, train_hparams=dataclasses.replace(cfg.train_hparams,
+                                                                      **train))
+
+
+def tree_leaves(x, path: str = ""):
+    if isinstance(x, dict):
+        for k in sorted(x, key=str):
+            yield from tree_leaves(x[k], f"{path}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, x
+
+
+def assert_same_bits(a, b, what: str) -> int:
+    """Two states (:func:`training.checkpoint.state_dict`'s dicts, or any
+    tree of tensors) equal bit for bit; returns the number of leaves."""
+    got, want = dict(tree_leaves(a)), dict(tree_leaves(b))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: other leaves {sorted(set(got) ^ set(want))}")
+    for path, w in want.items():
+        g = got[path]
+        if not (torch.equal(g, w) if isinstance(w, torch.Tensor) else g == w):
+            raise AssertionError(f"{what}: {path} differs")
+    return len(want)
+
+
+def slab_budget(ds, steps: int) -> int:
+    """A ``device_resident_bytes`` that sends ``ds`` down the slab path in
+    slabs of ``steps`` batches."""
+    from news_recsys_tpu_torch.training.trainer import BatchPacker
+    packer = BatchPacker(ds)
+    row = (packer.int_mat.nbytes + packer.float_mat.nbytes) / packer.n
+    return int(row * TRAIN_BATCH * steps) + 1
+
+
+def slab_times(trainer, ds, steps: int, rounds: int = 5) -> tuple:
+    """(host gather ms, gather + upload ms) of one slab of ``steps`` batches
+    of ``ds`` through ``trainer.upload_slab``: medians of ``rounds``."""
+    packer = trainer._packer(ds)[0]
+    rows = np.random.default_rng(SEED).permutation(packer.n)[: steps * TRAIN_BATCH]
+    gather, total = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        packer.int_mat[rows], packer.float_mat[rows]
+        t1 = time.perf_counter()
+        trainer.upload_slab(packer, rows)
+        torch.cuda.synchronize()
+        gather.append(t1 - t0)
+        total.append(time.perf_counter() - t1)
+    return float(np.median(gather)) * 1e3, float(np.median(total)) * 1e3
+
+
+def fit_epoch(trainer, ds, **fit) -> tuple:
+    """``trainer.fit`` for one epoch: (state, its kernel launches, wall s)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(ds, max_epochs=1, **fit)
+    torch.cuda.synchronize()
+    return state, read_launches(), time.perf_counter() - t0
+
+
+def slab_dcn(dev: torch.device, name: str, smi: str) -> dict:
+    """The DCN at MIND-small widths (``train_config("dcn")``, batch 512) on
+    the slab path (``device_resident_bytes`` of SLAB_BATCHES batches of
+    rows) and on the resident path from the same seed: an epoch of
+    SLAB_STEPS steps, ``predict`` and ``validate`` (the device metric
+    engine) of a dev set, which streams too; states, scores and blocks bit
+    for bit. Then a warm epoch of each, timed; returns the slab epoch's
+    kernel launches."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.checkpoint import state_dict
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = with_train(train_config("dcn"), device_metrics_min_rows=0)
+    arrays = ranking_arrays(TRAIN_BATCH * SLAB_STEPS, SEED + 30)
+    ds = PackedDataset(arrays)
+    dev_ds = PackedDataset(dev_arrays(arrays["user_id"], SEED + 31))
+    warm = {int(u) for u in np.unique(arrays["user_id"])}
+    slab_cfg = with_train(cfg, device_resident_bytes=slab_budget(ds, SLAB_BATCHES))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, c in (("slab", slab_cfg), ("resident", cfg)):
+            trainer = Trainer(c, build_ranker(c, seed=SEED + 32, device=dev),
+                              workdir=os.path.join(tmp, label), device=dev)
+            state, launches, fit_s = fit_epoch(trainer, ds)
+            runs[label] = (trainer, state, launches, fit_s, trainer.predict(dev_ds),
+                           trainer.validate(state, dev_ds, 0, warm))
+        (st, ss, launches, slab_s, sp, sv), (rt, rs, _, res_s, rp, rv) = \
+            runs["slab"], runs["resident"]
+        if (st._packer(ds)[1] is not None or st._packer(dev_ds)[1] is not None
+                or rt._packer(ds)[1] is None):
+            raise AssertionError("the budget did not send the DCN's data down the slab path")
+        leaves = assert_same_bits(state_dict(ss), state_dict(rs), "DCN, slab vs resident")
+        if not np.array_equal(sp, rp) or json.dumps(sv, sort_keys=True) != json.dumps(
+                rv, sort_keys=True):
+            raise AssertionError(f"DCN slab vs resident: scores or blocks differ: {sv} {rv}")
+        cap = st._slab_chunk_cap(st._packer(ds)[0], TRAIN_BATCH)
+        gather_ms, upload_ms = slab_times(st, ds, cap)
+        warm_epochs = {label: runs[label][0].train_epoch(runs[label][1], ds, epoch=1)[1]
+                       for label in ("slab", "resident")}
+    step_ms = {k: TRAIN_BATCH / m["examples_per_sec"] * 1e3 for k, m in warm_epochs.items()}
+    log(f"runtime slab (dcn) on {name} ({smi}): {SLAB_STEPS} steps of {TRAIN_BATCH}, slabs of "
+        f"{cap} batches ({cap * TRAIN_BATCH} rows), predict and validate of {len(dev_ds)} dev "
+        f"rows (device engine): bit-identical to the resident path ({leaves} state leaves, "
+        f"every score, the block); first epochs {slab_s:.2f} / {res_s:.2f} s (slab / "
+        f"resident); a slab: host gather {gather_ms:.3f} ms, gather + upload "
+        f"{upload_ms:.3f} ms; warm epochs {step_ms['slab']:.3f} / {step_ms['resident']:.3f} "
+        f"ms a step (slab / resident); launches in the slab epoch: {launches}")
+    return launches
+
+
+def slab_default_budget(dev: torch.device, name: str, smi: str) -> dict:
+    """BIG_ROWS rows of ``zoo.attention_arrays`` (256 bytes a packed row, over
+    the default ``device_resident_bytes`` of 2 GiB) for the attention ranker's
+    sparse step (``train_config("attention")``, ``max_step`` BIG_STEPS): the
+    default budget sends them down the slab path; the same steps on the
+    resident path (a budget of 4 GiB) give the same state bit for bit.
+    Returns the slab epoch's kernel launches."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.checkpoint import state_dict
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = with_train(train_config("attention"), max_step=BIG_STEPS)
+    t0 = time.perf_counter()
+    ds = PackedDataset(training_arrays(cfg, BIG_ROWS, SEED + 33))
+    make_s = time.perf_counter() - t0
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, c in (("slab", cfg), ("resident", with_train(cfg, device_resident_bytes=4 << 30))):
+            trainer = Trainer(c, build_ranker(c, seed=SEED + 34, device=dev),
+                              workdir=os.path.join(tmp, label), device=dev)
+            t0 = time.perf_counter()
+            packer, mats = trainer._packer(ds)
+            torch.cuda.synchronize()
+            pack_s = time.perf_counter() - t0
+            state, launches, fit_s = fit_epoch(trainer, ds)
+            runs[label] = (trainer, state_dict(state), launches, fit_s, pack_s, mats is None)
+            del trainer, state, mats
+        (st, sblob, launches, slab_s, spack_s, slabbed), (_, rblob, _, res_s, rpack_s, rslab) = \
+            runs["slab"], runs["resident"]
+        nbytes = packer.int_mat.nbytes + packer.float_mat.nbytes
+        if not slabbed or rslab or nbytes <= cfg.train_hparams.device_resident_bytes:
+            raise AssertionError(f"{nbytes} packed bytes against the default budget "
+                                 f"{cfg.train_hparams.device_resident_bytes}: slab {slabbed}")
+        leaves = assert_same_bits(sblob, rblob, "attention, slab vs resident")
+        cap = min(cfg.train_hparams.chunk_steps, st._slab_chunk_cap(packer, TRAIN_BATCH),
+                  BIG_STEPS)
+        gather_ms, upload_ms = slab_times(st, ds, cap)
+    log(f"runtime slab (attention, the default budget) on {name} ({smi}): {BIG_ROWS} rows, "
+        f"{nbytes} packed bytes ({nbytes / BIG_ROWS:.0f} a row) over the default "
+        f"{cfg.train_hparams.device_resident_bytes}; made in {make_s:.2f} s, packed in "
+        f"{spack_s:.2f} s (slab) / {rpack_s:.2f} s (resident, its upload included); "
+        f"{BIG_STEPS} steps in {slab_s:.2f} / {res_s:.2f} s (slab / resident, first "
+        f"epochs), bit-identical ({leaves} state leaves); a slab of {cap} batches: host "
+        f"gather {gather_ms:.3f} ms, gather + upload {upload_ms:.3f} ms; launches in the slab "
+        f"epoch: {launches}")
+    return launches
+
+
+def slab_dssm(dev: torch.device, name: str, smi: str) -> dict:
+    """configs/dssm.yaml's DSSM (all-dense AdamW, logQ) for an epoch of
+    DSSM_SLAB_STEPS on the slab path (slabs of SLAB_BATCHES batches) and on
+    the resident path: the same state and encodings of the 65,238-item
+    corpus and the queries, bit for bit (the epoch's negatives are keyed by
+    the global step). Returns the slab epoch's kernel launches."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.training.checkpoint import state_dict
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dssm_config()
+    ds = PackedDataset(dssm_arrays(TRAIN_BATCH * DSSM_SLAB_STEPS, SEED + 35))
+    items, query, _ = dssm_eval_sets(SEED + 36)
+    slab_cfg = with_train(cfg, device_resident_bytes=slab_budget(ds, SLAB_BATCHES))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, c in (("slab", slab_cfg), ("resident", cfg)):
+            trainer = DSSMTrainer(c, build_dssm(c, seed=SEED + 37, device=dev),
+                                  workdir=os.path.join(tmp, label), device=dev)
+            state, launches, fit_s = fit_epoch(trainer, ds)
+            runs[label] = (trainer, state_dict(state), launches, fit_s,
+                           trainer.encode_item_corpus(items), trainer.encode_users(query))
+    (st, sblob, launches, slab_s, s_items, s_users), (rt, rblob, _, res_s, r_items, r_users) = \
+        runs["slab"], runs["resident"]
+    if st._packer(ds)[1] is not None or st._packer(items)[1] is not None \
+            or rt._packer(ds)[1] is None:
+        raise AssertionError("the budget did not send the DSSM's data down the slab path")
+    leaves = assert_same_bits(sblob, rblob, "DSSM, slab vs resident")
+    if not (np.array_equal(s_items, r_items) and np.array_equal(s_users, r_users)):
+        raise AssertionError("DSSM slab vs resident: the encodings differ")
+    log(f"runtime slab (dssm) on {name} ({smi}): {DSSM_SLAB_STEPS} steps of {TRAIN_BATCH}, "
+        f"slabs of {SLAB_BATCHES} batches: bit-identical to the resident path ({leaves} state "
+        f"leaves, {len(s_items)} item and {len(s_users)} query encodings); first epochs "
+        f"{slab_s:.2f} / {res_s:.2f} s (slab / resident); launches in the slab epoch: "
+        f"{launches}")
+    return launches
+
+
+def metric_rows(n: int, seed: int) -> tuple:
+    """``n`` validation rows, users of about METRIC_USER_ROWS rows, float32
+    scores on a grid of 1/5,000 (ties), 8% clicks, half the users warm."""
+    rng = np.random.default_rng(seed)
+    users = max(1, n // METRIC_USER_ROWS)
+    uids = rng.integers(1, users + 1, n)
+    scores = (np.round(rng.random(n) * 5000) / 5000).astype(np.float32)
+    labels = (rng.random(n) < 0.08).astype(np.float32)
+    return uids, scores, labels, set(range(1, users // 2 + 1))
+
+
+def metric_engine(dev: torch.device, name: str, smi: str) -> None:
+    """The device metric engine at METRIC_ROWS rows against the host engine
+    (abs 2e-5, ``User_Count`` exact, tests/test_metrics_device.py's
+    tolerance), and against its own second run on the card bit for bit;
+    both engines' wall times logged."""
+    from news_recsys_tpu_torch.training.metrics import compute_user_metrics
+    from news_recsys_tpu_torch.training.metrics_device import compute_user_metrics_device
+
+    for n in METRIC_ROWS:
+        rows = metric_rows(n, SEED + 38)
+        t0 = time.perf_counter()
+        host = compute_user_metrics(*rows)
+        host_s = time.perf_counter() - t0
+        card_s, runs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append(compute_user_metrics_device(*rows, device=dev))
+            card_s.append(time.perf_counter() - t0)
+        if json.dumps(runs[0], sort_keys=True) != json.dumps(runs[1], sort_keys=True):
+            raise AssertionError(f"the device engine gave other bits on a second run: {runs}")
+        err = 0.0
+        for cohort, vals in host.items():
+            for key, val in vals.items():
+                got = runs[0][cohort][key]
+                if key == "User_Count" and got != val:
+                    raise AssertionError(f"{cohort} User_Count {got}, the host's {val}")
+                err = max(err, abs(got - val))
+        if err > 2e-5:
+            raise AssertionError(f"device engine vs host at {n} rows: {err}: {runs[0]} {host}")
+        log(f"runtime metric engine on {name} ({smi}): {n} rows, "
+            f"{host['Warm_Start']['User_Count'] + host['Cold_Start']['User_Count']} users, "
+            f"ties: device vs host max_abs_err {err:.3e} (tol 2e-5, User_Count exact), two "
+            f"runs bit-identical; wall s: device {card_s[0]:.3f} / {card_s[1]:.3f} (first / "
+            f"second run), host {host_s:.3f}")
+
+
+def profile_check(dev: torch.device, name: str, smi: str) -> None:
+    """``Trainer(profile_steps=1)`` on the DCN's sparse step for an epoch of
+    PROFILE_STEPS: a trace under ``<log_dir>/profile`` that names the cross
+    backward's kernel; ``device_memory_stats()`` logged."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+    from news_recsys_tpu_torch.utils.profiling import device_memory_stats
+
+    cfg = train_config("dcn")
+    ds = PackedDataset(ranking_arrays(TRAIN_BATCH * PROFILE_STEPS, SEED + 39))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 40, device=dev), workdir=tmp,
+                          device=dev, profile_steps=1)
+        _, _, fit_s = fit_epoch(trainer, ds)
+        traces = [os.path.join(tmp, "profile", f) for f in os.listdir(os.path.join(tmp, "profile"))
+                  if ".pt.trace.json" in f]
+        if len(traces) != 1:
+            raise AssertionError(f"profile: {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        ours = sorted({k for k in kernels if "dcn_cross_bwd_rows_kernel" in k})
+        if not ours:
+            raise AssertionError(f"profile: no dcn_cross_bwd_rows_kernel among {len(kernels)} "
+                                 "kernels of the trace")
+        size = os.path.getsize(traces[0])
+    log(f"runtime profile on {name} ({smi}): Trainer(profile_steps=1), {PROFILE_STEPS} steps in "
+        f"{fit_s:.2f} s traced; {size} bytes of trace, {len(kernels)} kernels, "
+        f"{sum(any(c in k for c in CROSS_BWD_KERNELS) for k in kernels)} of the cross "
+        f"backward's ({ours[0]}); device_memory_stats() {device_memory_stats()}")
+
+
+def runtime_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """The training runtime: the slab-streamed path (the DCN, the
+    default budget's attention run, the DSSM), the device metric engine,
+    profiling; returns the slab epochs' kernel launches by path."""
+    paths = {"train_slab": timed("runtime: the DCN on slabs", slab_dcn, dev, name, smi),
+             "train_slab_budget": timed("runtime: the default budget's slabs",
+                                        slab_default_budget, dev, name, smi),
+             "train_slab_dssm": timed("runtime: the DSSM on slabs", slab_dssm, dev, name, smi)}
+    timed("runtime: the device metric engine", metric_engine, dev, name, smi)
+    timed("runtime: profiling", profile_check, dev, name, smi)
+    return paths
 
 
 def counted_kernels() -> dict:
@@ -2218,6 +2753,18 @@ PATH_KERNELS = {
     "cli": {"dcn_cross_stack": None, "dcn_cross_bwd": None, "fused_transformer_block": None,
             "fused_transformer_block_bwd": None, "fused_lookup_pool": None,
             "fused_lookup_pool_bwd": None, "scatter_rows_set": 0},
+    # the cascade that `serve --ranker-ckpt` composes pools the user
+    # tower and runs the DCN's cross stack once a request; the slab epochs
+    # launch what their steps launch on the resident path
+    "serve_ranker_ckpt": {"fused_lookup_pool": SERVE_REQUESTS, "dcn_cross_stack": SERVE_REQUESTS,
+                          "dcn_cross_bwd": 0, "scatter_rows_set": 0},
+    "train_slab": {"dcn_cross_stack": SLAB_STEPS, "dcn_cross_bwd": SLAB_STEPS,
+                   "scatter_rows_set": SLAB_STEPS},
+    "train_slab_budget": {"fused_transformer_block": BIG_STEPS,
+                          "fused_transformer_block_bwd": BIG_STEPS,
+                          "scatter_rows_set": BIG_STEPS, "fused_lookup_pool": 0},
+    "train_slab_dssm": {"fused_lookup_pool": DSSM_SLAB_STEPS,
+                        "fused_lookup_pool_bwd": DSSM_SLAB_STEPS, "scatter_rows_set": 0},
 }
 
 
@@ -2266,8 +2813,9 @@ def run(dev: torch.device) -> None:
              "train_attention_dense": timed("train_attention_dense", train_phase, dev, name,
                                             smi, "attention@adamw"),
              **timed("train_dssm", train_dssm_phase, dev, name, smi),
-             "cli": timed("cli", cli_phase, dev, name, smi),
-             **timed("train_variants", train_variants_phase, dev, smi)}
+             **timed("cli", cli_phase, dev, name, smi),
+             **timed("train_variants", train_variants_phase, dev, smi),
+             **timed("runtime", runtime_phase, dev, name, smi)}
     check_launches(paths)
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
         timed("trace of the cross backward", trace_cross_bwd, dev)

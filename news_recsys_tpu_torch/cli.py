@@ -7,10 +7,15 @@ DSSM with a retrieval block every epoch, ``retrieval_eval.json`` and a
 serving bundle, from one YAML config, with a checkpoint after every epoch
 and ``--resume``), ``predict`` (per-row scores of a split from a
 checkpoint; the DSSM's tower embeddings and their cosine), ``itemcf`` (the
-non-neural recall baseline, on the host) and ``serve`` (a bundle of this
-package over HTTP; ``scripts/export_torch_bundle.py`` converts the JAX
-package's bundles). ``scripts/export_torch_checkpoint.py`` converts a JAX
-``epoch_*.msgpack`` into this package's ``epoch_*.pt``.
+non-neural recall baseline, on the host), ``serve`` (a bundle of this
+package over HTTP, or the cascade of a recall bundle and a ranker's
+checkpoint, its search on the device or the host;
+``scripts/export_torch_bundle.py`` converts the JAX package's bundles),
+``convert-ckpt`` (a checkpoint between the per-table and arena layouts),
+``log`` (the best epoch of a ``val_log.log``) and ``visualize-history`` (an
+HTML page of the raw files' user histories).
+``scripts/export_torch_checkpoint.py`` converts a JAX ``epoch_*.msgpack``
+into this package's ``epoch_*.pt``.
 
 ``train``, ``predict`` and ``serve`` run on ``--device`` (default ``cuda``).
 A CUDA device that is not there is an error, not a reason to run on the
@@ -339,15 +344,20 @@ def cmd_itemcf(args) -> None:
 
 def cmd_serve(args) -> None:
     _require_device(args.device)
-    from .serving import CascadeRecommender, Recommender, serve_http
+    from .serving import CascadeRecommender, Recommender, build_cascade, serve_http
 
     with open(os.path.join(args.bundle, "meta.json")) as f:
         is_cascade = json.load(f).get("kind") == "cascade"
-    if is_cascade:
+    if args.ranker_ckpt:
+        if not args.ranker_config:
+            raise SystemExit("--ranker-ckpt requires --ranker-config")
+        rec = build_cascade(args.bundle, args.ranker_ckpt, args.ranker_config,
+                            fetch=args.fetch or 100, backend=args.backend, device=args.device)
+    elif is_cascade:
         rec = CascadeRecommender.load(args.bundle, device=args.device,
-                                      fetch=args.fetch or None)
+                                      fetch=args.fetch or None, backend=args.backend)
     else:
-        rec = Recommender.load(args.bundle, device=args.device)
+        rec = Recommender.load(args.bundle, device=args.device, backend=args.backend)
     server = serve_http(rec, host=args.host, port=args.port)
     print(f"Serving on http://{args.host}:{server.server_address[1]}", flush=True)
     try:
@@ -356,6 +366,40 @@ def cmd_serve(args) -> None:
         pass
     finally:
         server.server_close()
+
+
+def cmd_convert_ckpt(args) -> None:
+    """Convert an ``epoch_*.pt`` checkpoint between the per-table and arena
+    embedding layouts (``embeddings.arena_tables``)."""
+    if args.input.endswith(".msgpack"):
+        _refuse_msgpack(args.input)
+    from .config import load_config
+    from .training.arena_convert import convert_checkpoint
+    convert_checkpoint(load_config(args.config), args.input, args.output,
+                       to_arena=args.to == "arena")
+    print(f"Converted {args.input} -> {args.output} ({args.to} layout)")
+
+
+def cmd_log(args) -> None:
+    from .utils.log_analysis import format_best_epoch, parse_log
+    target = args.target
+    if os.path.isdir(target):
+        target = os.path.join(target, "val_log.log")
+    elif not os.path.exists(target):
+        # a model name: the newest experiments/<model>_20* dir
+        dirs = sorted(glob.glob(f"experiments/{target}_20*"), reverse=True)
+        if not dirs:
+            print(f"No experiment dirs match experiments/{target}_20*")
+            return
+        target = os.path.join(dirs[0], "val_log.log")
+    print(f"Parsing: {target}")
+    model_name = os.path.basename(os.path.dirname(os.path.abspath(target))).split("_")[0]
+    print(format_best_epoch(parse_log(target), model_name))
+
+
+def cmd_visualize_history(args) -> None:
+    from .utils.visualize_history import generate_html_report
+    generate_html_report(args.news, args.behaviors, args.output, args.max_users)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -428,13 +472,43 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_itemcf)
 
     s = sub.add_parser("serve", help="serve a recall or cascade bundle over HTTP")
-    s.add_argument("--bundle", required=True, help="bundle directory of this package")
+    s.add_argument("--bundle", required=True,
+                   help="bundle directory of this package: a recall bundle (train of the "
+                        "DSSM writes one) or a cascade bundle")
     s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8321)
+    s.add_argument("--backend", default="auto", choices=["auto", "device", "host"],
+                   help="recall search on the device or on the host (auto: the device on "
+                        "a card, the host on the CPU)")
+    s.add_argument("--ranker-ckpt", default=None,
+                   help="ranker epoch_*.pt or experiment dir: serve the recall bundle's "
+                        "recall -> rank cascade with this ranker")
+    s.add_argument("--ranker-config", default=None,
+                   help="the ranker's YAML config (required with --ranker-ckpt)")
     s.add_argument("--fetch", type=int, default=0,
-                   help="cascade candidates per user (0: the bundle's own)")
+                   help="cascade candidates per user (0: the bundle's own; 100 with "
+                        "--ranker-ckpt)")
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("convert-ckpt", help="convert a checkpoint between per-table and "
+                                            "arena embedding layouts")
+    s.add_argument("-c", "--config", required=True)
+    s.add_argument("--input", required=True, help="source epoch_*.pt")
+    s.add_argument("--output", required=True, help="destination .pt")
+    s.add_argument("--to", required=True, choices=["arena", "per-table"], help="target layout")
+    s.set_defaults(fn=cmd_convert_ckpt)
+
+    s = sub.add_parser("log", help="best-epoch report from val_log.log")
+    s.add_argument("target", help="log file, experiment dir, or model name")
+    s.set_defaults(fn=cmd_log)
+
+    s = sub.add_parser("visualize-history", help="HTML user-history report")
+    s.add_argument("--news", required=True)
+    s.add_argument("--behaviors", required=True)
+    s.add_argument("--output", default="user_history_report.html")
+    s.add_argument("--max-users", type=int, default=200)
+    s.set_defaults(fn=cmd_visualize_history)
     return p
 
 

@@ -4,9 +4,11 @@ The port's own copy of :mod:`news_recsys_tpu.data.packed_dataset` (numpy
 only; ``tests/test_torch_shared.py`` holds it to the original): all
 features live as packed int32/float32 host arrays; batching is pure slicing
 of a shuffled permutation; every batch has an identical static shape, with
-the final partial batch padded and masked via ``_valid`` weights. Left out:
-the reference text format (``from_text``, and ``open_split``'s fallback to
-it) and ``encode_dataset``, which the port does not use.
+the final partial batch padded and masked via ``_valid`` weights. The
+reference text format loads through ``from_text`` (the port's C++ parser,
+:mod:`news_recsys_tpu_torch.native`, or :func:`..text_format.
+read_text_features`). Left out: ``encode_dataset``, which the port does not
+use.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config import Config
+from ..utils.logging import get_logger
+
+logger = get_logger("packed_dataset")
+
 Batch = Dict[str, np.ndarray]
 
 
@@ -47,13 +53,41 @@ class PackedDataset:
                 arrays[k] = v
             return cls(arrays)
 
+    @staticmethod
+    def _sniff_n_labels(path: str) -> int:
+        """Label column width from the first non-empty line (the reference
+        DataReader infers multi-labels by splitting on spaces,
+        ``data_reader.py:111-113``)."""
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if line and "\t" in line:
+                    return len(line.split("\t")[1].split(" "))
+        return 1
+
+    @classmethod
+    def from_text(cls, path: str, cfg: Config, native: bool = True) -> "PackedDataset":
+        """Parse the reference text format: with the C++ one-pass parser
+        (``native``; a failed build raises), else in Python. Multi-value
+        labels yield an (N, k) float32 'label' array."""
+        if native:
+            from ..native import parse_text_features_native
+            return cls(parse_text_features_native(path, cfg, n_labels=cls._sniff_n_labels(path)))
+        from .text_format import read_text_features
+        return cls(read_text_features(path, cfg))
+
     @classmethod
     def open_split(cls, cfg: Config, split: str) -> "PackedDataset":
-        """Load ``<out_basedir>/extractored_feature/<split>_features.npz``."""
+        """Load ``<out_basedir>/extractored_feature/<split>_features.npz``
+        (falling back to the reference ``.txt`` format if present)."""
         base = os.path.join(cfg.paths.out_basedir, "extractored_feature")
         npz = os.path.join(base, f"{split}_features.npz")
         if os.path.exists(npz):
             return cls.load(npz)
+        txt = os.path.join(base, f"{split}_features.txt")
+        if os.path.exists(txt):
+            logger.info(f"Loading reference text format: {txt}")
+            return cls.from_text(txt, cfg)
         raise FileNotFoundError(f"No feature file for split '{split}' under {base}")
 
     def take(self, idx: np.ndarray) -> Batch:

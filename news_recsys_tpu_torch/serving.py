@@ -7,7 +7,12 @@ user -> top-k queries with per-user history dedup; a
 candidates with any ranker of the port's zoo (LR, Deep, Wide&Deep, FM,
 DeepFM, DCN v1/v2) and serves the top-k by ranker score. On a CUDA device
 the user tower's history pooling, DCN-v1's cross stack and the FM second
-order run in the port's CUDA kernels.
+order run in the port's CUDA kernels. The recall's top-k search runs on the
+Recommender's device (``backend="device"``, :class:`~.ops.topk.TopKSearcher`)
+or on the host (``"host"``, the C++ :class:`~.native.HostTopKSearcher` over a
+CPU copy of the corpus); ``"auto"`` takes the device on a card and the host
+on the CPU, as the JAX package does. :func:`build_cascade` composes a
+cascade from a recall bundle and a ranker's training checkpoint.
 
 Bundles are directories of plain files, so no flax is needed to read them:
 ``config.json``, ``params.npz`` (numpy arrays keyed by flax path, see
@@ -79,13 +84,19 @@ def _read_meta(path: str) -> dict:
     return meta
 
 
+BACKENDS = ("auto", "device", "host")
+
+
 class Recommender:
-    """DSSM recall: exact top-k over the L2-normalised item corpus."""
+    """DSSM recall: exact top-k over the L2-normalised item corpus, searched
+    on the device or on the host (``backend``, module docstring)."""
 
     def __init__(self, cfg: Config, model: DSSM, item_ds: Optional[PackedDataset] = None,
-                 device="cuda", batch_size: int = 1024,
+                 device="cuda", batch_size: int = 1024, backend: str = "auto",
                  _corpus: Optional[np.ndarray] = None,
                  _item_ids: Optional[np.ndarray] = None):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
@@ -99,10 +110,18 @@ class Recommender:
             corpus = _l2(self._encode(item_ds, self.model.item_embedding))
             self.item_ids = item_ds.arrays["item_id"].astype(np.int64)
         self.corpus = corpus.cpu().numpy()                       # L2-normed
-        self.backend = self.device.type
-        self.searcher = TopKSearcher(device=self.device)
-        self.searcher.update_embedding(corpus)
-        logger.info(f"Recommender ready: {len(self.item_ids)} items on {self.device}")
+        if backend == "auto":
+            backend = "host" if self.device.type == "cpu" else "device"
+        self.backend = backend
+        if backend == "host":
+            from .native import HostTopKSearcher
+            self.searcher = HostTopKSearcher(normalize=False)
+            self.searcher.update_embedding(self.corpus)
+        else:
+            self.searcher = TopKSearcher(device=self.device)
+            self.searcher.update_embedding(corpus)
+        logger.info(f"Recommender ready: {len(self.item_ids)} items on {self.device}, "
+                    f"search backend {self.backend}")
 
     # -- persistence ---------------------------------------------------------
 
@@ -128,14 +147,15 @@ class Recommender:
         return path
 
     @classmethod
-    def load(cls, path: str, device="cuda", batch_size: int = 1024) -> "Recommender":
+    def load(cls, path: str, device="cuda", batch_size: int = 1024,
+             backend: str = "auto") -> "Recommender":
         """Restore a bundle saved by :meth:`save`; no item re-encode."""
         _read_meta(path)
         cfg = _load_config(path)
         model = _load_params(path, build_dssm(cfg, device=device))
         with np.load(os.path.join(path, "corpus.npz")) as z:
             corpus, item_ids = z["corpus"], z["item_ids"]
-        return cls(cfg, model, device=device, batch_size=batch_size,
+        return cls(cfg, model, device=device, batch_size=batch_size, backend=backend,
                    _corpus=corpus, _item_ids=item_ids)
 
     # -- serving -------------------------------------------------------------
@@ -155,7 +175,8 @@ class Recommender:
             emb = _l2(self._encode(PackedDataset(dict(user_batch)), self.model.user_embedding))
         max_hist = max((len(h) for h in histories), default=0) if histories else 0
         fetch = min(k + max_hist, len(self.item_ids))
-        idx, scores = self.searcher.search(emb, fetch)
+        idx, scores = self.searcher.search(emb.cpu().numpy() if self.backend == "host" else emb,
+                                           fetch)
         rec_ids, rec_scores = [], []
         for row in range(len(idx)):
             hist = set(int(x) for x in histories[row]) if histories else set()
@@ -222,11 +243,12 @@ class CascadeRecommender:
         return path
 
     @classmethod
-    def load(cls, path: str, device="cuda", fetch: Optional[int] = None) -> "CascadeRecommender":
+    def load(cls, path: str, device="cuda", fetch: Optional[int] = None,
+             backend: str = "auto") -> "CascadeRecommender":
         meta = _read_meta(path)
         if meta.get("kind") != "cascade":
             raise ValueError(f"{path} is not a cascade bundle")
-        recall = Recommender.load(os.path.join(path, "recall"), device=device)
+        recall = Recommender.load(os.path.join(path, "recall"), device=device, backend=backend)
         rdir = os.path.join(path, "ranker")
         rcfg = _load_config(rdir)
         model = _load_params(rdir, build_ranker(rcfg, rcfg.name, device=device))
@@ -274,6 +296,30 @@ class CascadeRecommender:
             rec_ids.append(ids_row)
             rec_scores.append(sc_row)
         return rec_ids, rec_scores
+
+
+def build_cascade(recall_bundle: str, ranker_ckpt: str, ranker_config: str,
+                  fetch: int = 100, backend: str = "auto", device="cuda") -> CascadeRecommender:
+    """A cascade from a saved recall bundle, a ranker's training checkpoint
+    (an ``epoch_*.pt`` or an experiment dir, whose newest one is taken) and
+    the ranker's YAML config; the item features come from the config's
+    extracted item split. A cascade bundle is refused before anything loads
+    (the JAX package's ``serve`` reads ``--ranker-ckpt`` first and fails
+    later on such a bundle)."""
+    from .cli import _resolve_ckpt
+    from .config import load_config
+    from .training.checkpoint import load_state
+
+    if _read_meta(recall_bundle).get("kind") == "cascade":
+        raise ValueError(f"{recall_bundle} is a cascade bundle, which brings its own ranker: "
+                         "serve it without --ranker-ckpt, or pass the recall bundle "
+                         "(<dssm run>/bundle) with it")
+    recall = Recommender.load(recall_bundle, device=device, backend=backend)
+    rcfg = load_config(ranker_config)
+    model = build_ranker(rcfg, rcfg.name, device=device)
+    model.load_state_dict(load_state(_resolve_ckpt(ranker_ckpt))["model"], strict=True)
+    item_ds = PackedDataset.open_split(rcfg, "item")
+    return CascadeRecommender(recall, rcfg, model, item_ds, fetch=fetch)
 
 
 # ---------------------------------------------------------------------------

@@ -121,13 +121,18 @@ def _check_dtypes(model, saved: dict) -> None:
                              f"{t.dtype} (mesh.param_dtype differs?)")
 
 
-def save_state(path: str, state) -> str:
-    """Write ``state``'s checkpoint to ``path`` (through a temporary file, so
-    a reader never sees half a checkpoint); returns ``path``."""
+def save_state_dict(path: str, blob: dict) -> str:
+    """Write the checkpoint dict ``blob`` to ``path`` (through a temporary
+    file, so a reader never sees half a checkpoint); returns ``path``."""
     tmp = f"{path}.tmp"
-    torch.save(state_dict(state), tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_state(path: str, state) -> str:
+    """Write ``state``'s checkpoint to ``path``; returns ``path``."""
+    return save_state_dict(path, state_dict(state))
 
 
 def load_state(path: str) -> dict:
@@ -137,11 +142,8 @@ def load_state(path: str) -> dict:
 
 def save_weights(path: str, model) -> str:
     """``model``'s parameters alone as a ``kind`` "weights" checkpoint at
-    ``path`` (through a temporary file); returns ``path``."""
-    tmp = f"{path}.tmp"
-    torch.save({"kind": "weights", "model": model.state_dict()}, tmp)
-    os.replace(tmp, path)
-    return path
+    ``path``; returns ``path``."""
+    return save_state_dict(path, {"kind": "weights", "model": model.state_dict()})
 
 
 def load_weights(model, blob: dict):

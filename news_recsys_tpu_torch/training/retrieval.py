@@ -176,7 +176,7 @@ class DSSMTrainer(Trainer):
     """
 
     def __init__(self, cfg: Config, model: DSSM, workdir: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", profile_steps: int = 0):
         dcfg = cfg.extra("dssm_cfg", {}) or {}
         self.negative_sample_rate = int(dcfg.get("negative_sample_rate", 3))
         self._loss_args = (float(dcfg.get("temperature", 0.1)),
@@ -184,7 +184,7 @@ class DSSMTrainer(Trainer):
         self._logq = bool(dcfg.get("logq_correction", False))
         self._logq_table: Optional[torch.Tensor] = None
         self._eval_data: Optional[Dict] = None
-        super().__init__(cfg, model, workdir=workdir, device=device)
+        super().__init__(cfg, model, workdir=workdir, device=device, profile_steps=profile_steps)
 
     def _make_train_step(self):
         make = make_dssm_sparse_train_step if self.sparse_embeddings else make_dssm_train_step

@@ -5,31 +5,35 @@ Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
 (``embedding_optimizer`` ``"rowwise_adagrad"`` or ``"sparse_adamw"``, with
 K-step write-back where ``embedding_update_period`` > 1; :mod:`.sparse_step`) or the
 all-dense one (``"adamw"``, :mod:`.dense_step`), chosen as the JAX trainer
-chooses by :attr:`Trainer.sparse_embeddings`, and its device-resident epoch:
-the packed dataset goes to the device once, and each step gathers its batch
-rows there. Steps run eagerly, one Python call each (JAX scanned them in
-one compiled chunk; the port cuts an epoch into the same chunks, where
-K-step write-back flushes). Validation scores the dev set on the device and runs
-the host metric engine (:mod:`.metrics`) at every size. The experiment dir
-keeps the JAX package's layout and formats: ``train.log``, ``val_log.log``,
+chooses by :attr:`Trainer.sparse_embeddings`. A packed dataset that fits
+``train_hparams.device_resident_bytes`` goes to the device once, and each
+step gathers its batch rows there; a larger one is slab-streamed: each chunk
+of steps gathers its ``c * batch_size`` rows on the host and uploads them in
+one copy, ``c`` capped so that a slab stays within the same budget. Both
+paths give a step the same batch, so they train to the same bits. Steps run
+eagerly, one Python call each (JAX scanned them in one compiled chunk; the
+port cuts an epoch into the same chunks, where K-step write-back flushes).
+Validation scores the dev set on the device and computes its metric block
+with the device engine (:mod:`.metrics_device`) from
+``device_metrics_min_rows`` rows, else with the host engine
+(:mod:`.metrics`). ``profile_steps > 0`` traces epoch 0 with
+``torch.profiler`` into ``<log_dir>/profile``. The experiment dir keeps the
+JAX package's layout and formats: ``train.log``, ``val_log.log``,
 ``metrics.jsonl`` beside a TensorBoard events file, ``model_info.log``, and
 ``ckpts/`` with a checkpoint after every epoch (``epoch_<NNN>.pt``) and,
 every ``ckpt_every_steps`` steps, step checkpoints under ``ckpts/steps/``
 (:mod:`.checkpoint`), from which ``fit(resume=True)`` continues the same
 data order.
-
-Not ported yet (ROADMAP.md, queue 1, item 2f): the device metric engine
-(``training/metrics_device.py``) and the slab-streamed path for datasets
-larger than ``device_resident_bytes``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Set
+from typing import Callable, Dict, Iterator, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +41,11 @@ import torch
 from ..config import Config
 from ..data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from ..utils.logging import get_logger
+from ..utils.profiling import trace
 from ..utils.tensorboard import SummaryWriter
 from .checkpoint import CheckpointManager, load_state, load_state_dict, save_state
 from .metrics import compute_user_metrics, format_validation_block
+from .metrics_device import compute_user_metrics_device
 
 __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
            "binned_auc_update", "binned_auc_value", "unpack_batch"]
@@ -47,8 +53,6 @@ __all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
 logger = get_logger("trainer")
 
 AUC_BINS = 4096
-RUNTIME_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1, item 2f "
-                      "('Training slice, runtime')")
 
 
 @dataclass
@@ -89,11 +93,14 @@ class Trainer:
     ``model`` brings its parameters (seeded by ``build_ranker``, or converted
     from the JAX package by :mod:`news_recsys_tpu_torch.convert`) and moves
     to ``device``: the card, unless the caller names another; with no card
-    the move raises.
+    the move raises. ``profile_steps > 0`` traces epoch 0 (all of it: JAX's
+    trainer reads the count only as a flag, and the port follows it).
     """
 
-    def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cuda"):
+    def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cuda",
+                 profile_steps: int = 0):
         self.cfg = cfg
+        self.profile_steps = profile_steps
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_step = self._make_train_step()
@@ -151,19 +158,54 @@ class Trainer:
         with open(os.path.join(self.log_dir, "model_info.log"), "w") as f:
             f.write("\n".join(lines) + "\n")
 
-    def _device_matrices(self, ds: PackedDataset):
-        """(packer, int matrix, float matrix) of ``ds``, the matrices uploaded
-        to the device once per dataset."""
+    def _packer(self, ds: PackedDataset):
+        """(packer, device matrices) of ``ds``, made once per dataset; the
+        matrices are the packed dataset uploaded to the device, or None where
+        it is larger than ``device_resident_bytes`` (the slab path)."""
         if id(ds) not in self._packed:
             packer = BatchPacker(ds)
-            if packer.int_mat.nbytes + packer.float_mat.nbytes > \
-                    self.cfg.train_hparams.device_resident_bytes:
-                raise NotImplementedError(
-                    "a dataset larger than train_hparams.device_resident_bytes (the "
-                    "slab-streamed path) " + RUNTIME_NOT_PORTED)
-            self._packed[id(ds)] = (ds, packer, torch.from_numpy(packer.int_mat).to(self.device),
-                                    torch.from_numpy(packer.float_mat).to(self.device))
+            mats = ((torch.from_numpy(packer.int_mat).to(self.device),
+                     torch.from_numpy(packer.float_mat).to(self.device))
+                    if self._use_device_resident(packer) else None)
+            self._packed[id(ds)] = (ds, packer, mats)
         return self._packed[id(ds)][1:]
+
+    def _use_device_resident(self, packer: BatchPacker) -> bool:
+        return (packer.int_mat.nbytes + packer.float_mat.nbytes
+                <= self.cfg.train_hparams.device_resident_bytes)
+
+    def _slab_chunk_cap(self, packer: BatchPacker, bs: int) -> int:
+        """The most steps a slab may hold, so that its ``c * bs`` rows stay
+        within the ``device_resident_bytes`` budget that forced the slab path."""
+        row_bytes = (packer.int_mat.nbytes + packer.float_mat.nbytes) / max(packer.n, 1)
+        return max(1, int(self.cfg.train_hparams.device_resident_bytes
+                          // max(1.0, row_bytes * bs)))
+
+    def upload_slab(self, packer: BatchPacker, rows: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """``rows`` of the packed matrices, gathered on the host and uploaded
+        to the device in one copy each."""
+        return (torch.from_numpy(packer.int_mat[rows]).to(self.device),
+                torch.from_numpy(packer.float_mat[rows]).to(self.device))
+
+    def _chunks(self, packer: BatchPacker, mats, rows: np.ndarray, bs: int,
+                next_len: Callable[[int, int], int]) -> Iterator[tuple]:
+        """The batches of ``rows`` (dataset rows, ``bs`` a batch, in order)
+        by chunk: ``(c, int source, float source, (c, bs) indices into the
+        sources)``, ``c = next_len(batches, position)`` asked as each chunk
+        starts. Device-resident, the sources are the uploaded matrices and
+        the indices the rows, uploaded once; slab-streamed, a chunk's rows
+        are gathered on the host and uploaded, and indexed in order."""
+        nb = len(rows) // bs
+        idx = torch.from_numpy(rows.reshape(nb, bs)).to(self.device) if mats is not None else None
+        pos = 0
+        while pos < nb:
+            c = next_len(nb, pos)
+            if mats is not None:
+                yield (c, *mats, idx[pos:pos + c])
+            else:
+                slab = self.upload_slab(packer, rows[pos * bs:(pos + c) * bs])
+                yield (c, *slab, torch.arange(c * bs, device=self.device).view(c, bs))
+            pos += c
 
     # Epoch-loop carry hooks, as the JAX trainer's: every step of an epoch
     # gets the carry; the ranking trainer carries the binned AUC histogram,
@@ -183,34 +225,34 @@ class Trainer:
         does."""
         hp = self.cfg.train_hparams
         bs = self.cfg.dataset.batch_size
-        packer, int_dev, float_dev = self._device_matrices(ds)
+        packer, mats = self._packer(ds)
         layout = packer.layout_key()
         rng = np.random.default_rng(np.random.SeedSequence([self.cfg.dataset.shuffle_seed, epoch]))
         order = rng.permutation(packer.n)
         nb_full = packer.n // bs
         start = min(skip_steps, nb_full)
         nb = max(0, min(nb_full - start, hp.max_step - self.global_step))
-        idx = torch.from_numpy(order[start * bs:(start + nb) * bs].reshape(nb, bs)).to(
-            self.device)                                                     # one upload
+        cap = None if mats is not None else self._slab_chunk_cap(packer, bs)
         ones = torch.ones(bs, device=self.device)
         carry = self._epoch_carry(epoch, state.step, nb)
         K = hp.embedding_update_period if self.sparse_embeddings else 1
+        profiling = (trace(os.path.join(self.log_dir, "profile"))
+                     if self.profile_steps > 0 and epoch == 0 else contextlib.nullcontext())
         t0 = time.perf_counter()
         loss = None
-        pos = 0
-        while pos < nb:
-            c = self._chunk_len(nb, pos)
-            for j in range(c):
-                i = pos + j
-                batch = unpack_batch(int_dev[idx[i]], float_dev[idx[i]], ones, layout)
-                loss, _ = self.train_step(state, batch, carry)
-                if K > 1 and (j + 1) % K == 0:
-                    self.train_step.flush(state)
-            if K > 1:
-                self.train_step.flush(state)           # the chunk's tail
-            pos += c
-            self.global_step += c
-            self._maybe_step_checkpoint(state)
+        with profiling:
+            for c, int_src, float_src, idx in self._chunks(
+                    packer, mats, order[start * bs:(start + nb) * bs], bs,
+                    lambda nb, pos: self._chunk_len(nb, pos, cap)):
+                for j in range(c):
+                    batch = unpack_batch(int_src[idx[j]], float_src[idx[j]], ones, layout)
+                    loss, _ = self.train_step(state, batch, carry)
+                    if K > 1 and (j + 1) % K == 0:
+                        self.train_step.flush(state)
+                if K > 1:
+                    self.train_step.flush(state)           # the chunk's tail
+                self.global_step += c
+                self._maybe_step_checkpoint(state)
         loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
         dt = time.perf_counter() - t0
         metrics = {"train_loss": loss_val, **self._carry_metrics(carry),
@@ -226,14 +268,15 @@ class Trainer:
                     f"ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
 
-    def _chunk_len(self, nb: int, pos: int) -> int:
+    def _chunk_len(self, nb: int, pos: int, cap: Optional[int] = None) -> int:
         """The next chunk's step count, as the JAX trainer's dispatches:
-        ``chunk_steps``, cut at the epoch's end and at the next
-        ``ckpt_every_steps`` boundary. Steps run one call each either way;
-        K-step write-back flushes at every chunk's end, where the JAX
-        package's scanned chunk flushes, so nothing is pending at a
-        checkpoint."""
-        c = min(self.cfg.train_hparams.chunk_steps, nb - pos)
+        ``chunk_steps`` (capped at ``cap``, the slab path's budget), cut at
+        the epoch's end and at the next ``ckpt_every_steps`` boundary. Steps
+        run one call each either way; K-step write-back flushes at every
+        chunk's end, where the JAX package's scanned chunk flushes, so
+        nothing is pending at a checkpoint."""
+        c = min(cap or self.cfg.train_hparams.chunk_steps, self.cfg.train_hparams.chunk_steps,
+                nb - pos)
         every = self.cfg.train_hparams.ckpt_every_steps
         if every > 0:
             c = min(c, max(every - (self.global_step - self._last_step_ckpt), 1))
@@ -261,27 +304,40 @@ class Trainer:
     def _map_rows(self, ds: PackedDataset, fn, batch_size: Optional[int] = None) -> torch.Tensor:
         """``fn(batch)`` over every row of ``ds`` in row order, on the device,
         at ``eval_batch_size`` (else ``batch_size``) rows a call; the tail
-        batch is padded with the last row and trimmed, as in JAX."""
+        batch is padded with the last row and trimmed, as in JAX. A dataset
+        above ``device_resident_bytes`` streams in slabs of at most
+        ``chunk_steps`` batches."""
         bs = batch_size or self.cfg.dataset.eval_batch_size or self.cfg.dataset.batch_size
-        packer, int_dev, float_dev = self._device_matrices(ds)
+        packer, mats = self._packer(ds)
         layout = packer.layout_key()
         nb = -(-packer.n // bs)
-        idx = torch.arange(nb * bs, device=self.device).clamp_(max=packer.n - 1).view(nb, bs)
+        rows = np.minimum(np.arange(nb * bs), packer.n - 1)
+        cap = nb if mats is not None else min(self.cfg.train_hparams.chunk_steps,
+                                              self._slab_chunk_cap(packer, bs))
         ones = torch.ones(bs, device=self.device)
+        out = []
         with torch.inference_mode():
-            return torch.cat([fn(unpack_batch(int_dev[i], float_dev[i], ones, layout))
-                              for i in idx])[: packer.n]
+            for c, int_src, float_src, idx in self._chunks(packer, mats, rows, bs,
+                                                           lambda nb, pos: min(cap, nb - pos)):
+                out += [fn(unpack_batch(int_src[i], float_src[i], ones, layout)) for i in idx]
+        return torch.cat(out)[: packer.n]
 
     def validate(self, state, ds: PackedDataset, epoch: int,
                  warm_user_set: Optional[Set[int]] = None) -> Dict[str, Dict[str, float]]:
         """Score ``ds`` with ``state``'s model and compute the Overall /
-        Warm-start / Cold-start block on the host; prints it, appends it to
+        Warm-start / Cold-start block, on the device from
+        ``device_metrics_min_rows`` rows (pooled AUC and LogLoss on the host
+        either way), else on the host; prints it, appends it to
         ``val_log.log`` and logs AUC, GAUC and NDCG@10 to ``metrics.jsonl``."""
         if state.model is not self.model:
             raise ValueError("validate: the state's model is not this trainer's")
         scores = self.predict(ds)
-        results = compute_user_metrics(ds.arrays["user_id"], scores, ds.arrays["label"][:, 0],
-                                       warm_user_set)
+        uids, labels = ds.arrays["user_id"], ds.arrays["label"][:, 0]
+        if len(ds) >= self.cfg.train_hparams.device_metrics_min_rows:
+            results = compute_user_metrics_device(uids, scores, labels, warm_user_set,
+                                                  device=self.device)
+        else:
+            results = compute_user_metrics(uids, scores, labels, warm_user_set)
         block = format_validation_block(results, epoch)
         print(block)
         with open(self.val_log_path, "a") as f:

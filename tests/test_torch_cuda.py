@@ -1539,3 +1539,95 @@ def test_dedup_and_dense_route_repeat_their_bits_on_cuda(cuda, n):
     assert torch.equal(first[0], cpu[0])
     for name, a, b in zip(("sums", "table", "accumulators"), first[1:], cpu[1:]):
         assert_close_to_scale(a, b, name)
+
+
+# -- the training runtime: slabs, the metric engine, the host backend
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ties", [(200_000, False), (2_600_000, True)])
+def test_device_metric_engine_repeats_its_bits_on_cuda(cuda, n, ties):
+    """The device engine on the card: the same block twice, bit for bit, and
+    the host engine's within abs 2e-5 (``User_Count`` exact); users of about
+    37 rows, ties in the scores where ``ties``."""
+    from news_recsys_tpu_torch.training.metrics import compute_user_metrics
+    from news_recsys_tpu_torch.training.metrics_device import compute_user_metrics_device
+    rng = np.random.default_rng(n)
+    uids = rng.integers(1, n // 37 + 1, n)
+    scores = rng.random(n).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 5000) / 5000
+    labels = (rng.random(n) < 0.08).astype(np.float32)
+    warm = set(range(1, n // 74))
+    first, again = (compute_user_metrics_device(uids, scores, labels, warm, device=cuda)
+                    for _ in range(2))
+    assert json.dumps(first, sort_keys=True) == json.dumps(again, sort_keys=True)
+    want = compute_user_metrics(uids, scores, labels, warm)
+    for cohort in want:
+        for key, val in want[cohort].items():
+            assert first[cohort][key] == (val if key == "User_Count" else
+                                          pytest.approx(val, abs=2e-5)), (cohort, key)
+
+
+@pytest.mark.cuda
+def test_slab_path_equals_the_resident_path_on_cuda(cuda, tmp_path):
+    """The DCN's sparse step for an epoch of 7 steps, slabs of 3 batches
+    against the whole dataset on the card: the same states and scores bit
+    for bit."""
+    import dataclasses
+    cfg = train_cfg(True)
+    ds = train_dataset(cfg, 7 * 64 + 5, seed=50)
+    packer = BatchPacker(ds)
+    row = (packer.int_mat.nbytes + packer.float_mat.nbytes) / len(ds)
+    slab = dataclasses.replace(cfg, train_hparams=dataclasses.replace(
+        cfg.train_hparams, device_resident_bytes=int(row * 64 * 3) + 1))
+    out = {}
+    for name, c in (("resident", cfg), ("slab", slab)):
+        t = Trainer(c, build_ranker(c, seed=2, device=cuda), workdir=str(tmp_path / name),
+                    device=cuda)
+        state = t.fit(ds, max_epochs=1)
+        out[name] = ({k: v.cpu() for k, v in state.model.state_dict().items()},
+                     {k: v.cpu() for k, v in state.emb_acc.items()}, t.predict(ds))
+        assert (t._packer(ds)[1] is None) == (name == "slab")
+    for a, b in zip(out["slab"][:2], out["resident"][:2]):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+    np.testing.assert_array_equal(out["slab"][2], out["resident"][2])
+
+
+@pytest.mark.cuda
+def test_host_backend_on_a_card_recommender(cuda):
+    """A Recommender on the card with ``backend="host"``: the user tower on
+    the card, the search in C++ on a CPU copy of the corpus; the device
+    backend's ids but for near ties, scores within 1e-5."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.serving import Recommender
+    raw = {"name": "dssm",
+           "features": {"sparse_feature_names": ["user_id", "item_id", "category"],
+                        "array_feature_names": ["hist"],
+                        "item_feature_names": ["item_id", "category"],
+                        "user_feature_names": ["user_id", "hist"],
+                        "array_max_length": {"hist": 6}},
+           "embeddings": {"embedding_size": {"user_id": 16, "item_id": 16, "category": 16},
+                          "embedding_table_size": {"user_id": 64, "item_id": 400,
+                                                   "category": 8},
+                          "share_emb_table_features": {"hist": "item_id"}}}
+    cfg = config_from_dict(raw)
+    rng = np.random.default_rng(51)
+    items = PackedDataset({"item_id": np.arange(1, 400, dtype=np.int32),
+                           "category": rng.integers(1, 8, 399).astype(np.int32),
+                           "label": np.zeros((399, 1), np.float32)})
+    recs = {b: Recommender(cfg, build_dssm(cfg, seed=3, device=cuda), items, device=cuda,
+                           backend=b) for b in ("auto", "host", "device")}
+    assert recs["auto"].backend == "device" and recs["host"].searcher.corpus is not None
+    hist = rng.integers(1, 400, (32, 6)).astype(np.int32)
+    batch = {"user_id": rng.integers(1, 64, 32).astype(np.int32), "hist": hist,
+             "hist_mask": (hist != 0).astype(np.float32), "label": np.zeros((32, 1), np.float32)}
+    hists = [[int(i) for i in row if i] for row in hist]
+    (hi, hs), (di, ds_) = (recs[b].recommend(batch, k=10, histories=hists)
+                           for b in ("host", "device"))
+    for r in range(32):
+        np.testing.assert_allclose(hs[r], ds_[r], rtol=0, atol=1e-5)
+        gaps = np.abs(np.diff(ds_[r]))
+        for j in range(10):
+            near = (j > 0 and gaps[j - 1] <= 1e-5) or (j < 9 and gaps[j] <= 1e-5)
+            assert near or hi[r][j] == di[r][j], (r, j)

@@ -200,7 +200,7 @@ def post(url, body):
 def test_http_shim(stacks, server):
     with urllib.request.urlopen(server + "/healthz", timeout=30) as r:
         health = json.loads(r.read())
-    assert health == {"status": "ok", "items": N_ITEMS, "backend": "cpu",
+    assert health == {"status": "ok", "items": N_ITEMS, "backend": "host",
                       "cascade": True, "ranker": "dcn", "fetch": FETCH}
     batch = users(3, seed=7)
     body = {"users": {"user_id": batch["user_id"].tolist(), "hist": batch["hist"].tolist()},

@@ -1,10 +1,11 @@
 """The port's own copies of the JAX package's backend-free modules, held to
 the originals on the CPU: ``config``, ``zoo``, ``data.packed_dataset``,
 ``data.synthetic``, ``data.text_format``, ``data.hist_pairs``,
-``training.metrics``, ``utils.logging``, ``utils.feature_id_mapper`` and
-``utils.tensorboard``; and the numpy parts of the retrieval slice:
-``models.itemcf``, ``models.dssm.item_log_q`` and
-``training.retrieval.dedup_hit_rate``.
+``training.metrics``, ``utils.logging``, ``utils.feature_id_mapper``,
+``utils.tensorboard``, ``utils.log_analysis`` and ``utils.profiling.
+StepTimer``; the numpy parts of the retrieval slice: ``models.itemcf``,
+``models.dssm.item_log_q`` and ``training.retrieval.dedup_hit_rate``; and
+the two C++ sources the port builds (``native/*.cpp``).
 
 The port imports nothing of the JAX package, so it keeps a copy of what the
 two share. The reference is frozen; these tests are what keeps a copy from
@@ -33,7 +34,9 @@ from news_recsys_tpu.models import itemcf as jitemcf
 from news_recsys_tpu.training import retrieval as jretrieval
 from news_recsys_tpu.training import metrics as jmetrics
 from news_recsys_tpu.utils import feature_id_mapper as jmapper
+from news_recsys_tpu.utils import log_analysis as jlog
 from news_recsys_tpu.utils import logging as jlogging
+from news_recsys_tpu.utils import profiling as jprofiling
 from news_recsys_tpu.utils import tensorboard as jtb
 from news_recsys_tpu_torch import config as tconfig
 from news_recsys_tpu_torch import zoo as tzoo
@@ -46,7 +49,9 @@ from news_recsys_tpu_torch.models import itemcf as titemcf
 from news_recsys_tpu_torch.training import retrieval as tretrieval
 from news_recsys_tpu_torch.training import metrics as tmetrics
 from news_recsys_tpu_torch.utils import feature_id_mapper as tmapper
+from news_recsys_tpu_torch.utils import log_analysis as tlog
 from news_recsys_tpu_torch.utils import logging as tlogging
+from news_recsys_tpu_torch.utils import profiling as tprofiling
 from news_recsys_tpu_torch.utils import tensorboard as ttb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -409,3 +414,81 @@ def test_tensorboard_records_equal(tmp_path, monkeypatch):
     (port,), (jax,) = (os.listdir(tmp_path / t) for t in ("port", "jax"))
     assert port == jax == "events.out.tfevents.1700000000.host"
     assert (tmp_path / "port" / port).read_bytes() == (tmp_path / "jax" / jax).read_bytes()
+
+
+LOGS = {
+    "ranking": "".join(tmetrics.format_validation_block(
+        {"Overall": {"AUC": 0.71 + e / 100, "LogLoss": 0.4, "GAUC": 0.6, "NDCG@10": 0.3,
+                     "HR@10": 0.5, "MRR@10": 0.2},
+         "Warm_Start": {"AUC": [0.7, 0.74, 0.73][e], "LogLoss": 0.41, "GAUC": 0.61,
+                        "NDCG@10": 0.31, "HR@10": 0.51, "MRR@10": 0.21, "User_Count": 120},
+         "Cold_Start": {"AUC": 0.0, "LogLoss": 0.0, "GAUC": 0.0, "NDCG@10": 0.0,
+                        "HR@10": 0.0, "MRR@10": 0.0, "User_Count": 0}}, e) for e in range(3)),
+    "retrieval": "".join(tretrieval.format_retrieval_block(
+        {"HR@10": 0.1 * e, "HR@50": 0.3, "num_queries": 4096}, e) for e in range(3)),
+    "garbled": "noise\n==== Epoch 2 Validation Results ====\nOverall:\n  AUC:  x1\n",
+    # a value that does not parse reads as nan, and the report of a best
+    # epoch holding one raises in both (``_fmt``'s ``int(nan)``; ROADMAP
+    # queue 3, the reference's open faults): the copy keeps the original
+    "unparsed_value": "==== Epoch 0 Validation Results ====\nWarm Start Users (3):\n"
+                      "  AUC:      0.7\n  LogLoss:  n/a\n",
+    "empty": "",
+}
+
+
+@pytest.mark.parametrize("log", list(LOGS))
+def test_log_analysis_equal(tmp_path, log):
+    """The port's ``log_analysis`` is the original but for its docstring:
+    the same functions line for line, the same parse and report of a log."""
+    import inspect
+
+    for name in ("_canon_section", "_parse_block", "parse_log", "_retrieval_criterion",
+                 "best_epoch", "_md_table", "_fmt", "format_best_epoch", "model_name_from_dir",
+                 "main"):
+        assert inspect.getsource(getattr(tlog, name)) == inspect.getsource(getattr(jlog, name))
+    for name in ("EPOCH_HEADER", "SECTION_HEADER", "METRIC_LINE", "SECTIONS"):
+        assert getattr(tlog, name) == getattr(jlog, name)
+    path = tmp_path / "dcn_20261017-101500" / "val_log.log"
+    path.parent.mkdir()
+    path.write_text(LOGS[log])
+    got, want = tlog.parse_log(str(path)), jlog.parse_log(str(path))
+    assert json.dumps(got) == json.dumps(want)
+    name = tlog.model_name_from_dir(str(path))
+    assert name == jlog.model_name_from_dir(str(path)) == "dcn"
+    if log == "unparsed_value":
+        for module, parsed in ((tlog, got), (jlog, want)):
+            with pytest.raises(ValueError, match="NaN"):
+                module.format_best_epoch(parsed, name)
+    else:
+        assert tlog.format_best_epoch(got, name) == jlog.format_best_epoch(want, name)
+
+
+def test_step_timer_equal():
+    """``StepTimer`` is the original line for line and reports what it does
+    on the same durations."""
+    import inspect
+
+    assert inspect.getsource(tprofiling.StepTimer) == inspect.getsource(jprofiling.StepTimer)
+    timers = [tprofiling.StepTimer(512), jprofiling.StepTimer(512)]
+    for t in timers:
+        t.durations = [0.004, 0.002, 0.010]
+    assert timers[0].summary() == timers[1].summary()
+    assert tprofiling.StepTimer(8).summary() == jprofiling.StepTimer(8).summary() == {}
+
+
+@pytest.mark.parametrize("source", ["ann_topk.cpp", "text_parser.cpp"])
+def test_native_sources_byte_equal(source):
+    """The port builds its host libraries from its own copies of the C++
+    sources, byte for byte the JAX package's."""
+    with open(os.path.join(REPO, "native", source), "rb") as a, \
+            open(os.path.join(REPO, "news_recsys_tpu_torch", "native", source), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_read_text_features_equal():
+    import inspect
+
+    assert inspect.getsource(ttext.read_text_features) == inspect.getsource(
+        jtext.read_text_features)
+    assert inspect.getsource(tpacked.PackedDataset._sniff_n_labels) == inspect.getsource(
+        jpacked.PackedDataset._sniff_n_labels)

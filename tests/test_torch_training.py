@@ -381,9 +381,18 @@ def test_unported_options_raise(train, mesh):
 
 
 def test_unported_runtime_raises(tmp_path):
+    """What raised here until the runtime was ported (ROADMAP item 2f, a
+    dataset above ``device_resident_bytes``) now trains on the slab path:
+    no refusal, and the resident path's bits."""
     cfg = train_cfg(True)
     ds = train_dataset(cfg, 128, seed=7)
-    trainer = Trainer(train_cfg(True, device_resident_bytes=1024), build_ranker(cfg, device="cpu"),
-                      workdir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 2"):
-        trainer.fit(ds, max_epochs=1)
+    states = []
+    for budget in (1024, cfg.train_hparams.device_resident_bytes):
+        trainer = Trainer(train_cfg(True, device_resident_bytes=budget),
+                          build_ranker(cfg, device="cpu"), workdir=str(tmp_path / str(budget)),
+                          device="cpu")
+        states.append(trainer.fit(ds, max_epochs=1))
+        assert (trainer._packer(ds)[1] is None) == (budget == 1024)
+    for (name, a), b in zip(states[0].model.state_dict().items(),
+                            states[1].model.state_dict().values()):
+        assert torch.equal(a, b), name
