@@ -27,7 +27,9 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    from this run's inputs) and, where one PyTorch call computes the same
    function, that call's time; the fused block runs both its routes (tiled
    and general) against the plain version and times them in the same run;
-   the row scatter runs at the DCN arena's shape and at the sparse attention
+   the row scatter runs at the DCN arena's shape, at each of its two shards
+   of 79,680 rows (the same slots translated into the shard, as a rank of a
+   model axis of 2 writes them), and at the sparse attention
    step's two (each table handed all 16,384 slots of one seeded batch's
    joint dedup), the FM forward at a request's B 6,400 and a step's B 512;
    the FM and cross stack backwards also against their own second run bit
@@ -120,11 +122,27 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    20,000, 200,000 and 2.6 M rows (users of ~37 rows, tied scores) against
    the host engine and its own second run, both engines timed; ``Trainer(profile_steps=1)``, whose trace
    must name the cross backward's kernel, and ``device_memory_stats()``;
-11. checks that each path launched the kernels it runs, the new paths as
-   many times as they should: the counts are set to 0 just before a path is
-   driven and read just after; then traces one CUDA-graph replay of the
-   cross backward with ``torch.profiler``, which must run its two device
-   kernels once each (``device_kernels``).
+11. multi-device training (``parallel``): two ranks spawned on ``cuda:0``
+   after the build, joined over gloo (NCCL refuses two ranks on one card;
+   CUDA tensors' all-to-alls and all-gathers go through the host), against
+   this process on the card from the same seeded state and batches: the
+   DCN of zoo.mind_config("dcn", embedding_optimizer="rowwise_adagrad")
+   (batch 512) at (data 1, model 2), the arena in two shards of 79,680 rows,
+   8 steps bit for bit; at (data 2, model 1) 8 steps within the training
+   tolerance, the AUC histograms equal; on ``sparse_adamw`` at (1, 2) 4
+   steps bit for bit but the spare row, which the shards leave (and the
+   padding row) as it was; the DSSM of configs/dssm.yaml at (2, 1), 4 steps,
+   negatives over the global batch; ``Trainer.fit`` for an epoch of 32 steps
+   at (1, 2), whose epoch checkpoint, loaded by this process, predicts the
+   ranks' scores bit for bit; each rank's launches; the warm step time of
+   each layout (runs of 8 steps) with the collectives' share, beside this
+   process's;
+12. traces one CUDA-graph replay of the cross backward with
+   ``torch.profiler`` (after the timed phases of this process, before the
+   ranks of ``parallel`` are spawned), which must run its two device kernels
+   once each (``device_kernels``); checks that each path launched the
+   kernels it runs, the new paths as many times as they should: the counts
+   are set to 0 just before a path is driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times (and the launch floor), and ``{"ok": true, "device": {...}}``.
@@ -539,15 +557,20 @@ def trace_cross_bwd(dev) -> int:
 
 def scatter_cases() -> dict:
     """The row scatter's shapes on the main paths, by label: a DCN step's
-    arena (1,024 slots), the sparse attention step's item and user tables
+    arena (1,024 slots), its two shards of 79,680 rows at (data 1, model 2)
+    (the same slots translated into each; the parallel phase), the sparse attention step's item and user tables
     (16,384 joint slots of one seeded ``zoo.attention_arrays`` batch of 512)
     and the rowwise DSSM step's (D 16, 16,384 joint slots of a
     :func:`dssm_arrays` batch of 512)."""
     from news_recsys_tpu_torch.training.scatter_layouts import (arena_scatter_case,
+                                                                arena_shard_scatter_case,
                                                                 attention_scatter_layouts,
                                                                 dssm_scatter_layouts)
     from news_recsys_tpu_torch.zoo import attention_arrays, attention_config
     cases = {"arena": arena_scatter_case(SEED + 18, 2 * TRAIN_BATCH)}
+    for shard in range(2):
+        cases[f"arena shard {shard} of 2"] = arena_shard_scatter_case(SEED + 18, shard,
+                                                                      slots=2 * TRAIN_BATCH)
     layouts = attention_scatter_layouts(attention_config(batch_size=TRAIN_BATCH),
                                         attention_arrays(TRAIN_BATCH, seed=SEED + 19), SEED + 19)
     for t, case in layouts.items():
@@ -583,12 +606,14 @@ def check_scatter(dev) -> list:
         err = float((t_kernel - t_plain).abs().max())
         kernel = lambda: scatter_rows_set(t_kernel, rows, vals)                 # noqa: E731
         plain = lambda: scatter_rows_plain(t_plain, rows, vals)                 # noqa: E731
-        rows64 = rows.long()
+        inside = torch.from_numpy((rows_np >= 0) & (rows_np < V)).to(dev)
+        rows64, vals_in = rows.long()[inside], vals[inside]
         with torch.no_grad():
             t = [device_ms(f) for f in (plain, kernel, kernel, plain)]
             calls = [call_ms(f) for f in (kernel, plain)]
-            # every row in range here: the one call that writes table[rows] = vals
-            library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals))
+            # the one call that writes table[rows] = vals, on the slots inside
+            # the table (a shard's; the others are dropped)
+            library = device_ms(lambda: t_plain.index_copy_(0, rows64, vals_in))
         log(f"  scatter [{label}]: {stats}")
         out.append(report_kernel(
             "scatter_rows_set", "news_recsys_tpu_torch/csrc/scatter_rows.cu",
@@ -2660,6 +2685,412 @@ def runtime_phase(dev: torch.device, name: str, smi: str) -> dict:
     return paths
 
 
+# -- the parallel phase: two gloo ranks on one card ---------------------------------
+
+PARALLEL_STEPS = 8          # DCN steps of each layout held to one process
+PARALLEL_ADAM_STEPS = 4     # sparse_adamw steps at (1, 2)
+PARALLEL_DSSM_STEPS = 4     # DSSM steps at (2, 1)
+PARALLEL_EPOCH = 32         # Trainer.fit's epoch at (1, 2), then a timed warm one
+PARALLEL_TIMED, PARALLEL_RUNS = 8, 3     # the step timing: steps a run, runs a layout
+PARALLEL_LAYOUTS = ((1, 2), (2, 1))
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_config(optimizer: str = "rowwise_adagrad"):
+    from news_recsys_tpu_torch.zoo import mind_config
+    return mind_config("dcn", batch_size=TRAIN_BATCH, embedding_optimizer=optimizer)
+
+
+def parallel_arrays(steps: int, seed: int, padding: bool = False) -> dict:
+    """:func:`ranking_arrays` of ``steps`` batches; with ``padding`` every
+    37th ``user_id`` and every 41st ``item_id`` is 0 (unknown), so the step
+    has invalid slots, which one process parks on the arena's spare row."""
+    arrays = ranking_arrays(TRAIN_BATCH * steps, seed)
+    if padding:
+        arrays["user_id"][::37] = 0
+        arrays["item_id"][::41] = 0
+    return arrays
+
+
+def stepper(kind: str, cfg, weights: dict, dev: torch.device, mesh):
+    """(state, step(state, batch, carry), carry) of a model of ``cfg`` from
+    ``weights`` on ``dev``, its tables cut to ``mesh``'s shards: the DCN's
+    sparse step (carry: the AUC histogram) or the DSSM's all-dense step
+    (carry: the negatives of PARALLEL_DSSM_STEPS steps of the global batch)."""
+    from news_recsys_tpu_torch.parallel.sharded_embedding import shard_parameters
+    from news_recsys_tpu_torch.training.trainer import AucHist
+
+    if kind == "dssm":
+        from news_recsys_tpu_torch.models.dssm import build_dssm
+        from news_recsys_tpu_torch.training import retrieval
+        from news_recsys_tpu_torch.training.dense_step import init_dense_state
+
+        model = build_dssm(cfg, device=dev)
+        model.load_state_dict(weights)
+        shard_parameters(model, mesh)
+        d_cfg = cfg.extra("dssm_cfg", {})
+        step = retrieval.make_dssm_train_step(model, cfg, d_cfg["temperature"], mesh=mesh)
+        carry = retrieval.draw_negatives(SEED + 42, 0, PARALLEL_DSSM_STEPS, TRAIN_BATCH,
+                                         d_cfg["negative_sample_rate"], dev)
+        return init_dense_state(model, cfg), step, carry
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
+                                                            make_sparse_train_step)
+
+    model = build_ranker(cfg, device=dev)
+    model.load_state_dict(weights)
+    shard_parameters(model, mesh)
+    return (init_sparse_state(model, cfg), make_sparse_train_step(model, cfg, mesh=mesh),
+            AucHist.zeros(dev))
+
+
+def run_steps(run: dict, dev: torch.device, mesh) -> dict:
+    """``run["steps"]`` steps of ``run`` (kind, config, weights, arrays) on
+    ``mesh`` (None: one process), each rank on its slice of every batch of
+    TRAIN_BATCH in row order: the losses, the launches, the AUC histogram
+    summed over the data axis, and the gathered state (process 0), on the
+    host."""
+    from news_recsys_tpu_torch.training.checkpoint import state_dict
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, PackedDataset, unpack_batch
+
+    state, step, carry = stepper(run["kind"], run["cfg"], run["weights"], dev, mesh)
+    packer = BatchPacker(PackedDataset(run["arrays"]))
+    int_mat, float_mat = (torch.from_numpy(m).to(dev) for m in (packer.int_mat, packer.float_mat))
+    sl = mesh.batch_slice(TRAIN_BATCH) if mesh is not None else slice(None)
+    rows = torch.arange(TRAIN_BATCH * run["steps"], device=dev).view(run["steps"], -1)[:, sl]
+    ones = torch.ones(rows.shape[1], device=dev)
+    reset_launches()
+    outs = [step(state, unpack_batch(int_mat[r], float_mat[r], ones, packer.layout_key()),
+                 carry) for r in rows]
+    sync(dev)
+    out = {"launches": read_launches(), "losses": [float(x[0]) for x in outs]}
+    if run["kind"] != "dssm":
+        hist = [h.clone() for h in (carry.pos, carry.neg)]
+        if mesh is not None:
+            hist = [mesh.all_reduce_(h, "data") for h in hist]
+        out["hist"] = [h.cpu() for h in hist]
+        out["probs"] = torch.sigmoid(torch.stack([x[1] for x in outs])).cpu()
+    blob = state_dict(state, mesh)
+    out["state"] = flat_state(blob) if mesh is None or mesh.rank == 0 else None
+    return out
+
+
+def flat_state(blob: dict) -> dict:
+    """A checkpoint dict's tensors by a flat name, on the host."""
+    out = {f"model/{k}": v for k, v in blob["model"].items()}
+    for key in ROWWISE_KEYS:
+        out.update({f"{key}/{t}": v for t, v in blob.get(key, {}).items()})
+    for key in ("opt", "dense_opt"):
+        for i, st in ((blob.get(key) or {}).get("state") or {}).items():
+            out.update({f"{key}/{i}/{k}": v for k, v in st.items() if k != "step"})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def time_steps(run: dict, dev: torch.device, mesh) -> dict:
+    """Warm step wall times: PARALLEL_RUNS runs of PARALLEL_TIMED steps
+    (each ending in a synchronize), after two untimed steps; then one more
+    run with the collectives timed (each waits for the device before and
+    after it), whose collective seconds over its wall time are the
+    collectives' share."""
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, PackedDataset, unpack_batch
+
+    state, step, carry = stepper(run["kind"], run["cfg"], run["weights"], dev, mesh)
+    packer = BatchPacker(PackedDataset(run["arrays"]))
+    int_mat, float_mat = (torch.from_numpy(m).to(dev) for m in (packer.int_mat, packer.float_mat))
+    sl = mesh.batch_slice(TRAIN_BATCH) if mesh is not None else slice(None)
+    n = PARALLEL_TIMED
+    rows = torch.arange(TRAIN_BATCH * n, device=dev).view(n, -1)[:, sl]
+    ones = torch.ones(rows.shape[1], device=dev)
+    batches = [unpack_batch(int_mat[r], float_mat[r], ones, packer.layout_key()) for r in rows]
+
+    def one_run():
+        sync(dev)
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b, carry)
+        sync(dev)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    for b in batches[:2]:
+        step(state, b, carry)
+    runs = [one_run() for _ in range(PARALLEL_RUNS)]
+    out = {"step_ms": float(np.median(runs)), "runs_ms": runs}
+    if mesh is not None:
+        mesh.stats.reset()
+        mesh.stats.timed = True
+        timed_ms = one_run()
+        mesh.stats.timed = False
+        out.update(timed_step_ms=timed_ms,
+                   collectives_ms=mesh.stats.seconds / n * 1e3,
+                   collective_calls=mesh.stats.calls / n,
+                   host_copies=mesh.stats.host_copies / n,
+                   host_mb=mesh.stats.host_bytes / n / 1e6)
+        out["collectives_share"] = out["collectives_ms"] / timed_ms
+    return out
+
+
+def parallel_fit(run: dict, dev: torch.device, mesh, workdir: str) -> dict:
+    """``Trainer.fit`` for an epoch of PARALLEL_EPOCH steps on ``mesh``: its
+    launches, the gathered ``predict`` of the data after it, and a timed
+    warm epoch."""
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    model = build_ranker(run["cfg"], device=dev)
+    model.load_state_dict(run["weights"])
+    trainer = Trainer(run["cfg"], model, workdir=workdir, device=dev, mesh=mesh)
+    ds = PackedDataset(run["arrays"])
+    reset_launches()
+    state = trainer.fit(ds, max_epochs=1)
+    sync(dev)
+    launches = read_launches()
+    predict = trainer.predict(ds)
+    _, warm = trainer.train_epoch(state, ds, epoch=1)
+    return {"launches": launches, "warm": warm, "predict": predict,
+            "ckpt": os.path.join(trainer.ckpt_dir, "epoch_000.pt")}
+
+
+def parallel_worker(rank: int, spec: dict) -> dict:
+    """One rank of the parallel phase: every layout's runs, the fit at
+    (1, 2), the step timings."""
+    from news_recsys_tpu_torch.parallel.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    meshes = {lay: Mesh(*lay) for lay in PARALLEL_LAYOUTS}
+    out = {name: run_steps(run, dev, meshes[run["layout"]])
+           for name, run in spec["runs"].items()}
+    out["fit"] = parallel_fit(spec["runs"]["dcn_1x2"], dev, meshes[(1, 2)], spec["workdir"])
+    out["timing"] = {lay: time_steps(spec["runs"]["dcn_1x2"], dev, meshes[lay])
+                     for lay in PARALLEL_LAYOUTS}
+    return out
+
+
+def parallel_runs() -> dict:
+    """The runs of the phase, by name: the DCN of ``mind_config("dcn",
+    embedding_optimizer="rowwise_adagrad")`` at (1, 2) and (2, 1), on
+    ``sparse_adamw`` at (1, 2) with unknown ids, and the DSSM of
+    configs/dssm.yaml at (2, 1); weights seeded, on the host."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+
+    def weights(net):
+        return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+    ada, adam, dssm = parallel_config(), parallel_config("sparse_adamw"), dssm_config()
+    dcn = dict(kind="dcn", cfg=ada, weights=weights(build_ranker(ada, seed=SEED + 40,
+                                                                 device="cpu")),
+               arrays=parallel_arrays(PARALLEL_EPOCH, SEED + 41), steps=PARALLEL_STEPS)
+    return {"dcn_1x2": dict(dcn, layout=(1, 2)), "dcn_2x1": dict(dcn, layout=(2, 1)),
+            "adamw_1x2": dict(kind="dcn", cfg=adam, layout=(1, 2), weights=dcn["weights"],
+                              arrays=parallel_arrays(PARALLEL_ADAM_STEPS, SEED + 43, True),
+                              steps=PARALLEL_ADAM_STEPS),
+            "dssm_2x1": dict(kind="dssm", cfg=dssm, layout=(2, 1), steps=PARALLEL_DSSM_STEPS,
+                             weights=weights(build_dssm(dssm, seed=SEED + 44, device="cpu")),
+                             arrays=dssm_arrays(TRAIN_BATCH * PARALLEL_DSSM_STEPS, SEED + 45))}
+
+
+def assert_states(got: dict, want: dict, what: str, tol=None, skip_rows=None,
+                  held=None) -> float:
+    """Every tensor of ``got`` against ``want``: equal bits (``tol`` None) or
+    within ``tol``; ``skip_rows`` maps a flat name to the rows left out,
+    ``held`` to the mask of elements held. Returns the largest difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: {sorted(set(got) ^ set(want))}")
+    err = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if key in (skip_rows or {}):
+            keep = torch.ones(w.shape[0], dtype=torch.bool)
+            keep[skip_rows[key]] = False
+            g, w = g[keep], w[keep]
+        if key in (held or {}):
+            g, w = g[held[key]], w[held[key]]
+        if g.numel():
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        if tol is None:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: {key} differs from one process's "
+                                     f"(max {float((g.float() - w.float()).abs().max()):.3e})")
+        else:
+            torch.testing.assert_close(g, w, msg=f"{what}: {key}", **tol)
+    return err
+
+
+PARALLEL_FIT_LAUNCHES = {"dcn_cross_stack": PARALLEL_EPOCH, "dcn_cross_bwd": PARALLEL_EPOCH,
+                         "scatter_rows_set": PARALLEL_EPOCH}
+PARALLEL_LAUNCHES = {
+    # per rank: the cross stack's forward and backward once a step, the
+    # arena's shard-local scatter once a step (three on sparse_adamw), the
+    # DSSM's pool and its backward once a step
+    "dcn_1x2": {"dcn_cross_stack": PARALLEL_STEPS, "dcn_cross_bwd": PARALLEL_STEPS,
+                "scatter_rows_set": PARALLEL_STEPS},
+    "dcn_2x1": {"dcn_cross_stack": PARALLEL_STEPS, "dcn_cross_bwd": PARALLEL_STEPS,
+                "scatter_rows_set": PARALLEL_STEPS},
+    "adamw_1x2": {"dcn_cross_stack": PARALLEL_ADAM_STEPS, "dcn_cross_bwd": PARALLEL_ADAM_STEPS,
+                  "scatter_rows_set": 3 * PARALLEL_ADAM_STEPS},
+    "dssm_2x1": {"fused_lookup_pool": PARALLEL_DSSM_STEPS,
+                 "fused_lookup_pool_bwd": PARALLEL_DSSM_STEPS, "scatter_rows_set": 0},
+}
+
+
+def parallel_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """Two ranks on ``cuda:0`` over gloo (CUDA tensors' all-to-all and
+    all-gather staged through the host), spawned after the kernels are
+    built, against this process on the card: the DCN at (data 1, model 2)
+    bit for bit (8 steps; the arena's two shards of 79,680 rows), at
+    (data 2, model 1) within TRAIN_TOL with equal AUC histograms, on
+    ``sparse_adamw`` at (1, 2) bit for bit but the spare row, which stays as
+    it was (and the padding row); the DSSM at (2, 1), its losses and weights
+    within TRAIN_TOL (but those under ROUNDING_NU, as in the card-vs-CPU
+    check); ``Trainer.fit`` for an epoch at (1, 2) whose checkpoint, loaded
+    by this process, predicts the ranks' scores bit for bit; the launch
+    counts of every rank; the warm step time of each layout beside this
+    process's. Returns the launches of every run (rank 0)."""
+    from news_recsys_tpu_torch.config import table_specs
+    from news_recsys_tpu_torch.models.embedding import padded_vocab
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.parallel.distributed import spawn_ranks
+    from news_recsys_tpu_torch.training.trainer import PackedDataset, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = parallel_runs()
+    t0 = time.perf_counter()
+    refs = {n: run_steps(run, dev, None) for n, run in runs.items() if n != "dcn_2x1"}
+    refs["dcn_2x1"] = refs["dcn_1x2"]
+    one_timing = time_steps(runs["dcn_1x2"], dev, None)
+    log(f"parallel: one process's runs on the card {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(parallel_worker, 2,
+                            ({"runs": runs, "workdir": tmp, "device": str(dev)},),
+                            init_method=f"file://{tmp}/store", backend="gloo",
+                            device=dev, timeout=600, group_timeout=120,
+                            threads=torch.get_num_threads())
+        log(f"parallel: two ranks on one card (gloo), spawn to exit "
+            f"{time.perf_counter() - t0:.2f} s")
+        fit = ranks[0]["fit"]
+        cfg = runs["dcn_1x2"]["cfg"]
+        trainer = Trainer(cfg, build_ranker(cfg, device=dev), workdir=os.path.join(tmp, "one"),
+                          device=dev)
+        trainer.load_checkpoint(trainer.init_state(), fit["ckpt"])
+        pred = trainer.predict(PackedDataset(runs["dcn_1x2"]["arrays"]))
+    for r in ranks:
+        if not np.array_equal(r["fit"]["predict"], pred):
+            raise AssertionError("the two-rank epoch checkpoint, loaded by one process, "
+                                 "predicts other scores")
+        for n, want in PARALLEL_LAUNCHES.items():
+            got = {k: r[n]["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"parallel {n}: launches {got}, expected {want}")
+    want_fit = PARALLEL_FIT_LAUNCHES
+    got_fit = {k: ranks[1]["fit"]["launches"][k] for k in want_fit}
+    if got_fit != want_fit or {k: fit["launches"][k] for k in want_fit} != want_fit:
+        raise AssertionError(f"parallel fit: launches {fit['launches']}, expected {want_fit}")
+    got = {n: ranks[0][n] for n in runs}
+    err_1x2 = assert_states(got["dcn_1x2"]["state"], refs["dcn_1x2"]["state"], "dcn (1, 2)")
+    if got["dcn_1x2"]["losses"] != refs["dcn_1x2"]["losses"]:
+        raise AssertionError("dcn (1, 2): losses differ from one process's")
+    err_2x1 = assert_states(got["dcn_2x1"]["state"], refs["dcn_1x2"]["state"], "dcn (2, 1)",
+                            tol=TRAIN_TOL)
+    np.testing.assert_allclose(got["dcn_2x1"]["losses"], refs["dcn_1x2"]["losses"], **TRAIN_TOL)
+    for h, w in zip(got["dcn_1x2"]["hist"], refs["dcn_1x2"]["hist"]):
+        if not torch.equal(h, w):
+            raise AssertionError("dcn (1, 2): the AUC histogram differs from one process's")
+    flips, dp = check_hist_2x1(torch.cat([r["dcn_2x1"]["probs"] for r in ranks], dim=1),
+                               refs["dcn_1x2"]["probs"], got["dcn_2x1"]["hist"],
+                               refs["dcn_1x2"]["hist"])
+    # sparse_adamw: the arena's spare row (one process's invalid slots' row)
+    arena = "model/embedder.tables.arena_d32"
+    spare = padded_vocab(dict(table_specs(runs["adamw_1x2"]["cfg"]))["arena_d32"][0]) - 1
+    skip = {k: [spare] for k in (arena, "emb_mu/arena_d32", "emb_nu/arena_d32")}
+    err_adam = assert_states(got["adamw_1x2"]["state"], refs["adamw_1x2"]["state"],
+                             "sparse_adamw (1, 2)", skip_rows=skip)
+    init = runs["adamw_1x2"]["weights"]["embedder.tables.arena_d32"]
+    sharded_arena, one_arena = got["adamw_1x2"]["state"][arena], refs["adamw_1x2"]["state"][arena]
+    if not (torch.equal(sharded_arena[[0, spare]], init[[0, spare]])
+            and bool((got["adamw_1x2"]["state"]["emb_mu/arena_d32"][spare] == 0).all())):
+        raise AssertionError("sparse_adamw (1, 2): the padding or spare row moved")
+    spare_moved = float((one_arena[spare] - init[spare]).abs().max())
+    # the DSSM: Adam's amplified rounding left out, as card vs CPU
+    want = refs["dssm_2x1"]["state"]
+    held = {}
+    names = [n for n, _ in build_dssm_names(runs["dssm_2x1"]["cfg"])]
+    for i, n in enumerate(names):
+        nu = want.get(f"opt/{i}/exp_avg_sq")
+        if nu is not None:
+            held[f"model/{n}"] = held_weights(want[f"model/{n}"], nu)
+    err_dssm = assert_states(got["dssm_2x1"]["state"], want, "dssm (2, 1)", tol=TRAIN_TOL,
+                             held=held)
+    np.testing.assert_allclose(got["dssm_2x1"]["losses"], refs["dssm_2x1"]["losses"],
+                               **TRAIN_TOL)
+    log(f"parallel on {name} ({smi}): two gloo ranks on one card against one process on it: "
+        f"dcn (1, 2) {PARALLEL_STEPS} steps bit for bit (max_abs_err {err_1x2:.3e}), the "
+        f"arena {tuple(got['dcn_1x2']['state'][arena].shape)} in "
+        f"two shards, AUC histograms equal; dcn (2, 1) max_abs_err {err_2x1:.3e} (tol "
+        f"{TRAIN_TOL}), probabilities within {dp:.3e}, AUC histograms equal in their sums, "
+        f"{flips} of {PARALLEL_STEPS * TRAIN_BATCH} examples in the next bin (each within "
+        f"that of a bin edge); sparse_adamw (1, 2) {PARALLEL_ADAM_STEPS} steps bit for bit but the spare "
+        f"row {spare} (one process moved it by {spare_moved:.3e}; the shards left it and the "
+        f"padding row as they were), max_abs_err {err_adam:.3e}; dssm (2, 1) "
+        f"{PARALLEL_DSSM_STEPS} steps max_abs_err {err_dssm:.3e}, losses "
+        f"{got['dssm_2x1']['losses']} vs {refs['dssm_2x1']['losses']}; Trainer.fit (1, 2) "
+        f"{PARALLEL_EPOCH} steps, its checkpoint predicts the ranks' scores bit for bit in one "
+        f"process; launches a rank: {ranks[0]['fit']['launches']}")
+    for lay, t in ranks[0]["timing"].items():
+        log(f"parallel step time on {name} ({smi}): dcn rowwise_adagrad batch {TRAIN_BATCH} at "
+            f"(data {lay[0]}, model {lay[1]}), two ranks on one card over gloo: "
+            f"{t['step_ms']:.3f} ms a step (runs of {PARALLEL_TIMED} steps: "
+            f"{', '.join(f'{x:.3f}' for x in t['runs_ms'])}); collectives "
+            f"{t['collectives_ms']:.3f} ms of a {t['timed_step_ms']:.3f} ms step with them timed "
+            f"({t['collectives_share']:.1%}), {t['collective_calls']:.0f} calls, "
+            f"{t['host_copies']:.0f} host copies ({t['host_mb']:.3f} MB) a step; one process: "
+            f"{one_timing['step_ms']:.3f} ms a step (runs "
+            f"{', '.join(f'{x:.3f}' for x in one_timing['runs_ms'])}); warm epoch at (1, 2): "
+            f"{TRAIN_BATCH / ranks[0]['fit']['warm']['examples_per_sec'] * 1e3:.3f} ms a step")
+    return {"parallel": fit["launches"],
+            **{f"parallel_{n}": ranks[0][n]["launches"] for n in runs}}
+
+
+def check_hist_2x1(probs, want_probs, hist, want_hist) -> tuple:
+    """(examples binned apart, largest probability difference) of the AUC
+    histogram at (data 2, model 1) against one process's: the ranks'
+    logits come from half batches, which cuBLAS rounds otherwise, so a
+    probability within that rounding of one of the 4,096 bin edges may
+    land in the next bin. The sums must be equal, every example binned
+    apart must lie that close to an edge, and the histograms may differ
+    only by those examples."""
+    from news_recsys_tpu_torch.training.trainer import AUC_BINS
+
+    for h, w in zip(hist, want_hist):
+        if float(h.sum()) != float(w.sum()):
+            raise AssertionError("dcn (2, 1): the AUC histogram's sums differ")
+    dp = float((probs - want_probs).abs().max())
+    if dp > TRAIN_TOL["atol"]:
+        raise AssertionError(f"dcn (2, 1): probabilities {dp:.3e} apart")
+    bins = [(p * AUC_BINS).to(torch.int32).clamp(0, AUC_BINS - 1) for p in (probs, want_probs)]
+    apart = bins[0] != bins[1]
+    edge = (want_probs * AUC_BINS - (want_probs * AUC_BINS).round()).abs()
+    if bool((edge[apart] > AUC_BINS * dp + 1e-6).any()):
+        raise AssertionError("dcn (2, 1): an example away from a bin edge changed bins")
+    moved = sum(float((h - w).abs().sum()) for h, w in zip(hist, want_hist))
+    if moved > 2 * int(apart.sum()):
+        raise AssertionError(f"dcn (2, 1): the AUC histograms differ by {moved}, more than "
+                             f"the {int(apart.sum())} examples binned apart move")
+    return int(apart.sum()), dp
+
+
+def build_dssm_names(cfg):
+    """(name, parameter) of a DSSM of ``cfg`` in ``named_parameters`` order:
+    the order of AdamW's state in its checkpoint."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    return list(build_dssm(cfg, device="cpu").named_parameters())
+
+
 def counted_kernels() -> dict:
     from news_recsys_tpu_torch.ops.dcn_kernel import dcn_cross_bwd, dcn_cross_stack
     from news_recsys_tpu_torch.ops.fm_kernel import fm_second_order, fm_second_order_bwd
@@ -2765,6 +3196,11 @@ PATH_KERNELS = {
                           "scatter_rows_set": BIG_STEPS, "fused_lookup_pool": 0},
     "train_slab_dssm": {"fused_lookup_pool": DSSM_SLAB_STEPS,
                         "fused_lookup_pool_bwd": DSSM_SLAB_STEPS, "scatter_rows_set": 0},
+    # two ranks on one card (rank 0's counts; every rank's are checked in the
+    # phase): Trainer.fit's epoch at (1, 2), one cross stack forward and
+    # backward and one shard-local scatter a step; and each held run
+    "parallel": PARALLEL_FIT_LAUNCHES,
+    **{f"parallel_{n}": want for n, want in PARALLEL_LAUNCHES.items()},
 }
 
 
@@ -2816,9 +3252,12 @@ def run(dev: torch.device) -> None:
              **timed("cli", cli_phase, dev, name, smi),
              **timed("train_variants", train_variants_phase, dev, smi),
              **timed("runtime", runtime_phase, dev, name, smi)}
-    check_launches(paths)
+    # traced before ranks are spawned on the card: after a spawn, this
+    # process's torch.profiler trace misses the replay's first kernel
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
         timed("trace of the cross backward", trace_cross_bwd, dev)
+    paths.update(timed("parallel", parallel_phase, dev, name, smi))
+    check_launches(paths)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -19,7 +19,11 @@ into this package's ``epoch_*.pt``.
 
 ``train``, ``predict`` and ``serve`` run on ``--device`` (default ``cuda``).
 A CUDA device that is not there is an error, not a reason to run on the
-CPU.
+CPU. ``train`` runs over several processes with ``--coordinator host:port
+--num-processes N --process-id i`` (one command a process), or under
+``torchrun`` with none of them: each process takes one device (``cuda``:
+its local rank's card) and the mesh of the config's ``mesh`` section. A
+process group that does not start is an error.
 """
 
 from __future__ import annotations
@@ -78,11 +82,24 @@ def cmd_fe(args) -> None:
 
 
 def cmd_train(args) -> None:
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        raise SystemExit("train --coordinator/--num-processes/--process-id: training over "
-                         "several processes is not ported yet: see ROADMAP.md, queue 1, item 8 "
-                         "('Multi-device')")
+    several = (args.coordinator or args.num_processes is not None
+               or args.process_id is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1)
     _require_device(args.device)
+    if not several:
+        _train(args)
+        return
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize_distributed
+    args.device = str(initialize_distributed(args.coordinator, args.num_processes,
+                                             args.process_id, device=args.device))
+    try:
+        _train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args) -> None:
     from .config import load_config
     from .data.packed_dataset import PackedDataset
     from .models.rankers import build_ranker
@@ -111,7 +128,8 @@ def cmd_train(args) -> None:
                     f"({rneg} per positive)")
 
     trainer = Trainer(cfg, model, workdir=args.workdir, device=args.device)
-    logger.info(f"Training '{name}' on {args.device} -> {trainer.log_dir}")
+    logger.info(f"Training '{name}' on {args.device} -> {trainer.log_dir}"
+                + (f" ({trainer.mesh})" if trainer.mesh is not None else ""))
     trainer.fit(train_ds, dev_ds, warm_user_set=warm, max_epochs=args.epochs,
                 resume=args.resume)
     print(f"Experiment dir: {trainer.log_dir}")
@@ -156,6 +174,13 @@ def _train_dssm(cfg, args, train_ds) -> None:
 
     res = evaluate_retrieval(trainer, item_ds, query, target_item_ids=query.arrays["item_id"],
                              histories=histories, k=10)
+    if trainer.mesh is not None:          # the bundle holds whole tables: gather the shards
+        from .parallel.sharded_embedding import full_state_dict
+        weights = full_state_dict(model, trainer.mesh)
+        if not trainer.is_main:
+            return
+        model = build_dssm(cfg, seed=cfg.train_hparams.seed, device=args.device)
+        model.load_state_dict(weights)
     print(json.dumps(res))
     with open(os.path.join(trainer.log_dir, "retrieval_eval.json"), "w") as f:
         json.dump(res, f)
@@ -439,7 +464,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from the newest step checkpoint in workdir")
     s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     s.add_argument("--coordinator", default=None,
-                   help="multi-process training (not ported: exits with an error)")
+                   help="multi-process training: the process group's address host:port "
+                        "(run one process per device; omit under torchrun)")
     s.add_argument("--num-processes", type=int, default=None)
     s.add_argument("--process-id", type=int, default=None)
     s.set_defaults(fn=cmd_train)
@@ -458,7 +484,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode ids back to raw values via FeatureIdMapper")
     s.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     s.add_argument("--no-mesh", action="store_true",
-                   help="accepted as the JAX package takes it; one device, no mesh to turn off")
+                   help="accepted as the JAX package takes it; predict runs in one process")
     s.set_defaults(fn=cmd_predict)
 
     s = sub.add_parser("itemcf", help="ItemCF recall baseline: fit train, HR@k on dev "

@@ -143,23 +143,31 @@ def triplet_loss(user_emb, pos_item_emb, neg_item_emb, margin: float = 1.0,
 
 def dssm_loss_from_embeddings(perms, user_emb, item_emb, batch, temperature: float = 0.1,
                               loss_type: str = "infonce", margin: float = 1.0,
-                              logq_table=None) -> torch.Tensor:
+                              logq_table=None, candidates=None) -> torch.Tensor:
     """The loss from raw tower outputs and the step's ``(rate, B)``
     permutations ``perms``. Only clicked rows count (``label`` times
     ``_valid``). The negatives are gathered from the un-normalised item
     embeddings and normalised after the gather; with ``logq_table`` (V,)
-    and InfoNCE, each negative's log q is read at its permuted id."""
+    and InfoNCE, each negative's log q is read at its permuted id.
+    ``candidates``: ``item_emb`` -> the (item embeddings, item ids) of the
+    global batch that ``perms`` index, where ``user_emb`` and ``item_emb``
+    are a rank's slice of it (``perms`` that slice's columns); by default
+    the batch's own."""
+    cand_emb, cand_ids = (candidates(item_emb) if candidates is not None
+                          else (item_emb, batch["item_id"]))
     user_emb = _l2(user_emb)
     item_emb_n = _l2(item_emb)
     mask = batch["label"][:, 0]
     if "_valid" in batch:
         mask = mask * batch["_valid"]
     if logq_table is not None and loss_type == "infonce":
-        ids = batch["item_id"].long().clamp(0, logq_table.shape[0] - 1)
-        neg, neg_ids = sample_in_batch_negatives(perms, item_emb, item_ids=ids)
+        V = logq_table.shape[0]
+        ids = batch["item_id"].long().clamp(0, V - 1)
+        neg, neg_ids = sample_in_batch_negatives(perms, cand_emb,
+                                                 item_ids=cand_ids.long().clamp(0, V - 1))
         return info_nce_loss(user_emb, item_emb_n, _l2(neg), temperature, mask,
                              log_q_pos=logq_table[ids], log_q_neg=logq_table[neg_ids])
-    neg = _l2(sample_in_batch_negatives(perms, item_emb))
+    neg = _l2(sample_in_batch_negatives(perms, cand_emb))
     if loss_type == "triplet":
         return triplet_loss(user_emb, item_emb_n, neg, margin, mask)
     return info_nce_loss(user_emb, item_emb_n, neg, temperature, mask)
@@ -167,12 +175,14 @@ def dssm_loss_from_embeddings(perms, user_emb, item_emb, batch, temperature: flo
 
 def dssm_train_loss(model: DSSM, perms, batch, temperature: float = 0.1,
                     loss_type: str = "infonce", margin: float = 1.0,
-                    logq_table=None) -> torch.Tensor:
+                    logq_table=None, candidates=None) -> torch.Tensor:
     """:func:`dssm_loss_from_embeddings` of ``model(batch)``: the towers run
-    whole, so ``hist`` goes through the fused lookup + pool."""
+    whole, so ``hist`` goes through the fused lookup + pool. ``candidates``:
+    :func:`dssm_loss_from_embeddings`'s."""
     user_emb, item_emb = model(batch)
     return dssm_loss_from_embeddings(perms, user_emb, item_emb, batch, temperature,
-                                     loss_type, margin, logq_table=logq_table)
+                                     loss_type, margin, logq_table=logq_table,
+                                     candidates=candidates)
 
 
 def item_log_q(train_ds, vocab: int) -> np.ndarray:

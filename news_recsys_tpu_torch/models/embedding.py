@@ -20,6 +20,12 @@ Port of :mod:`news_recsys_tpu.models.embedding`, with the same contracts:
 
 Ids outside a table's ``[0, V)`` read as NaN rows, as ``jnp.take`` fills
 them in the JAX package.
+
+Under a mesh with a model axis (``mesh``, set by
+:func:`~news_recsys_tpu_torch.parallel.sharded_embedding.set_active_mesh`)
+each table holds its rank's rows and every lookup goes through the id
+exchange (:func:`take_rows`); a pooled array feature pools on the compact
+table of the rows it asked for, through the same pool kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 from ..config import ARRAY, DENSE, SPARSE, FeatureSchema
 
 from ..ops.fused_lookup_pool import fused_lookup_pool
+from ..parallel.sharded_embedding import sharded_lookup, sharded_lookup_pool
 
 VOCAB_PAD_MULTIPLE = 128
 
@@ -73,6 +80,12 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return emb.masked_fill(((ids < 0) | (ids >= V))[..., None], float("nan"))
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """:func:`take`, or, where ``mesh`` (a mesh with a model axis) shards the
+    table, the rows of the global ``ids`` through the id exchange."""
+    return take(table, ids) if mesh is None else sharded_lookup(table, ids, mesh)
+
+
 class EmbeddingCollection(nn.Module):
     """Owns every embedding table (``tables``: name -> (vocab, dim)), each
     initialised N(0, init_scale) from ``generator`` with row 0 zero, and
@@ -88,11 +101,12 @@ class EmbeddingCollection(nn.Module):
             table[0] = 0.0
             params[name] = nn.Parameter(table.to(table_storage_dtype(table_dtype, vocab)))
         self.tables = nn.ParameterDict(params)
+        self.mesh = None          # set_active_mesh: the mesh whose model axis shards the tables
 
     def lookup(self, table_name: str, ids: torch.Tensor) -> torch.Tensor:
         """Gather rows (..., D) in float32; id 0 reads zeros, ids outside
         [0, V) read NaN."""
-        emb = take(self.tables[table_name], ids).float()
+        emb = take_rows(self.tables[table_name], ids, self.mesh).float()
         return emb * (ids != 0).to(emb.dtype)[..., None]
 
     @staticmethod
@@ -129,6 +143,10 @@ class EmbeddingCollection(nn.Module):
                     mask = val != 0
                 if self.tables[spec.table].dtype != torch.float32:
                     parts.append(self.pool(self.lookup(spec.table, val), mask))
+                    continue
+                if self.mesh is not None:
+                    parts.append(sharded_lookup_pool(self.tables[spec.table], val, mask,
+                                                     self.mesh))
                     continue
                 parts.append(fused_lookup_pool(
                     self.tables[spec.table], val.to(torch.int32).contiguous(),

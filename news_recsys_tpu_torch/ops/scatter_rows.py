@@ -50,10 +50,17 @@ def scatter_rows_plain(table: torch.Tensor, rows: torch.Tensor,
         raise ValueError("scatter_rows_set: rows must be non-decreasing")
     if rows.numel() == 0:
         return table
-    # nothing here waits for the device: a dropped slot repeats the write of
-    # a kept one (the first), or, where none is kept, what the table holds;
     # kept slots name distinct rows, so no two writes of one row differ
-    keep = (rows >= 0) & (rows < table.shape[0]) & last_of_run(rows)
+    return write_kept(table, rows, vals, (rows >= 0) & (rows < table.shape[0])
+                      & last_of_run(rows))
+
+
+def write_kept(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """``table[rows] = vals`` in place for the slots ``keep`` marks (rows
+    int64, inside the table where kept, not empty), in plain PyTorch and
+    without waiting for the device: a dropped slot repeats the write of the
+    first kept one, or, where none is kept, writes what the table holds."""
     first = keep.to(torch.uint8).argmax().reshape(1)
     idx = torch.where(keep, rows, rows.index_select(0, first)).clamp(0, table.shape[0] - 1)
     src = torch.where(keep[:, None], vals, vals.index_select(0, first))

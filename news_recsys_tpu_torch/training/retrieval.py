@@ -15,6 +15,15 @@ worth at once as the epoch's carry (:class:`NegativeDraws`): the permutations
 differ from JAX's, but a step's depend on its global step alone, so a
 resumed run reproduces them, and the card and the CPU train on the same ones.
 
+Under a mesh (:class:`~.trainer.Trainer`'s) each rank trains its slice of
+the global batch, and its negatives stay permutations of the global batch,
+as JAX's GSPMD program draws them: the item tower's outputs are gathered
+over the data axis with their gradient (:func:`~..parallel.mesh.
+all_gather_with_grad`), the rank's users take their columns of the step's
+permutations, and each rank's loss is its share of the global mean. Tables
+sharded over the model axis are read through the id exchange and updated
+shard-locally, as in the ranking steps.
+
 The evaluation encodes the item corpus once, scores every query user with
 one matmul + top-k sweep (:class:`~..ops.topk.TopKSearcher`) and removes
 each row's history on the host (:func:`dedup_hit_rate`).
@@ -34,12 +43,14 @@ from ..data.packed_dataset import PackedDataset
 from ..models.dssm import (DSSM, _l2, draw_negative_permutations, dssm_loss_from_embeddings,
                            dssm_train_loss, item_log_q)
 from ..ops.topk import TopKSearcher
+from ..parallel.mesh import all_gather_with_grad
 from ..utils.logging import get_logger
 from .checkpoint import load_state, load_weights, save_weights
 from .dense_step import check_dense
 from .schedule import hold_cosine_floor
 from .sparse_step import (_large_tables, check_sparse, collect_per_table, fields_from_rows,
-                          gather_large_rows, make_table_updater)
+                          gather_large_rows, gather_slots, make_table_updater, sharded_tables,
+                          sum_over_data)
 from .trainer import Trainer
 
 logger = get_logger("retrieval")
@@ -68,22 +79,42 @@ def draw_negatives(seed: int, first: int, steps: int, B: int, rate: int,
     return NegativeDraws(torch.from_numpy(perms).to(device), first)
 
 
+def global_negatives(mesh, batch, perms):
+    """(the rank's columns of ``perms``, ``candidates(item_emb)`` giving the
+    global batch's item embeddings and ids, the loss's share divisor) under
+    a data axis; ``(perms, None, 1)`` without one."""
+    if mesh is None or mesh.data == 1:
+        return perms, None, 1
+    ids = mesh.all_gather(batch["item_id"], "data")
+
+    def candidates(item_emb):
+        return all_gather_with_grad(item_emb, mesh, "data"), ids
+
+    return perms[:, mesh.batch_slice(perms.shape[1])], candidates, mesh.data
+
+
 def make_dssm_train_step(model: DSSM, cfg: Config, temperature: float,
-                         loss_type: str = "infonce", margin: float = 1.0, logq_table=None):
+                         loss_type: str = "infonce", margin: float = 1.0, logq_table=None,
+                         mesh=None):
     """``step(state, batch, negatives) -> (loss, None)``: one all-dense AdamW
     step (:mod:`.dense_step`'s state and optimizer) of the DSSM loss on a
     batch dict, with the permutations ``negatives.at(state.step)``. The
     towers run whole, so ``hist`` goes through the fused lookup + pool and
-    its backward kernel; the lr is the schedule at the pre-increment step."""
+    its backward kernel; the lr is the schedule at the pre-increment step.
+    ``mesh``: the rank's mesh (``batch`` its slice); the loss is the global
+    batch's."""
     check_dense(cfg)
+    sharded_tables(model, mesh)
     hp = cfg.train_hparams
     sched = hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)
 
     def step(state, batch, negatives: NegativeDraws):
-        loss = dssm_train_loss(state.model, negatives.at(state.step), batch, temperature,
-                               loss_type, margin, logq_table=logq_table)
+        perms, candidates, share = global_negatives(mesh, batch, negatives.at(state.step))
+        loss = dssm_train_loss(state.model, perms, batch, temperature, loss_type, margin,
+                               logq_table=logq_table, candidates=candidates) / share
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        (loss,) = sum_over_data(mesh, state.opt.param_groups[0]["params"], loss)
         for group in state.opt.param_groups:
             group["lr"] = sched(state.step)
         with torch.no_grad():
@@ -96,14 +127,15 @@ def make_dssm_train_step(model: DSSM, cfg: Config, temperature: float,
 
 def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
                                 loss_type: str = "infonce", margin: float = 1.0,
-                                logq_table=None):
+                                logq_table=None, mesh=None):
     """``step(state, batch, negatives) -> (loss, None)`` with the rowwise
     optimizer (``rowwise_adagrad`` or ``sparse_adamw``) on the large tables
     (:mod:`.sparse_step`'s state and updater): the loss is differentiated
     with respect to the gathered user and item table rows (no (V, D)
     gradient exists), AdamW steps the towers and the small tables, and the
     touched rows are written back through the row scatter kernel. K-step
-    write-back raises ``NotImplementedError``, as in the JAX package."""
+    write-back raises ``NotImplementedError``, as in the JAX package.
+    ``mesh``: as :func:`make_dssm_train_step`'s."""
     check_sparse(cfg)
     hp = cfg.train_hparams
     if hp.embedding_update_period > 1:
@@ -113,7 +145,8 @@ def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
             "per-step updates.")
     sched = hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)
     large = _large_tables(model.tables)
-    table_update = make_table_updater(cfg, model.tables)
+    table_update = make_table_updater(cfg, model.tables, mesh=mesh)
+    lookup_mesh = sharded_tables(model, mesh)
     u_schema, i_schema = model.user_schema, model.item_schema
     # a feature in BOTH schemas has one rows entry whose gradient already
     # sums both towers' contributions: collect it once
@@ -123,18 +156,21 @@ def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
     def step(state, batch, negatives: NegativeDraws):
         tables = state.model.embedder.tables
         with torch.no_grad():
-            rows = {**gather_large_rows(u_schema, batch, tables, large),
-                    **gather_large_rows(i_schema, batch, tables, large)}
+            rows = {**gather_large_rows(u_schema, batch, tables, large, lookup_mesh),
+                    **gather_large_rows(i_schema, batch, tables, large, lookup_mesh)}
         for r in rows.values():
             r.requires_grad_()
-        u_fields, _ = fields_from_rows(u_schema, batch, rows, tables, large)
-        i_fields, _ = fields_from_rows(i_schema, batch, rows, tables, large)
+        u_fields, _ = fields_from_rows(u_schema, batch, rows, tables, large, mesh=lookup_mesh)
+        i_fields, _ = fields_from_rows(i_schema, batch, rows, tables, large, mesh=lookup_mesh)
         user_emb, item_emb = state.model.towers_from_fields(u_fields, i_fields)
-        loss = dssm_loss_from_embeddings(negatives.at(state.step), user_emb, item_emb, batch,
-                                         temperature, loss_type, margin, logq_table=logq_table)
+        perms, candidates, share = global_negatives(mesh, batch, negatives.at(state.step))
+        loss = dssm_loss_from_embeddings(
+            perms, user_emb, item_emb, batch, temperature, loss_type, margin,
+            logq_table=logq_table, candidates=candidates) / share
         opt = state.dense_opt
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        (loss,) = sum_over_data(mesh, opt.param_groups[0]["params"], loss)
         lr = sched(state.step)
         with torch.no_grad():
             for group in opt.param_groups:
@@ -144,7 +180,7 @@ def make_dssm_sparse_train_step(model: DSSM, cfg: Config, temperature: float,
             per_table = collect_per_table(u_schema, batch, grads, large)
             for t, pairs in collect_per_table(i_only, batch, grads, large).items():
                 per_table.setdefault(t, []).extend(pairs)
-            table_update(state, per_table, state.step, lr)
+            table_update(state, gather_slots(per_table, mesh), state.step, lr)
         state.step += 1
         return loss.detach(), None
 
@@ -176,7 +212,7 @@ class DSSMTrainer(Trainer):
     """
 
     def __init__(self, cfg: Config, model: DSSM, workdir: Optional[str] = None,
-                 device="cuda", profile_steps: int = 0):
+                 device="cuda", profile_steps: int = 0, mesh=None):
         dcfg = cfg.extra("dssm_cfg", {}) or {}
         self.negative_sample_rate = int(dcfg.get("negative_sample_rate", 3))
         self._loss_args = (float(dcfg.get("temperature", 0.1)),
@@ -184,11 +220,13 @@ class DSSMTrainer(Trainer):
         self._logq = bool(dcfg.get("logq_correction", False))
         self._logq_table: Optional[torch.Tensor] = None
         self._eval_data: Optional[Dict] = None
-        super().__init__(cfg, model, workdir=workdir, device=device, profile_steps=profile_steps)
+        super().__init__(cfg, model, workdir=workdir, device=device, profile_steps=profile_steps,
+                         mesh=mesh)
 
     def _make_train_step(self):
         make = make_dssm_sparse_train_step if self.sparse_embeddings else make_dssm_train_step
-        return make(self.model, self.cfg, *self._loss_args, logq_table=self._logq_table)
+        return make(self.model, self.cfg, *self._loss_args, logq_table=self._logq_table,
+                    mesh=self.mesh)
 
     # -- epoch carry: the epoch's negative permutations -----------------------
 
@@ -238,9 +276,10 @@ class DSSMTrainer(Trainer):
         res = evaluate_retrieval(self, ev["item_ds"], ds, target_item_ids=ds.arrays["item_id"],
                                  histories=histories, k=ev["k"])
         block = format_retrieval_block(res, epoch)
-        print(block)
-        with open(self.val_log_path, "a") as f:
-            f.write(block)
+        if self.is_main:
+            print(block)
+            with open(self.val_log_path, "a") as f:
+                f.write(block)
         self._log_scalars(epoch=epoch, **{f"val_{k.lower().replace('@', '_at_')}": v
                                           for k, v in res.items()})
         return res
@@ -251,13 +290,14 @@ class DSSMTrainer(Trainer):
         """Weights-only ``<ckpt_dir>/epoch_<NNN>.pt`` (the reference keeps
         every epoch's weights alone). A full-state resume goes through the
         step checkpoints (``ckpt_every_steps``, ``fit(resume=True)``)."""
-        return save_weights(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.pt"), state.model)
+        return save_weights(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.pt"), state.model,
+                            self.mesh)
 
     def load_params(self, state, path: str):
         """Load a weights-only checkpoint file into ``state``'s model."""
         if not os.path.exists(path):
             raise FileNotFoundError(f"Checkpoint not found: {path}")
-        load_weights(state.model, load_state(path))
+        load_weights(state.model, load_state(path), self.mesh)
         return state
 
     # -- encoding --------------------------------------------------------------

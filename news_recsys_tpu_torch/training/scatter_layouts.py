@@ -2,7 +2,8 @@
 :func:`~news_recsys_tpu_torch.ops.scatter_rows.scatter_rows_set` against its
 plain version and timing it at the shapes the main paths give it.
 
-A DCN step scatters 1,024 slots into its arena; the sparse attention step
+A DCN step scatters 1,024 slots into its arena (on a model axis of 2,
+each rank the same slots into its shard of it); the sparse attention step
 hands each of its two large tables all 16,384 joint slots of a batch of
 512, the other table's clamped to row 0 or the spare row
 (:func:`~news_recsys_tpu_torch.training.sparse_step._joint_dedup`), and so
@@ -33,6 +34,17 @@ def arena_scatter_case(seed: int, slots: int = 1024) -> tuple:
     rows.sort()
     vals = rng.standard_normal((slots, D)).astype(np.float32)[np.searchsorted(rows, rows)]
     return table, rows, vals
+
+
+def arena_shard_scatter_case(seed: int, shard: int, shards: int = 2,
+                             slots: int = 1024) -> tuple:
+    """:func:`arena_scatter_case` as one rank of a model axis of ``shards``
+    writes it: the shard's rows of the arena (79,680 of 159,360 at 2), the
+    same sorted slots translated into the shard (``rows - shard * rows``, the
+    other shards' slots outside it, which the scatter drops)."""
+    table, rows, vals = arena_scatter_case(seed, slots)
+    n = table.shape[0] // shards
+    return table[shard * n:(shard + 1) * n].copy(), (rows - shard * n).astype(np.int32), vals
 
 
 def attention_scatter_layouts(cfg, arrays: dict, seed: int) -> dict:

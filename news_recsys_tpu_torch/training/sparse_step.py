@@ -46,6 +46,35 @@ A table takes the dense full-table AdaGrad route
 (``PERF.md``): the sparse attention step's and the rowwise DSSM step's item
 tables take it, the DCN's arena does not.
 
+Under a :class:`~news_recsys_tpu_torch.parallel.mesh.Mesh` (``mesh=``):
+
+- every rank runs its slice of the global batch (the data axis); a
+  row-sharded table (the model axis) is read through the id exchange
+  (:func:`~news_recsys_tpu_torch.models.embedding.take_rows`), for the
+  gathered large-table rows and the small tables alike;
+- the loss is the global batch's mean: each rank divides its sum by the
+  global weight sum, and the gradients of the replicated parameters (and
+  of a small table's shard) are summed over the data axis in one flat
+  buffer (:func:`sum_over_data`), the step's loss with them;
+- each rank's (ids, row grads) slots are gathered over the data axis in
+  batch order (:func:`gather_slots`), so every rank dedups the global
+  batch's slots as one device does; a sharded table's update then writes
+  only its own rows (:func:`make_sharded_adagrad_update`,
+  :func:`make_sharded_rowwise_update`) with no collective: the slots
+  translate to shard-local rows, and the foreign ones fall outside the
+  shard and are dropped. In the sorted layout the row scatter kernel is
+  that shard-local write (it drops rows outside ``[0, V)``, and sorted rows
+  minus a constant stay sorted): one launch a table a step on each rank,
+  three for ``sparse_adamw``. JAX keeps its Pallas scatter off this route
+  because its window walk needs every row in range; the port's kernel has
+  no such limit. Other tables' slots of the joint dedup and invalid slots
+  route out of every shard (``OOB_ROW``, or -1 below a table's range), so
+  Adam's weight decay never moves a padding or spare row, as JAX's
+  ``OOB_ROW`` has it; on one device they clip onto those rows. The dense
+  AdaGrad route is taken on unsharded tables only, as in JAX;
+- the AUC histogram stays per rank; the trainer sums it over the data axis
+  where it reads it.
+
 Where JAX rebuilt arrays, the port updates in place under
 ``torch.no_grad()``: the tables, the optimizer state and the AUC histogram.
 The gathered rows are copies, so writing a table after ``backward()`` is
@@ -66,15 +95,17 @@ from torch import nn
 
 from ..config import ARRAY, DENSE, SPARSE, Config
 
-from ..models.embedding import SMALL_VOCAB_THRESHOLD, offset_ids, padded_vocab, take
-from ..ops.scatter_rows import scatter_rows_set
+from ..models.embedding import SMALL_VOCAB_THRESHOLD, offset_ids, padded_vocab, take_rows
+from ..ops.scatter_rows import scatter_rows_set, write_kept
+from ..parallel.mesh import sharded_names
+from ..parallel.sharded_embedding import active_mesh
 from .schedule import hold_cosine_floor
 from .trainer import AucHist, binned_auc_update
 
 EPS_POOL = 1e-8
 ADAGRAD_INIT_ACC = 0.1   # TF/TPUEmbedding default initial accumulator
 ADAM_EPS = 1e-8
-OOB_ROW = 2 ** 29        # the joint dedup's spare row: above every joint id
+OOB_ROW = 2 ** 29        # the joint dedup's spare row, above every joint id: out of every shard
 SENTINEL = 2 ** 30       # sort key of an invalid slot: after every real id
 DENSE_ROUTE_INDEX = 1000  # the dense route's noise index: 1000 + its table's index
 # Rowwise AdaGrad takes the dense full-table route for a table whose touched
@@ -87,7 +118,6 @@ DENSE_ROUTE_INDEX = 1000  # the dense route's noise index: 1000 + its table's in
 # 159,360 (0.006) and ties at 16,384 (0.10), the two device times crossing
 # near 0.12.
 DENSE_UPDATE_MIN_SHARE = 1 / 8
-NOT_PORTED = "is not ported yet: see ROADMAP.md, queue 1, item 8 ('Multi-device')"
 ROWWISE = ("rowwise_adagrad", "sparse_adamw")
 
 
@@ -95,17 +125,8 @@ def _large_tables(tables_spec) -> set:
     return {t for t, (v, d) in dict(tables_spec).items() if v >= SMALL_VOCAB_THRESHOLD}
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a training config the port does not
-    run: a model-parallel mesh."""
-    if cfg.mesh.model > 1:
-        raise NotImplementedError(f"a model-parallel mesh (mesh.model={cfg.mesh.model}) "
-                                  + NOT_PORTED)
-
-
 def check_sparse(cfg: Config) -> None:
-    """:func:`check_ported`, and the optimizer must be one of this module's."""
-    check_ported(cfg)
+    """The optimizer must be one of this module's."""
     if cfg.train_hparams.embedding_optimizer not in ROWWISE:
         raise ValueError(f"the sparse step runs embedding_optimizer in {ROWWISE}; "
                          f"{cfg.train_hparams.embedding_optimizer!r} trains on the all-dense "
@@ -186,27 +207,30 @@ def init_sparse_state(model: nn.Module, cfg: Config) -> SparseTrainState:
                             emb_acc, emb_mu=emb_mu, emb_nu=emb_nu)
 
 
-def gather_large_rows(schema, batch, tables, large) -> Dict[str, torch.Tensor]:
+def gather_large_rows(schema, batch, tables, large, mesh=None) -> Dict[str, torch.Tensor]:
     """Per-feature gathered LARGE-table rows in float32, one gather per
     feature (even for features sharing a table); ids outside a table read
-    NaN."""
-    return {spec.name: take(tables[spec.table], offset_ids(spec, batch[spec.name])).float()
+    NaN. ``mesh``: the model axis that shards the tables (the id exchange),
+    or None."""
+    return {spec.name: take_rows(tables[spec.table], offset_ids(spec, batch[spec.name]),
+                                 mesh).float()
             for spec in schema.specs if spec.kind in (SPARSE, ARRAY) and spec.table in large}
 
 
-def fields_from_rows(schema, batch, rows, tables, large, unpooled=()) -> tuple:
+def fields_from_rows(schema, batch, rows, tables, large, unpooled=(), mesh=None) -> tuple:
     """(fields, masks): the per-field embeddings in schema order, as
     ``embed_fields`` builds them, from the gathered large-table ``rows`` and
-    the small ``tables``. Array features are masked-mean pooled here, except
-    those in ``unpooled``, which stay (B, L, D) and whose float masks are
-    returned by name."""
+    the small ``tables`` (read through ``mesh``'s id exchange where it shards
+    them). Array features are masked-mean pooled here, except those in
+    ``unpooled``, which stay (B, L, D) and whose float masks are returned by
+    name."""
     fields, masks = [], {}
     for spec in schema.specs:
         if spec.kind == DENSE:
             fields.append(batch[spec.name].to(torch.float32)[:, None])
             continue
         ids = offset_ids(spec, batch[spec.name])
-        r = rows[spec.name] if spec.table in large else take(tables[spec.table], ids)
+        r = rows[spec.name] if spec.table in large else take_rows(tables[spec.table], ids, mesh)
         r = r * (ids != 0).to(r.dtype)[..., None]
         if spec.kind == ARRAY:
             mask = batch.get(f"{spec.name}_mask")
@@ -302,7 +326,7 @@ def _unique_rows(per_table, table_vocab, spare) -> Dict[str, tuple]:
     return out
 
 
-def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
+def _joint_dedup(per_table, table_vocab, spare, sharded: bool = False) -> Dict[str, tuple]:
     """Sort-dedup the touched ids of all large tables in one joint sort;
     returns {table: (rows, grads)} in the sorted layout, ready to scatter.
 
@@ -311,6 +335,12 @@ def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
     zero-pad to the widest dim, and after the dedup each table takes back
     its own slots; the other tables' slots clip into ``[0, spare]`` (keeping
     the rows sorted) with zero gradient.
+
+    With ``sharded`` (tables row-sharded over a model axis, ``spare`` at
+    ``OOB_ROW``) the other tables' slots route out of every shard instead:
+    -1 below the table's range, ``OOB_ROW`` above it, which keeps the rows
+    sorted; clipped, they would land inside shard 0 or the last shard, where
+    Adam's weight decay would move row 0 or the spare row.
 
     Unlike the JAX package, an id at or past its own table's vocab is
     dropped before the shift: there, an id above ``vocab`` lands in the next
@@ -340,8 +370,9 @@ def _joint_dedup(per_table, table_vocab, spare) -> Dict[str, tuple]:
         v, d = table_vocab[t]
         local = rows_j - offsets[t]
         mine = (local >= 1) & (local < v)
-        out[t] = (local.clamp(0, spare[t]).to(torch.int32),
-                  torch.where(mine[:, None], grads_j[:, :d], 0.0))
+        rows = (torch.where(mine, local, torch.where(local < 1, -1, OOB_ROW)) if sharded
+                else local.clamp(0, spare[t]))
+        out[t] = (rows.to(torch.int32), torch.where(mine[:, None], grads_j[:, :d], 0.0))
     return out
 
 
@@ -398,32 +429,63 @@ def write_rows(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> t
     return table.index_put_((rows.long(),), vals)
 
 
+def write_kept_rows(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``table[rows] = vals`` in place in plain PyTorch, rows outside
+    ``[0, V)`` (a shard's foreign slots) dropped, in any order and without
+    waiting for the device (:func:`~news_recsys_tpu_torch.ops.scatter_rows.
+    write_kept`). Rows named twice must carry equal values (both layouts
+    give them)."""
+    if rows.numel() == 0:
+        return table
+    rows = rows.long()
+    return write_kept(table, rows, vals, (rows >= 0) & (rows < table.shape[0]))
+
+
+def _read_index(rows: torch.Tensor, V: int, drop: bool) -> torch.Tensor:
+    """The rows to read: ``rows``, clamped into the table where rows outside
+    it are to be dropped (their values are computed and not written)."""
+    idx = rows.long()
+    return idx.clamp(0, V - 1) if drop else idx
+
+
+def _set_vector(vec: torch.Tensor, rows, idx, vals, drop: bool) -> None:
+    """``vec[rows] = vals`` for a (V,) accumulator, dropping rows outside it
+    with ``drop``."""
+    if drop:
+        write_kept_rows(vec[:, None], rows, vals[:, None])
+    else:
+        vec[idx] = vals
+
+
 def rowwise_adagrad_update(table, acc, rows, grads, lr, eps=1e-10, noise=None,
-                           write=scatter_rows_set):
+                           write=scatter_rows_set, drop=False):
     """Rowwise AdaGrad on the given rows, in place (TPUEmbedding/torchrec
     semantics): one scalar accumulator per row, ``acc += mean(g^2)``,
     ``p -= lr * g / (sqrt(acc) + eps)``, in float32 whatever the table's
     dtype (a bfloat16 table's rows are rounded with ``noise``). ``write``
     writes the table's rows: the row scatter kernel in the sorted layout
     (``rows`` sorted, as :func:`_dedup_rows` gives them), :func:`write_rows`
-    in the unique one; the (V,) accumulator write is a plain ``index_put_``."""
-    idx = rows.long()
+    in the unique one; the (V,) accumulator write is a plain ``index_put_``.
+    With ``drop`` (a shard's update) rows outside the table are read clamped
+    and written nowhere; ``write`` must drop them too."""
+    idx = _read_index(rows, table.shape[0], drop)
     acc_rows = acc[idx] + (grads * grads).mean(dim=-1)
     p_new = table[idx].float() - lr * grads / (acc_rows.sqrt() + eps)[:, None]
     write(table, rows, _storable(p_new, table, noise))
-    acc[idx] = acc_rows
+    _set_vector(acc, rows, idx, acc_rows, drop)
     return table, acc
 
 
 def rowwise_adam_update(table, mu, nu, rows, grads, lr, t, b1, b2, eps, wd, noise=None,
-                        write=scatter_rows_set):
+                        write=scatter_rows_set, drop=False):
     """Adam on the given rows only, in place, with bias correction from
     ``t`` (the 1-based global step, or apply count for K-step write-back)
     and decoupled weight decay on the touched rows. Math in float32; a
     bfloat16 table's rows are rounded with ``noise``. ``write`` writes the
     three (V, D) row sets (table, ``mu``, ``nu``): three launches of the row
-    scatter kernel in the sorted layout."""
-    idx = rows.long()
+    scatter kernel in the sorted layout. ``drop``: as
+    :func:`rowwise_adagrad_update`'s."""
+    idx = _read_index(rows, table.shape[0], drop)
     p_rows = table[idx].float()
     mu_new = b1 * mu[idx] + (1 - b1) * grads
     nu_new = b2 * nu[idx] + (1 - b2) * grads * grads
@@ -461,7 +523,43 @@ def dense_rowwise_adagrad_update(table, acc, ids, grads, lr, eps=1e-10, max_id=N
     return table, acc
 
 
-def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None):
+def shard_local_rows(rows: torch.Tensor, mesh, rows_local: int) -> torch.Tensor:
+    """Global rows -> rows of this rank's shard (``rows_local`` rows): the
+    foreign ones fall outside ``[0, rows_local)``. Sorted rows stay sorted."""
+    return rows - mesh.model_index * rows_local
+
+
+def make_sharded_adagrad_update(mesh):
+    """Rowwise AdaGrad over a table row-sharded on ``mesh``'s model axis:
+    ``update(shard, acc, rows, grads, lr, eps, noise, write)`` with the
+    deduped global ``rows``/``grads`` replicated on every rank, in place on
+    this rank's ``shard`` and (Vl,) ``acc``. Each rank translates the rows to
+    its own range and writes only those (``write``: the row scatter kernel in
+    the sorted layout, :func:`write_kept_rows` in the unique one); foreign
+    and invalid slots fall outside the shard and are dropped. No
+    collective."""
+    def update(shard, acc, rows, grads, lr, eps=1e-10, noise=None, write=scatter_rows_set):
+        return rowwise_adagrad_update(shard, acc, shard_local_rows(rows, mesh, shard.shape[0]),
+                                      grads, lr, eps, noise=noise, write=write, drop=True)
+
+    return update
+
+
+def make_sharded_rowwise_update(mesh):
+    """Rowwise Adam (``sparse_adamw``) over a row-sharded table, as
+    :func:`make_sharded_adagrad_update`: ``update(shard, mu, nu, rows, grads,
+    lr, t, b1, b2, eps, wd, noise, write)``, the (Vl, D) moments sharded
+    like the table; three shard-local writes."""
+    def update(shard, mu, nu, rows, grads, lr, t, b1, b2, eps, wd, noise=None,
+               write=scatter_rows_set):
+        return rowwise_adam_update(shard, mu, nu, shard_local_rows(rows, mesh, shard.shape[0]),
+                                   grads, lr, t, b1, b2, eps, wd, noise=noise, write=write,
+                                   drop=True)
+
+    return update
+
+
+def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None, mesh=None):
     """``update(state, per_table, step, lr)``: the configured rowwise
     optimizer on the touched rows of the large tables, in place;
     ``per_table`` maps a table to the (flat ids, flat row-grads, offset)
@@ -474,19 +572,35 @@ def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None
     is ``noise(step, i, shape, device)`` for the ``i``-th table
     (``DENSE_ROUTE_INDEX + i`` on the dense route, as JAX's
     ``fold_in(step_key, 1000 + ti)``). ``noise`` defaults to
-    :func:`rounding_noise` of ``train_hparams.seed``."""
+    :func:`rounding_noise` of ``train_hparams.seed``.
+
+    With a ``mesh`` whose model axis shards the tables, ``per_table`` holds
+    the global batch's slots on every rank, invalid and foreign slots route
+    to ``OOB_ROW``, no table takes the dense route, and each rank writes its
+    own rows (:func:`make_sharded_adagrad_update`,
+    :func:`make_sharded_rowwise_update`). The noise of a slot is the same on
+    every rank, and each row is written by one rank: the rounding matches
+    one device's."""
     check_sparse(cfg)
     hp = cfg.train_hparams
     adagrad = hp.embedding_optimizer == "rowwise_adagrad"
     unique = cfg.mesh.param_dtype == "bfloat16"
-    write = write_rows if unique else scatter_rows_set
+    sharded = mesh is not None and mesh.model > 1
+    write = (write_kept_rows if sharded else write_rows) if unique else scatter_rows_set
     noise = noise or rounding_noise(hp.seed)
     table_vocab = dict(tables_spec)
-    spare = {t: padded_vocab(v) - 1 for t, (v, d) in table_vocab.items()}
+    if sharded:
+        spare = {t: OOB_ROW for t in table_vocab}
+        adagrad_update, adam_update = (make_sharded_adagrad_update(mesh),
+                                       make_sharded_rowwise_update(mesh))
+    else:
+        spare = {t: padded_vocab(v) - 1 for t, (v, d) in table_vocab.items()}
+        adagrad_update, adam_update = rowwise_adagrad_update, rowwise_adam_update
 
     def dense_route(t: str, pairs) -> bool:
         slots = sum(p[0].shape[0] for p in pairs)
-        return adagrad and slots >= DENSE_UPDATE_MIN_SHARE * padded_vocab(table_vocab[t][0])
+        return (adagrad and not sharded
+                and slots >= DENSE_UPDATE_MIN_SHARE * padded_vocab(table_vocab[t][0]))
 
     def noise_of(table, step: int, index: int, shape):
         if table.dtype != torch.bfloat16:
@@ -503,18 +617,93 @@ def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None
                 torch.cat([p[1] for p in pairs]), lr, max_id=int(table_vocab[t][0]) - 1,
                 noise=noise_of(tables[t], step, DENSE_ROUTE_INDEX + ti, tables[t].shape))
         rest = {t: pairs for t, pairs in per_table.items() if t not in dense}
-        layouts = (_unique_rows if unique else _joint_dedup)(rest, table_vocab, spare)
+        layouts = (_unique_rows(rest, table_vocab, spare) if unique
+                   else _joint_dedup(rest, table_vocab, spare, sharded))
         for ti, (t, (rows, grads)) in enumerate(sorted(layouts.items())):
             nz = noise_of(tables[t], step, ti, grads.shape)
             if adagrad:
-                rowwise_adagrad_update(tables[t], state.emb_acc[t], rows, grads, lr, noise=nz,
-                                       write=write)
+                adagrad_update(tables[t], state.emb_acc[t], rows, grads, lr, noise=nz,
+                               write=write)
             else:
-                rowwise_adam_update(tables[t], state.emb_mu[t], state.emb_nu[t], rows, grads,
-                                    lr, step + 1, hp.b1, hp.b2, ADAM_EPS, hp.weight_decay,
-                                    noise=nz, write=write)
+                adam_update(tables[t], state.emb_mu[t], state.emb_nu[t], rows, grads,
+                            lr, step + 1, hp.b1, hp.b2, ADAM_EPS, hp.weight_decay,
+                            noise=nz, write=write)
 
     return update
+
+
+def sparse_state_shardings(state: SparseTrainState, mesh) -> dict:
+    """Which of a sparse state's tensors lie on shards of the model axis, in
+    the layout of its checkpoint (:func:`~.checkpoint.state_dict`): the
+    model's parameter names, AdamW's parameter indices (its state is keyed
+    by position in ``dense_parameters``) and the rowwise optimizer's tables
+    (every large table is sharded), each a set; all empty without a model
+    axis."""
+    sharded = sharded_names(state.model, mesh)
+    names = [n for n, _ in dense_parameters(state.model)]
+    rowwise = {k: set(getattr(state, k)) if sharded else set()
+               for k in ("emb_acc", "emb_mu", "emb_nu")}
+    return {"model": sharded, "dense_opt": {i for i, n in enumerate(names) if n in sharded},
+            **rowwise}
+
+
+def sum_over_data(mesh, params, *scalars: torch.Tensor) -> list:
+    """Sum the gradients of ``params`` (those that have one: the same ones on
+    every rank) and the 0-dim ``scalars`` over the data axis, in place, in
+    one flat buffer; returns the summed scalars. Without a data axis:
+    nothing moves."""
+    if mesh is None or mesh.data == 1:
+        return list(scalars)
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [x.detach().reshape(1).to(torch.float32) for x in scalars])
+    mesh.all_reduce_(flat, "data")
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return list(flat[off:])
+
+
+def gather_slots(per_table, mesh):
+    """The global batch's ``per_table``: every (ids, row grads, offset) entry
+    of every rank gathered over the data axis in rank order, which is batch
+    order, in one flat buffer (the int32 ids travel as float32 bits).
+    Without a data axis: ``per_table`` itself."""
+    entries = [(t, e) for t in sorted(per_table) for e in per_table[t]]
+    if mesh is None or mesh.data == 1 or not entries:
+        return per_table
+    flat = torch.cat([x for _, (ids, g, *_) in entries
+                      for x in (ids.to(torch.int32).view(torch.float32), g.reshape(-1))])
+    ranks = mesh.all_gather(flat, "data").view(mesh.data, -1)
+    out: Dict[str, list] = {}
+    off = 0
+    for t, (ids, g, *rest) in entries:
+        gi = ranks[:, off:off + ids.numel()].contiguous().view(torch.int32).reshape(-1)
+        off += ids.numel()
+        gg = ranks[:, off:off + g.numel()].reshape(-1, g.shape[-1])
+        off += g.numel()
+        out.setdefault(t, []).append((gi.to(ids.dtype), gg, *rest))
+    return out
+
+
+def sharded_tables(model: nn.Module, mesh):
+    """The mesh whose model axis shards ``model``'s tables (its lookups go
+    through the id exchange), or None; raises where ``mesh`` has a model
+    axis and the tables were not cut to it
+    (:func:`~news_recsys_tpu_torch.parallel.sharded_embedding.shard_parameters`)."""
+    if mesh is not None and mesh.model > 1 and active_mesh(model.embedder) is not mesh:
+        raise ValueError(f"{mesh} shards the tables: cut the model to it "
+                         "(shard_parameters) before making its step")
+    return active_mesh(model.embedder)
+
+
+def global_weight_sum(weights: torch.Tensor, mesh) -> torch.Tensor:
+    """The batch's weight sum over the data axis (the loss's denominator)."""
+    total = weights.sum()
+    if mesh is None or mesh.data == 1:
+        return total
+    return mesh.all_reduce_(total.clone(), "data")
 
 
 def _pending_rows(per_table, K: int) -> PendingRows:
@@ -528,14 +717,19 @@ def _pending_rows(per_table, K: int) -> PendingRows:
     return PendingRows(ids, grads, torch.zeros(K, dtype=torch.bool, device=device))
 
 
-def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseFn] = None):
+def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseFn] = None,
+                           mesh=None):
     """``step(state, batch, hist) -> (loss, logits)``: one training step on a
     batch dict (``unpack_batch``'s, tensors on the model's device), updating
     ``state`` and the AUC histogram ``hist`` in place. With
     ``embedding_update_period`` K > 1 the rows' update waits for
     ``step.flush(state)``, the combined update of every pending step (the
     identity when none is pending); with K = 1 ``flush`` does nothing.
-    ``noise``: :func:`make_table_updater`."""
+    ``noise``: :func:`make_table_updater`. ``mesh``: the rank's
+    :class:`~news_recsys_tpu_torch.parallel.mesh.Mesh` (``batch`` is then its
+    slice, ``model`` its shards); the returned loss is the global batch's,
+    the logits the slice's. K-step write-back buffers the gathered global
+    slots, so its flush is one device's."""
     if not hasattr(model, "forward_from_fields"):
         raise NotImplementedError(f"{type(model).__name__} does not factor as "
                                   "forward_from_fields")
@@ -543,14 +737,15 @@ def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseF
     sched = hold_cosine_floor(hp.lr, hp.min_lr, hp.lr_milestones)
     schema = model.schema
     large = _large_tables(model.tables)
-    table_update = make_table_updater(cfg, model.tables, noise)
+    table_update = make_table_updater(cfg, model.tables, noise, mesh)
     unpooled = set(getattr(model, "unpooled_arrays", ()) or ())
     K = int(hp.embedding_update_period)
+    lookup_mesh = sharded_tables(model, mesh)
 
     def sparse_train_step(state: SparseTrainState, batch, hist: AucHist):
         tables = state.model.embedder.tables
         with torch.no_grad():
-            rows = gather_large_rows(schema, batch, tables, large)
+            rows = gather_large_rows(schema, batch, tables, large, lookup_mesh)
         for r in rows.values():
             r.requires_grad_()
         labels = batch["label"][:, 0]
@@ -558,13 +753,17 @@ def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseF
         if weights is None:
             weights = torch.ones_like(labels)
         logits = state.model.forward_from_fields(
-            *fields_from_rows(schema, batch, rows, tables, large, unpooled))
+            *fields_from_rows(schema, batch, rows, tables, large, unpooled, lookup_mesh))
         per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
-        loss = (per_ex * weights).sum() / weights.sum().clamp(min=1.0)
+        loss = (per_ex * weights).sum() / global_weight_sum(weights, mesh).clamp(min=1.0)
         opt = state.dense_opt
         if opt is not None:
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        if opt is not None:
+            (loss,) = sum_over_data(mesh, opt.param_groups[0]["params"], loss)
+        elif mesh is not None and mesh.data > 1:
+            loss = mesh.all_reduce_(loss.detach().clone(), "data")
 
         # optax evaluates the schedule at the pre-increment step count; the
         # rowwise update uses the same lr
@@ -574,8 +773,9 @@ def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseF
                 for group in opt.param_groups:
                     group["lr"] = lr
                 opt.step()
-            per_table = collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()},
-                                          large)
+            per_table = gather_slots(
+                collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()}, large),
+                mesh)
             if K == 1:
                 table_update(state, per_table, state.step, lr)
             else:

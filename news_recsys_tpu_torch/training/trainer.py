@@ -24,6 +24,20 @@ JAX package's layout and formats: ``train.log``, ``val_log.log``,
 every ``ckpt_every_steps`` steps, step checkpoints under ``ckpts/steps/``
 (:mod:`.checkpoint`), from which ``fit(resume=True)`` continues the same
 data order.
+
+Over several processes (``torch.distributed`` started,
+:mod:`news_recsys_tpu_torch.parallel`) the trainer builds its
+:class:`~news_recsys_tpu_torch.parallel.mesh.Mesh` from ``cfg.mesh`` (or
+takes one): it cuts the model's tables to the rank's rows where the model
+axis shards them, every rank holds the whole packed dataset and draws the
+same permutation, and each step runs the rank's slice of the global batch
+(``batch_size`` must divide over the data axis). Only process 0 writes
+``val_log.log``, ``train.log``, ``metrics.jsonl``, ``model_info.log`` and
+the checkpoints; the timestamped experiment dir is agreed by broadcast.
+``predict`` and ``validate`` gather the scores to every process, the train
+AUC sums its histogram over the data axis, and a checkpoint is written from
+the gathered state in one process's format, read by every rank and cut to
+its shards, so a run resumes under any layout.
 """
 
 from __future__ import annotations
@@ -40,6 +54,9 @@ import torch
 
 from ..config import Config
 from ..data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
+from ..parallel.distributed import broadcast_str, process_count, process_index
+from ..parallel.mesh import mesh_from_config
+from ..parallel.sharded_embedding import shard_parameters
 from ..utils.logging import get_logger
 from ..utils.profiling import trace
 from ..utils.tensorboard import SummaryWriter
@@ -94,24 +111,35 @@ class Trainer:
     from the JAX package by :mod:`news_recsys_tpu_torch.convert`) and moves
     to ``device``: the card, unless the caller names another; with no card
     the move raises. ``profile_steps > 0`` traces epoch 0 (all of it: JAX's
-    trainer reads the count only as a flag, and the port follows it).
+    trainer reads the count only as a flag, and the port follows it; over
+    several processes, process 0's). ``mesh``: the rank's mesh; by default
+    ``cfg.mesh``'s over the process group where it has more than one
+    process.
     """
 
     def __init__(self, cfg: Config, model, workdir: Optional[str] = None, device="cuda",
-                 profile_steps: int = 0):
+                 profile_steps: int = 0, mesh=None):
         self.cfg = cfg
         self.profile_steps = profile_steps
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else (
+            mesh_from_config(cfg) if process_count() > 1 else None)
+        self.is_main = process_index() == 0
         self.model = model.to(self.device)
+        self._full_shapes = {n: tuple(t.shape) for n, t in self.model.state_dict().items()}
+        shard_parameters(self.model, self.mesh)
         self.train_step = self._make_train_step()
         ts = time.strftime("%Y%m%d-%H%M%S")
+        if workdir is None and process_count() > 1:
+            ts = broadcast_str(ts)
         self.log_dir = workdir or os.path.join("experiments", f"{cfg.name}_{ts}")
         self.ckpt_dir = os.path.join(self.log_dir, "ckpts")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.val_log_path = os.path.join(self.log_dir, "val_log.log")
         self.train_log_path = os.path.join(self.log_dir, "train.log")
         self.metrics_path = os.path.join(self.log_dir, "metrics.jsonl")
-        open(self.val_log_path, "a").close()
+        if self.is_main:
+            open(self.val_log_path, "a").close()
         self.global_step = 0
         self._packed: Dict[int, tuple] = {}
         self._ckpt_mgr = None
@@ -125,7 +153,7 @@ class Trainer:
         from .sparse_step import make_sparse_train_step
 
         return (make_sparse_train_step if self.sparse_embeddings
-                else make_train_step)(self.model, self.cfg)
+                else make_train_step)(self.model, self.cfg, mesh=self.mesh)
 
     @property
     def sparse_embeddings(self) -> bool:
@@ -144,10 +172,14 @@ class Trainer:
         """The parameter table of ``model_info.log`` as the JAX package writes
         it: one line a leaf of its parameter tree, under the flax paths and
         shapes that :mod:`..convert` maps the parameters to, in the tree's
-        (sorted) order."""
-        from ..convert import params_to_flax     # convert imports the steps, which import us
+        (sorted) order, a sharded table under its whole shape. Process 0
+        writes it."""
+        from ..convert import flax_arrays     # convert imports the steps, which import us
 
-        flat = params_to_flax(self.model)
+        if not self.is_main:
+            return
+        flat = flax_arrays({n: np.broadcast_to(np.float32(0), shape)
+                            for n, shape in self._full_shapes.items()})
         lines = ["  | Name | Shape | Params"]
         total = 0
         for path in sorted(flat, key=lambda p: tuple(p.split("/"))):
@@ -216,6 +248,9 @@ class Trainer:
         return AucHist.zeros(self.device)
 
     def _carry_metrics(self, carry) -> Dict[str, float]:
+        if self.mesh is not None and self.mesh.data > 1:       # the global batch's histogram
+            carry = AucHist(*(self.mesh.all_reduce_(h.clone(), "data")
+                              for h in (carry.pos, carry.neg)))
         return {"train_auc": binned_auc_value(carry)}
 
     def train_epoch(self, state, ds: PackedDataset, epoch: int, skip_steps: int = 0):
@@ -233,17 +268,18 @@ class Trainer:
         start = min(skip_steps, nb_full)
         nb = max(0, min(nb_full - start, hp.max_step - self.global_step))
         cap = None if mats is not None else self._slab_chunk_cap(packer, bs)
-        ones = torch.ones(bs, device=self.device)
+        rows, bl = self._rank_rows(order[start * bs:(start + nb) * bs], bs)
+        ones = torch.ones(bl, device=self.device)
         carry = self._epoch_carry(epoch, state.step, nb)
         K = hp.embedding_update_period if self.sparse_embeddings else 1
         profiling = (trace(os.path.join(self.log_dir, "profile"))
-                     if self.profile_steps > 0 and epoch == 0 else contextlib.nullcontext())
+                     if self.profile_steps > 0 and epoch == 0 and self.is_main
+                     else contextlib.nullcontext())
         t0 = time.perf_counter()
         loss = None
         with profiling:
             for c, int_src, float_src, idx in self._chunks(
-                    packer, mats, order[start * bs:(start + nb) * bs], bs,
-                    lambda nb, pos: self._chunk_len(nb, pos, cap)):
+                    packer, mats, rows, bl, lambda nb, pos: self._chunk_len(nb, pos, cap)):
                 for j in range(c):
                     batch = unpack_batch(int_src[idx[j]], float_src[idx[j]], ones, layout)
                     loss, _ = self.train_step(state, batch, carry)
@@ -258,15 +294,25 @@ class Trainer:
         metrics = {"train_loss": loss_val, **self._carry_metrics(carry),
                    "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
         self._log_scalars(epoch=epoch, **metrics)
-        with open(self.train_log_path, "a") as f:
-            f.write(f"Epoch {epoch} Training Metrics:\n")
-            for k, v in metrics.items():
-                f.write(f"  {k}: {v:.4f}\n")
-            f.write("-" * 20 + "\n")
+        if self.is_main:
+            with open(self.train_log_path, "a") as f:
+                f.write(f"Epoch {epoch} Training Metrics:\n")
+                for k, v in metrics.items():
+                    f.write(f"  {k}: {v:.4f}\n")
+                f.write("-" * 20 + "\n")
         extra = f" auc~{metrics['train_auc']:.4f}" if "train_auc" in metrics else ""
         logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f}{extra} "
                     f"ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
+
+    def _rank_rows(self, rows: np.ndarray, bs: int) -> Tuple[np.ndarray, int]:
+        """(this rank's rows of the batches of ``rows``, in order, and its
+        batch size): each batch of ``bs`` cut to the rank's slice of the data
+        axis; without a mesh ``rows`` and ``bs`` themselves."""
+        if self.mesh is None or self.mesh.data == 1:
+            return rows, bs
+        sl = self.mesh.batch_slice(bs)
+        return rows.reshape(-1, bs)[:, sl].reshape(-1), sl.stop - sl.start
 
     def _chunk_len(self, nb: int, pos: int, cap: Optional[int] = None) -> int:
         """The next chunk's step count, as the JAX trainer's dispatches:
@@ -284,7 +330,9 @@ class Trainer:
 
     def _log_scalars(self, **scalars) -> None:
         """One line of ``metrics.jsonl``, and the finite numbers among
-        ``scalars`` in the TensorBoard events file beside it."""
+        ``scalars`` in the TensorBoard events file beside it (process 0)."""
+        if not self.is_main:
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps({"step": self.global_step, **scalars}) + "\n")
         if self._tb is None:
@@ -306,21 +354,27 @@ class Trainer:
         at ``eval_batch_size`` (else ``batch_size``) rows a call; the tail
         batch is padded with the last row and trimmed, as in JAX. A dataset
         above ``device_resident_bytes`` streams in slabs of at most
-        ``chunk_steps`` batches."""
+        ``chunk_steps`` batches. Under a mesh each rank maps its slice of
+        every batch and the results are gathered over the data axis."""
         bs = batch_size or self.cfg.dataset.eval_batch_size or self.cfg.dataset.batch_size
         packer, mats = self._packer(ds)
         layout = packer.layout_key()
         nb = -(-packer.n // bs)
-        rows = np.minimum(np.arange(nb * bs), packer.n - 1)
+        rows, bl = self._rank_rows(np.minimum(np.arange(nb * bs), packer.n - 1), bs)
         cap = nb if mats is not None else min(self.cfg.train_hparams.chunk_steps,
                                               self._slab_chunk_cap(packer, bs))
-        ones = torch.ones(bs, device=self.device)
+        ones = torch.ones(bl, device=self.device)
         out = []
         with torch.inference_mode():
-            for c, int_src, float_src, idx in self._chunks(packer, mats, rows, bs,
+            for c, int_src, float_src, idx in self._chunks(packer, mats, rows, bl,
                                                            lambda nb, pos: min(cap, nb - pos)):
                 out += [fn(unpack_batch(int_src[i], float_src[i], ones, layout)) for i in idx]
-        return torch.cat(out)[: packer.n]
+            out = torch.cat(out)
+            if bl != bs:            # (data, nb, bl, ...) -> batch order
+                out = self.mesh.all_gather(out, "data")
+                out = out.view(self.mesh.data, nb, bl, *out.shape[1:]).transpose(0, 1)
+                out = out.reshape(nb * bs, *out.shape[3:])
+        return out[: packer.n]
 
     def validate(self, state, ds: PackedDataset, epoch: int,
                  warm_user_set: Optional[Set[int]] = None) -> Dict[str, Dict[str, float]]:
@@ -328,7 +382,8 @@ class Trainer:
         Warm-start / Cold-start block, on the device from
         ``device_metrics_min_rows`` rows (pooled AUC and LogLoss on the host
         either way), else on the host; prints it, appends it to
-        ``val_log.log`` and logs AUC, GAUC and NDCG@10 to ``metrics.jsonl``."""
+        ``val_log.log`` and logs AUC, GAUC and NDCG@10 to ``metrics.jsonl``
+        (process 0; every process gets the results)."""
         if state.model is not self.model:
             raise ValueError("validate: the state's model is not this trainer's")
         scores = self.predict(ds)
@@ -339,9 +394,10 @@ class Trainer:
         else:
             results = compute_user_metrics(uids, scores, labels, warm_user_set)
         block = format_validation_block(results, epoch)
-        print(block)
-        with open(self.val_log_path, "a") as f:
-            f.write(block)
+        if self.is_main:
+            print(block)
+            with open(self.val_log_path, "a") as f:
+                f.write(block)
         self._log_scalars(epoch=epoch, val_auc=results["Overall"]["AUC"],
                           val_gauc=results["Overall"]["GAUC"],
                           val_ndcg10=results["Overall"]["NDCG@10"])
@@ -352,7 +408,7 @@ class Trainer:
     def checkpoint_manager(self):
         """The manager of the step checkpoints under ``<ckpt_dir>/steps``."""
         if self._ckpt_mgr is None:
-            self._ckpt_mgr = CheckpointManager(os.path.join(self.ckpt_dir, "steps"))
+            self._ckpt_mgr = CheckpointManager(os.path.join(self.ckpt_dir, "steps"), self.mesh)
         return self._ckpt_mgr
 
     def _maybe_step_checkpoint(self, state) -> None:
@@ -367,7 +423,8 @@ class Trainer:
 
     def save_step_checkpoint(self, state, step: int) -> None:
         """The port's ``save_checkpoint_sharded``: ``state`` as the step
-        checkpoint ``step`` (one device holds the whole state here)."""
+        checkpoint ``step``, gathered from the shards and written by process
+        0 in one process's format."""
         self.checkpoint_manager().save(step, state)
 
     def restore_latest(self, state):
@@ -391,8 +448,9 @@ class Trainer:
                                 if every > 0 else self.global_step)
 
     def save_checkpoint(self, state, epoch: int) -> str:
-        """``state`` as ``<ckpt_dir>/epoch_<NNN>.pt``; returns the path."""
-        return save_state(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.pt"), state)
+        """``state`` as ``<ckpt_dir>/epoch_<NNN>.pt`` (gathered, written by
+        process 0); returns the path."""
+        return save_state(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.pt"), state, self.mesh)
 
     def load_checkpoint(self, state, path: str):
         """Strict restore of a checkpoint file into ``state`` (the reference's
@@ -400,7 +458,7 @@ class Trainer:
         follows the checkpoint's."""
         if not os.path.exists(path):
             raise FileNotFoundError(f"Checkpoint not found: {path}")
-        state = load_state_dict(state, load_state(path))
+        state = load_state_dict(state, load_state(path), self.mesh)
         self.global_step = state.step
         self._reset_step_ckpt_origin()
         return state

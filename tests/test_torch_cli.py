@@ -242,15 +242,6 @@ def test_train_runs_each_optimizer_variant(workspace, tmp_path, train, mesh):
     assert np.isfinite(scores).all()
 
 
-def test_train_refuses_several_processes(workspace):
-    _, cfg_path, _, _ = workspace
-    for flags in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                  ["--process-id", "0"]):
-        with pytest.raises(SystemExit, match=r"queue 1, item 8") as e:
-            cli(["train", "-c", cfg_path, "--device", "cpu", *flags])
-        assert isinstance(e.value.code, str)          # a message: exit status 1
-
-
 def test_missing_card_is_an_error(workspace, straight, tmp_path):
     """``--device cuda`` (the default) with no card exits non-zero; nothing
     runs on the CPU unasked."""

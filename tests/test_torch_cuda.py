@@ -1631,3 +1631,130 @@ def test_host_backend_on_a_card_recommender(cuda):
         for j in range(10):
             near = (j > 0 and gaps[j - 1] <= 1e-5) or (j < 9 and gaps[j] <= 1e-5)
             assert near or hi[r][j] == di[r][j], (r, j)
+
+
+# -- multi-process training on the card -----------------------------------------------
+
+
+def sharded_slots(rng, V, D, n=300):
+    """Sorted global slots of a sharded step: below the table (-1), real rows
+    (duplicates with equal gradients), out of every shard (2**29)."""
+    ids = np.sort(rng.integers(1, V - 1, n))
+    ids[1::9] = ids[0::9][: len(ids[1::9])]
+    ids.sort()
+    g = rng.standard_normal((n, D)).astype(np.float32)[np.searchsorted(ids, ids)]
+    rows = np.concatenate([[-1] * 3, ids, [2 ** 29] * 4]).astype(np.int32)
+    grads = np.concatenate([rng.standard_normal((3, D)), g,
+                            rng.standard_normal((4, D))]).astype(np.float32)
+    return rows, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["rowwise_adagrad", "sparse_adamw"])
+def test_sharded_update_kernel_matches_plain(cuda, opt):
+    """Each shard of a model axis of 2 writes its rows on the card through the
+    row scatter kernel, one launch a table (three on ``sparse_adamw``), bit
+    for bit what the plain write gives there; foreign slots are dropped."""
+    from news_recsys_tpu_torch.parallel.mesh import Mesh
+    from news_recsys_tpu_torch.training import sparse_step as tss
+
+    rng = np.random.default_rng(61)
+    V, D = 4096, 32
+    rows, grads = sharded_slots(rng, V, D)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    moments = [np.abs(rng.standard_normal((V, D))).astype(np.float32) * 0.01 for _ in range(2)]
+    for s in range(2):
+        mesh = Mesh(1, 2, rank=s, world=2)
+        part = slice(*mesh.row_range(V))
+        outs = []
+        for write in (scatter_rows_set, scatter_rows_plain):
+            if opt == "rowwise_adagrad":
+                args = on(cuda, table[part].copy(), np.full(V // 2, 0.1, np.float32))
+                update, hp = tss.make_sharded_adagrad_update(mesh), (0.05,)
+            else:
+                args = on(cuda, table[part].copy(), *(m[part].copy() for m in moments))
+                update, hp = tss.make_sharded_rowwise_update(mesh), (1e-3, 2, 0.9, 0.999,
+                                                                     1e-8, 0.01)
+            before = scatter_rows_set.launches
+            with torch.no_grad():
+                update(*args, *on(cuda, rows, grads), *hp, write=write)
+            torch.cuda.synchronize()
+            launched = scatter_rows_set.launches - before
+            assert launched == (0 if write is scatter_rows_plain
+                                else 1 if opt == "rowwise_adagrad" else 3)
+            outs.append([a.cpu() for a in args])
+        for k, p in zip(*outs):
+            assert torch.equal(k, p)
+        local = rows.astype(np.int64) - part.start
+        untouched = np.setdiff1d(np.arange(V // 2), local[(local >= 0) & (local < V // 2)])
+        assert torch.equal(outs[0][0][untouched], torch.from_numpy(table[part][untouched]))
+
+
+def gloo_worker(rank):
+    """Collectives of CUDA tensors over gloo (staged through the host) and
+    the id exchange on the card, two ranks on one card."""
+    from news_recsys_tpu_torch.parallel.mesh import Mesh
+    from news_recsys_tpu_torch.parallel.sharded_embedding import sharded_lookup
+
+    dev = torch.device("cuda", 0)
+    mesh = Mesh(1, 2)
+    sends = [1, 2] if rank == 0 else [3, 0]
+    x = (torch.arange(sum(sends), device=dev) + 10 * rank).float()
+    a2a = mesh.all_to_all(x, [1, 3] if rank == 0 else [2, 0], sends, "model")
+    gathered = mesh.all_gather(torch.full((2, 3), float(rank), device=dev), "model")
+    summed = mesh.all_reduce_(torch.full((4,), rank + 1.0, device=dev), "model")
+    table = torch.arange(512 * 4, dtype=torch.float32).view(512, 4)
+    shard = table[slice(*mesh.row_range(512))].to(dev)
+    ids = torch.tensor([0, 5, 300, 511, 256, 255, 512], device=dev)
+    rows = sharded_lookup(shard, ids, mesh)
+    return {"devices": [str(t.device) for t in (a2a, gathered, summed, rows)],
+            "a2a": a2a.cpu(), "gathered": gathered.cpu(), "summed": summed.cpu(),
+            "rows": rows.cpu(), "copies": mesh.stats.host_copies,
+            "bytes": mesh.stats.host_bytes, "calls": mesh.stats.calls}
+
+
+@pytest.mark.cuda
+def test_gloo_stages_cuda_collectives_through_the_host(cuda, tmp_path):
+    """Gloo takes CUDA tensors for all_reduce only: the helpers carry an
+    all-to-all and an all-gather through the host (counted), and the
+    results, the exchange's rows too, come back on the card with the
+    values one process computes."""
+    from news_recsys_tpu_torch.parallel.distributed import spawn_ranks
+
+    got = spawn_ranks(gloo_worker, 2, init_method=f"file://{tmp_path}/store", backend="gloo",
+                      device="cuda:0", timeout=240, group_timeout=120)
+    assert torch.equal(got[0]["a2a"], torch.tensor([0.0, 10.0, 11.0, 12.0]))
+    assert torch.equal(got[1]["a2a"], torch.tensor([1.0, 2.0]))
+    table = torch.arange(512 * 4, dtype=torch.float32).view(512, 4)
+    for r in got:
+        assert set(r["devices"]) == {"cuda:0"}
+        assert torch.equal(r["gathered"], torch.tensor([[0.0] * 3] * 2 + [[1.0] * 3] * 2))
+        assert torch.equal(r["summed"], torch.full((4,), 3.0))
+        want = table[[0, 5, 300, 511, 256, 255, 0]]
+        assert torch.equal(r["rows"][:6], want[:6]) and r["rows"][6].isnan().all()
+        # an all-to-all and an all-gather a copy down and one up each; the
+        # exchange's three all-to-alls the same
+        assert r["copies"] == 2 * 5 and r["bytes"] > 0 and r["calls"] == 6
+
+
+def nccl_worker(rank):
+    import torch.distributed as dist
+
+    t = torch.full((8,), 2.0, device="cuda:0")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return dist.get_backend(), t.cpu()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group(cuda, tmp_path):
+    """The default backend on the card: a one-rank NCCL group starts and
+    all-reduces a tensor on the card. (Two ranks need two cards: NCCL
+    refuses two ranks on one.)"""
+    from news_recsys_tpu_torch.parallel.distributed import default_backend, spawn_ranks
+
+    assert default_backend("cuda") == "nccl"
+    (backend, t), = spawn_ranks(nccl_worker, 1, init_method=f"file://{tmp_path}/store",
+                                backend="nccl", device="cuda:0", timeout=240,
+                                group_timeout=120)
+    assert backend == "nccl" and torch.equal(t, torch.full((8,), 2.0))

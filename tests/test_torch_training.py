@@ -368,18 +368,6 @@ def test_sparse_state_round_trip(monkeypatch):
 # -- the options the port does not run -----------------------------------------
 
 
-@pytest.mark.parametrize("train,mesh", [
-    ({}, {"model": 2}),
-], ids=["model-parallel"])
-def test_unported_options_raise(train, mesh):
-    cfg = train_cfg(True, mesh=mesh, **train)
-    model = build_ranker(train_cfg(True), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 8"):
-        tss.make_sparse_train_step(model, cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1, item 8"):
-        tss.init_sparse_state(model, cfg)
-
-
 def test_unported_runtime_raises(tmp_path):
     """What raised here until the runtime was ported (ROADMAP item 2f, a
     dataset above ``device_resident_bytes``) now trains on the slab path:
