@@ -44,7 +44,9 @@ bfloat16 tables and towers at batch 512 and 8,192; the DSSM on
 forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
 wrapped with card syncs), traced (device time per step, top kernels). The
 device-busy share of a step is the traced device time per step over the
-plain run's.
+plain run's. For the training paths of ``chip_smoke.py``'s ``roofline``
+phase, one step counted by ``utils/roofline.py``'s ``step_cost`` gives
+``mfu_pct`` and ``hbm_bw_util_pct`` at the plain step and at the device time.
 
 ``--block-split`` instead takes the fused Transformer block's kernels apart at
 the attention ranker's widths: each launch of the backward by name (both
@@ -101,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import os
 import sys
@@ -295,6 +298,7 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
         else:
             trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
                               workdir=tmp, device=dev)
+        trainer.prepare(ds)                                              # as fit does
         state = trainer.init_state()
         state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
         _, plain = trainer.train_epoch(state, ds, 1)
@@ -319,6 +323,24 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.key[:72]:72s} {e.self_device_time_total / steps:8.1f} us/step "
               f"({e.count // steps} calls)")
+    if ranker in chip_smoke.ROOFLINE_PATHS.values():
+        print_roofline(trainer, state, ds, step_ms, dev_ms)
+
+
+def print_roofline(trainer, state, ds, step_ms: float, dev_ms: float) -> None:
+    """``mfu_pct`` and ``hbm_bw_util_pct`` of one step (``step_cost`` on a copy
+    of the state) at the plain run's step time and at the traced device time."""
+    from news_recsys_tpu_torch.utils.roofline import step_cost, step_utilisation
+
+    batch = chip_smoke.roofline_batches(trainer, ds, 1)[0]
+    cost = step_cost(trainer.train_step, copy.deepcopy(state), batch,
+                     trainer._epoch_carry(4, state.step, 1))
+    for label, ms in (("plain step", step_ms), ("device time", dev_ms)):
+        u = step_utilisation(cost["flops"], cost["bytes"], ms / 1e3, device=trainer.device,
+                             flops_by_units=cost["flops_by_units"])
+        print(f"  {'roofline at the ' + label:44s} mfu_pct {u['mfu_pct']}, hbm_bw_util_pct "
+              f"{u['hbm_bw_util_pct']} ({cost['flops']} FLOPs, {cost['bytes']} bytes a step; "
+              f"peak {u['peak_units']})")
 
 
 # (what a variant of the general forward leaves out, the line changed, its replacement)
@@ -881,6 +903,7 @@ def step_routes(smi: str, ranker: str) -> None:
             ds = PackedDataset(chip_smoke.training_arrays(cfg, bs * steps, chip_smoke.SEED + 9))
             trainer = Trainer(cfg, build_ranker(cfg, seed=chip_smoke.SEED + 6, device=dev),
                               workdir=tmp, device=dev)
+        trainer.prepare(ds)                                              # as fit does
         state = trainer.init_state()
         state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
         try:

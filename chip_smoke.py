@@ -24,7 +24,8 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    least time the card could take: bytes moved over 3.35 TB/s or float32
    operations over the peak of the units the kernel uses, 67 TFLOP/s outside
    the tensor cores and 495 TFLOP/s in TF32 on them, whichever is larger,
-   from this run's inputs) and, where one PyTorch call computes the same
+   from this run's inputs, by each kernel's ``*_cost`` function in
+   ``news_recsys_tpu_torch/ops``) and, where one PyTorch call computes the same
    function, that call's time; the fused block runs both its routes (tiled
    and general) against the plain version and times them in the same run;
    the row scatter runs at the DCN arena's shape, at each of its two shards
@@ -137,7 +138,18 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    ranks' scores bit for bit; each rank's launches; the warm step time of
    each layout (runs of 8 steps) with the collectives' share, beside this
    process's;
-12. traces one CUDA-graph replay of the cross backward with
+12. the roofline of each training path (``roofline``): the DCN, DeepFM,
+   the attention ranker's sparse and dense steps and the all-dense DSSM at
+   batch 512, each from its seeded state: one warm step counted by
+   ``utils/roofline.py``'s ``step_cost`` (the matmuls' FLOPs and each
+   kernel's own count, by the units they run on; bytes op by op) on a copy
+   of the state on the card and on the CPU, the CPU's optimizers in the
+   card's foreach form, which must be equal; ``mfu_pct`` (each units' FLOPs
+   at its own peak) and ``hbm_bw_util_pct`` against the H100's published
+   peaks at the wall time of a step of a warm epoch and at its device time
+   from a ``torch.profiler`` trace, none over 100%; each of the nine
+   kernels counted on some path;
+13. traces one CUDA-graph replay of the cross backward with
    ``torch.profiler`` (after the timed phases of this process, before the
    ranks of ``parallel`` are spawned), which must run its two device kernels
    once each (``device_kernels``); checks that each path launched the
@@ -145,7 +157,8 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    are set to 0 just before a path is driven and read just after.
 
 Its last three lines are the card, a JSON line of the kernels and their
-times (and the launch floor), and ``{"ok": true, "device": {...}}``.
+times (and the launch floor and each training path's roofline), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -164,6 +177,10 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from news_recsys_tpu_torch.utils.roofline import _PEAKS, H100
+
+H100_PEAKS = _PEAKS[H100]
 
 T_START = time.perf_counter()
 SEED = 0
@@ -230,13 +247,13 @@ BLOCK_GRAD_RTOL = 2e-4
 # this slice's kernels and their plain versions take 50 us to 3 ms a call:
 # fewer replays and calls than the microsecond kernels get
 DEEP = dict(rounds=7, inner=10)
-# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory,
-# float32 outside the tensor cores (every kernel but the block's tiled route)
-# and dense TF32 on them (the tiled route's mma.sync products; its float32
-# operations are counted once, not the three products of the 3xTF32 split)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
+# the card's published peaks (NVIDIA's H100 SXM data sheet, in
+# news_recsys_tpu_torch/utils/roofline.py): device memory here; a kernel's
+# rate is that of the units its cost names (float32 outside the tensor
+# cores, every kernel but the block's tiled route; dense TF32 on them, the
+# tiled route's mma.sync products, its float32 operations counted once, not
+# the three products of the 3xTF32 split)
+HBM_BYTES_PER_S = H100_PEAKS["hbm"]
 # the cli phase: synthetic raw MIND files at the size of a full training
 # run (200,326 train rows: 391 steps of 512 an epoch), the shipped configs
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -275,18 +292,20 @@ def call_ms(fn, rounds: int = 11, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, rounds: int = 11, inner: int = 20) -> float:
+def device_ms(fn, rounds: int = 11, inner: int = 20, stream=None) -> float:
     """Device time per call: ``inner`` calls captured in one CUDA graph and
     replayed, so no host work sits between the launches; median over
-    ``rounds`` replays. Inputs stay in L2 from one call to the next."""
-    side = torch.cuda.Stream()
+    ``rounds`` replays. Inputs stay in L2 from one call to the next.
+    ``stream``: the stream to warm up and capture on (a backward's kernels
+    run on their forward's stream), else a new one."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(inner):
             fn()
     graph.replay()
@@ -302,10 +321,12 @@ def device_ms(fn, rounds: int = 11, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def least_time(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
-    """The least time the card could take for ``nbytes`` moved (each input
-    read once, each output written once) and ``flops`` float32 operations
-    at ``peak_flops``, the peak of the units the timed kernel uses."""
+def least_time(cost) -> dict:
+    """The least time the card could take for a kernel's ``cost`` (its
+    ``*_cost`` function's ``KernelCost``: bytes moved, each input read once
+    and each output written once, and float32 operations at the peak of the
+    units it names)."""
+    nbytes, flops, peak_flops = cost.bytes, cost.flops, H100_PEAKS[cost.units]
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -343,8 +364,9 @@ def scaled_tol(want: torch.Tensor) -> dict:
 
 
 def check_kernels(dev) -> list:
-    from news_recsys_tpu_torch.ops.dcn_kernel import cross_plain, dcn_cross_stack
-    from news_recsys_tpu_torch.ops.fm_kernel import fm_plain, fm_second_order, plan_fm_fwd
+    from news_recsys_tpu_torch.ops.dcn_kernel import cross_cost, cross_plain, dcn_cross_stack
+    from news_recsys_tpu_torch.ops.fm_kernel import (fm_cost, fm_plain, fm_second_order,
+                                                     plan_fm_fwd)
     rng = np.random.default_rng(SEED)
     B, D, NL = USERS_PER_REQUEST * FETCH, 112, 3
     bound = np.sqrt(6 / (D + 1))
@@ -358,11 +380,11 @@ def check_kernels(dev) -> list:
         ("dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
          "news_recsys_tpu/ops/dcn_kernel.py:51", dcn_cross_stack, cross_plain,
          (x0, ws, bs), DCN_TOL, f"B={B} D={D} NL={NL}",
-         least_time(4 * (2 * B * D + 2 * NL * D), 5 * NL * B * D), None),
+         least_time(cross_cost(B, D, NL)), None),
         ("fm_second_order", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
          "news_recsys_tpu/ops/fm_kernel.py:33", fm_second_order, fm_plain, (v,), scaled_tol,
          f"B={B} F={FM_F} D={FM_D}",
-         least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D), None),
+         least_time(fm_cost(B, FM_F, FM_D)), None),
     ]
     log(f"  fm_second_order [B={B}]: plan {plan_fm_fwd(*v.shape)._asdict()}")
     out = []
@@ -388,7 +410,8 @@ def check_fm_training_kernels(dev) -> tuple:
     latent columns): the forward against ``fm_plain``, the backward against
     ``fm_bwd_plain``, each with two runs bit-identical. Returns (the
     forward's error and times at this shape, the backward's entry)."""
-    from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_plain, fm_plain, fm_second_order,
+    from news_recsys_tpu_torch.ops.fm_kernel import (fm_bwd_cost, fm_bwd_plain, fm_cost,
+                                                     fm_plain, fm_second_order,
                                                      fm_second_order_bwd, plan_fm_bwd,
                                                      plan_fm_fwd)
 
@@ -412,7 +435,7 @@ def check_fm_training_kernels(dev) -> tuple:
         fwd = {"shape": shape, "max_abs_err": fwd_err, "ms": (t[1] + t[2]) / 2,
                "plain_ms": (t[0] + t[3]) / 2, "turns_ms": t[1:3],
                "call_ms": call_ms(lambda: fm_second_order(v)),
-               **least_time(4 * (B * FM_F * FM_D + B), 4 * B * FM_F * FM_D)}
+               **least_time(fm_cost(B, FM_F, FM_D))}
         log(f"kernel fm_second_order [{shape}]: max_abs_err {fwd_err:.3e}; device time "
             f"(cuda_graph) kernel {fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f} us, "
             f"bound {fwd['bound_ms'] * 1e3:.2f} us by {fwd['bound_by']}; plan "
@@ -425,7 +448,7 @@ def check_fm_training_kernels(dev) -> tuple:
         "fm_second_order_bwd", "news_recsys_tpu_torch/csrc/fm_second_order.cu",
         "news_recsys_tpu/ops/fm_kernel.py:69", bwd_err,
         "rtol 1e-5, atol 1e-5 of the largest value; two runs bit-identical", t, calls,
-        "cuda_graph", shape, least_time(4 * (2 * B * FM_F * FM_D + B), 3 * B * FM_F * FM_D))
+        "cuda_graph", shape, least_time(fm_bwd_cost(B, FM_F, FM_D)))
 
 
 def cross_case(B: int, seed: int, dev) -> tuple:
@@ -447,8 +470,8 @@ def check_training_kernels(dev) -> list:
     forward in the mode that writes the backward's residuals (``ss``) and
     its backward fed those residuals (batch 512, D 112, 3 layers)."""
     from news_recsys_tpu_torch.ops.dcn_kernel import (_aligned, _cross_fwd_kernel, _plan,
-                                                      cross_bwd_rebuild_plain, cross_fwd_plain,
-                                                      dcn_cross_bwd)
+                                                      cross_bwd_cost, cross_bwd_rebuild_plain,
+                                                      cross_cost, cross_fwd_plain, dcn_cross_bwd)
 
     B, D, NL = TRAIN_BATCH, 112, 3
     shape = f"B={B} D={D} NL={NL}"
@@ -465,7 +488,7 @@ def check_training_kernels(dev) -> list:
         t = [device_ms(f) for f in (fwd_plain, fwd_kernel, fwd_kernel, fwd_plain)]
         calls = [call_ms(f) for f in (fwd_kernel, fwd_plain)]
     # out and ss written
-    work = least_time(4 * (2 * B * D + NL * B + 2 * NL * D), 5 * NL * B * D)
+    work = least_time(cross_cost(B, D, NL, residuals=True))
     fwd = report_kernel(
         "dcn_cross_stack", "news_recsys_tpu_torch/csrc/dcn_cross.cu",
         "news_recsys_tpu/ops/dcn_kernel.py:51", fwd_err, f"out and ss, tol {DCN_TOL}", t, calls,
@@ -497,7 +520,7 @@ def check_training_kernels(dev) -> list:
             "news_recsys_tpu/ops/dcn_kernel.py:102", bwd_err,
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
             f"bit-identical, a graph replay too", t, calls, "cuda_graph", shape,
-            least_time(4 * (3 * B * D + NL * B + 4 * NL * D), 8 * NL * B * D))
+            least_time(cross_bwd_cost(B, D, NL)))
     return [fwd, bwd]
 
 
@@ -586,7 +609,8 @@ def check_scatter(dev) -> list:
     """The row scatter at every shape of :func:`scatter_cases`: the kernel
     against the plain version bit for bit (two runs of it too), each table
     written from the same start; times of plain, kernel and ``index_copy_``."""
-    from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_plain, scatter_rows_set
+    from news_recsys_tpu_torch.ops.scatter_rows import (scatter_cost, scatter_rows_plain,
+                                                        scatter_rows_set)
     from news_recsys_tpu_torch.training.scatter_layouts import scatter_layout_stats
 
     out = []
@@ -621,7 +645,7 @@ def check_scatter(dev) -> list:
             calls, "cuda_graph", f"{label}: V={V} D={D} S={S}",
             # rows read once; of vals the row of one slot a distinct row (the
             # contract makes the others copies of it); a row written a distinct row
-            least_time(4 * (S + 2 * stats["distinct_rows"] * D), 0), library,
+            least_time(scatter_cost(S, D, stats["distinct_rows"])), library,
             case=label, **stats))
     return out
 
@@ -647,21 +671,14 @@ def block_case(B: int, seed: int, dev) -> tuple:
 
 
 def block_work(B: int, backward: bool, route: str) -> dict:
-    """Bytes and float32 operations of the block at batch ``B``: x (and dy)
-    in, y (or dx) out, the mask and the 8,544 parameters (their gradients
-    too in the backward); per row 2*(4*D*D + 2*D*F) for the four
-    projections and 4*L*D for q k^T and p v. The backward recomputes the
-    forward and then takes two products for each of the forward's. The
-    tiled route's products run on the tensor cores: its bound uses the TF32
-    peak."""
-    L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
-    n_params = 4 * D * D + 2 * D * F + 9 * D + F
-    proj, attn = 2 * (4 * D * D + 2 * D * F), 4 * L * D
-    peak = TF32_FLOPS if route == "tiled" else FP32_FLOPS
-    if backward:
-        return least_time(4 * (3 * B * L * D + B * L + 2 * n_params), B * L * 3 * (proj + attn),
-                          peak)
-    return least_time(4 * (2 * B * L * D + B * L + n_params), B * L * (proj + attn), peak)
+    """The bound of the block at batch ``B`` (``block_cost`` and
+    ``block_bwd_cost`` of ``ops/fused_attention.py``). The tiled route's
+    products run on the tensor cores: its bound uses the TF32 peak."""
+    from news_recsys_tpu_torch.ops.fused_attention import (block_bwd_cost, block_cost,
+                                                           route_units)
+    cost = (block_bwd_cost if backward else block_cost)(B, BLOCK_L, BLOCK_D, BLOCK_F,
+                                                        route_units(route))
+    return least_time(cost)
 
 
 BLOCK_SOURCES = {"general": "news_recsys_tpu_torch/csrc/fused_attention.cu",
@@ -682,17 +699,14 @@ def block_routes(B: int, backward: bool, dev) -> dict:
             "general_source": BLOCK_SOURCES["general"]}
 
 
-def encoder_layer_ms(params, x, mask) -> float:
-    """Device time (CUDA graph replays, as every other ``library_ms``) of
-    ``torch.nn.TransformerEncoderLayer`` on the same
-    inputs: post-norm, ReLU, ``layer_norm_eps`` 1e-6, ``src_key_padding_mask``,
-    eval mode, the block's weights. A yardstick only: it gives NaN or zeros
-    where an example has no valid key, and nothing in the port calls it."""
-    L, D, F = BLOCK_L, BLOCK_D, BLOCK_F
+def encoder_layer(params, device):
+    """``torch.nn.TransformerEncoderLayer`` with the block's weights:
+    post-norm, ReLU, ``layer_norm_eps`` 1e-6, dropout 0."""
+    D, F = BLOCK_D, BLOCK_F
     wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2 = params
     layer = torch.nn.TransformerEncoderLayer(D, BLOCK_H, F, dropout=0.0, activation="relu",
                                              layer_norm_eps=1e-6, batch_first=True,
-                                             norm_first=False, device=x.device).eval()
+                                             norm_first=False, device=device)
     with torch.no_grad():
         for dst, src in ((layer.self_attn.in_proj_weight, wqkv.t()),
                          (layer.self_attn.in_proj_bias, bqkv),
@@ -703,9 +717,37 @@ def encoder_layer_ms(params, x, mask) -> float:
                          (layer.linear2.bias, c2), (layer.norm2.weight, g2),
                          (layer.norm2.bias, b2)):
             dst.copy_(src)
+    return layer
+
+
+def encoder_layer_ms(params, x, mask) -> float:
+    """Device time (CUDA graph replays, as every other ``library_ms``) of
+    :func:`encoder_layer` on the same inputs in eval mode, with
+    ``src_key_padding_mask``. A yardstick only: it gives NaN or zeros where
+    an example has no valid key, and nothing in the port calls it."""
+    layer = encoder_layer(params, x.device).eval()
     padding = mask == 0
     with torch.inference_mode():
         return device_ms(lambda: layer(x, src_key_padding_mask=padding), **DEEP)
+
+
+def encoder_layer_bwd_ms(params, x, mask, dy) -> float:
+    """Device time of the backward of :func:`encoder_layer` in train mode on
+    the same inputs: ``torch.autograd.grad`` of its output (``dy`` upstream)
+    with respect to x and its 12 parameters, the forward run once outside the
+    timing. Graph replays like every ``library_ms``, the forward and the
+    capture on one stream (autograd runs a backward kernel on its forward's
+    stream). A yardstick only, NaN where an example has no valid key: nothing
+    in the port calls it."""
+    layer = encoder_layer(params, x.device).train()
+    xg = x.detach().clone().requires_grad_()
+    inputs = (xg, *layer.parameters())
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = layer(xg, src_key_padding_mask=mask == 0)
+    return device_ms(lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True),
+                     stream=stream, **DEEP)
 
 
 def pool_bwd_case(V: int, L: int, B: int, skewed: bool, seed: int) -> tuple:
@@ -794,7 +836,7 @@ def check_pool_forward(dev) -> dict:
     entry is a 1,024-user request's ``hist`` (65,280 x 16, L 30, the ids of
     earlier runs' entry); Zipf ids, and the ``entities`` and 64-user shapes on
     uniform and Zipf ids, ride along."""
-    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool, pool_cost,
                                                              reference_lookup_pool)
 
     rng = np.random.default_rng(SEED)
@@ -839,7 +881,7 @@ def check_pool_forward(dev) -> dict:
             "news_recsys_tpu/ops/fused_lookup_pool.py:71", float((got - want).abs().max()),
             f"tol {POOL_TOL}", t, calls, "cuda_graph",
             f"V={Vc} D={D} B={Bc} L={Lc} ids={kind} longest_run={longest}",
-            least_time(4 * (rows * D + 2 * Bc * Lc + Bc * D), 2 * Bc * Lc * D), library,
+            least_time(pool_cost(Bc, Lc, D, rows)), library,
             ids=kind, longest_run=longest,
             # rows of at most 8 slots keep the first design's loop (csrc/lookup_pool.cu)
             path="short-row loop" if Lc <= 8 else "every load in flight")
@@ -858,7 +900,7 @@ def check_pool_backward(dev) -> dict:
     ``hist`` (65,280 x 16, L 30) at batch 512, each on skewed (Zipf) and on
     uniform ids."""
     from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool_bwd,
-                                                             pool_bwd_plain)
+                                                             pool_bwd_cost, pool_bwd_plain)
 
     B, entries = TRAIN_BATCH, {}
     for V, L in POOL_BWD_SHAPES:
@@ -884,7 +926,7 @@ def check_pool_backward(dev) -> dict:
                 "news_recsys_tpu/ops/fused_lookup_pool.py:127", float((got - want).abs().max()),
                 f"tol {tol}; two runs bit-identical", t, calls,
                 "cuda_graph", f"V={V} D={POOL_D} B={B} L={L} ids={kind} longest_run={longest}",
-                least_time(4 * (V * POOL_D + B * POOL_D + 2 * B * L), 2 * B * L * POOL_D),
+                least_time(pool_bwd_cost(B, L, POOL_D, V)),
                 library_ms, library_timing=library_timing, ids=kind, longest_run=longest)
     # the entry is the skewed case at the shape the all-dense path gives the
     # kernel (``entities``); the uniform case and the DSSM ``hist`` shape ride along
@@ -961,13 +1003,14 @@ def check_attention_kernels(dev) -> list:
             raise AssertionError("fused_transformer_block_bwd: two runs gave different bits")
     t = [device_ms(f, **DEEP) for f in (plain, general, kernel, kernel, general, plain)]
     calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+    library_ms = encoder_layer_bwd_ms(params, x, mask, dy)
     source = routes.pop("source")
     out.append(report_kernel(
         "fused_transformer_block_bwd", source, "news_recsys_tpu/ops/fused_attention.py:333",
         errs[0], f"rtol {BLOCK_GRAD_RTOL}, atol 2e-5 of each gradient's largest value; two runs "
         f"bit-identical", [t[0], t[2], t[3], t[5]], calls, "cuda_graph", f"B={B} {shape}",
-        block_work(B, True, routes["kernel_route"]), **routes, general_ms=(t[1] + t[4]) / 2,
-        general_max_abs_err=errs[1]))
+        block_work(B, True, routes["kernel_route"]), library_ms, **routes,
+        general_ms=(t[1] + t[4]) / 2, general_max_abs_err=errs[1]))
     log(f"  route {routes['kernel_route']} {out[-1]['ms'] * 1e3:.2f} us; the general route at the "
         f"same shape {out[-1]['general_ms'] * 1e3:.2f} us, max_abs_err {errs[1]:.3e}")
 
@@ -3119,6 +3162,176 @@ def launch_floor_ms() -> float:
     return ms
 
 
+ROOFLINE_PATHS = {"train": "dcn", "train_deepfm": "deepfm", "train_attention": "attention",
+                  "train_attention_dense": "attention@adamw", "train_dssm": "dssm"}
+ROOFLINE_EPOCH_STEPS = {"dcn": EARLIER_TRAIN_STEPS, "deepfm": EARLIER_TRAIN_STEPS,
+                        "attention": TRAIN_STEPS, "attention@adamw": DENSE_STEPS,
+                        "dssm": DSSM_STEPS}
+ROOFLINE_TRACED_STEPS = 4
+
+
+def roofline_trainer(recipe: str, dev: torch.device, workdir: str, ds):
+    """The trainer of a training path of this script on ``dev``, its model
+    from the path's seed (drawn on the host, so the card and the CPU start
+    from the same weights), prepared for ``ds`` as ``fit`` prepares it (the
+    DSSM's logQ table)."""
+    from news_recsys_tpu_torch.models.dssm import build_dssm
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
+    from news_recsys_tpu_torch.training.trainer import Trainer
+
+    if recipe == "dssm":
+        cfg = dssm_config()
+        trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=SEED + 25, device=dev),
+                              workdir=workdir, device=dev)
+    else:
+        cfg = train_config(recipe)
+        trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 6, device=dev), workdir=workdir,
+                          device=dev)
+    trainer.prepare(ds)
+    return trainer
+
+
+def roofline_dataset(recipe: str):
+    from news_recsys_tpu_torch.training.trainer import PackedDataset
+    steps = ROOFLINE_EPOCH_STEPS[recipe]
+    if recipe == "dssm":
+        return PackedDataset(dssm_arrays(TRAIN_BATCH * steps, SEED + 20))
+    return PackedDataset(training_arrays(train_config(recipe), TRAIN_BATCH * steps, SEED + 9))
+
+
+def roofline_batches(trainer, ds, n: int) -> list:
+    """The first ``n`` batches of ``ds`` on the trainer's device, in order."""
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, unpack_batch
+    packer, bs = BatchPacker(ds), trainer.cfg.dataset.batch_size
+    ones = torch.ones(bs, device=trainer.device)
+    return [unpack_batch(*(torch.from_numpy(m[i * bs:(i + 1) * bs]).to(trainer.device)
+                           for m in (packer.int_mat, packer.float_mat)),
+                         ones, packer.layout_key()) for i in range(n)]
+
+
+def compare_step_costs(card: dict, cpu: dict, path: str) -> None:
+    """Fails unless the card's count equals the CPU's exactly: FLOPs (the
+    total, by units and each kernel's), bytes, and each op's tally."""
+    if card != cpu:
+        diff = {k: (card[k], cpu[k]) for k in card if card[k] != cpu[k]}
+        raise AssertionError(f"roofline {path}: the card's count differs from the CPU's "
+                             f"(card, CPU): {diff}")
+
+
+def foreach_optimizers(state) -> None:
+    """Set the optimizers of a CPU training state to the foreach form that
+    torch.optim takes for CUDA tensors, so the CPU runs the card's ops."""
+    for opt in vars(state).values():
+        if isinstance(opt, torch.optim.Optimizer):
+            for group in opt.param_groups:
+                group["foreach"] = True
+
+
+def traced_step_ms(trainer, state, batches) -> float:
+    """Device time of a step: the sum of the device kernels' and copies'
+    durations over ``batches`` under ``torch.profiler`` (user annotations,
+    which span other kernels, left out, as ``chip_profile.device_events``
+    reads a trace), over the number of steps."""
+    carry = trainer._epoch_carry(2, state.step, len(batches))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            trainer.train_step(state, batch, carry)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        raise AssertionError("torch.profiler saw no device kernel in the traced steps")
+    return sum(e.self_device_time_total for e in events) / 1e3 / len(batches)
+
+
+def roofline_path(dev: torch.device, name: str, smi: str, path: str) -> tuple:
+    """One training path's roofline: a warm step counted by ``step_cost`` on a
+    copy of the state on the card and on the CPU, from the same state and
+    batch, the CPU's optimizers in the card's foreach form (the counts must
+    be equal); the card's wall time a step of a warm
+    epoch (``BATCH / examples_per_sec``, as the reference's bench reads it)
+    and its device time a step from a ``torch.profiler`` trace; the shares
+    at both, none over 100%. Returns (the path's entry of the kernels line,
+    the card's kernel launches in the counted step)."""
+    from news_recsys_tpu_torch.utils.roofline import step_cost, step_utilisation
+
+    recipe = ROOFLINE_PATHS[path]
+    ds = roofline_dataset(recipe)
+    costs, trainers, states = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            trainer = roofline_trainer(recipe, d, os.path.join(tmp, side), ds)
+            state = trainer.init_state()
+            if side == "cpu":
+                foreach_optimizers(state)
+            warm, counted, *_ = roofline_batches(trainer, ds, 2)
+            carry = trainer._epoch_carry(0, state.step, 2)
+            trainer.train_step(state, warm, carry)
+            reset_launches()
+            costs[side] = step_cost(trainer.train_step, copy.deepcopy(state), counted,
+                                    copy.deepcopy(carry))
+            trainers[side], states[side] = trainer, state
+        launches = read_launches()
+        compare_step_costs(costs["card"], costs["cpu"], path)
+        calls = {k: v["calls"] for k, v in costs["card"]["kernels"].items()}
+        if {k: n for k, n in launches.items() if n} != calls:
+            raise AssertionError(f"roofline {path}: the counted step launched {launches}, its "
+                                 f"count names {calls}")
+        trainer, state = trainers["card"], states["card"]
+        trainer.train_epoch(state, ds, epoch=0)
+        _, epoch = trainer.train_epoch(state, ds, epoch=1)
+        wall_s = TRAIN_BATCH / epoch["examples_per_sec"]
+        device_s = traced_step_ms(trainer, state,
+                                  roofline_batches(trainer, ds, ROOFLINE_TRACED_STEPS)) / 1e3
+    cost = costs["card"]
+    shares = {at: step_utilisation(cost["flops"], cost["bytes"], t, device=dev,
+                                   flops_by_units=cost["flops_by_units"])
+              for at, t in (("wall", wall_s), ("device", device_s))}
+    for at, util in shares.items():
+        if "mfu_pct" not in util:
+            raise AssertionError(f"roofline {path}: the card {name!r} has no published peaks")
+        if util["mfu_pct"] > 100 or util["hbm_bw_util_pct"] > 100:
+            raise AssertionError(f"roofline {path}: a share over 100% at the {at} time: {util} "
+                                 f"(the count or the time is wrong)")
+    log(f"roofline {path} ({recipe}, batch {TRAIN_BATCH}) on {name} ({smi}): flops_per_step "
+        f"{cost['flops']} (by units {cost['flops_by_units']}), hbm_bytes_per_step "
+        f"{cost['bytes']} (the CPU's count equal); peak {shares['wall']['peak_flops']:.4g} "
+        f"FLOP/s ({shares['wall']['peak_units']}); wall {wall_s * 1e3:.4f} ms a step (warm "
+        f"epoch of {epoch['steps']}): mfu_pct {shares['wall']['mfu_pct']} (by units "
+        f"{shares['wall']['mfu_pct_by_units']}), hbm_bw_util_pct "
+        f"{shares['wall']['hbm_bw_util_pct']}; device {device_s * 1e3:.4f} ms a step (traced, "
+        f"{ROOFLINE_TRACED_STEPS} steps): mfu_pct {shares['device']['mfu_pct']} (by units "
+        f"{shares['device']['mfu_pct_by_units']}), hbm_bw_util_pct "
+        f"{shares['device']['hbm_bw_util_pct']}; kernels {cost['kernels']}")
+    entry = {"recipe": recipe, "card": smi, "flops_per_step": cost["flops"],
+             "flops_by_units": cost["flops_by_units"], "hbm_bytes_per_step": cost["bytes"],
+             "peak_flops": shares["wall"]["peak_flops"],
+             "peak_units": shares["wall"]["peak_units"], "kernels": cost["kernels"],
+             "wall_step_ms": wall_s * 1e3, "device_step_ms": device_s * 1e3,
+             **{f"{k}_at_{at}": shares[at][k] for at in shares
+                for k in ("mfu_pct", "mfu_pct_by_units", "hbm_bw_util_pct")}}
+    return entry, launches
+
+
+def roofline_phase(dev: torch.device, name: str, smi: str) -> tuple:
+    """Each training path's roofline (:func:`roofline_path`); fails unless
+    each of the nine kernels was counted on a path. Returns ({path: entry},
+    {roofline_<path>: the counted step's launches})."""
+    torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
+    entries, paths = {}, {}
+    for path in ROOFLINE_PATHS:
+        entries[path], paths[f"roofline_{path}"] = timed(f"roofline {path}", roofline_path, dev,
+                                                         name, smi, path)
+    counted = {k for e in entries.values() for k in e["kernels"]}
+    if counted != set(counted_kernels()):
+        raise AssertionError(f"roofline: no path counted {set(counted_kernels()) - counted}")
+    return entries, paths
+
+
 def reset_launches() -> None:
     for f in counted_kernels().values():
         f.launches = 0
@@ -3201,6 +3414,18 @@ PATH_KERNELS = {
     # backward and one shard-local scatter a step; and each held run
     "parallel": PARALLEL_FIT_LAUNCHES,
     **{f"parallel_{n}": want for n, want in PARALLEL_LAUNCHES.items()},
+    # the roofline phase's counted step of each training path: a forward and
+    # a backward, and a scatter for each large table on the sorted route
+    "roofline_train": {"dcn_cross_stack": 1, "dcn_cross_bwd": 1, "scatter_rows_set": 1},
+    "roofline_train_deepfm": {"fm_second_order": 1, "fm_second_order_bwd": 1,
+                              "scatter_rows_set": None},
+    "roofline_train_attention": {"fused_transformer_block": 1, "fused_transformer_block_bwd": 1,
+                                 "scatter_rows_set": 1, "fused_lookup_pool": 0},
+    "roofline_train_attention_dense": {"fused_transformer_block": 1,
+                                       "fused_transformer_block_bwd": 1, "fused_lookup_pool": 1,
+                                       "fused_lookup_pool_bwd": 1, "scatter_rows_set": 0},
+    "roofline_train_dssm": {"fused_lookup_pool": 1, "fused_lookup_pool_bwd": 1,
+                            "scatter_rows_set": 0},
 }
 
 
@@ -3252,6 +3477,8 @@ def run(dev: torch.device) -> None:
              **timed("cli", cli_phase, dev, name, smi),
              **timed("train_variants", train_variants_phase, dev, smi),
              **timed("runtime", runtime_phase, dev, name, smi)}
+    roofline, roofline_paths = timed("roofline", roofline_phase, dev, name, smi)
+    paths.update(roofline_paths)
     # traced before ranks are spawned on the card: after a spawn, this
     # process's torch.profiler trace misses the replay's first kernel
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
@@ -3266,7 +3493,7 @@ def run(dev: torch.device) -> None:
 
     log(f"phases done {time.perf_counter() - T_START:.2f} s after the script started")
     log(smi)
-    log(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
+    log(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "roofline": roofline}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

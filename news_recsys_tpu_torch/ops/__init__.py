@@ -9,16 +9,92 @@ The cross stack, the FM second order, the fused lookup + pool and the fused
 Transformer block are ``torch.autograd.Function``s whose backward is a
 kernel too. The row scatter writes in place, so on CUDA its wrapper raises
 on inputs that require grad while autograd is on (:func:`forward_only`).
+
+Each kernel also states its cost, the FLOPs and bytes its bound counts and
+the units its products run on, in a ``*_cost`` function of its shapes
+(:class:`KernelCost`). While a cost
+counter is open (``utils/roofline.py``: ``step_cost``), each wrapper adds
+its kernel's cost to it (:func:`kernel_scope`) on the card and on the CPU
+alike, and hides the aten ops of its body from it, so that a step counts
+the same on both devices. With no counter open the wrappers do nothing more
+than launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from typing import Callable, NamedTuple
 
 import torch
 
 # serialises the ``launches += 1`` of wrappers called from several threads
 launch_count_lock = threading.Lock()
+
+
+class KernelCost(NamedTuple):
+    """What a kernel's bound counts for one call: its float32 operations, the
+    bytes it must move (each input read once, each output written once), and
+    the units its operations run on, whose peak bounds them: ``"float32"``
+    outside the tensor cores, or ``"tf32"`` on them (``utils/roofline.py``'s
+    names of the card's peaks)."""
+    flops: int
+    bytes: int
+    units: str = "float32"
+
+
+# the open cost counter (an object with ``add_kernel_cost(name, flops,
+# bytes, units)``), or None; set by ``utils.roofline.step_cost`` alone
+_counter = None
+_hidden = threading.local()         # depth of kernel scopes on this thread
+_NOTHING = contextlib.nullcontext()
+
+
+def open_counter():
+    """The open cost counter, or None."""
+    return _counter
+
+
+def set_counter(counter) -> None:
+    """Open ``counter`` (None closes it); one at a time."""
+    global _counter
+    if counter is not None and _counter is not None:
+        raise RuntimeError("a cost counter is already open")
+    _counter = counter
+
+
+def hidden() -> bool:
+    """True inside a kernel's scope on this thread: the counter skips the
+    aten ops it sees there."""
+    return getattr(_hidden, "depth", 0) > 0
+
+
+class _Hide:
+    def __enter__(self):
+        _hidden.depth = getattr(_hidden, "depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _hidden.depth -= 1
+
+
+def add_kernel_cost(name: str, flops: int, nbytes: int, units: str = "float32") -> None:
+    """Add one call of kernel ``name`` to the open counter, if any."""
+    counter = _counter
+    if counter is not None:
+        counter.add_kernel_cost(name, flops, nbytes, units)
+
+
+def kernel_scope(name: str, cost: Callable[[], KernelCost]):
+    """The scope of one call of kernel ``name``, or of its plain version on
+    the CPU: with a counter open, adds ``cost()`` to it and hides the aten
+    ops run inside from it, the cost's own among them; with none, nothing
+    (``cost`` is not called)."""
+    if _counter is None:
+        return _NOTHING
+    hide = _Hide()
+    with hide:                      # the cost's own ops (distinct rows) are not counted
+        add_kernel_cost(name, *cost())
+    return hide
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+from . import KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock, stream_ptr
 
 MAX_D = 256                    # a row in at most 32 lanes of 8 floats
 FWD_SMEM_BYTES = 48 * 1024     # the forward's weights in shared memory
@@ -89,6 +89,19 @@ def cross_partials(blocks: int) -> int:
     """The partials (2*NL*D floats each) the backward writes to device
     memory: one a block; none with one block, whose partial is the answer."""
     return blocks if blocks > 1 else 0
+
+
+def cross_cost(B: int, D: int, NL: int, residuals: bool = False) -> KernelCost:
+    """The forward's work: 5 operations an element a layer (the dot product's
+    two, then ``x0 * s + b + x``'s three); x0 read, out written, the weights
+    and biases read, and with ``residuals`` ``ss`` (NL, B) written."""
+    return KernelCost(5 * NL * B * D, 4 * (2 * B * D + 2 * NL * D + (NL * B if residuals else 0)))
+
+
+def cross_bwd_cost(B: int, D: int, NL: int) -> KernelCost:
+    """The backward's work: 8 operations an element a layer; x0, g, ss, ws
+    and bs read, dx0, dws and dbs written."""
+    return KernelCost(8 * NL * B * D, 4 * (3 * B * D + NL * B + 4 * NL * D))
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -211,12 +224,14 @@ def dcn_cross_bwd(x0, ws, bs, ss, g):
             or g.shape != x0.shape):
         raise ValueError(f"shapes do not match x0 {tuple(x0.shape)}, ws {tuple(ws.shape)}: "
                          f"bs {tuple(bs.shape)}, ss {tuple(ss.shape)}, g {tuple(g.shape)}")
-    if kernel_device(x0, ws, bs, ss, g) == "cpu":
-        return cross_bwd_rebuild_plain(x0, ws, bs, ss, g)
-    _check_limits(D, NL, backward=True)
-    from ._build import launch
+    on_cpu = kernel_device(x0, ws, bs, ss, g) == "cpu"
+    with kernel_scope("dcn_cross_bwd", lambda: cross_bwd_cost(B, D, NL)):
+        if on_cpu:
+            return cross_bwd_rebuild_plain(x0, ws, bs, ss, g)
+        _check_limits(D, NL, backward=True)
+        from ._build import launch
 
-    out = _launch_cross_bwd(lambda *a: launch("nrt_dcn_cross_bwd", *a), x0, ws, bs, ss, g)
+        out = _launch_cross_bwd(lambda *a: launch("nrt_dcn_cross_bwd", *a), x0, ws, bs, ss, g)
     with launch_count_lock:
         dcn_cross_bwd.launches += 1
     return out
@@ -244,10 +259,11 @@ class _CrossStack(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, ws, bs):
         need = any(ctx.needs_input_grad)
-        if x0.device.type == "cpu":
-            out, _, ss = cross_fwd_plain(x0, ws, bs)
-        else:
-            out, ss = _cross_fwd_kernel(x0, ws, bs, residuals=need)
+        with kernel_scope("dcn_cross_stack", lambda: cross_cost(*x0.shape, ws.shape[0], need)):
+            if x0.device.type == "cpu":
+                out, _, ss = cross_fwd_plain(x0, ws, bs)
+            else:
+                out, ss = _cross_fwd_kernel(x0, ws, bs, residuals=need)
         if need:
             ctx.save_for_backward(x0, ws, bs, ss)
         return out

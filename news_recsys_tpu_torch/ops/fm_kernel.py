@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+from . import KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock, stream_ptr
 
 # the forward as csrc/fm_second_order.cu launches it: (F, D) of DeepFM take
 # the staged path, a block of FM_ROWS rows of FM_LANES lanes; other shapes
@@ -99,6 +99,18 @@ def fm_bwd_plain(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (v.sum(dim=1, keepdim=True) - v) * g[:, None, None]
 
 
+def fm_cost(B: int, F: int, D: int) -> KernelCost:
+    """The forward's work: 4 operations an element of ``v`` (its sum, its
+    square, their sums); ``v`` read, ``out`` (B,) written."""
+    return KernelCost(4 * B * F * D, 4 * (B * F * D + B))
+
+
+def fm_bwd_cost(B: int, F: int, D: int) -> KernelCost:
+    """The backward's work: 3 operations an element (the field sum, the
+    difference, the product with ``g``); ``v`` and ``g`` read, ``dv`` written."""
+    return KernelCost(3 * B * F * D, 4 * (2 * B * F * D + B))
+
+
 def _kernel_shape(v: torch.Tensor):
     B, F, D = v.shape
     if B >= 2 ** 31 or F * D >= 2 ** 31:
@@ -126,15 +138,17 @@ def fm_second_order_bwd(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     check_tensor(g, "g", torch.float32, 1)
     if g.shape[0] != v.shape[0]:
         raise ValueError(f"g {tuple(g.shape)} must be ({v.shape[0]},)")
-    if kernel_device(v, g) == "cpu":
-        return fm_bwd_plain(v, g)
-    from ._build import launch
+    on_cpu = kernel_device(v, g) == "cpu"
+    with kernel_scope("fm_second_order_bwd", lambda: fm_bwd_cost(*v.shape)):
+        if on_cpu:
+            return fm_bwd_plain(v, g)
+        from ._build import launch
 
-    B, F, D = _kernel_shape(v)
-    dv = torch.empty_like(v)
-    if B == 0:
-        return dv
-    launch("nrt_fm_bwd", v.data_ptr(), g.data_ptr(), dv.data_ptr(), B, F, D, stream_ptr(v))
+        B, F, D = _kernel_shape(v)
+        dv = torch.empty_like(v)
+        if B == 0:
+            return dv
+        launch("nrt_fm_bwd", v.data_ptr(), g.data_ptr(), dv.data_ptr(), B, F, D, stream_ptr(v))
     with launch_count_lock:
         fm_second_order_bwd.launches += 1
     return dv
@@ -145,7 +159,8 @@ class _FM(torch.autograd.Function):
     def forward(ctx, v):
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward(v)
-        return fm_plain(v) if v.device.type == "cpu" else _fm_fwd_kernel(v)
+        with kernel_scope("fm_second_order", lambda: fm_cost(*v.shape)):
+            return fm_plain(v) if v.device.type == "cpu" else _fm_fwd_kernel(v)
 
     @staticmethod
     def backward(ctx, g):

@@ -46,7 +46,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+from . import (KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock,
+               open_counter, stream_ptr)
 
 NEG = -1e9          # score of an invalid key
 LN_EPS = 1e-6       # flax nn.LayerNorm's default
@@ -141,11 +142,50 @@ def param_floats(D: int, F: int) -> int:
     return 4 * D * D + 2 * D * F + 9 * D + F
 
 
+def block_cost(B: int, L: int, D: int, F: int, units: str = "float32") -> KernelCost:
+    """The forward's work: per row 2*(4*D*D + 2*D*F) operations for the four
+    projections and 4*L*D for q k^T and p v; x read and y written, the mask
+    and the parameters read. ``units``: :func:`route_units` of the route
+    that runs it."""
+    proj, attn = 2 * (4 * D * D + 2 * D * F), 4 * L * D
+    return KernelCost(B * L * (proj + attn), 4 * (2 * B * L * D + B * L + param_floats(D, F)),
+                      units)
+
+
+def block_bwd_cost(B: int, L: int, D: int, F: int, units: str = "float32") -> KernelCost:
+    """The backward's work: it recomputes the forward, then takes two products
+    for each of the forward's; x, dy, the mask and the parameters read, dx and
+    the parameters' gradients written. ``units`` as in :func:`block_cost`."""
+    fwd = block_cost(B, L, D, F).flops
+    return KernelCost(3 * fwd, 4 * (3 * B * L * D + B * L + 2 * param_floats(D, F)), units)
+
+
+def route_units(route: str) -> str:
+    """The units a route's products run on: the tiled route's ``mma.sync``
+    on the tensor cores in TF32 (its float32 operations counted once, not
+    the three products of the 3xTF32 split), the general route's outside
+    them in float32."""
+    return "tf32" if route == "tiled" else "float32"
+
+
 def tiled_takes(L: int, D: int, F: int, H: int) -> bool:
     """The shapes the tiled kernels are built for: the widths are compile-time
     constants of ``csrc/fused_attention_tiled.cuh`` (D 32, F 64, heads of
     16), and an example must fill more than half of its 32-row slot."""
     return TILED_SLOT // 2 < L <= TILED_SLOT and D == 32 and F == 64 and H > 0 and D == 16 * H
+
+
+def taken_route(L: int, D: int, F: int, H: int, route: Optional[str] = None) -> str:
+    """The route a launch takes: ``route`` where one is forced (``"tiled"``
+    on a shape it does not take raises), else the tiled one where
+    :func:`tiled_takes` says so, else the general one."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be None or one of {ROUTES}, got {route!r}")
+    takes = tiled_takes(L, D, F, H)
+    if route == "tiled" and not takes:
+        raise ValueError(f"the tiled route takes 16 < L <= 32, D = 32, F = 64 and heads of 16; "
+                         f"got L={L}, D={D}, F={F}, H={H}")
+    return route or ("tiled" if takes else "general")
 
 
 def _tiled_smem_floats(D: int, F: int, backward: bool) -> int:
@@ -189,18 +229,10 @@ class Plan(NamedTuple):
 def plan_shape(B: int, L: int, D: int, F: int, H: int, sms: int, backward: bool,
                route: Optional[str] = None) -> Plan:
     """The launch of a (B, L, D) block with feed-forward width F and H heads
-    on a card of ``sms`` multiprocessors: a pure function of the shape. The
-    tiled route where :func:`tiled_takes` says so, else the general one;
-    ``route`` forces one (``"tiled"`` on a shape it does not take raises).
-    As many blocks as the card keeps resident, at most one per tile; tiles
+    on a card of ``sms`` multiprocessors: a pure function of the shape, on
+    the route of :func:`taken_route`. As many blocks as the card keeps resident, at most one per tile; tiles
     are dealt round-robin, so two blocks' counts differ by at most one."""
-    if route not in (None, *ROUTES):
-        raise ValueError(f"route must be None or one of {ROUTES}, got {route!r}")
-    takes = tiled_takes(L, D, F, H)
-    if route == "tiled" and not takes:
-        raise ValueError(f"the tiled route takes 16 < L <= 32, D = 32, F = 64 and heads of 16; "
-                         f"got L={L}, D={D}, F={F}, H={H}")
-    if route == "tiled" or (route is None and takes):
+    if taken_route(L, D, F, H, route) == "tiled":
         smem = 4 * _tiled_smem_floats(D, F, backward)
         per_sm = max(1, SMEM_BYTES // (smem + 1024))      # 1 KB a block is the system's
         tiles = -(-B // TILED_EXAMPLES)
@@ -264,9 +296,15 @@ def fused_transformer_block_bwd(params: Sequence[torch.Tensor], x, mask, dy, num
     check_tensor(dy, "dy", torch.float32, 3)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must be {tuple(x.shape)}")
-    plan_shape(B, L, D, F, num_heads, 1, True, route)       # raises on a route not taken
-    if kernel_device(x, mask, dy, *params) == "cpu":
-        return block_bwd_plain(params, x, mask, dy, num_heads)
+    units = route_units(taken_route(L, D, F, num_heads, route))  # raises on a route not taken
+    on_cpu = kernel_device(x, mask, dy, *params) == "cpu"
+    with kernel_scope("fused_transformer_block_bwd", lambda: block_bwd_cost(B, L, D, F, units)):
+        if on_cpu:
+            return block_bwd_plain(params, x, mask, dy, num_heads)
+        return _bwd_kernel(params, x, mask, dy, num_heads, route, B, L, D, F)
+
+
+def _bwd_kernel(params, x, mask, dy, num_heads: int, route, B, L, D, F):
     from ._build import launch
 
     _kernel_shape(B, L, D, F)
@@ -304,7 +342,12 @@ class _FusedBlock(torch.autograd.Function):
     def forward(ctx, x, mask, num_heads, route, *params):
         ctx.num_heads, ctx.route = num_heads, route
         ctx.save_for_backward(x, mask, *params)
-        return _fwd_kernel(params, x, mask, num_heads, route)
+        units = route_units(taken_route(*x.shape[1:], params[6].shape[-1], num_heads, route))
+        with kernel_scope("fused_transformer_block",
+                          lambda: block_cost(*x.shape, params[6].shape[-1], units)):
+            if x.device.type == "cpu":
+                return block_plain(x, mask, *params, num_heads=num_heads)
+            return _fwd_kernel(params, x, mask, num_heads, route)
 
     @staticmethod
     def backward(ctx, dy):
@@ -322,11 +365,13 @@ def fused_transformer_block(params, x: torch.Tensor, mask: torch.Tensor, num_hea
     (B, L, D); differentiable in ``x`` and every parameter. CPU tensors take
     :func:`block_plain`, CUDA tensors the kernels. ``route`` is for tests and
     measurements that run both kernels at one shape: ``None`` (the route of
-    :func:`plan_shape`), ``"general"`` or ``"tiled"``."""
+    :func:`plan_shape`), ``"general"`` or ``"tiled"``. On the CPU autograd goes
+    through :func:`block_plain`, but under an open cost counter through the
+    kernels' autograd path with their plain bodies, as the card runs it."""
     params = tuple(params.fused_params() if hasattr(params, "fused_params") else params)
     B, L, D, F = _check(params, x, mask, num_heads)
-    plan_shape(B, L, D, F, num_heads, 1, False, route)      # raises on a route not taken
-    if kernel_device(x, mask, *params) == "cpu":
+    taken_route(L, D, F, num_heads, route)                  # raises on a route not taken
+    if kernel_device(x, mask, *params) == "cpu" and open_counter() is None:
         return block_plain(x, mask, *params, num_heads=num_heads)
     return _FusedBlock.apply(x, mask, num_heads, route, *params)
 

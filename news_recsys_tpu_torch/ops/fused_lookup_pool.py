@@ -37,7 +37,8 @@ from __future__ import annotations
 
 import torch
 
-from . import check_tensor, kernel_device, launch_count_lock, stream_ptr
+from . import (KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock,
+               open_counter, stream_ptr)
 
 EPS = 1e-8
 MAX_D = 256
@@ -69,6 +70,24 @@ def pool_bwd_plain(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     grad = g.new_zeros((V, g.shape[1]))
     return grad.index_add_(0, ids.clamp(0, V - 1).reshape(-1).long(),
                            contrib.reshape(-1, g.shape[1]))
+
+
+def pool_cost(B: int, L: int, D: int, rows: int) -> KernelCost:
+    """The forward's work: a multiply and an add an element of each slot's
+    row; each of the ``rows`` distinct rows its weighted slots point at read
+    once, the ids and mask read, (B, D) written."""
+    return KernelCost(2 * B * L * D, 4 * (rows * D + 2 * B * L + B * D))
+
+
+def pooled_rows(ids: torch.Tensor, mask: torch.Tensor) -> int:
+    """The distinct ids of the slots with weight: a wait for the device."""
+    return int(torch.unique(ids[(mask * (ids != 0)) > 0]).numel())
+
+
+def pool_bwd_cost(B: int, L: int, D: int, V: int) -> KernelCost:
+    """The backward's work: a multiply and an add an element of each slot's
+    term; ``g``, the ids and mask read, the dense (V, D) gradient written."""
+    return KernelCost(2 * B * L * D, 4 * (V * D + B * D + 2 * B * L))
 
 
 def _check(ids, mask):
@@ -124,19 +143,22 @@ def fused_lookup_pool_bwd(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor
     _check(ids, mask)
     if g.shape[0] != ids.shape[0]:
         raise ValueError(f"g {tuple(g.shape)} must have {ids.shape[0]} rows")
-    if kernel_device(ids, mask, g) == "cpu":
-        return pool_bwd_plain(ids, mask, g, V)
-    from ._build import launch
-
     (B, L), D = ids.shape, g.shape[1]
-    _kernel_limits(D, V)
-    if B * L * D >= 2 ** 31:
-        raise ValueError(f"the fused_lookup_pool backward takes B*L*D < 2**31; got "
-                         f"B={B}, L={L}, D={D}")
-    grad = g.new_empty((V, D))
-    scratch = pool_bwd_scratch(B, L, D, V, g.device)
-    launch("nrt_lookup_pool_bwd", ids.data_ptr(), mask.data_ptr(), g.data_ptr(), grad.data_ptr(),
-           *(t.data_ptr() for t in scratch), B, L, D, V, fixed_point_bits(B * L), stream_ptr(g))
+    on_cpu = kernel_device(ids, mask, g) == "cpu"
+    with kernel_scope("fused_lookup_pool_bwd", lambda: pool_bwd_cost(B, L, D, V)):
+        if on_cpu:
+            return pool_bwd_plain(ids, mask, g, V)
+        from ._build import launch
+
+        _kernel_limits(D, V)
+        if B * L * D >= 2 ** 31:
+            raise ValueError(f"the fused_lookup_pool backward takes B*L*D < 2**31; got "
+                             f"B={B}, L={L}, D={D}")
+        grad = g.new_empty((V, D))
+        scratch = pool_bwd_scratch(B, L, D, V, g.device)
+        launch("nrt_lookup_pool_bwd", ids.data_ptr(), mask.data_ptr(), g.data_ptr(),
+               grad.data_ptr(), *(t.data_ptr() for t in scratch), B, L, D, V,
+               fixed_point_bits(B * L), stream_ptr(g))
     with launch_count_lock:
         fused_lookup_pool_bwd.launches += 1
     return grad
@@ -147,7 +169,11 @@ class _Pool(torch.autograd.Function):
     def forward(ctx, table, ids, mask):
         ctx.V = table.shape[0]
         ctx.save_for_backward(ids, mask)
-        return _fwd_kernel(table, ids, mask)
+        with kernel_scope("fused_lookup_pool", lambda: pool_cost(*ids.shape, table.shape[1],
+                                                                 pooled_rows(ids, mask))):
+            if table.device.type == "cpu":
+                return reference_lookup_pool(table, ids, mask)
+            return _fwd_kernel(table, ids, mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -158,10 +184,12 @@ class _Pool(torch.autograd.Function):
 def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """table (V, D) float32, ids (B, L) int32, mask (B, L) float32 -> (B, D);
-    differentiable in ``table``."""
+    differentiable in ``table``. On the CPU it is the plain version's own
+    autograd, but under an open cost counter, where it takes the kernels'
+    autograd path with their plain bodies, as the card runs it."""
     check_tensor(table, "table", torch.float32, 2)
     _check(ids, mask)
-    if kernel_device(table, ids, mask) == "cpu":
+    if kernel_device(table, ids, mask) == "cpu" and open_counter() is None:
         return reference_lookup_pool(table, ids, mask)
     return _Pool.apply(table, ids, mask)
 

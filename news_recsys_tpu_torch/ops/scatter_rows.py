@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from . import check_tensor, forward_only, kernel_device, launch_count_lock, stream_ptr
+from . import (KernelCost, check_tensor, forward_only, kernel_device, kernel_scope,
+               launch_count_lock, stream_ptr)
 
 
 def last_of_run(rows: torch.Tensor) -> torch.Tensor:
@@ -68,6 +69,18 @@ def write_kept(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
     return table.index_put_((idx,), src)
 
 
+def scatter_cost(S: int, D: int, distinct_rows: int) -> KernelCost:
+    """The scatter's work, no arithmetic: the S row ids read; of ``vals`` the
+    row of one slot a distinct row in ``[0, V)`` (the contract makes the
+    others copies of it) read, and that row written."""
+    return KernelCost(0, 4 * (S + 2 * distinct_rows * D))
+
+
+def distinct_rows(rows: torch.Tensor, V: int) -> int:
+    """The distinct rows of ``rows`` inside ``[0, V)``: a wait for the device."""
+    return int(torch.unique(rows[(rows >= 0) & (rows < V)]).numel())
+
+
 def scatter_rows_set(table: torch.Tensor, rows: torch.Tensor,
                      vals: torch.Tensor) -> torch.Tensor:
     """table (V, D) float32, rows (S,) int32 non-decreasing, vals (S, D)
@@ -78,17 +91,19 @@ def scatter_rows_set(table: torch.Tensor, rows: torch.Tensor,
     (V, D), S = table.shape, rows.shape[0]
     if vals.shape != (S, D):
         raise ValueError(f"vals {tuple(vals.shape)} must be ({S}, {D})")
-    if kernel_device(table, rows, vals) == "cpu":
-        return scatter_rows_plain(table, rows, vals)
-    forward_only(table, vals)
-    if V >= 2 ** 31:
-        raise ValueError(f"scatter_rows_set kernel takes V < 2**31; got V={V}")
-    if S == 0 or D == 0:
-        return table
-    from ._build import launch
+    on_cpu = kernel_device(table, rows, vals) == "cpu"
+    with kernel_scope("scatter_rows_set", lambda: scatter_cost(S, D, distinct_rows(rows, V))):
+        if on_cpu:
+            return scatter_rows_plain(table, rows, vals)
+        forward_only(table, vals)
+        if V >= 2 ** 31:
+            raise ValueError(f"scatter_rows_set kernel takes V < 2**31; got V={V}")
+        if S == 0 or D == 0:
+            return table
+        from ._build import launch
 
-    launch("nrt_scatter_rows_set", table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-           S, D, V, stream_ptr(table))
+        launch("nrt_scatter_rows_set", table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+               S, D, V, stream_ptr(table))
     with launch_count_lock:
         scatter_rows_set.launches += 1
     return table

@@ -208,7 +208,8 @@ class DSSMTrainer(Trainer):
     The loss's hyperparameters come from the config's ``dssm_cfg``:
     ``negative_sample_rate`` (3), ``temperature`` (0.1), ``loss`` (infonce |
     triplet), ``margin`` (1.0) and ``logq_correction`` (off), whose (V,)
-    log-q table :meth:`fit` builds from the train split.
+    log-q table :meth:`prepare` (which :meth:`fit` calls) builds from the
+    train split.
     """
 
     def __init__(self, cfg: Config, model: DSSM, workdir: Optional[str] = None,
@@ -238,17 +239,15 @@ class DSSMTrainer(Trainer):
     def _carry_metrics(self, carry) -> Dict[str, float]:
         return {}
 
-    def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
-            warm_user_set=None, state=None, max_epochs: Optional[int] = None,
-            resume: bool = False):
+    def prepare(self, train_ds: PackedDataset) -> None:
+        """With ``logq_correction``, the (V,) log-q table of ``train_ds``'s
+        items, once, and the step that reads it."""
         if self._logq and self._logq_table is None:
             vocab = int(self.cfg.embeddings.embedding_table_size["item_id"])
             self._logq_table = torch.from_numpy(item_log_q(train_ds, vocab)).to(self.device)
             self.train_step = self._make_train_step()
             logger.info("logQ correction on: per-item sampling-bias table "
                         f"built from {len(train_ds)} train rows")
-        return super().fit(train_ds, dev_ds=dev_ds, warm_user_set=warm_user_set,
-                           state=state, max_epochs=max_epochs, resume=resume)
 
     # -- retrieval validation --------------------------------------------------
 

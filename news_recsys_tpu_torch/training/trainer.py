@@ -465,6 +465,11 @@ class Trainer:
 
     # -- fit -------------------------------------------------------------------
 
+    def prepare(self, train_ds: PackedDataset) -> None:
+        """What :meth:`fit` sets up from the train split before its first
+        epoch, for a caller that drives :attr:`train_step` itself: nothing
+        for a ranker."""
+
     def fit(self, train_ds: PackedDataset, dev_ds: Optional[PackedDataset] = None,
             warm_user_set: Optional[Set[int]] = None, state=None,
             max_epochs: Optional[int] = None, resume: bool = False):
@@ -481,6 +486,7 @@ class Trainer:
             state = self.init_state()
         elif state.model is not self.model:
             raise ValueError("fit: the state's model is not this trainer's")
+        self.prepare(train_ds)
         hp = self.cfg.train_hparams
         max_epochs = hp.max_epoch if max_epochs is None else max_epochs
         start_epoch, skip = 0, 0

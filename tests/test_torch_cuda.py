@@ -1758,3 +1758,151 @@ def test_one_rank_nccl_group(cuda, tmp_path):
                                 backend="nccl", device="cuda:0", timeout=240,
                                 group_timeout=120)
     assert backend == "nccl" and torch.equal(t, torch.full((8,), 2.0))
+
+
+# -- the roofline counter: each kernel's cost, on the card as on the CPU ------------
+
+
+def counted_kernel_cases(dev) -> dict:
+    """Each kernel's wrapper on small inputs on ``dev``, by case: a callable
+    that builds (the kernel's name, a call of the wrapper, its cost function's
+    count of that call). ``_grad`` cases take inputs that require grad (the
+    cross stack's forward then writes its residuals); ``block_tiled`` cases
+    take the ranker's widths, the tiled route, whose products run in TF32."""
+    from news_recsys_tpu_torch.ops.dcn_kernel import cross_bwd_cost, cross_cost
+    from news_recsys_tpu_torch.ops.fm_kernel import fm_bwd_cost, fm_cost
+    from news_recsys_tpu_torch.ops.fused_attention import block_bwd_cost, block_cost
+    from news_recsys_tpu_torch.ops.fused_lookup_pool import pool_bwd_cost, pool_cost
+    from news_recsys_tpu_torch.ops.scatter_rows import scatter_cost
+
+    def t(*arrays, grad=False):
+        return [torch.from_numpy(np.asarray(a)).to(dev).requires_grad_(grad) for a in arrays]
+
+    def cross(grad):
+        x0, ws, bs = t(*cross_inputs(48, 24, 3), grad=grad)
+        return "dcn_cross_stack", lambda: dcn_cross_stack(x0, ws, bs), cross_cost(48, 24, 3, grad)
+
+    def cross_bwd():
+        rng = np.random.default_rng(1)
+        x0, ws, bs, ss, g = t(*cross_inputs(48, 24, 3), rng.standard_normal((3, 48), np.float32),
+                              rng.standard_normal((48, 24), np.float32))
+        return "dcn_cross_bwd", lambda: dcn_cross_bwd(x0, ws, bs, ss, g), cross_bwd_cost(48, 24, 3)
+
+    def fm(grad):
+        (v,) = t(fm_inputs(40, 5, 15)[0], grad=grad)
+        return "fm_second_order", lambda: fm_second_order(v), fm_cost(40, 5, 15)
+
+    def fm_bwd():
+        v, g = t(*fm_inputs(40, 5, 15))
+        return "fm_second_order_bwd", lambda: fm_second_order_bwd(v, g), fm_bwd_cost(40, 5, 15)
+
+    def scatter():
+        table, rows, vals = scatter_inputs(300, 8, 64)
+        rows[-3:] = 400                             # outside the table: dropped, not counted
+        distinct = int(np.unique(rows[rows < 300]).size)
+        table, rows, vals = t(table, rows, vals)
+        return ("scatter_rows_set", lambda: scatter_rows_set(table, rows, vals),
+                scatter_cost(64, 8, distinct))
+
+    def pool(grad):
+        table, ids, mask = pool_inputs(200, 8, 24, 6)
+        rows = int(np.unique(ids[(mask * (ids != 0)) > 0]).size)
+        (table,), (ids, mask) = t(table, grad=grad), t(ids, mask)
+        return ("fused_lookup_pool", lambda: fused_lookup_pool(table, ids, mask),
+                pool_cost(24, 6, 8, rows))
+
+    def pool_bwd():
+        _, ids, mask = pool_inputs(200, 8, 24, 6)
+        ids, mask, g = t(ids, mask, np.random.default_rng(2).standard_normal((24, 8), np.float32))
+        return ("fused_lookup_pool_bwd", lambda: fused_lookup_pool_bwd(ids, mask, g, 200),
+                pool_bwd_cost(24, 6, 8, 200))
+
+    def block(grad, shape=(6, 10, 16, 24), units="float32"):
+        x, mask, params, _ = block_inputs(*shape)
+        params, (x,), (mask,) = t(*params, grad=grad), t(x, grad=grad), t(mask)
+        return ("fused_transformer_block", lambda: fused_transformer_block(params, x, mask, 2),
+                block_cost(*shape, units))
+
+    def block_bwd(shape=(6, 10, 16, 24), units="float32"):
+        x, mask, params, dy = block_inputs(*shape)
+        params, (x, mask, dy) = t(*params), t(x, mask, dy)
+        return ("fused_transformer_block_bwd",
+                lambda: fused_transformer_block_bwd(params, x, mask, dy, 2),
+                block_bwd_cost(*shape, units))
+
+    tiled = dict(shape=(4, 30, 32, 64), units="tf32")
+
+    return {"cross": lambda: cross(False), "cross_grad": lambda: cross(True),
+            "cross_bwd": cross_bwd, "fm": lambda: fm(False), "fm_grad": lambda: fm(True),
+            "fm_bwd": fm_bwd, "scatter": scatter, "pool": lambda: pool(False),
+            "pool_grad": lambda: pool(True), "pool_bwd": pool_bwd,
+            "block": lambda: block(False), "block_grad": lambda: block(True),
+            "block_bwd": block_bwd, "block_tiled": lambda: block(False, **tiled),
+            "block_tiled_bwd": lambda: block_bwd(**tiled)}
+
+
+COUNTED_CASES = ("cross", "cross_grad", "cross_bwd", "fm", "fm_grad", "fm_bwd", "scatter",
+                 "pool", "pool_grad", "pool_bwd", "block", "block_grad", "block_bwd",
+                 "block_tiled", "block_tiled_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COUNTED_CASES)
+def test_a_kernel_launch_adds_its_cost_only_under_a_counter(cuda, case):
+    """A launch with no counter open counts nothing; under ``step_cost`` it
+    adds its cost function's count and no aten op, as its plain version does
+    on the CPU."""
+    from news_recsys_tpu_torch import ops
+    from news_recsys_tpu_torch.utils.roofline import step_cost
+
+    name, call, want = counted_kernel_cases(cuda)[case]()
+    wrapper = {f.__name__: f for f in (dcn_cross_stack, dcn_cross_bwd, fm_second_order,
+                                       fm_second_order_bwd, scatter_rows_set,
+                                       fused_lookup_pool, fused_lookup_pool_bwd,
+                                       fused_transformer_block,
+                                       fused_transformer_block_bwd)}[name]
+    before = wrapper.launches
+    call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and ops.open_counter() is None
+    cost = step_cost(call)
+    assert wrapper.launches == before + 2
+    assert cost["kernels"] == {name: {"calls": 1, "flops": want.flops, "bytes": want.bytes}}
+    assert cost["flops_by_units"] == ({want.units: want.flops} if want.flops else {})
+    assert cost["ops"] == {}
+    assert step_cost(counted_kernel_cases(torch.device("cpu"))[case]()[1]) == cost
+
+
+@pytest.mark.cuda
+def test_dcn_step_counts_on_cuda_as_on_cpu(cuda):
+    """One warm sparse step of the narrow DCN, counted on the card and on the
+    CPU from the same state and batch: the same FLOPs (all on the float32
+    units), kernels and bytes, op by op. The CPU's AdamW takes the foreach form the card takes by default
+    (its for-loop reads no 0-d tensor 1 for the step counts: 4 bytes)."""
+    from news_recsys_tpu_torch.utils.roofline import step_cost
+
+    cfg = train_cfg(True)
+    packer = BatchPacker(train_dataset(cfg, 256, seed=3))
+    cpu_model = build_ranker(cfg, seed=0, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    costs = {}
+    for d, model in models.items():
+        dev = torch.device(d)
+        state = init_sparse_state(model, cfg)
+        for group in state.dense_opt.param_groups:
+            group["foreach"] = True
+        step = make_sparse_train_step(model, cfg)
+        warm, counted = (unpack_batch(torch.from_numpy(packer.int_mat[rows]).to(dev),
+                                      torch.from_numpy(packer.float_mat[rows]).to(dev),
+                                      torch.ones(64, device=dev), packer.layout_key())
+                         for rows in (np.arange(64), np.arange(64, 128)))
+        step(state, warm, AucHist.zeros(dev))
+        costs[d] = step_cost(step, copy.deepcopy(state), counted, AucHist.zeros(dev))
+    assert costs["cuda"]["flops"] == costs["cpu"]["flops"] > 0
+    assert costs["cuda"]["kernels"] == costs["cpu"]["kernels"]
+    assert sorted(costs["cuda"]["kernels"]) == ["dcn_cross_bwd", "dcn_cross_stack",
+                                                "scatter_rows_set"]
+    assert costs["cuda"]["ops"] == costs["cpu"]["ops"]
+    assert costs["cuda"]["bytes"] == costs["cpu"]["bytes"]
+    assert costs["cuda"]["flops_by_units"] == costs["cpu"]["flops_by_units"] == {
+        "float32": costs["cpu"]["flops"]}
