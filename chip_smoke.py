@@ -154,7 +154,17 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    ranks of ``parallel`` are spawned), which must run its two device kernels
    once each (``device_kernels``); checks that each path launched the
    kernels it runs, the new paths as many times as they should: the counts
-   are set to 0 just before a path is driven and read just after.
+   are set to 0 just before a path is driven and read just after;
+14. the full-scale quality campaign's scripts (``fullscale``) end to end on
+   the card at the shipped widths and a tiny depth:
+   ``scripts/fullscale_rankers_torch.py --prepare`` (synth of 3,000 news
+   and 3,000 users, seed 3; preprocess, base config, fe, the tightening),
+   then ``dcn`` and ``dssm@aug+logq+ns8`` for an epoch each, two training
+   processes at once (``--jobs 2``); then ``scripts/cascade_eval_torch.py``
+   on their checkpoints over 256 dev positives, in this process (its
+   launches counted: the DSSM's user tower pools twice, the DCN ranks
+   once). Both artifacts must be written, every AUC and HR@10 in them
+   finite, and the card they name an NVIDIA one.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times (and the launch floor and each training path's roofline), and
@@ -3332,6 +3342,73 @@ def roofline_phase(dev: torch.device, name: str, smi: str) -> tuple:
     return entries, paths
 
 
+FULLSCALE_SYNTH = ("--news 3000 --users 3000 --train-impressions 3000 --dev-impressions 600 "
+                   "--seed 3")
+FULLSCALE_MODELS = ("dcn", "dssm@aug+logq+ns8")
+FULLSCALE_QUERIES = 256
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_{name}", os.path.join(REPO_DIR, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def fullscale_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """The full-scale campaign's two scripts on the card at a tiny depth
+    (module docstring, item 14); returns the cascade evaluation's launches.
+    The training runs' own processes are not counted here: they run the
+    ``train`` command whose launches the ``cli`` phase counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "work")
+        rankers, cascade_out = os.path.join(tmp, "rankers.json"), os.path.join(tmp, "cascade.json")
+        t0 = time.perf_counter()
+        art = load_script("fullscale_rankers_torch").main(
+            ["--prepare", "--workdir", work, "--synth-args", FULLSCALE_SYNTH,
+             "--models", ",".join(FULLSCALE_MODELS), "--epochs", "1", "--jobs", "2",
+             "--device", str(dev), "--out", rankers, "--val-logs", os.path.join(tmp, "logs")])
+        t_runs = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        res = load_script("cascade_eval_torch").main(
+            ["--recall-cfg", os.path.join(work, "dssm_aug+logq+ns8.yaml"),
+             "--recall-ckpt", os.path.join(work, "exp_dssm_aug+logq+ns8", "ckpts",
+                                           "epoch_000.pt"),
+             "--ranker-cfg", os.path.join(work, "dcn.yaml"),
+             "--ranker-ckpt", os.path.join(work, "exp_dcn"),
+             "--max-queries", str(FULLSCALE_QUERIES), "--device", str(dev),
+             "--out", cascade_out])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        t_cascade = time.perf_counter() - t0
+        for path, doc in ((rankers, art), (cascade_out, res)):
+            with open(path) as f:
+                if json.load(f) != doc:
+                    raise AssertionError(f"{path} is not what the script returned")
+        with open(os.path.join(work, "prepare.json")) as f:
+            prep = json.load(f)["wall_seconds"]
+    values = {f"{r['model']} {cohort} {k}": v for r in art["results"]
+              for cohort, vals in r["best"].items() for k, v in vals.items()
+              if k in ("AUC", "HR@10")}
+    values.update({k: res[k] for k in ("HR@10_recall_only", "HR@10_cascade")})
+    if ([r["model"] for r in art["results"]] != [m.replace("@", "_") for m in FULLSCALE_MODELS]
+            or not all(math.isfinite(v) for v in values.values())
+            or res["queries"] != FULLSCALE_QUERIES):
+        raise AssertionError(f"fullscale: {values}, {res['queries']} queries")
+    for doc in (art, res):
+        if not doc["device"]["name"].startswith("NVIDIA"):
+            raise AssertionError(f"fullscale: the artifact names {doc['device']}")
+    log(f"fullscale on {name} ({smi}): prepare {prep} s; runs (--jobs 2) {t_runs:.2f} s, walls "
+        f"{[(r['model'], r['wall_seconds']) for r in art['results']]}; cascade "
+        f"{FULLSCALE_QUERIES} queries {t_cascade:.2f} s; device {art['device']}")
+    log(f"fullscale values: {json.dumps(values)}")
+    return {"fullscale": launches}
+
+
 def reset_launches() -> None:
     for f in counted_kernels().values():
         f.launches = 0
@@ -3426,6 +3503,11 @@ PATH_KERNELS = {
                                        "fused_lookup_pool_bwd": 1, "scatter_rows_set": 0},
     "roofline_train_dssm": {"fused_lookup_pool": 1, "fused_lookup_pool_bwd": 1,
                             "scatter_rows_set": 0},
+    # the full-scale scripts' cascade evaluation of 256 queries in one chunk:
+    # the DSSM's user tower pools ``hist`` for recall alone and again for the
+    # cascade, the DCN scores the 256 x 100 candidates in one forward
+    "fullscale": {"fused_lookup_pool": 2, "dcn_cross_stack": 1, "dcn_cross_bwd": 0,
+                  "scatter_rows_set": 0},
 }
 
 
@@ -3484,6 +3566,7 @@ def run(dev: torch.device) -> None:
     next(k for k in kernels if k["name"] == "dcn_cross_bwd")["device_kernels"] = \
         timed("trace of the cross backward", trace_cross_bwd, dev)
     paths.update(timed("parallel", parallel_phase, dev, name, smi))
+    paths.update(timed("fullscale", fullscale_phase, dev, name, smi))
     check_launches(paths)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}

@@ -1,5 +1,5 @@
-"""Exact inner-product top-k over an embedding corpus: one (B, D) x (D, N)
-matmul and ``torch.topk`` per query batch (port of
+"""Exact inner-product (optionally cosine) top-k over an embedding corpus:
+one (B, D) x (D, N) matmul and ``torch.topk`` per query batch (port of
 :mod:`news_recsys_tpu.ops.topk`, which is plain XLA, not a Pallas kernel)."""
 
 from __future__ import annotations
@@ -10,22 +10,33 @@ import numpy as np
 import torch
 
 
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """``x`` over its L2 norm along ``axis``, the norm held at ``eps`` or more
+    (a zero row stays zero)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=axis, keepdim=True), min=eps)
+
+
 class TopKSearcher:
     """Inner-product top-k: ``update_embedding`` snapshots a corpus onto
-    ``device``; ``search`` returns (indices, scores) as numpy arrays."""
+    ``device``; ``search`` returns (indices, scores) as numpy arrays. With
+    ``normalize`` the corpus and the queries are L2-normalised first (cosine)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", normalize: bool = False):
         self.device = torch.device(device)
+        self.normalize = normalize
         self.corpus: Optional[torch.Tensor] = None
 
     def update_embedding(self, embeddings) -> None:
-        self.corpus = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
+        corpus = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
+        self.corpus = l2_normalize(corpus) if self.normalize else corpus
 
     @torch.inference_mode()
     def search(self, queries, k: int, batch_size: int = 8192) -> Tuple[np.ndarray, np.ndarray]:
         if self.corpus is None:
             raise RuntimeError("update_embedding must be called before search")
         queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        if self.normalize:
+            queries = l2_normalize(queries)
         idx_out, score_out = [], []
         for start in range(0, queries.shape[0], batch_size):
             scores = queries[start:start + batch_size] @ self.corpus.T

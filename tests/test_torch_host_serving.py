@@ -48,6 +48,22 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_libs(tmp_path_factory):
+    """The JAX package's host libraries, built into a directory of this
+    module's own. The JAX package writes ``native/build/lib*.so`` in place
+    (no temporary file and rename), and other test files build the same
+    file in parallel workers: a worker that loaded a half-written library
+    cached ``None`` for it. Every JAX-native call in this file (the
+    searcher, ``parse_text_features_native``, ``read_text_features`` and
+    ``open_split``'s text fall-back) goes through the private build."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_BUILD_DIR", str(tmp_path_factory.mktemp("jax_native")))
+        mp.setattr(jnative, "_cache", {})
+        assert jnative.load_ann() is not None and jnative.load_text_parser() is not None
+        yield
+
+
 # -- the host searcher ---------------------------------------------------------
 
 @pytest.mark.parametrize("normalize", [False, True])

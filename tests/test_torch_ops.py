@@ -198,7 +198,32 @@ def test_topk_searcher_matches_jax():
     np.testing.assert_array_equal(idx, jidx)    # random scores: no ties
 
 
-@pytest.mark.parametrize("op", ["pool at the DSSM's hist shape", "take of 4,096 ids"])
+def test_topk_searcher_cosine_matches_jax():
+    """``normalize=True``: the corpus and the queries are L2-normalised as
+    the JAX searcher does, a zero row included (its norm held at eps)."""
+    from news_recsys_tpu.ops.topk import l2_normalize as jl2_normalize
+    from news_recsys_tpu_torch.ops.topk import l2_normalize
+
+    rng = np.random.default_rng(1)
+    corpus = rng.standard_normal((500, 16)).astype(np.float32) * rng.uniform(
+        0.1, 10.0, (500, 1)).astype(np.float32)
+    corpus[17] = 0.0
+    queries = rng.standard_normal((32, 16)).astype(np.float32)
+    queries[5] = 0.0
+    np.testing.assert_allclose(l2_normalize(torch.from_numpy(corpus)).numpy(),
+                               np.asarray(jl2_normalize(jnp.asarray(corpus))), rtol=0, atol=1e-6)
+    searcher, jsearcher = TopKSearcher(device="cpu", normalize=True), JTopKSearcher(normalize=True)
+    searcher.update_embedding(corpus)
+    jsearcher.update_embedding(corpus)
+    idx, scores = searcher.search(queries, k=7, batch_size=10)
+    jidx, jscores = jsearcher.search(queries, k=7)
+    np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-6)
+    assert np.all(scores[5] == 0.0)             # a zero query scores 0 everywhere
+    keep = np.arange(len(queries)) != 5         # its top-k is a tie of all rows
+    np.testing.assert_array_equal(idx[keep], jidx[keep])
+
+
+@pytest.mark.parametrize("op",["pool at the DSSM's hist shape", "take of 4,096 ids"])
 def test_cpu_gather_backward_repeats_its_bits(op):
     """The CPU paths' table gradients are the same bits every run: the
     pool's plain version at B 512, L 30 over 65,280 rows (the DSSM's
