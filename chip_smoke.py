@@ -32,7 +32,10 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    of 79,680 rows (the same slots translated into the shard, as a rank of a
    model axis of 2 writes them), and at the sparse attention
    step's two (each table handed all 16,384 slots of one seeded batch's
-   joint dedup), the FM forward at a request's B 6,400 and a step's B 512;
+   joint dedup), the FM forward at a request's B 6,400 and a step's B 512,
+   the cross stack's training forward (with ``ss``) and backward at B 512
+   and at the large batch's 8,192, the block's forward at B 6,400, 512 and
+   2,048 and its backward at 512 and 2,048;
    the FM and cross stack backwards also against their own second run bit
    for bit, the cross backward against a CUDA-graph replay of itself too;
    and one empty kernel, the floor of a launch (``launch_floor_ms``);
@@ -159,12 +162,16 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    the card at the shipped widths and a tiny depth:
    ``scripts/fullscale_rankers_torch.py --prepare`` (synth of 3,000 news
    and 3,000 users, seed 3; preprocess, base config, fe, the tightening),
-   then ``dcn`` and ``dssm@aug+logq+ns8`` for an epoch each, two training
-   processes at once (``--jobs 2``); then ``scripts/cascade_eval_torch.py``
-   on their checkpoints over 256 dev positives, in this process (its
-   launches counted: the DSSM's user tower pools twice, the DCN ranks
-   once). Both artifacts must be written, every AUC and HR@10 in them
-   finite, and the card they name an NVIDIA one.
+   then ``dcn``, ``dssm@aug+logq+ns8`` and the variant paths
+   ``dcn@b8192+bf16``, ``fm@adamw``, ``dcn@rneg4``, ``attention@rneg4`` and
+   ``dssm@aug+logq+adamw`` for an epoch each, all seven training processes
+   at once; then ``scripts/cascade_eval_torch.py`` on their checkpoints over
+   256 dev positives, in this process, ranked by ``dcn`` (``fullscale``: the
+   DSSM's user tower pools twice, the DCN ranks once) and by
+   ``attention_rneg4`` (``fullscale_attention``: the block once over the
+   25,600 candidates, the pool once more for ``entities``). Every artifact
+   must be written, every AUC and HR@10 in them finite, and the card they
+   name an NVIDIA one.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times (and the launch floor and each training path's roofline), and
@@ -475,17 +482,34 @@ def cross_case(B: int, seed: int, dev) -> tuple:
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
+CROSS_LARGE_BATCH = 8192          # the cross stack of ``dcn@b8192``
+SHAPE_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "turns_ms", "bound_ms", "bound_by",
+              "library_ms", "call_ms", "plain_call_ms")
+
+
 def check_training_kernels(dev) -> list:
     """The DCN training path's cross stack kernels at its shapes: the
     forward in the mode that writes the backward's residuals (``ss``) and
-    its backward fed those residuals (batch 512, D 112, 3 layers)."""
+    its backward fed those residuals, at batch 512 and, as ``at_b8192``,
+    at the large batch's 8,192 (D 112, 3 layers)."""
+    fwd, bwd = cross_training_kernels(TRAIN_BATCH, SEED + 7, dev)
+    big_fwd, big_bwd = cross_training_kernels(CROSS_LARGE_BATCH, SEED + 8, dev)
+    fwd["at_b8192"] = {k: big_fwd[k] for k in SHAPE_KEYS}
+    bwd["at_b8192"] = {k: big_bwd[k] for k in SHAPE_KEYS}
+    return [fwd, bwd]
+
+
+def cross_training_kernels(B: int, seed: int, dev) -> tuple:
+    """(forward entry, backward entry) of the cross stack's training kernels
+    at batch ``B``: each held to its plain version, the backward's two runs
+    and a graph replay bit-identical."""
     from news_recsys_tpu_torch.ops.dcn_kernel import (_aligned, _cross_fwd_kernel, _plan,
                                                       cross_bwd_cost, cross_bwd_rebuild_plain,
                                                       cross_cost, cross_fwd_plain, dcn_cross_bwd)
 
-    B, D, NL = TRAIN_BATCH, 112, 3
+    D, NL = 112, 3
     shape = f"B={B} D={D} NL={NL}"
-    x0, ws, bs, g = cross_case(B, SEED + 7, dev)
+    x0, ws, bs, g = cross_case(B, seed, dev)
     fwd_kernel = lambda: _cross_fwd_kernel(x0, ws, bs, residuals=True)           # noqa: E731
     fwd_plain = lambda: cross_fwd_plain(x0, ws, bs)                              # noqa: E731
     with torch.no_grad():
@@ -493,7 +517,8 @@ def check_training_kernels(dev) -> list:
     torch.cuda.synchronize()
     fwd_err = max(float((a - b).abs().max()) for a, b in ((out, want_out), (ss, want_ss)))
     for part, a, b in (("out", out, want_out), ("ss", ss, want_ss)):
-        torch.testing.assert_close(a, b, msg=lambda m: f"cross forward {part}: {m}", **DCN_TOL)
+        torch.testing.assert_close(a, b, msg=lambda m: f"cross forward {part} [{shape}]: {m}",
+                                   **DCN_TOL)
     with torch.no_grad():
         t = [device_ms(f) for f in (fwd_plain, fwd_kernel, fwd_kernel, fwd_plain)]
         calls = [call_ms(f) for f in (fwd_kernel, fwd_plain)]
@@ -514,9 +539,10 @@ def check_training_kernels(dev) -> list:
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=1e-5 * float(b.abs().max()))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("dcn_cross_bwd: two runs gave different bits")
+        raise AssertionError(f"dcn_cross_bwd [{shape}]: two runs gave different bits")
     if not all(torch.equal(a, b) for a, b in zip(got, graph_replay(dcn_cross_bwd, *bwd_args))):
-        raise AssertionError("dcn_cross_bwd: a CUDA-graph replay differs from an eager call")
+        raise AssertionError(f"dcn_cross_bwd [{shape}]: a CUDA-graph replay differs from an "
+                             "eager call")
     plan = _plan(x0, NL, _aligned(x0, ws, bs, g), True)
     log(f"  dcn_cross_bwd [{shape}]: plan {plan._asdict()}")
     with torch.no_grad():
@@ -531,7 +557,7 @@ def check_training_kernels(dev) -> list:
             f"rtol {BWD_RTOL}, atol 1e-5 of the largest gradient, {bwd_scale:.4g}; two runs "
             f"bit-identical, a graph replay too", t, calls, "cuda_graph", shape,
             least_time(cross_bwd_cost(B, D, NL)))
-    return [fwd, bwd]
+    return fwd, bwd
 
 
 def capture(fn, *args):
@@ -948,18 +974,21 @@ def check_pool_backward(dev) -> dict:
     return main
 
 
+BLOCK_LARGE_BATCH = 2048          # the block of ``attention@b2048``
+BLOCK_SHAPE_KEYS = SHAPE_KEYS + ("peak_flops", "kernel_route", "general_ms",
+                                 "general_max_abs_err")
+
+
 def check_attention_kernels(dev) -> list:
     """The fused block's kernels at their paths' shapes: the forward at batch
-    6,400 (a served request) and 512 (a training step), the backward at 512
-    (dx and all 12 parameter gradients, two runs bit-identical)."""
-    from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain,
-                                                           block_plain,
-                                                           fused_transformer_block,
-                                                           fused_transformer_block_bwd)
+    6,400 (a served request), 512 (a training step) and 2,048 (a step of the
+    large batch), the backward at 512 and 2,048 (dx and all 12 parameter
+    gradients, two runs bit-identical)."""
+    from news_recsys_tpu_torch.ops.fused_attention import block_plain, fused_transformer_block
 
     shape = f"L={BLOCK_L} D={BLOCK_D} H={BLOCK_H} F={BLOCK_F}"
-    out, at_train = [], None
-    for B in (USERS_PER_REQUEST * FETCH, TRAIN_BATCH):
+    out, nested = [], {}
+    for B in (USERS_PER_REQUEST * FETCH, TRAIN_BATCH, BLOCK_LARGE_BATCH):
         *params, x, mask, dy = block_case(B, SEED + 20 + B, dev)
         routes = block_routes(B, False, dev)
         kernel = lambda: fused_transformer_block(params, x, mask, BLOCK_H)      # noqa: E731
@@ -984,16 +1013,58 @@ def check_attention_kernels(dev) -> list:
                               general_ms=(t[1] + t[4]) / 2, general_max_abs_err=general_err)
         log(f"  route {routes['kernel_route']} {entry['ms'] * 1e3:.2f} us; the general route at "
             f"the same shape {entry['general_ms'] * 1e3:.2f} us, max_abs_err {general_err:.3e}")
-        if B == TRAIN_BATCH:
-            at_train = entry
+        if out:
+            nested[B] = {k: entry[k] for k in BLOCK_SHAPE_KEYS}
         else:
             out.append(entry)
-    out[0]["at_train_shape"] = {k: at_train[k] for k in
-                                ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "peak_flops", "library_ms", "call_ms",
-                                 "kernel_route", "general_ms", "general_max_abs_err")}
+    out[0]["at_train_shape"] = nested[TRAIN_BATCH]
+    out[0]["at_b2048"] = nested[BLOCK_LARGE_BATCH]
+    out.append(block_bwd_entry(TRAIN_BATCH, dev))
+    # at 2,048 examples some pre-activation of the feed-forward lies within
+    # rounding of the ReLU's kink (|z| 2.0e-7 in example 10 of this seeded
+    # case), where rounding picks the gate and with it the example's whole
+    # gradient: those examples' upstream gradients are zeroed, as
+    # tests/test_torch_cuda.py::mute_relu_kinks does
+    big = block_bwd_entry(BLOCK_LARGE_BATCH, dev, mute_kinks=True)
+    out[-1]["at_b2048"] = {k: v for k, v in big.items()
+                           if k in BLOCK_SHAPE_KEYS + ("kink_examples_muted",)}
+    return out
 
-    B = TRAIN_BATCH
+
+KINK_MARGIN = 1e-5
+
+
+def kink_examples(params, x, mask) -> torch.Tensor:
+    """(B,) the examples in which a pre-activation of the block's
+    feed-forward, as the plain version computes it, lies within
+    ``KINK_MARGIN`` of the ReLU's kink."""
+    from news_recsys_tpu_torch.ops.fused_attention import layer_norm_plain, mhsa_plain
+    wqkv, bqkv, wo, bo, g1, b1, w1, c1 = params[:8]
+    y1 = layer_norm_plain(x + mhsa_plain(x, mask, wqkv, bqkv, wo, bo, BLOCK_H), g1, b1)
+    return ((y1 @ w1 + c1).abs() < KINK_MARGIN).flatten(1).any(dim=1)
+
+
+def block_bwd_entry(B: int, dev, mute_kinks: bool = False) -> dict:
+    """The block's backward at batch ``B`` (the forward's inputs at that
+    batch, an upstream gradient): both routes held to ``block_bwd_plain``,
+    two runs bit-identical; the entry of the timed (default) route. With
+    ``mute_kinks`` the upstream gradient is zeroed in the examples of
+    :func:`kink_examples` (at most one in 20)."""
+    from news_recsys_tpu_torch.ops.fused_attention import (PARAM_NAMES, block_bwd_plain,
+                                                           fused_transformer_block_bwd)
+
+    shape = f"L={BLOCK_L} D={BLOCK_D} H={BLOCK_H} F={BLOCK_F}"
+    *params, x, mask, dy = block_case(B, SEED + 20 + B, dev)
+    muted = {}
+    if mute_kinks:
+        with torch.no_grad():
+            near = kink_examples(params, x, mask)
+        if int(near.sum()) > B // 20:
+            raise AssertionError(f"block [B={B}]: {int(near.sum())} examples near a kink")
+        dy = torch.where(near[:, None, None], torch.zeros_like(dy), dy)
+        muted = {"kink_examples_muted": int(near.sum())}
+        log(f"  fused block backward [B={B}]: upstream gradient zeroed in {int(near.sum())} "
+            f"examples near the ReLU's kink (|z| < {KINK_MARGIN})")
     routes = block_routes(B, True, dev)
     kernel = lambda: fused_transformer_block_bwd(params, x, mask, dy, BLOCK_H)  # noqa: E731
     general = lambda: fused_transformer_block_bwd(params, x, mask, dy, BLOCK_H,  # noqa: E731
@@ -1005,26 +1076,27 @@ def check_attention_kernels(dev) -> list:
         torch.cuda.synchronize()
         errs.append(0.0)
         for name, a, b in zip(("dx", *PARAM_NAMES), (dx, *dparams), (want_dx, *want_dparams)):
-            torch.testing.assert_close(a, b, rtol=BLOCK_GRAD_RTOL, msg=lambda m: f"{name}: {m}",
+            torch.testing.assert_close(a, b, rtol=BLOCK_GRAD_RTOL,
+                                       msg=lambda m: f"{name} [B={B}]: {m}",
                                        atol=2e-5 * max(1.0, float(b.abs().max())))
             errs[-1] = max(errs[-1], float((a - b).abs().max()))
         if not (torch.equal(dx, again_dx)
                 and all(torch.equal(a, b) for a, b in zip(dparams, again))):
-            raise AssertionError("fused_transformer_block_bwd: two runs gave different bits")
+            raise AssertionError(f"fused_transformer_block_bwd [B={B}]: two runs gave "
+                                 "different bits")
     t = [device_ms(f, **DEEP) for f in (plain, general, kernel, kernel, general, plain)]
     calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
     library_ms = encoder_layer_bwd_ms(params, x, mask, dy)
     source = routes.pop("source")
-    out.append(report_kernel(
+    entry = report_kernel(
         "fused_transformer_block_bwd", source, "news_recsys_tpu/ops/fused_attention.py:333",
         errs[0], f"rtol {BLOCK_GRAD_RTOL}, atol 2e-5 of each gradient's largest value; two runs "
         f"bit-identical", [t[0], t[2], t[3], t[5]], calls, "cuda_graph", f"B={B} {shape}",
         block_work(B, True, routes["kernel_route"]), library_ms, **routes,
-        general_ms=(t[1] + t[4]) / 2, general_max_abs_err=errs[1]))
-    log(f"  route {routes['kernel_route']} {out[-1]['ms'] * 1e3:.2f} us; the general route at the "
-        f"same shape {out[-1]['general_ms'] * 1e3:.2f} us, max_abs_err {errs[1]:.3e}")
-
-    return out
+        general_ms=(t[1] + t[4]) / 2, general_max_abs_err=errs[1], **muted)
+    log(f"  route {routes['kernel_route']} {entry['ms'] * 1e3:.2f} us; the general route at the "
+        f"same shape {entry['general_ms'] * 1e3:.2f} us, max_abs_err {errs[1]:.3e}")
+    return entry
 
 
 def make_requests(n_requests: int) -> list:
@@ -3344,8 +3416,14 @@ def roofline_phase(dev: torch.device, name: str, smi: str) -> tuple:
 
 FULLSCALE_SYNTH = ("--news 3000 --users 3000 --train-impressions 3000 --dev-impressions 600 "
                    "--seed 3")
-FULLSCALE_MODELS = ("dcn", "dssm@aug+logq+ns8")
+# the base rows, then the variant paths: bf16 tables and towers at the
+# large batch, the dense step with the FM kernels, random corpus negatives
+# (both rankers) and the all-dense DSSM
+FULLSCALE_MODELS = ("dcn", "dssm@aug+logq+ns8", "dcn@b8192+bf16", "fm@adamw", "dcn@rneg4",
+                    "attention@rneg4", "dssm@aug+logq+adamw")
 FULLSCALE_QUERIES = 256
+# the cascades of the phase: (path, ranker row); each path's launches counted alone
+FULLSCALE_CASCADES = (("fullscale", "dcn"), ("fullscale_attention", "attention_rneg4"))
 
 
 def load_script(name: str):
@@ -3360,32 +3438,39 @@ def load_script(name: str):
 
 def fullscale_phase(dev: torch.device, name: str, smi: str) -> dict:
     """The full-scale campaign's two scripts on the card at a tiny depth
-    (module docstring, item 14); returns the cascade evaluation's launches.
-    The training runs' own processes are not counted here: they run the
+    (module docstring, item 14): every row of ``FULLSCALE_MODELS`` for an
+    epoch, then a cascade over the DSSM's checkpoint for each ranker of
+    ``FULLSCALE_CASCADES``; returns each cascade evaluation's launches. The
+    training runs' own processes are not counted here: they run the
     ``train`` command whose launches the ``cli`` phase counts."""
+    launches, results, walls = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         work = os.path.join(tmp, "work")
-        rankers, cascade_out = os.path.join(tmp, "rankers.json"), os.path.join(tmp, "cascade.json")
+        rankers = os.path.join(tmp, "rankers.json")
         t0 = time.perf_counter()
         art = load_script("fullscale_rankers_torch").main(
             ["--prepare", "--workdir", work, "--synth-args", FULLSCALE_SYNTH,
-             "--models", ",".join(FULLSCALE_MODELS), "--epochs", "1", "--jobs", "2",
-             "--device", str(dev), "--out", rankers, "--val-logs", os.path.join(tmp, "logs")])
+             "--models", ",".join(FULLSCALE_MODELS), "--epochs", "1",
+             "--jobs", str(len(FULLSCALE_MODELS)), "--device", str(dev), "--out", rankers,
+             "--val-logs", os.path.join(tmp, "logs")])
         t_runs = time.perf_counter() - t0
-        reset_launches()
-        t0 = time.perf_counter()
-        res = load_script("cascade_eval_torch").main(
-            ["--recall-cfg", os.path.join(work, "dssm_aug+logq+ns8.yaml"),
-             "--recall-ckpt", os.path.join(work, "exp_dssm_aug+logq+ns8", "ckpts",
-                                           "epoch_000.pt"),
-             "--ranker-cfg", os.path.join(work, "dcn.yaml"),
-             "--ranker-ckpt", os.path.join(work, "exp_dcn"),
-             "--max-queries", str(FULLSCALE_QUERIES), "--device", str(dev),
-             "--out", cascade_out])
-        torch.cuda.synchronize()
-        launches = read_launches()
-        t_cascade = time.perf_counter() - t0
-        for path, doc in ((rankers, art), (cascade_out, res)):
+        docs = [(rankers, art)]
+        for path, ranker in FULLSCALE_CASCADES:
+            out = os.path.join(tmp, f"{path}.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            results[path] = load_script("cascade_eval_torch").main(
+                ["--recall-cfg", os.path.join(work, "dssm_aug+logq+ns8.yaml"),
+                 "--recall-ckpt", os.path.join(work, "exp_dssm_aug+logq+ns8", "ckpts",
+                                               "epoch_000.pt"),
+                 "--ranker-cfg", os.path.join(work, f"{ranker}.yaml"),
+                 "--ranker-ckpt", os.path.join(work, f"exp_{ranker}"),
+                 "--max-queries", str(FULLSCALE_QUERIES), "--device", str(dev), "--out", out])
+            torch.cuda.synchronize()
+            launches[path] = read_launches()
+            walls[path] = round(time.perf_counter() - t0, 2)
+            docs.append((out, results[path]))
+        for path, doc in docs:
             with open(path) as f:
                 if json.load(f) != doc:
                     raise AssertionError(f"{path} is not what the script returned")
@@ -3394,19 +3479,21 @@ def fullscale_phase(dev: torch.device, name: str, smi: str) -> dict:
     values = {f"{r['model']} {cohort} {k}": v for r in art["results"]
               for cohort, vals in r["best"].items() for k, v in vals.items()
               if k in ("AUC", "HR@10")}
-    values.update({k: res[k] for k in ("HR@10_recall_only", "HR@10_cascade")})
+    for path, res in results.items():
+        values.update({f"{path} {k}": res[k] for k in ("HR@10_recall_only", "HR@10_cascade")})
     if ([r["model"] for r in art["results"]] != [m.replace("@", "_") for m in FULLSCALE_MODELS]
             or not all(math.isfinite(v) for v in values.values())
-            or res["queries"] != FULLSCALE_QUERIES):
-        raise AssertionError(f"fullscale: {values}, {res['queries']} queries")
-    for doc in (art, res):
+            or any(res["queries"] != FULLSCALE_QUERIES for res in results.values())):
+        raise AssertionError(f"fullscale: {values}, {[r['queries'] for r in results.values()]} "
+                             "queries")
+    for doc in (art, *results.values()):
         if not doc["device"]["name"].startswith("NVIDIA"):
             raise AssertionError(f"fullscale: the artifact names {doc['device']}")
-    log(f"fullscale on {name} ({smi}): prepare {prep} s; runs (--jobs 2) {t_runs:.2f} s, walls "
-        f"{[(r['model'], r['wall_seconds']) for r in art['results']]}; cascade "
-        f"{FULLSCALE_QUERIES} queries {t_cascade:.2f} s; device {art['device']}")
+    log(f"fullscale on {name} ({smi}): prepare {prep} s; runs (--jobs {len(FULLSCALE_MODELS)}) "
+        f"{t_runs:.2f} s, walls {[(r['model'], r['wall_seconds']) for r in art['results']]}; "
+        f"cascades of {FULLSCALE_QUERIES} queries {walls} s; device {art['device']}")
     log(f"fullscale values: {json.dumps(values)}")
-    return {"fullscale": launches}
+    return launches
 
 
 def reset_launches() -> None:
@@ -3505,9 +3592,14 @@ PATH_KERNELS = {
                             "scatter_rows_set": 0},
     # the full-scale scripts' cascade evaluation of 256 queries in one chunk:
     # the DSSM's user tower pools ``hist`` for recall alone and again for the
-    # cascade, the DCN scores the 256 x 100 candidates in one forward
+    # cascade, the DCN scores the 256 x 100 candidates in one forward; the
+    # attention ranker scores them through one block and pools ``entities``
+    # once more
     "fullscale": {"fused_lookup_pool": 2, "dcn_cross_stack": 1, "dcn_cross_bwd": 0,
                   "scatter_rows_set": 0},
+    "fullscale_attention": {"fused_lookup_pool": 3, "fused_transformer_block": 1,
+                            "fused_transformer_block_bwd": 0, "dcn_cross_stack": 0,
+                            "scatter_rows_set": 0},
 }
 
 

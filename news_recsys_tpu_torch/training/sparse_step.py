@@ -99,6 +99,7 @@ from ..models.embedding import SMALL_VOCAB_THRESHOLD, offset_ids, padded_vocab, 
 from ..ops.scatter_rows import scatter_rows_set, write_kept
 from ..parallel.mesh import sharded_names
 from ..parallel.sharded_embedding import active_mesh
+from ..utils.logging import get_logger
 from .schedule import hold_cosine_floor
 from .trainer import AucHist, binned_auc_update
 
@@ -119,6 +120,8 @@ DENSE_ROUTE_INDEX = 1000  # the dense route's noise index: 1000 + its table's in
 # near 0.12.
 DENSE_UPDATE_MIN_SHARE = 1 / 8
 ROWWISE = ("rowwise_adagrad", "sparse_adamw")
+
+logger = get_logger("sparse_step")
 
 
 def _large_tables(tables_spec) -> set:
@@ -607,9 +610,22 @@ def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None
             return None
         return noise(step, index, shape, table.device)
 
+    routes_logged = set()
+
+    def log_routes(per_table, dense) -> None:
+        """Each table's route, logged the first time the table takes it."""
+        for t, pairs in sorted(per_table.items()):
+            route = ("dense" if t in dense else "unique-row, plain write" if unique
+                     else "sorted, row scatter")
+            if (t, route) not in routes_logged:
+                routes_logged.add((t, route))
+                logger.info(f"table {t}: {route} route at {sum(p[0].shape[0] for p in pairs)} "
+                            f"slots of {padded_vocab(table_vocab[t][0])} rows")
+
     def update(state, per_table, step: int, lr: float) -> None:
         tables = state.model.embedder.tables
         dense = sorted(t for t, pairs in per_table.items() if dense_route(t, pairs))
+        log_routes(per_table, dense)
         for ti, t in enumerate(dense):
             pairs = per_table[t]
             dense_rowwise_adagrad_update(

@@ -321,6 +321,9 @@ def run_model(name: str, config: str, epochs: int, workdir: str, optimizer: str,
             [sys.executable, "-m", "news_recsys_tpu_torch", "train", "-c", model_cfg,
              "-m", model, "--workdir", exp_dir, "--epochs", str(epochs), "--device", device],
             capture_output=True, text=True, cwd=REPO, env=env)
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "train_process.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)      # the logger's lines: routes, epochs
         if proc.returncode != 0:
             print(proc.stdout[-4000:])
             print(proc.stderr[-4000:])
@@ -436,7 +439,13 @@ def main(argv=None) -> dict:
     order = sorted(names, key=lambda n: -model_epochs(n, args))
     with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
         futures = {n: pool.submit(one, n) for n in order}
-        results = [futures[n].result() for n in names]
+    results, failed = [], []
+    for n in names:         # a failed run leaves the others' results standing
+        try:
+            results.append(futures[n].result())
+        except Exception as exc:
+            print(f"{n}: {exc}", flush=True)
+            failed.append(n)
     campaign_wall = time.time() - t0
 
     os.makedirs(args.val_logs, exist_ok=True)
@@ -455,11 +464,12 @@ def main(argv=None) -> dict:
         "criterion": "best epoch by Warm-Start AUC (reference log_analysis.py); HR@10 for "
                      "the DSSM",
         "jobs": args.jobs,
-        "seed": args.seed if args.seed is not None else results[0]["seed"],
+        "seed": args.seed if args.seed is not None else (results[0]["seed"] if results else None),
         "examples_per_sec_last": f"the last epoch's examples/s, taken with up to {args.jobs} "
                                  "runs sharing the card and the host: not a throughput figure",
         "campaign_wall_seconds": round(campaign_wall, 1),
         "results": results,
+        **({"failed": failed} if failed else {}),
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
@@ -478,6 +488,8 @@ def main(argv=None) -> dict:
                 delta = r["best"]["Overall"]["AUC"] - lr_auc
                 line += f" (vs LR {'+' if delta >= 0 else ''}{delta:.4f})"
             print(line)
+    if failed:
+        raise SystemExit(f"runs failed: {failed}")
     return artifact
 
 

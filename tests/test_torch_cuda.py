@@ -211,11 +211,11 @@ def off_by_one_float(dev, a):
 
 
 # the cross stack's kernels: the ranker's shapes (a request's B 6,400, a
-# step's B 512), one row, one past a warp's rows or a block's, D off the
-# float4 grid, the widest D with 6 layers, and tiny rows
+# step's B 512, a large-batch step's 8,192), one row, one past a warp's rows
+# or a block's, D off the float4 grid, the widest D with 6 layers, and tiny rows
 CROSS_SHAPES = [(6400, 112, 3), (512, 112, 3), (1000, 24, 2), (37, 200, 4), (5, 1, 1),
                 (1, 112, 3), (513, 112, 3), (6401, 113, 3), (512, 256, 6), (7, 3, 1),
-                (300, 24, 12)]
+                (300, 24, 12), (8192, 112, 3)]
 
 
 def cross_case(dev, B, D, NL, aligned, seed=0):
@@ -540,7 +540,7 @@ def test_dcn_bwd_graphs_on_one_capture_stream_run_at_once(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [512, 6400])
+@pytest.mark.parametrize("B", [512, 6400, 8192])
 def test_dcn_bwd_kernel_is_deterministic(cuda, B):
     """Two calls, and a CUDA graph of a call replayed three times, give the
     same bits; a replay runs the two kernels, once each, and no memset."""
@@ -965,8 +965,8 @@ def test_fused_block_rejects_what_it_does_not_take(cuda):
 # -- the block's two routes at the attention ranker's widths ----------------------
 
 RANKER_L, RANKER_D, RANKER_F, RANKER_H = 30, 32, 64, 2
-# odd batches leave the last tile half filled
-ROUTE_BATCHES = [1, 2, 3, 511, 512, 513, 6400]
+# odd batches leave the last tile half filled; 2,048 a large-batch step's
+ROUTE_BATCHES = [1, 2, 3, 511, 512, 513, 2048, 6400]
 
 
 def ranker_block_inputs(B, seed):
