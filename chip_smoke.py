@@ -171,7 +171,18 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    ``attention_rneg4`` (``fullscale_attention``: the block once over the
    25,600 candidates, the pool once more for ``entities``). Every artifact
    must be written, every AUC and HR@10 in them finite, and the card they
-   name an NVIDIA one.
+   name an NVIDIA one;
+15. the MIND parity harness (``mind_parity``) at the same depth:
+   ``scripts/mind_parity_torch.py --synth`` (deep, dcn and the attention
+   ranker for an epoch each, the three training processes at once), whose
+   reload of each best epoch and ``Trainer.predict`` of the dev split run in
+   this process (the cross stack, the block and the pool once a batch of
+   512): each row's AUC, nDCG@10 and MRR must equal its val log's best
+   Overall block within 1e-4, the card's scores the CPU's on the same
+   checkpoint within 1e-5; the ``--data`` route on a copy of the raw files
+   must give the same checksum manifest and ``base.yaml``; and
+   ``scripts/popularity_baseline_torch.py`` on the run's processed files,
+   on the card and on the CPU, must give the same HR@10 and HR@50.
 
 Its last three lines are the card, a JSON line of the kernels and their
 times (and the launch floor and each training path's roofline), and
@@ -3496,6 +3507,117 @@ def fullscale_phase(dev: torch.device, name: str, smi: str) -> dict:
     return launches
 
 
+MIND_PARITY_MODELS = ("deep", "dcn", "attention")
+MIND_PARITY_TOL = 1e-4              # the val log prints four decimals
+# the kernels of the harness's scoring: the dev split's batches of 512 through
+# the DCN's cross stack, and the attention ranker's block and ``entities`` pool
+MIND_PARITY_KERNELS = ("dcn_cross_stack", "fused_transformer_block", "fused_lookup_pool")
+
+
+def config_paths(raw: dict, *dirs: str) -> dict:
+    """``raw`` (a config's dict) with each of ``dirs`` in its paths named by
+    its place: configs of two work directories compare equal."""
+    text = json.dumps(raw)
+    for i, d in enumerate(dirs):
+        text = text.replace(d, f"<dir{i}>")
+    return json.loads(text)
+
+
+def mind_parity_phase(dev: torch.device, name: str, smi: str) -> dict:
+    """The MIND parity harness and the popularity baseline on the card at
+    the ``fullscale`` phase's depth (module docstring, item 15); returns the
+    launches of the harness's scoring. Its training processes run the
+    ``train`` command whose launches the ``cli`` phase counts."""
+    import shutil
+
+    import yaml
+
+    from news_recsys_tpu_torch.data.packed_dataset import PackedDataset
+    from news_recsys_tpu_torch.config import load_config
+    from news_recsys_tpu_torch.utils.log_analysis import best_epoch, parse_log
+
+    parity = load_script("mind_parity_torch")
+    popularity = load_script("popularity_baseline_torch")
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work, logs = os.path.join(tmp, "work"), os.path.join(tmp, "logs")
+        reset_launches()
+        t0 = time.perf_counter()
+        art = parity.main(["--synth", "--workdir", work, "--synth-args", FULLSCALE_SYNTH,
+                           "--models", ",".join(MIND_PARITY_MODELS), "--epochs", "1",
+                           "--jobs", str(len(MIND_PARITY_MODELS)), "--device", str(dev),
+                           "--out", os.path.join(tmp, "parity.json"), "--val-logs", logs])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        t_run = time.perf_counter() - t0
+        with open(os.path.join(tmp, "parity.json")) as f:
+            if json.load(f) != art:
+                raise AssertionError("mind_parity: the artifact is not what the script returned")
+        if [r["model"] for r in art["results"]] != list(MIND_PARITY_MODELS) or \
+                not art["device"]["name"].startswith("NVIDIA"):
+            raise AssertionError(f"mind_parity: rows {[r['model'] for r in art['results']]}, "
+                                 f"device {art['device']}")
+        batches = -(-len(PackedDataset.open_split(
+            load_config(os.path.join(work, "dcn.yaml")), "dev")) // TRAIN_BATCH)
+        want = {k: batches for k in MIND_PARITY_KERNELS}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"mind_parity: launches {launches}, expected {want}")
+
+        for row in art["results"]:
+            model = row["model"]
+            best = best_epoch(parse_log(os.path.join(logs, f"{model}_val_log.log")))
+            overall = best["data"]["Overall"]
+            if best["epoch"] != row["best_epoch"] or row["val_log_overall"] != overall:
+                raise AssertionError(f"mind_parity {model}: best epoch {row['best_epoch']}, "
+                                     f"the log's {best['epoch']}")
+            for ours, theirs in (("AUC", "AUC"), ("nDCG@10", "NDCG@10"), ("MRR", "MRR@10")):
+                if not abs(row[ours] - overall[theirs]) <= MIND_PARITY_TOL:
+                    raise AssertionError(f"mind_parity {model}: {ours} {row[ours]} against the "
+                                         f"val log's {theirs} {overall[theirs]}")
+            cfg = os.path.join(work, f"{model}.yaml")
+            ckpt = os.path.join(work, f"exp_{model}", "ckpts",
+                                f"epoch_{row['best_epoch']:03d}.pt")
+            uids, card_scores, labels = parity.score_dev(cfg, ckpt, model, str(dev))
+            cpu_scores = parity.score_dev(cfg, ckpt, model, "cpu")[1]
+            errs[model] = float(np.abs(card_scores - cpu_scores).max())
+            if not errs[model] <= ANSWER_TOL:
+                raise AssertionError(f"mind_parity {model}: card against CPU {errs[model]}")
+            table = parity.per_user_ranking_metrics(uids, card_scores, labels)
+            if any(abs(row[k] - v) > 1e-5 for k, v in table.items()):
+                raise AssertionError(f"mind_parity {model}: the row {row} is not the table "
+                                     f"{table} of the card's scores")
+
+        copy_dir = os.path.join(tmp, "copy")
+        shutil.copytree(os.path.join(work, "Data", "MIND"), copy_dir)
+        work2 = os.path.join(tmp, "work_data")
+        t0 = time.perf_counter()
+        again = parity.main(["--data", copy_dir, "--workdir", work2, "--models", "",
+                             "--device", str(dev), "--out", os.path.join(tmp, "data.json")])
+        t_data = time.perf_counter() - t0
+        bases = []
+        for w, d in ((work, os.path.join(work, "Data", "MIND")), (work2, copy_dir)):
+            with open(os.path.join(w, "base.yaml")) as f:
+                bases.append(config_paths(yaml.safe_load(f), d, w))
+        if again["checksums"] != art["checksums"] or bases[0] != bases[1]:
+            raise AssertionError("mind_parity: the --data route's manifest or base.yaml differs")
+
+        pre = os.path.join(work, "tmp", "preprocess")
+        hrs = []
+        for i, where in enumerate((str(dev), "cpu")):
+            pop = popularity.main(["--pre", pre, "--device", where,
+                                   "--out", os.path.join(tmp, f"pop_{i}.json")])
+            hrs.append({k: v for k, v in pop.items() if k.startswith("HR@") or k == "queries"})
+        if hrs[0] != hrs[1] or not hrs[0]["queries"] > 0:
+            raise AssertionError(f"mind_parity: popularity on the card {hrs[0]}, CPU {hrs[1]}")
+    log(f"mind_parity on {name} ({smi}): harness (--jobs {len(MIND_PARITY_MODELS)}) "
+        f"{t_run:.2f} s, data step {art['wall_seconds']['data_step']} s, walls "
+        f"{[(r['model'], r['wall_seconds']) for r in art['results']]}; --data route "
+        f"{t_data:.2f} s; predict card vs CPU {errs}; launches {want}")
+    log("mind_parity table:\n" + art["table_markdown"])
+    log(f"mind_parity popularity: {hrs[0]}")
+    return {"mind_parity": launches}
+
+
 def reset_launches() -> None:
     for f in counted_kernels().values():
         f.launches = 0
@@ -3600,6 +3722,11 @@ PATH_KERNELS = {
     "fullscale_attention": {"fused_lookup_pool": 3, "fused_transformer_block": 1,
                             "fused_transformer_block_bwd": 0, "dcn_cross_stack": 0,
                             "scatter_rows_set": 0},
+    # the MIND parity harness's scoring of the dev split (its exact count, a
+    # launch a batch, is checked in the phase): forwards only
+    "mind_parity": {**{k: None for k in MIND_PARITY_KERNELS}, "dcn_cross_bwd": 0,
+                    "fused_transformer_block_bwd": 0, "fused_lookup_pool_bwd": 0,
+                    "scatter_rows_set": 0, "fm_second_order": 0},
 }
 
 
@@ -3659,6 +3786,7 @@ def run(dev: torch.device) -> None:
         timed("trace of the cross backward", trace_cross_bwd, dev)
     paths.update(timed("parallel", parallel_phase, dev, name, smi))
     paths.update(timed("fullscale", fullscale_phase, dev, name, smi))
+    paths.update(timed("mind_parity", mind_parity_phase, dev, name, smi))
     check_launches(paths)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}

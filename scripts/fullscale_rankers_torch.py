@@ -116,17 +116,20 @@ def tighten(raw: dict, vocab: dict) -> dict:
     return raw
 
 
-def prepare(workdir: str, synth_args: str = SYNTH_ARGS) -> str:
+def prepare(workdir: str, synth_args: str = SYNTH_ARGS, data_dir: str = None) -> str:
     """Raw files (unless ``<workdir>/Data/MIND`` has them), ``preprocess``,
     ``base.yaml``, ``fe`` and the tightening; returns the base config's path
     and writes ``prepare.json`` (the synth arguments and each step's wall
-    time) beside it."""
+    time) beside it. A ``data_dir`` given holds the raw files already
+    (``MINDsmall_{train,dev}/``): it is read, never written, and nothing is
+    synthesised."""
     import yaml
 
     from news_recsys_tpu_torch.cli import main as cli
 
     os.makedirs(workdir, exist_ok=True)
-    data_dir = os.path.join(workdir, "Data", "MIND")
+    own = data_dir is None
+    data_dir = os.path.join(workdir, "Data", "MIND") if own else data_dir
     times = {}
 
     def step(label, *argv):
@@ -135,7 +138,7 @@ def prepare(workdir: str, synth_args: str = SYNTH_ARGS) -> str:
         times[label] = round(time.time() - t0, 1)
         print(f"prepare: {label} {times[label]} s", flush=True)
 
-    if not os.path.exists(os.path.join(data_dir, "MINDsmall_dev", "behaviors.tsv")):
+    if own and not os.path.exists(os.path.join(data_dir, "MINDsmall_dev", "behaviors.tsv")):
         step("synth", "synth", "--out", data_dir, *synth_args.split())
     boot_path = os.path.join(workdir, "boot.yaml")
     with open(boot_path, "w") as f:
@@ -160,7 +163,7 @@ def prepare(workdir: str, synth_args: str = SYNTH_ARGS) -> str:
     with open(base, "w") as f:
         yaml.safe_dump(raw, f)
     with open(os.path.join(workdir, "prepare.json"), "w") as f:
-        json.dump({"synth": synth_args, "wall_seconds": times}, f, indent=2)
+        json.dump({"synth": synth_args if own else None, "wall_seconds": times}, f, indent=2)
     return base
 
 
@@ -287,13 +290,51 @@ def model_epochs(name: str, args) -> int:
 # -- the runs ---------------------------------------------------------------------
 
 
+def job_threads(jobs: int) -> int:
+    """OMP threads of each of ``jobs`` runs side by side (0: one run, the default)."""
+    return max(1, (os.cpu_count() or 1) // jobs) if jobs > 1 else 0
+
+
+def train_process(model: str, config: str, exp_dir: str, epochs: int, device: str = "cuda",
+                  threads: int = 0) -> float:
+    """Train ``model`` on ``config`` in a fresh ``python -m news_recsys_tpu_torch
+    train`` process on ``device`` into ``exp_dir`` (a stale one is removed
+    first: its logs would be parsed with the new ones). The process's output
+    is kept as ``exp_dir/train_process.log``; returns the wall seconds."""
+    if os.path.exists(exp_dir):
+        shutil.rmtree(exp_dir)
+    env = dict(os.environ)
+    if threads:         # runs side by side: each its share of the host's cores
+        env.setdefault("OMP_NUM_THREADS", str(threads))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "news_recsys_tpu_torch", "train", "-c", config,
+         "-m", model, "--workdir", exp_dir, "--epochs", str(epochs), "--device", device],
+        capture_output=True, text=True, cwd=REPO, env=env)
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "train_process.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)      # the logger's lines: routes, epochs
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:])
+        raise RuntimeError(f"{model} training failed (rc={proc.returncode})")
+    return time.time() - t0
+
+
+def best_of(exp_dir: str) -> dict:
+    """The best epoch of ``exp_dir/val_log.log`` (``utils/log_analysis``):
+    Warm-Start AUC for the rankers, HR@k for the retrieval blocks."""
+    from news_recsys_tpu_torch.utils.log_analysis import best_epoch, parse_log
+
+    return best_epoch(parse_log(os.path.join(exp_dir, "val_log.log")))
+
+
 def run_model(name: str, config: str, epochs: int, workdir: str, optimizer: str,
               chunk_steps: int = 0, device: str = "cuda", seed=None, threads: int = 0) -> dict:
     """Train ``name`` in a fresh process on ``device`` and read its best epoch."""
     import yaml
 
     from news_recsys_tpu_torch.config import config_to_dict, load_config
-    from news_recsys_tpu_torch.utils.log_analysis import best_epoch, parse_log
 
     raw = model_config_dict(config_to_dict(load_config(config)), name, optimizer, chunk_steps)
     if seed is not None:
@@ -310,28 +351,9 @@ def run_model(name: str, config: str, epochs: int, workdir: str, optimizer: str,
     if reuse:
         with open(val_log) as f:
             reuse = f.read().count("Validation Results") >= epochs
-    if os.path.exists(exp_dir) and not reuse:  # stale logs pollute parse_log
-        shutil.rmtree(exp_dir)
-    t0 = time.time()
-    if not reuse:
-        env = dict(os.environ)
-        if threads:     # runs side by side: each its share of the host's cores
-            env.setdefault("OMP_NUM_THREADS", str(threads))
-        proc = subprocess.run(
-            [sys.executable, "-m", "news_recsys_tpu_torch", "train", "-c", model_cfg,
-             "-m", model, "--workdir", exp_dir, "--epochs", str(epochs), "--device", device],
-            capture_output=True, text=True, cwd=REPO, env=env)
-        os.makedirs(exp_dir, exist_ok=True)
-        with open(os.path.join(exp_dir, "train_process.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)      # the logger's lines: routes, epochs
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:])
-            print(proc.stderr[-4000:])
-            raise RuntimeError(f"{name} training failed (rc={proc.returncode})")
-    wall = time.time() - t0
+    wall = 0.0 if reuse else train_process(model, model_cfg, exp_dir, epochs, device, threads)
 
-    # Warm-Start AUC for the rankers, HR@k for the retrieval blocks
-    best = best_epoch(parse_log(val_log))
+    best = best_of(exp_dir)
     exps = []
     with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
         for line in f:
@@ -424,7 +446,7 @@ def main(argv=None) -> dict:
     if not names:
         return {}
     os.makedirs(args.workdir, exist_ok=True)
-    threads = max(1, (os.cpu_count() or 1) // args.jobs) if args.jobs > 1 else 0
+    threads = job_threads(args.jobs)
 
     def one(name):
         print(f"=== {name} ===", flush=True)
