@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """``x`` over its L2 norm along ``axis``, the norm held at ``eps`` or more
@@ -41,6 +43,7 @@ class TopKSearcher:
         for start in range(0, queries.shape[0], batch_size):
             scores = queries[start:start + batch_size] @ self.corpus.T
             top_scores, top_idx = torch.topk(scores, k, dim=1)
-            idx_out.append(top_idx.cpu().numpy())
-            score_out.append(top_scores.cpu().numpy())
+            with span("serve.recall.search.wait"):
+                idx_out.append(top_idx.cpu().numpy())
+                score_out.append(top_scores.cpu().numpy())
         return np.concatenate(idx_out), np.concatenate(score_out)

@@ -39,6 +39,7 @@ from .models.dssm import DSSM, _l2, build_dssm
 from .models.rankers import build_ranker
 from .ops.topk import TopKSearcher
 from .utils.logging import get_logger
+from .utils.profiling import active, count, span
 
 logger = get_logger("torch_serving")
 
@@ -171,25 +172,34 @@ class Recommender:
                   histories: Optional[Sequence[Sequence[int]]] = None
                   ) -> Tuple[List[List[int]], List[List[float]]]:
         """Top-k news ids per user row (history items excluded)."""
-        with torch.inference_mode():
+        with span("serve.recall"):
+            return self._recommend(user_batch, k, histories)
+
+    def _recommend(self, user_batch: Batch, k: int, histories) -> tuple:
+        with span("serve.recall.tower"), torch.inference_mode():
             emb = _l2(self._encode(PackedDataset(dict(user_batch)), self.model.user_embedding))
         max_hist = max((len(h) for h in histories), default=0) if histories else 0
         fetch = min(k + max_hist, len(self.item_ids))
-        idx, scores = self.searcher.search(emb.cpu().numpy() if self.backend == "host" else emb,
-                                           fetch)
+        with span("serve.recall.search"):
+            idx, scores = self.searcher.search(
+                emb.cpu().numpy() if self.backend == "host" else emb, fetch)
         rec_ids, rec_scores = [], []
-        for row in range(len(idx)):
-            hist = set(int(x) for x in histories[row]) if histories else set()
-            ids_row, sc_row = [], []
-            for j, i in enumerate(idx[row]):
-                item = int(self.item_ids[i])
-                if item not in hist:
-                    ids_row.append(item)
-                    sc_row.append(float(scores[row][j]))
-                if len(ids_row) >= k:
-                    break
-            rec_ids.append(ids_row)
-            rec_scores.append(sc_row)
+        with span("serve.recall.dedup"):
+            for row in range(len(idx)):
+                hist = set(int(x) for x in histories[row]) if histories else set()
+                ids_row, sc_row = [], []
+                for j, i in enumerate(idx[row]):
+                    item = int(self.item_ids[i])
+                    if item not in hist:
+                        ids_row.append(item)
+                        sc_row.append(float(scores[row][j]))
+                    if len(ids_row) >= k:
+                        break
+                rec_ids.append(ids_row)
+                rec_scores.append(sc_row)
+        if active():
+            count("recall.fetched", len(idx) * fetch)
+            count("recall.kept", sum(map(len, rec_ids)))
         return rec_ids, rec_scores
 
 
@@ -262,39 +272,48 @@ class CascadeRecommender:
                   ) -> Tuple[List[List[int]], List[List[float]]]:
         """Top-k per user row by ranker score over the recall stage's
         ``fetch`` candidates (history already excluded by recall)."""
-        cand_ids, _ = self.recall.recommend(user_batch, k=self.fetch, histories=histories)
-        n_users, F = len(cand_ids), self.fetch
-        flat = np.zeros((n_users, F), np.int64)
-        valid = np.zeros((n_users, F), bool)
-        for r, ids_row in enumerate(cand_ids):
-            flat[r, :len(ids_row)] = ids_row
-            valid[r, :len(ids_row)] = True
-        rows = np.full((n_users, F), -1, np.int64)
-        known = valid & (flat < len(self._pos))
-        rows[known] = self._pos[flat[known]]
-        valid &= rows >= 0
-        rows_t = torch.from_numpy(np.where(valid, rows, 0).reshape(-1)).to(self.device)
+        with span("serve.cascade"):
+            return self._recommend(user_batch, k, histories)
 
-        users = _tensors({n: user_batch[n] for n in user_batch
-                          if n.removesuffix("_mask") in self.user_feature_names},
-                         self.device)
-        batch = {n: v.repeat_interleave(F, dim=0) for n, v in users.items()}
-        batch.update({n: v[rows_t] for n, v in self._items.items()})
-        with torch.inference_mode():
-            logits = self.ranker_model(batch).reshape(n_users, F).cpu().numpy()
-        scores = np.where(valid, logits, -np.inf)
-        order = np.argsort(-scores, axis=1, kind="stable")
+    def _recommend(self, user_batch: Batch, k: int, histories) -> tuple:
+        cand_ids, _ = self.recall.recommend(user_batch, k=self.fetch, histories=histories)
+        with span("serve.cascade.join"):
+            n_users, F = len(cand_ids), self.fetch
+            flat = np.zeros((n_users, F), np.int64)
+            valid = np.zeros((n_users, F), bool)
+            for r, ids_row in enumerate(cand_ids):
+                flat[r, :len(ids_row)] = ids_row
+                valid[r, :len(ids_row)] = True
+            rows = np.full((n_users, F), -1, np.int64)
+            known = valid & (flat < len(self._pos))
+            rows[known] = self._pos[flat[known]]
+            valid &= rows >= 0
+            rows_t = torch.from_numpy(np.where(valid, rows, 0).reshape(-1)).to(self.device)
+
+            users = _tensors({n: user_batch[n] for n in user_batch
+                              if n.removesuffix("_mask") in self.user_feature_names},
+                             self.device)
+            batch = {n: v.repeat_interleave(F, dim=0) for n, v in users.items()}
+            batch.update({n: v[rows_t] for n, v in self._items.items()})
+        with span("serve.cascade.rank"), torch.inference_mode():
+            logits = self.ranker_model(batch).reshape(n_users, F)
+            with span("serve.cascade.rank.wait"):
+                logits = logits.cpu().numpy()
+        with span("serve.cascade.order"):
+            scores = np.where(valid, logits, -np.inf)
+            order = np.argsort(-scores, axis=1, kind="stable")
 
         rec_ids, rec_scores = [], []
-        for r in range(n_users):
-            ids_row, sc_row = [], []
-            for j in order[r][:k]:
-                if not valid[r, j]:
-                    break
-                ids_row.append(int(flat[r, j]))
-                sc_row.append(float(1 / (1 + np.exp(-scores[r, j]))))
-            rec_ids.append(ids_row)
-            rec_scores.append(sc_row)
+        with span("serve.cascade.lists"):
+            for r in range(n_users):
+                ids_row, sc_row = [], []
+                for j in order[r][:k]:
+                    if not valid[r, j]:
+                        break
+                    ids_row.append(int(flat[r, j]))
+                    sc_row.append(float(1 / (1 + np.exp(-scores[r, j]))))
+                rec_ids.append(ids_row)
+                rec_scores.append(sc_row)
         return rec_ids, rec_scores
 
 
@@ -401,21 +420,25 @@ def make_http_handler(rec):
             if self.path != "/recommend":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
-                batch = _user_batch_from_json(rec, req.get("users") or {})
-                k = int(req.get("k", 10))
-                if k <= 0:
-                    raise ValueError(f"k must be positive, got {k}")
-                histories = req.get("histories")
-                if histories is not None and len(histories) != len(batch["label"]):
-                    raise ValueError(f"histories has {len(histories)} rows for "
-                                     f"{len(batch['label'])} users")
-                ids, scores = rec.recommend(batch, k=k, histories=histories)
-                self._reply(200, {"ids": ids, "scores": scores})
-            except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
-                self._reply(400, {"error": str(e)})
+            with span("serve.request"):
+                try:
+                    with span("serve.parse"):
+                        length = int(self.headers.get("Content-Length", 0))
+                        req = json.loads(self.rfile.read(length) or b"{}")
+                        batch = _user_batch_from_json(rec, req.get("users") or {})
+                    k = int(req.get("k", 10))
+                    if k <= 0:
+                        raise ValueError(f"k must be positive, got {k}")
+                    histories = req.get("histories")
+                    if histories is not None and len(histories) != len(batch["label"]):
+                        raise ValueError(f"histories has {len(histories)} rows for "
+                                         f"{len(batch['label'])} users")
+                    ids, scores = rec.recommend(batch, k=k, histories=histories)
+                    code, out = 200, {"ids": ids, "scores": scores}
+                except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+                    code, out = 400, {"error": str(e)}
+                with span("serve.reply"):
+                    self._reply(code, out)
 
         def log_message(self, fmt, *args):
             logger.info("http: " + fmt % args)

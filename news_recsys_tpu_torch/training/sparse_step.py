@@ -86,6 +86,7 @@ table's B*L slots in :func:`collect_per_table`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -100,6 +101,7 @@ from ..ops.scatter_rows import scatter_rows_set, write_kept
 from ..parallel.mesh import sharded_names
 from ..parallel.sharded_embedding import active_mesh
 from ..utils.logging import get_logger
+from ..utils.profiling import active, count, span
 from .schedule import hold_cosine_floor
 from .trainer import AucHist, binned_auc_update
 
@@ -379,6 +381,12 @@ def _joint_dedup(per_table, table_vocab, spare, sharded: bool = False) -> Dict[s
     return out
 
 
+def distinct_real_rows(ids: torch.Tensor, vocab: int) -> int:
+    """The distinct real rows (1 to ``vocab - 1``) among ``ids``: a wait for
+    the device."""
+    return int(torch.unique(ids[(ids >= 1) & (ids < vocab)]).numel())
+
+
 def stochastic_round_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """float32 -> bfloat16 with stochastic rounding: ``noise`` (x's shape,
     integers in [0, 2**16)) is added below the bfloat16 mantissa boundary
@@ -622,19 +630,35 @@ def make_table_updater(cfg: Config, tables_spec, noise: Optional[NoiseFn] = None
                 logger.info(f"table {t}: {route} route at {sum(p[0].shape[0] for p in pairs)} "
                             f"slots of {padded_vocab(table_vocab[t][0])} rows")
 
+    def count_rows(per_table, tables, dense_ids, layouts) -> None:
+        """Each table's ``rows.passed`` (the dense route's whole table, a row
+        route's slots) and ``rows.distinct`` (the distinct real rows of its
+        ids or its layout's rows, counted when the spans are read: no launch
+        here) on the open span."""
+        for t, pairs in sorted(per_table.items()):
+            if t in dense_ids:
+                passed, ids = tables[t].shape[0], dense_ids[t]
+            else:
+                passed, ids = sum(p[0].shape[0] for p in pairs), layouts[t][0]
+            count(f"rows.passed.{t}", passed)
+            count(f"rows.distinct.{t}",
+                  partial(distinct_real_rows, ids, int(table_vocab[t][0])))
+
     def update(state, per_table, step: int, lr: float) -> None:
         tables = state.model.embedder.tables
         dense = sorted(t for t, pairs in per_table.items() if dense_route(t, pairs))
         log_routes(per_table, dense)
+        dense_ids = {t: torch.cat([p[0] for p in per_table[t]]) for t in dense}
         for ti, t in enumerate(dense):
-            pairs = per_table[t]
             dense_rowwise_adagrad_update(
-                tables[t], state.emb_acc[t], torch.cat([p[0] for p in pairs]),
-                torch.cat([p[1] for p in pairs]), lr, max_id=int(table_vocab[t][0]) - 1,
+                tables[t], state.emb_acc[t], dense_ids[t],
+                torch.cat([p[1] for p in per_table[t]]), lr, max_id=int(table_vocab[t][0]) - 1,
                 noise=noise_of(tables[t], step, DENSE_ROUTE_INDEX + ti, tables[t].shape))
         rest = {t: pairs for t, pairs in per_table.items() if t not in dense}
         layouts = (_unique_rows(rest, table_vocab, spare) if unique
                    else _joint_dedup(rest, table_vocab, spare, sharded))
+        if active():
+            count_rows(per_table, tables, dense_ids, layouts)
         for ti, (t, (rows, grads)) in enumerate(sorted(layouts.items())):
             nz = noise_of(tables[t], step, ti, grads.shape)
             if adagrad:
@@ -759,44 +783,54 @@ def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseF
     lookup_mesh = sharded_tables(model, mesh)
 
     def sparse_train_step(state: SparseTrainState, batch, hist: AucHist):
-        tables = state.model.embedder.tables
-        with torch.no_grad():
-            rows = gather_large_rows(schema, batch, tables, large, lookup_mesh)
-        for r in rows.values():
-            r.requires_grad_()
-        labels = batch["label"][:, 0]
-        weights = batch.get("_valid")
-        if weights is None:
-            weights = torch.ones_like(labels)
-        logits = state.model.forward_from_fields(
-            *fields_from_rows(schema, batch, rows, tables, large, unpooled, lookup_mesh))
-        per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
-        loss = (per_ex * weights).sum() / global_weight_sum(weights, mesh).clamp(min=1.0)
-        opt = state.dense_opt
-        if opt is not None:
-            opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if opt is not None:
-            (loss,) = sum_over_data(mesh, opt.param_groups[0]["params"], loss)
-        elif mesh is not None and mesh.data > 1:
-            loss = mesh.all_reduce_(loss.detach().clone(), "data")
+        with span("train.step"):
+            return _step(state, batch, hist)
 
-        # optax evaluates the schedule at the pre-increment step count; the
-        # rowwise update uses the same lr
-        lr = sched(state.step)
-        with torch.no_grad():
+    def _step(state: SparseTrainState, batch, hist: AucHist):
+        tables = state.model.embedder.tables
+        with span("train.step.gather"), torch.no_grad():
+            rows = gather_large_rows(schema, batch, tables, large, lookup_mesh)
+        with span("train.step.forward"):
+            for r in rows.values():
+                r.requires_grad_()
+            labels = batch["label"][:, 0]
+            weights = batch.get("_valid")
+            if weights is None:
+                weights = torch.ones_like(labels)
+            logits = state.model.forward_from_fields(
+                *fields_from_rows(schema, batch, rows, tables, large, unpooled, lookup_mesh))
+            per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+            loss = (per_ex * weights).sum() / global_weight_sum(weights, mesh).clamp(min=1.0)
+        opt = state.dense_opt
+        with span("train.step.backward"):
             if opt is not None:
-                for group in opt.param_groups:
-                    group["lr"] = lr
-                opt.step()
-            per_table = gather_slots(
-                collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()}, large),
-                mesh)
-            if K == 1:
-                table_update(state, per_table, state.step, lr)
-            else:
-                _buffer(state, per_table)
-            binned_auc_update(hist, torch.sigmoid(logits), labels, weights)
+                opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if opt is not None:
+                (loss,) = sum_over_data(mesh, opt.param_groups[0]["params"], loss)
+            elif mesh is not None and mesh.data > 1:
+                loss = mesh.all_reduce_(loss.detach().clone(), "data")
+
+        with torch.no_grad():
+            with span("train.step.adamw"):
+                # optax evaluates the schedule at the pre-increment step
+                # count; the rowwise update uses the same lr
+                lr = sched(state.step)
+                if opt is not None:
+                    for group in opt.param_groups:
+                        group["lr"] = lr
+                    opt.step()
+            with span("train.step.rows"):
+                per_table = gather_slots(
+                    collect_per_table(schema, batch, {k: r.grad for k, r in rows.items()},
+                                      large), mesh)
+            with span("train.step.table_update"):
+                if K == 1:
+                    table_update(state, per_table, state.step, lr)
+                else:
+                    _buffer(state, per_table)
+            with span("train.step.auc"):
+                binned_auc_update(hist, torch.sigmoid(logits), labels, weights)
         state.step += 1
         return loss.detach(), logits.detach()
 
@@ -818,7 +852,7 @@ def make_sparse_train_step(model: nn.Module, cfg: Config, noise: Optional[NoiseF
         pend = state.pending
         if pend is None or pend.count == 0:
             return
-        with torch.no_grad():
+        with span("train.flush"), torch.no_grad():
             per_table = {t: [(torch.where(pend.valid[:, None], ids, 0).reshape(-1),
                               pend.grads[t].reshape(-1, pend.grads[t].shape[-1]))]
                          for t, ids in pend.ids.items()}

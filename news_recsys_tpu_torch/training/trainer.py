@@ -58,7 +58,7 @@ from ..parallel.distributed import broadcast_str, process_count, process_index
 from ..parallel.mesh import mesh_from_config
 from ..parallel.sharded_embedding import shard_parameters
 from ..utils.logging import get_logger
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from ..utils.tensorboard import SummaryWriter
 from .checkpoint import CheckpointManager, load_state, load_state_dict, save_state
 from .metrics import compute_user_metrics, format_validation_block
@@ -235,7 +235,8 @@ class Trainer:
             if mats is not None:
                 yield (c, *mats, idx[pos:pos + c])
             else:
-                slab = self.upload_slab(packer, rows[pos * bs:(pos + c) * bs])
+                with span("train.epoch.upload"):
+                    slab = self.upload_slab(packer, rows[pos * bs:(pos + c) * bs])
                 yield (c, *slab, torch.arange(c * bs, device=self.device).view(c, bs))
             pos += c
 
@@ -258,51 +259,59 @@ class Trainer:
         (state, metrics). ``skip_steps`` leaves out the first batches of that
         permutation (steps trained before a restart), as the JAX trainer's
         does."""
+        profiling = (trace(os.path.join(self.log_dir, "profile"))
+                     if self.profile_steps > 0 and epoch == 0 and self.is_main
+                     else contextlib.nullcontext())
+        with profiling, span("train.epoch"):
+            return self._train_epoch(state, ds, epoch, skip_steps)
+
+    def _train_epoch(self, state, ds: PackedDataset, epoch: int, skip_steps: int):
         hp = self.cfg.train_hparams
         bs = self.cfg.dataset.batch_size
         packer, mats = self._packer(ds)
         layout = packer.layout_key()
-        rng = np.random.default_rng(np.random.SeedSequence([self.cfg.dataset.shuffle_seed, epoch]))
-        order = rng.permutation(packer.n)
-        nb_full = packer.n // bs
-        start = min(skip_steps, nb_full)
-        nb = max(0, min(nb_full - start, hp.max_step - self.global_step))
-        cap = None if mats is not None else self._slab_chunk_cap(packer, bs)
-        rows, bl = self._rank_rows(order[start * bs:(start + nb) * bs], bs)
-        ones = torch.ones(bl, device=self.device)
-        carry = self._epoch_carry(epoch, state.step, nb)
+        with span("train.epoch.plan"):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.cfg.dataset.shuffle_seed, epoch]))
+            order = rng.permutation(packer.n)
+            nb_full = packer.n // bs
+            start = min(skip_steps, nb_full)
+            nb = max(0, min(nb_full - start, hp.max_step - self.global_step))
+            cap = None if mats is not None else self._slab_chunk_cap(packer, bs)
+            rows, bl = self._rank_rows(order[start * bs:(start + nb) * bs], bs)
+            ones = torch.ones(bl, device=self.device)
+            carry = self._epoch_carry(epoch, state.step, nb)
         K = hp.embedding_update_period if self.sparse_embeddings else 1
-        profiling = (trace(os.path.join(self.log_dir, "profile"))
-                     if self.profile_steps > 0 and epoch == 0 and self.is_main
-                     else contextlib.nullcontext())
         t0 = time.perf_counter()
         loss = None
-        with profiling:
-            for c, int_src, float_src, idx in self._chunks(
-                    packer, mats, rows, bl, lambda nb, pos: self._chunk_len(nb, pos, cap)):
-                for j in range(c):
+        for c, int_src, float_src, idx in self._chunks(
+                packer, mats, rows, bl, lambda nb, pos: self._chunk_len(nb, pos, cap)):
+            for j in range(c):
+                with span("train.batch"):
                     batch = unpack_batch(int_src[idx[j]], float_src[idx[j]], ones, layout)
-                    loss, _ = self.train_step(state, batch, carry)
-                    if K > 1 and (j + 1) % K == 0:
-                        self.train_step.flush(state)
-                if K > 1:
-                    self.train_step.flush(state)           # the chunk's tail
-                self.global_step += c
-                self._maybe_step_checkpoint(state)
-        loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
+                loss, _ = self.train_step(state, batch, carry)
+                if K > 1 and (j + 1) % K == 0:
+                    self.train_step.flush(state)
+            if K > 1:
+                self.train_step.flush(state)           # the chunk's tail
+            self.global_step += c
+            self._maybe_step_checkpoint(state)
+        with span("train.epoch.sync"):
+            loss_val = float(loss) if loss is not None else float("nan")   # waits for the device
         dt = time.perf_counter() - t0
-        metrics = {"train_loss": loss_val, **self._carry_metrics(carry),
-                   "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
-        self._log_scalars(epoch=epoch, **metrics)
-        if self.is_main:
-            with open(self.train_log_path, "a") as f:
-                f.write(f"Epoch {epoch} Training Metrics:\n")
-                for k, v in metrics.items():
-                    f.write(f"  {k}: {v:.4f}\n")
-                f.write("-" * 20 + "\n")
-        extra = f" auc~{metrics['train_auc']:.4f}" if "train_auc" in metrics else ""
-        logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f}{extra} "
-                    f"ex/s={metrics['examples_per_sec']:.0f}")
+        with span("train.epoch.metrics"):
+            metrics = {"train_loss": loss_val, **self._carry_metrics(carry),
+                       "examples_per_sec": nb * bs / max(dt, 1e-9), "steps": nb}
+            self._log_scalars(epoch=epoch, **metrics)
+            if self.is_main:
+                with open(self.train_log_path, "a") as f:
+                    f.write(f"Epoch {epoch} Training Metrics:\n")
+                    for k, v in metrics.items():
+                        f.write(f"  {k}: {v:.4f}\n")
+                    f.write("-" * 20 + "\n")
+            extra = f" auc~{metrics['train_auc']:.4f}" if "train_auc" in metrics else ""
+            logger.info(f"epoch {epoch}: steps={nb} loss={loss_val:.4f}{extra} "
+                        f"ex/s={metrics['examples_per_sec']:.0f}")
         return state, metrics
 
     def _rank_rows(self, rows: np.ndarray, bs: int) -> Tuple[np.ndarray, int]:

@@ -1731,6 +1731,49 @@ def test_host_backend_on_a_card_recommender(cuda):
             assert near or hi[r][j] == di[r][j], (r, j)
 
 
+# -- the program's spans and counters ------------------------------------------
+
+
+@pytest.mark.cuda
+def test_recorded_steps_add_no_device_sync(cuda):
+    """20 recorded sparse steps of the attention ranker at batch 512 raise
+    no more sync warnings than 20 unrecorded ones: a count
+    (``utils.profiling.count``) never waits for the card."""
+    import contextlib
+    import warnings
+
+    from news_recsys_tpu_torch import zoo
+    from news_recsys_tpu_torch.utils import profiling
+
+    cfg = zoo.attention_config()
+    model = build_ranker(cfg, seed=0, device=cuda)
+    step, state = make_sparse_train_step(model, cfg), init_sparse_state(model, cfg)
+    arrays = zoo.attention_arrays(cfg.dataset.batch_size, seed=1)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()}
+    hist = AucHist.zeros(cuda)
+    for _ in range(3):
+        step(state, batch, hist)
+    torch.cuda.synchronize()
+    profiling.clear()
+    found = []
+    for on in (False, True):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with profiling.recording() if on else contextlib.nullcontext():
+                    for _ in range(20):
+                        step(state, batch, hist)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        found.append(sum("synchroniz" in str(w.message) for w in caught))
+    spans = profiling.recorded().spans
+    profiling.clear()
+    assert sum(s.name == "train.step" for s in spans) == 20
+    assert found[1] <= found[0], found
+
+
 # -- multi-process training on the card -----------------------------------------------
 
 

@@ -318,16 +318,6 @@ def test_device_engine_defaults_to_the_card():
 
 # -- profiling -----------------------------------------------------------------
 
-def test_step_timer_times_steps():
-    t = profiling.StepTimer(64)
-    for _ in range(3):
-        t.start()
-        t.stop()
-    t.stop()                                      # a stop with no start adds nothing
-    s = t.summary()
-    assert s["steps"] == 3 and s["step_ms_p50"] >= 0 and s["examples_per_sec"] > 0
-
-
 def read_trace(log_dir: str) -> dict:
     (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json*"))
     opener = gzip.open if path.endswith(".gz") else open

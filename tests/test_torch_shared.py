@@ -2,10 +2,10 @@
 the originals on the CPU: ``config``, ``zoo``, ``data.packed_dataset``,
 ``data.synthetic``, ``data.text_format``, ``data.hist_pairs``,
 ``training.metrics``, ``utils.logging``, ``utils.feature_id_mapper``,
-``utils.tensorboard``, ``utils.log_analysis`` and ``utils.profiling.
-StepTimer``; the numpy parts of the retrieval slice: ``models.itemcf``,
-``models.dssm.item_log_q`` and ``training.retrieval.dedup_hit_rate``; and
-the two C++ sources the port builds (``native/*.cpp``).
+``utils.tensorboard`` and ``utils.log_analysis``; the numpy parts of the
+retrieval slice: ``models.itemcf``, ``models.dssm.item_log_q`` and
+``training.retrieval.dedup_hit_rate``; and the two C++ sources the port
+builds (``native/*.cpp``).
 
 The port imports nothing of the JAX package, so it keeps a copy of what the
 two share. The reference is frozen; these tests are what keeps a copy from
@@ -36,7 +36,6 @@ from news_recsys_tpu.training import metrics as jmetrics
 from news_recsys_tpu.utils import feature_id_mapper as jmapper
 from news_recsys_tpu.utils import log_analysis as jlog
 from news_recsys_tpu.utils import logging as jlogging
-from news_recsys_tpu.utils import profiling as jprofiling
 from news_recsys_tpu.utils import tensorboard as jtb
 from news_recsys_tpu_torch import config as tconfig
 from news_recsys_tpu_torch import zoo as tzoo
@@ -51,7 +50,6 @@ from news_recsys_tpu_torch.training import metrics as tmetrics
 from news_recsys_tpu_torch.utils import feature_id_mapper as tmapper
 from news_recsys_tpu_torch.utils import log_analysis as tlog
 from news_recsys_tpu_torch.utils import logging as tlogging
-from news_recsys_tpu_torch.utils import profiling as tprofiling
 from news_recsys_tpu_torch.utils import tensorboard as ttb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -461,19 +459,6 @@ def test_log_analysis_equal(tmp_path, log):
                 module.format_best_epoch(parsed, name)
     else:
         assert tlog.format_best_epoch(got, name) == jlog.format_best_epoch(want, name)
-
-
-def test_step_timer_equal():
-    """``StepTimer`` is the original line for line and reports what it does
-    on the same durations."""
-    import inspect
-
-    assert inspect.getsource(tprofiling.StepTimer) == inspect.getsource(jprofiling.StepTimer)
-    timers = [tprofiling.StepTimer(512), jprofiling.StepTimer(512)]
-    for t in timers:
-        t.durations = [0.004, 0.002, 0.010]
-    assert timers[0].summary() == timers[1].summary()
-    assert tprofiling.StepTimer(8).summary() == jprofiling.StepTimer(8).summary() == {}
 
 
 @pytest.mark.parametrize("source", ["ann_topk.cpp", "text_parser.cpp"])
