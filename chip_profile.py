@@ -161,7 +161,7 @@ def layer_times(casc, reqs) -> dict:
     totals = collections.defaultdict(float)
     spans = [(casc.recall, "_encode", "recall: user tower"),
              (casc.recall.searcher, "search", "recall: matmul + topk + copy"),
-             (casc.recall, "recommend", "recall: total (incl. dedup loop)"),
+             (casc.recall, "recommend", "recall: total (incl. history dedup)"),
              (casc.ranker_model, "forward", f"rank: {casc.ranker_cfg.name} forward")]
     for obj, name, label in spans:
         setattr(obj, name, sync_timer(getattr(obj, name), label, totals))

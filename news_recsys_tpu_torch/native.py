@@ -26,6 +26,7 @@ import threading
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from .utils.logging import get_logger
 
@@ -89,6 +90,8 @@ class HostTopKSearcher:
     in and out). Ties go to the lower index; ``k`` above the corpus pads
     with index -1 and score -inf."""
 
+    device = torch.device("cpu")        # where ``search_tensors`` returns its results
+
     def __init__(self, normalize: bool = False, n_threads: int = 0):
         self.normalize = normalize
         self.n_threads = n_threads or (os.cpu_count() or 1)
@@ -121,6 +124,12 @@ class HostTopKSearcher:
                               idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                               _float_ptr(scores), self.n_threads)
         return idx, scores
+
+    def search_tensors(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`search` of a tensor of queries on any device, as CPU tensors
+        over the result's arrays (no copy)."""
+        idx, scores = self.search(queries.cpu().numpy(), k)
+        return torch.from_numpy(idx), torch.from_numpy(scores)
 
 
 def load_text_parser() -> ctypes.CDLL:

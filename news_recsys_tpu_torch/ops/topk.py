@@ -9,8 +9,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.profiling import span
-
 
 def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """``x`` over its L2 norm along ``axis``, the norm held at ``eps`` or more
@@ -20,8 +18,9 @@ def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.T
 
 class TopKSearcher:
     """Inner-product top-k: ``update_embedding`` snapshots a corpus onto
-    ``device``; ``search`` returns (indices, scores) as numpy arrays. With
-    ``normalize`` the corpus and the queries are L2-normalised first (cosine)."""
+    ``device``; ``search_tensors`` returns (indices, scores) as tensors there,
+    ``search`` as numpy arrays. With ``normalize`` the corpus and the queries
+    are L2-normalised first (cosine)."""
 
     def __init__(self, device="cuda", normalize: bool = False):
         self.device = torch.device(device)
@@ -33,17 +32,19 @@ class TopKSearcher:
         self.corpus = l2_normalize(corpus) if self.normalize else corpus
 
     @torch.inference_mode()
-    def search(self, queries, k: int, batch_size: int = 8192) -> Tuple[np.ndarray, np.ndarray]:
+    def search_tensors(self, queries, k: int,
+                       batch_size: int = 8192) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(indices, scores), each (n, k), on ``device``; nothing is copied to
+        the host and nothing waits for the device."""
         if self.corpus is None:
             raise RuntimeError("update_embedding must be called before search")
         queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         if self.normalize:
             queries = l2_normalize(queries)
-        idx_out, score_out = [], []
-        for start in range(0, queries.shape[0], batch_size):
-            scores = queries[start:start + batch_size] @ self.corpus.T
-            top_scores, top_idx = torch.topk(scores, k, dim=1)
-            with span("serve.recall.search.wait"):
-                idx_out.append(top_idx.cpu().numpy())
-                score_out.append(top_scores.cpu().numpy())
-        return np.concatenate(idx_out), np.concatenate(score_out)
+        tops = [torch.topk(queries[start:start + batch_size] @ self.corpus.T, k, dim=1)
+                for start in range(0, queries.shape[0], batch_size)]
+        return torch.cat([t.indices for t in tops]), torch.cat([t.values for t in tops])
+
+    def search(self, queries, k: int, batch_size: int = 8192) -> Tuple[np.ndarray, np.ndarray]:
+        idx, scores = self.search_tensors(queries, k, batch_size)
+        return idx.cpu().numpy(), scores.cpu().numpy()

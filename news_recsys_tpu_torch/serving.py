@@ -24,6 +24,7 @@ the JAX package's bundles.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -86,6 +87,51 @@ def _read_meta(path: str) -> dict:
 
 
 BACKENDS = ("auto", "device", "host")
+_NO_ITEM = np.iinfo(np.int64).max       # pads a history row: equals no item id, sorts last
+
+
+def _history_lengths(histories, n_users: int) -> np.ndarray:
+    """(n_users,) int64 lengths of ``histories`` (all 0 where there are none)."""
+    if not histories:
+        return np.zeros(n_users, np.int64)
+    if len(histories) != n_users:
+        raise ValueError(f"histories has {len(histories)} rows for {n_users} users")
+    try:
+        return np.fromiter(map(len, histories), np.int64, n_users)
+    except TypeError as e:
+        raise ValueError(f"histories must be lists of item ids: {e}") from None
+
+
+def _history_matrix(histories, lens: np.ndarray) -> np.ndarray:
+    """(len(lens), H) int64, H the longest history (at least 1): row r holds
+    ``histories[r]`` sorted, then ``_NO_ITEM``."""
+    out = np.full((len(lens), max(int(lens.max(initial=0)), 1)), _NO_ITEM, np.int64)
+    if histories:
+        try:
+            flat = np.fromiter(itertools.chain.from_iterable(histories), np.int64,
+                               int(lens.sum()))
+        except (TypeError, ValueError, OverflowError) as e:
+            raise ValueError(f"histories must hold int64 item ids: {e}") from None
+        out[np.arange(out.shape[1]) < lens[:, None]] = flat
+        out.sort(axis=1)
+    return out
+
+
+def first_unseen(ids: torch.Tensor, scores: torch.Tensor, hist: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each row's first ``k`` candidates of ``ids`` (B, F), in their order,
+    whose id its row of ``hist`` (B, H), sorted, lacks: (ids, scores), each
+    (B, k) with a row's kept candidates first, and how many a row kept (B,);
+    ``k`` at most F. One binary search a candidate, so memory is O(B (F + H));
+    nothing waits for the device."""
+    pos = torch.searchsorted(hist, ids).clamp_(max=hist.shape[1] - 1)
+    keep = hist.gather(1, pos) != ids
+    rank = keep.cumsum(1)
+    keep &= rank <= k
+    slot = torch.where(keep, rank - 1, k)         # column k takes the dropped ones
+    kept_ids = ids.new_zeros(len(ids), k + 1).scatter_(1, slot, ids)[:, :k]
+    kept_scores = scores.new_zeros(len(ids), k + 1).scatter_(1, slot, scores)[:, :k]
+    return kept_ids, kept_scores, keep.sum(1)
 
 
 class Recommender:
@@ -121,6 +167,8 @@ class Recommender:
         else:
             self.searcher = TopKSearcher(device=self.device)
             self.searcher.update_embedding(corpus)
+        # corpus row -> item id, where the search leaves its results
+        self._item_of_row = torch.as_tensor(self.item_ids, device=self.searcher.device)
         logger.info(f"Recommender ready: {len(self.item_ids)} items on {self.device}, "
                     f"search backend {self.backend}")
 
@@ -176,30 +224,33 @@ class Recommender:
             return self._recommend(user_batch, k, histories)
 
     def _recommend(self, user_batch: Batch, k: int, histories) -> tuple:
+        users = PackedDataset(dict(user_batch))
+        lens = _history_lengths(histories, len(users))
+        if not len(users):
+            return [], []
         with span("serve.recall.tower"), torch.inference_mode():
-            emb = _l2(self._encode(PackedDataset(dict(user_batch)), self.model.user_embedding))
-        max_hist = max((len(h) for h in histories), default=0) if histories else 0
-        fetch = min(k + max_hist, len(self.item_ids))
+            emb = _l2(self._encode(users, self.model.user_embedding))
+        fetch = min(k + int(lens.max()), len(self.item_ids))
+        k = min(k, fetch)                                   # no row keeps more than it fetched
         with span("serve.recall.search"):
-            idx, scores = self.searcher.search(
-                emb.cpu().numpy() if self.backend == "host" else emb, fetch)
-        rec_ids, rec_scores = [], []
-        with span("serve.recall.dedup"):
-            for row in range(len(idx)):
-                hist = set(int(x) for x in histories[row]) if histories else set()
-                ids_row, sc_row = [], []
-                for j, i in enumerate(idx[row]):
-                    item = int(self.item_ids[i])
-                    if item not in hist:
-                        ids_row.append(item)
-                        sc_row.append(float(scores[row][j]))
-                    if len(ids_row) >= k:
-                        break
-                rec_ids.append(ids_row)
-                rec_scores.append(sc_row)
+            idx, scores = self.searcher.search_tensors(emb, fetch)
+        with span("serve.recall.dedup"), torch.inference_mode():
+            # pageable memory is staged before the call returns: the copy waits for nothing
+            hist = torch.from_numpy(_history_matrix(histories, lens)).to(idx.device,
+                                                                          non_blocking=True)
+            ids, scores, kept = first_unseen(self._item_of_row[idx], scores, hist, k)
+            # one copy: ids, the count kept, the scores' float32 bits, all int64
+            packed = torch.cat([ids, kept[:, None], scores.view(torch.int32).long()], 1)
+            with span("serve.recall.search.wait"):
+                packed = packed.cpu().numpy()
+            n_kept = packed[:, k].tolist()
+            rec_ids = packed[:, :k].tolist()
+            rec_scores = packed[:, k + 1:].astype(np.int32).view(np.float32).tolist()
+            for ids_row, scores_row, n in zip(rec_ids, rec_scores, n_kept):
+                del ids_row[n:], scores_row[n:]
         if active():
-            count("recall.fetched", len(idx) * fetch)
-            count("recall.kept", sum(map(len, rec_ids)))
+            count("recall.fetched", len(users) * fetch)
+            count("recall.kept", sum(n_kept))
         return rec_ids, rec_scores
 
 

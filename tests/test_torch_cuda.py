@@ -1692,11 +1692,9 @@ def test_slab_path_equals_the_resident_path_on_cuda(cuda, tmp_path):
     np.testing.assert_array_equal(out["slab"][2], out["resident"][2])
 
 
-@pytest.mark.cuda
-def test_host_backend_on_a_card_recommender(cuda):
-    """A Recommender on the card with ``backend="host"``: the user tower on
-    the card, the search in C++ on a CPU copy of the corpus; the device
-    backend's ids but for near ties, scores within 1e-5."""
+def backend_recommenders(cuda) -> tuple:
+    """A small DSSM's ``Recommender`` on the card, once a backend, over 399
+    items (ids 1..399), and the generator that drew the items."""
     from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.serving import Recommender
     raw = {"name": "dssm",
@@ -1714,21 +1712,72 @@ def test_host_backend_on_a_card_recommender(cuda):
     items = PackedDataset({"item_id": np.arange(1, 400, dtype=np.int32),
                            "category": rng.integers(1, 8, 399).astype(np.int32),
                            "label": np.zeros((399, 1), np.float32)})
-    recs = {b: Recommender(cfg, build_dssm(cfg, seed=3, device=cuda), items, device=cuda,
-                           backend=b) for b in ("auto", "host", "device")}
+    return {b: Recommender(cfg, build_dssm(cfg, seed=3, device=cuda), items, device=cuda,
+                           backend=b) for b in ("auto", "host", "device")}, rng
+
+
+def assert_same_but_near_ties(host, device, k):
+    """The host backend's ids are the device backend's but where a score is
+    within 1e-5 of a neighbour's; the scores within 1e-5."""
+    (hi, hs), (di, ds_) = host, device
+    assert len(hi) == len(di)
+    for r in range(len(di)):
+        np.testing.assert_allclose(hs[r], ds_[r], rtol=0, atol=1e-5)
+        gaps = np.abs(np.diff(ds_[r]))
+        for j in range(len(di[r])):
+            near = (j > 0 and gaps[j - 1] <= 1e-5) or (j < k - 1 and gaps[j] <= 1e-5)
+            assert near or hi[r][j] == di[r][j], (r, j)
+
+
+@pytest.mark.cuda
+def test_host_backend_on_a_card_recommender(cuda):
+    """A Recommender on the card with ``backend="host"``: the user tower on
+    the card, the search in C++ on a CPU copy of the corpus; the device
+    backend's ids but for near ties, scores within 1e-5."""
+    recs, rng = backend_recommenders(cuda)
     assert recs["auto"].backend == "device" and recs["host"].searcher.corpus is not None
     hist = rng.integers(1, 400, (32, 6)).astype(np.int32)
     batch = {"user_id": rng.integers(1, 64, 32).astype(np.int32), "hist": hist,
              "hist_mask": (hist != 0).astype(np.float32), "label": np.zeros((32, 1), np.float32)}
     hists = [[int(i) for i in row if i] for row in hist]
-    (hi, hs), (di, ds_) = (recs[b].recommend(batch, k=10, histories=hists)
-                           for b in ("host", "device"))
-    for r in range(32):
-        np.testing.assert_allclose(hs[r], ds_[r], rtol=0, atol=1e-5)
-        gaps = np.abs(np.diff(ds_[r]))
-        for j in range(10):
-            near = (j > 0 and gaps[j - 1] <= 1e-5) or (j < 9 and gaps[j] <= 1e-5)
-            assert near or hi[r][j] == di[r][j], (r, j)
+    assert_same_but_near_ties(*(recs[b].recommend(batch, k=10, histories=hists)
+                                for b in ("host", "device")), k=10)
+
+
+@pytest.mark.cuda
+def test_backends_exclude_ragged_histories_alike(cuda):
+    """Histories of 0-20 ids, some outside the corpus (0, 400 and above), a
+    few repeated: the history exclusion on the card's tensors keeps the host
+    backend's ids but for near ties, and both count the same ``recall.fetched``
+    and ``recall.kept``."""
+    from news_recsys_tpu_torch.utils import profiling
+
+    recs, _ = backend_recommenders(cuda)
+    rng = np.random.default_rng(53)
+    n = 64
+    hist = rng.integers(1, 400, (n, 6)).astype(np.int32)
+    batch = {"user_id": rng.integers(1, 64, n).astype(np.int32), "hist": hist,
+             "hist_mask": (hist != 0).astype(np.float32), "label": np.zeros((n, 1), np.float32)}
+    top = recs["device"].recommend(batch, k=40)[0]
+    hists = [[] if r % 7 == 0 else
+             (rng.choice(top[r][:30], int(rng.integers(0, 16)), replace=False).tolist()
+              + rng.choice([0, 400, 401, 10**9], int(rng.integers(0, 4))).tolist())
+             for r in range(n)]
+    hists[1] = top[1][:17] + [0, 400, top[1][3]]
+    assert max(map(len, hists)) == 20 and min(map(len, hists)) == 0
+    got, counts = {}, {}
+    for b in ("host", "device"):
+        profiling.clear()
+        with profiling.recording():
+            got[b] = recs[b].recommend(batch, k=10, histories=hists)
+        counts[b] = next(s.counts for s in profiling.recorded().spans if s.name == "serve.recall")
+    profiling.clear()
+    assert counts["host"] == counts["device"]
+    assert counts["device"]["recall.fetched"] == n * 30
+    assert counts["device"]["recall.kept"] == n * 10
+    assert_same_but_near_ties(got["host"], got["device"], k=10)
+    for ids, h in zip(got["device"][0], hists):
+        assert len(ids) == 10 and not set(ids) & set(h)
 
 
 # -- the program's spans and counters ------------------------------------------

@@ -144,6 +144,56 @@ def test_recall_history_dedup(stacks):
     assert ids[0][:4] == base[0][4:]
 
 
+K = 8
+# name: (users, k, histories from each row's corpus in the search's order)
+HISTORY_CASES = {
+    "none": (6, K, lambda top: None),
+    "all_empty": (6, K, lambda top: [[] for _ in top]),
+    "ragged": (6, K, lambda top: [row[1:3 * r:3] for r, row in enumerate(top)]),
+    "duplicates": (6, K, lambda top: [row[:3] * 2 + row[:1] for row in top]),
+    "outside_the_corpus": (6, K, lambda top: [[0, N_ITEMS + 1, -7, 10**12] + row[2:4]
+                                              for row in top]),
+    "longer_than_k": (6, K, lambda top: [row[:K + 5] for row in top]),
+    "fetch_capped_by_the_corpus": (6, N_ITEMS - 4, lambda top: [row[::7] for row in top]),
+    "zero_users": (0, K, lambda top: []),
+    "largest_item_id": (6, N_ITEMS - 3, lambda top: [[N_ITEMS, row[0]][:1 + r % 2]
+                                                     for r, row in enumerate(top)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HISTORY_CASES))
+def test_recall_keeps_the_first_k_unseen(stacks, monkeypatch, case):
+    """``Recommender.recommend`` against the rule, applied to the search's
+    own output: each row's first ``k`` fetched ids, in the search's order,
+    that its history lacks, with their scores; ``k`` plus the longest
+    history fetched, at most the corpus."""
+    recall = stacks[1].recall
+    n, k, make = HISTORY_CASES[case]
+    searched = []
+    search = recall.searcher.search_tensors
+    monkeypatch.setattr(recall.searcher, "search_tensors",
+                        lambda q, f: searched.append(search(q, f)) or searched[-1])
+    batch = users(n, seed=8)
+    recall.recommend(batch, k=N_ITEMS)
+    top = [recall.item_ids[row].tolist() for row in searched[0][0].numpy()] if n else []
+    histories = make(top)
+    searched.clear()
+    got = recall.recommend(batch, k=k, histories=histories)
+    want_ids, want_scores = [], []
+    rows = zip(*(t.tolist() for t in searched[0])) if n else ()
+    for r, (idx, scores) in enumerate(rows):
+        assert len(idx) == min(k + max(map(len, histories or [[]])), N_ITEMS)
+        seen = set(histories[r]) if histories else set()
+        kept = [(int(recall.item_ids[i]), s) for i, s in zip(idx, scores)
+                if recall.item_ids[i] not in seen][:k]
+        want_ids.append([i for i, _ in kept])
+        want_scores.append([s for _, s in kept])
+    assert got == (want_ids, want_scores)
+    assert len(searched) == (1 if n else 0)
+    if case == "fetch_capped_by_the_corpus":
+        assert all(len(row) < k for row in got[0])
+
+
 def test_bundle_round_trip(stacks, tmp_path):
     tcasc = stacks[1]
     batch = users(8, seed=5)
@@ -218,6 +268,12 @@ def test_http_shim(stacks, server):
     ({"user_id": [1, 2], "hist": [[1, 0], [2, 3]]}, {"k": 0}, "k must be positive"),
     ({"user_id": [1, 2], "hist": [[1, 0], [2, 3]]}, {"histories": [[1]]}, "histories"),
     ({"user_id": [1, 2], "hist": [[1, 0], [2]]}, {}, ""),
+    ({"user_id": [1, 2], "hist": [[1, 0], [2, 3]]}, {"histories": [["x"], [1]]},
+     "histories must hold int64 item ids"),
+    ({"user_id": [1, 2], "hist": [[1, 0], [2, 3]]}, {"histories": [[2**70], [1]]},
+     "histories must hold int64 item ids"),
+    ({"user_id": [1, 2], "hist": [[1, 0], [2, 3]]}, {"histories": [5, [1]]},
+     "histories must be lists"),
 ])
 def test_http_shim_rejects_bad_requests(server, users_json, extra, match):
     code, out = post(server, {"users": users_json, **extra})

@@ -430,7 +430,7 @@ SERVE_TREE = {"serve.request": None, "serve.parse": "serve.request",
               "serve.cascade": "serve.request", "serve.reply": "serve.request",
               "serve.recall": "serve.cascade", "serve.recall.tower": "serve.recall",
               "serve.recall.search": "serve.recall",
-              "serve.recall.search.wait": "serve.recall.search",
+              "serve.recall.search.wait": "serve.recall.dedup",
               "serve.recall.dedup": "serve.recall", "serve.cascade.join": "serve.cascade",
               "serve.cascade.rank": "serve.cascade",
               "serve.cascade.rank.wait": "serve.cascade.rank",
@@ -456,6 +456,31 @@ def test_served_request_records_on_the_server_thread(server):
     assert recall["recall.kept"] == sum(map(len, reply["ids"])) == 5 * FETCH
     longest = max(len([i for i in row if i]) for row in users(5, seed=2)["hist"])
     assert recall["recall.fetched"] == 5 * (FETCH + longest)
+
+
+def test_cascade_request_records_the_dedup_and_its_wait():
+    """A cascade request whose recall fetches the whole corpus (its fetch
+    plus the longest history passes it) records ``serve.recall.dedup`` once,
+    the copy ``serve.recall.search.wait`` once inside it, and the counts the
+    per-item loop counted on this batch: every row fetched the corpus and
+    kept all of it but its distinct clicks (one outside the corpus), at most
+    the cascade's fetch."""
+    casc = serving_stacks()
+    casc.fetch = N_ITEMS - 2
+    batch = users(7, seed=11)
+    hist = [[int(i) for i in row if i] for row in batch["hist"]]
+    hist[0].append(N_ITEMS + 40)
+    with profiling.recording():
+        casc.recommend(batch, k=5, histories=hist)
+    spans = profiling.recorded().spans
+    by = {s.name: s for s in spans}
+    assert [s.name for s in spans].count("serve.recall.dedup") == 1
+    assert [s.name for s in spans].count("serve.recall.search.wait") == 1
+    assert by["serve.recall.search.wait"].parent == by["serve.recall.dedup"].id
+    counts = by["serve.recall"].counts
+    assert counts == {"recall.fetched": 7 * N_ITEMS, "recall.kept": 650}
+    assert counts["recall.kept"] == sum(min(casc.fetch, N_ITEMS - len(set(h) - {N_ITEMS + 40}))
+                                        for h in hist)
 
 
 def test_trace_writes_each_server_span_once_in_its_window(server, tmp_path):
