@@ -1,5 +1,6 @@
 """Ranking model zoo: LR, Deep, Wide&Deep, FM, DeepFM, DCN v1/v2 (and, in
-:mod:`.seq_ranker`, the attention sequence ranker). Port of
+:mod:`.seq_ranker`, the attention sequence ranker; in :mod:`.nrms`, NRMS,
+which the JAX package does not have). Port of
 :mod:`news_recsys_tpu.models.rankers`, with its slicing contracts:
 
 - FM and DeepFM: per field, column 0 of the embedding is the first-order
@@ -33,7 +34,7 @@ from .embedding import EmbeddingCollection
 from .layers import MLP, Linear
 
 DEFAULT_HIDDEN = (128, 128, 128, 64, 1)
-RANKER_NAMES = ("lr", "deep", "widedeep", "fm", "deepfm", "dcn", "attention")
+RANKER_NAMES = ("lr", "deep", "widedeep", "fm", "deepfm", "dcn", "attention", "nrms")
 
 
 class RankerBase(nn.Module):
@@ -217,6 +218,10 @@ def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
         from .seq_ranker import build_attention_ranker
 
         return build_attention_ranker(cfg, seed=seed).to(device).eval()
+    if name == "nrms":
+        from .nrms import build_nrms
+
+        return build_nrms(cfg, seed=seed).to(device).eval()
     schema = build_schema(cfg)
     common = dict(tables=table_specs(cfg), schema=schema,
                   init_scale=cfg.embeddings.init_scale,

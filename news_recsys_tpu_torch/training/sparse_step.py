@@ -732,10 +732,11 @@ def sharded_tables(model: nn.Module, mesh):
     through the id exchange), or None; raises where ``mesh`` has a model
     axis and the tables were not cut to it
     (:func:`~news_recsys_tpu_torch.parallel.sharded_embedding.shard_parameters`)."""
-    if mesh is not None and mesh.model > 1 and active_mesh(model.embedder) is not mesh:
+    embedder = getattr(model, "embedder", None)         # NRMS has no embedding collection
+    if mesh is not None and mesh.model > 1 and active_mesh(embedder) is not mesh:
         raise ValueError(f"{mesh} shards the tables: cut the model to it "
                          "(shard_parameters) before making its step")
-    return active_mesh(model.embedder)
+    return active_mesh(embedder)
 
 
 def global_weight_sum(weights: torch.Tensor, mesh) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Training runtime for the rankers: the binned train AUC, the epoch loop,
-prediction, validation, checkpoints and resume.
+prediction, validation, checkpoints and resume (NRMS too, on the all-dense
+step with its listwise loss: a training row carries 1 + K candidates and
+the AUC takes each; ``predict`` and ``validate`` score one a row).
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
 (``embedding_optimizer`` ``"rowwise_adagrad"`` or ``"sparse_adamw"``, with
@@ -173,13 +175,19 @@ class Trainer:
         it: one line a leaf of its parameter tree, under the flax paths and
         shapes that :mod:`..convert` maps the parameters to, in the tree's
         (sorted) order, a sharded table under its whole shape. Process 0
-        writes it."""
+        writes it. A model the JAX package lacks (``flax_paths`` False: NRMS)
+        lists its parameters under the port's names, dots as slashes."""
         from ..convert import flax_arrays     # convert imports the steps, which import us
 
         if not self.is_main:
             return
-        flat = flax_arrays({n: np.broadcast_to(np.float32(0), shape)
-                            for n, shape in self._full_shapes.items()})
+        named = {n: np.broadcast_to(np.float32(0), shape)
+                 for n, shape in self._full_shapes.items()}
+        if getattr(self.model, "flax_paths", True):
+            flat = flax_arrays(named)
+        else:
+            params = {n for n, _ in self.model.named_parameters()}
+            flat = {n.replace(".", "/"): v for n, v in named.items() if n in params}
         lines = ["  | Name | Shape | Params"]
         total = 0
         for path in sorted(flat, key=lambda p: tuple(p.split("/"))):

@@ -6,7 +6,8 @@ table sizes are the port's own copies of the JAX package's
 (:mod:`news_recsys_tpu.zoo`; ``tests/test_torch_shared.py`` holds them to
 the originals); ``mind_dssm_config`` is ``configs/dssm.yaml``, the retrieval
 stage of the serving cascade; ``mind_ranker_config`` is a ranker of the zoo
-as the scoreboard trains it.
+as the scoreboard trains it; ``mind_nrms_config`` is NRMS at its published
+widths (the JAX package has no NRMS).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from .config import Config, config_from_dict, config_to_dict
 
 __all__ = ["ATTENTION_HIST_LEN", "DSSM_HIST_LEN", "MIND_FEATURES", "MIND_TABLE_SIZE",
            "RANKER_RECIPES", "attention_arrays", "attention_config", "mind_config",
-           "mind_dssm_config", "mind_ranker_config"]
+           "mind_dssm_config", "mind_nrms_config", "mind_ranker_config"]
 
 MIND_FEATURES = ["user_id", "item_id", "category", "subcategory", "user_click_category"]
 MIND_EMB_SIZE = {"user_id": 32, "item_id": 32, "category": 16,
@@ -193,3 +194,26 @@ def mind_ranker_config(name: str) -> Config:
         raw["attention_cfg"] = {"hist_feature": "hist", "num_layers": 1, "num_heads": 2,
                                 "ff_dim": 64}
     return config_from_dict(raw)
+
+
+def mind_nrms_config(batch_size: int = 64) -> Config:
+    """NRMS (``models/nrms.py``) at the widths of its paper's section 4.1:
+    300-d words, 16 heads of 16, an additive-attention query of 200, 4
+    negatives a click, Adam (``adamw`` with weight decay 0, over every
+    parameter: the all-dense step), batch 64; the MIND lengths of Microsoft
+    Recommenders' NRMS settings (``title_size`` 30, ``his_size`` 50,
+    ``npratio`` 4); a title table over MIND-small's 65,238 articles (row 0
+    pads). Assumed: a 40,000-word vocabulary, a constant lr of 1e-4. Dropout
+    0 (the paper: 0.2; the port trains without). The listwise loss: a
+    softmax cross-entropy over each row's 1 + ``npratio`` candidates."""
+    return config_from_dict({
+        "name": "nrms",
+        "dataset": {"batch_size": batch_size},
+        "train_hparams": {"lr": 1e-4, "min_lr": 1e-4, "lr_milestones": [40000, 200000],
+                          "max_step": 300000, "weight_decay": 0.0,
+                          "embedding_optimizer": "adamw"},
+        "nrms_cfg": {"articles": MIND_TABLE_SIZE["item_id"], "title_len": 30,
+                     "history_len": 50, "npratio": 4, "vocab": 40000, "word_dim": 300,
+                     "num_heads": 16, "head_dim": 16, "query_dim": 200, "dropout": 0.0},
+        "loss": "listwise",
+    })

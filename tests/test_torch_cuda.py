@@ -2096,3 +2096,59 @@ def test_dcn_step_counts_on_cuda_as_on_cpu(cuda):
     assert costs["cuda"]["bytes"] == costs["cpu"]["bytes"]
     assert costs["cuda"]["flops_by_units"] == costs["cpu"]["flops_by_units"] == {
         "float32": costs["cpu"]["flops"]}
+
+
+@pytest.mark.cuda
+def test_nrms_step_on_cuda_matches_cpu(cuda):
+    """NRMS at its published widths (a title table over 2,000 articles,
+    batch 16 of 1 + 4 candidates): the card's logits, loss and gradients
+    against the CPU's, then one AdamW step through the all-dense step on
+    each. Each gradient and each change is held, as in
+    ``tests/test_torch_nrms.py``, against the larger of its leaf's size and
+    the median leaf's: a cancelling leaf (an additive pooling's bias) keeps
+    only the rounding of its terms, and Adam's first step is near
+    ``lr sign(g)``, which that rounding flips where g is near 0."""
+    import statistics
+
+    from news_recsys_tpu_torch import zoo
+    from news_recsys_tpu_torch.config import config_to_dict
+    from news_recsys_tpu_torch.training import dense_step
+
+    raw = config_to_dict(zoo.mind_nrms_config(batch_size=16))
+    raw["nrms_cfg"]["articles"] = 2000
+    cfg = config_from_dict(raw)
+    rng = np.random.default_rng(4)
+    titles = rng.integers(1, 40000, (2000, 30)).astype(np.int32)
+    titles[np.arange(30)[None, :] >= rng.integers(1, 31, 2000)[:, None]] = 0
+    titles[0] = 0
+    hist = rng.integers(1, 2000, (16, 50)).astype(np.int32)
+    hist[np.arange(50)[None, :] >= rng.integers(0, 51, 16)[:, None]] = 0
+    label = np.zeros((16, 5), np.float32)
+    label[:, 0] = 1
+    arrays = {"hist": hist, "item_id": rng.integers(1, 2000, (16, 5)).astype(np.int32),
+              "label": label}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_ranker(cfg, seed=7, device=dev)
+        model.set_titles(torch.from_numpy(titles))
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        loss, logits, _, _ = dense_step.loss_fn(model, batch, kind="listwise")
+        grads = dict(zip(p0, torch.autograd.grad(loss, list(model.parameters()))))
+        state = dense_step.init_dense_state(model, cfg)
+        dense_step.make_train_step(model, cfg)(state, batch, AucHist.zeros(dev))
+        out[str(dev)] = {"loss": float(loss), "logits": logits.detach().cpu(),
+                         "grads": {n: g.cpu() for n, g in grads.items()},
+                         "change": {n: (p.detach() - p0[n]).cpu()
+                                    for n, p in model.named_parameters()}}
+
+    def gaps(got, want, size):
+        sizes = {n: float(size(w)) for n, w in want.items()}
+        floor = statistics.median(sizes.values())
+        return {n: float(size(got[n] - want[n])) / max(sizes[n], floor) for n in want}
+
+    card, cpu = out["cuda"], out["cpu"]
+    assert_close_to_scale(card["logits"], cpu["logits"], "logits")
+    assert abs(card["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"])
+    assert max(gaps(card["grads"], cpu["grads"], lambda t: t.abs().max()).values()) <= 2e-5
+    assert max(gaps(card["change"], cpu["change"], torch.linalg.vector_norm).values()) <= 1e-2

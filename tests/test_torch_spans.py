@@ -1,5 +1,6 @@
 """The port's spans and counters (``utils/profiling.py``): when a tree
-records, what the sparse step, the epoch loop and a served request record,
+records, what the sparse step, the all-dense step, NRMS's forward, the
+epoch loop and a served request record,
 the table updates' row counts against numpy, that recording changes no bit
 of training, and the spans in ``trace()``'s file.
 
@@ -321,6 +322,98 @@ def test_epoch_loop_records_its_parts_and_the_flush(tmp_path):
                      + ["train.epoch.sync", "train.epoch.metrics"])
     flushes = [s for s in spans if s.name == "train.flush"]
     assert all(s.counts["rows.passed.user_id"] == 2 * B for s in flushes)
+
+
+DENSE_PARTS = ["train.step.forward", "train.step.backward", "train.step.adamw",
+               "train.step.auc"]
+NRMS_PARTS = ["train.step.news", "train.step.user", "train.step.score"]
+
+
+def nrms_stepper(seed=0):
+    """A small NRMS on the all-dense step, its title table set: articles
+    1-3 have no word."""
+    from news_recsys_tpu_torch.config import config_to_dict
+    from news_recsys_tpu_torch.training import dense_step
+
+    raw = config_to_dict(zoo.mind_nrms_config(batch_size=8))
+    raw["nrms_cfg"].update(articles=40, vocab=50, word_dim=8, num_heads=2, head_dim=4,
+                           query_dim=6, title_len=6)
+    cfg = config_from_dict(raw)
+    model = build_ranker(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    titles = rng.integers(1, 50, (40, 6)).astype(np.int32)
+    titles[:4] = 0
+    model.set_titles(titles)
+    return model, dense_step.make_train_step(model, cfg), dense_step.init_dense_state(model, cfg)
+
+
+def nrms_batch():
+    """8 rows: histories of 10 slots with 0, 3, 10, ... articles (ids repeat
+    across rows and slots), 5 candidates, the positive first."""
+    hist = (np.arange(80).reshape(8, 10) % 13 + 1).astype(np.int32)
+    hist[np.arange(10)[None, :] >= np.array([0, 3, 10, 1, 5, 10, 2, 7])[:, None]] = 0
+    cand = (np.arange(40).reshape(8, 5) * 7 % 39 + 1).astype(np.int32)
+    label = np.zeros((8, 5), np.float32)
+    label[:, 0] = 1.0
+    return {"hist": torch.from_numpy(hist), "item_id": torch.from_numpy(cand),
+            "label": torch.from_numpy(label)}
+
+
+def test_dense_step_records_its_four_parts_in_order():
+    """The all-dense step (``attention@adamw``) records ``train.step`` and
+    its parts under the sparse step's names."""
+    cfg = zoo.attention_config(batch_size=B, embedding_optimizer="adamw")
+    from news_recsys_tpu_torch.training import dense_step
+
+    model = build_ranker(cfg, seed=0, device="cpu")
+    step, state = dense_step.make_train_step(model, cfg), dense_step.init_dense_state(model, cfg)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(state, batches(1)[0], AucHist.zeros("cpu"))
+    spans = profiling.recorded().spans
+    (root,) = [s for s in spans if s.name == "train.step"]
+    assert root.parent is None and state.step == 1
+    parts = children(spans, root)
+    assert [s.name for s in parts] == DENSE_PARTS and len(spans) == 1 + len(DENSE_PARTS)
+    for a, b in zip(parts, parts[1:]):
+        assert root.start_ns <= a.start_ns <= a.end_ns <= b.start_ns <= root.end_ns
+
+
+def test_nrms_step_records_news_user_and_score_inside_the_forward():
+    """NRMS's forward records ``train.step.news``, ``.user`` and ``.score``
+    under ``train.step.forward``, and the listwise loss a second ``.score``
+    after them; nothing records while it scores without a step."""
+    model, step, state = nrms_stepper()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(state, nrms_batch(), AucHist.zeros("cpu"))
+        with torch.no_grad():
+            model(nrms_batch())
+    spans = profiling.recorded().spans
+    (root,) = [s for s in spans if s.parent is None]
+    assert root.name == "train.step"
+    assert [s.name for s in children(spans, root)] == DENSE_PARTS
+    (fwd,) = [s for s in spans if s.name == "train.step.forward"]
+    assert [s.name for s in children(spans, fwd)] == NRMS_PARTS + ["train.step.score"]
+    assert len(spans) == 1 + len(DENSE_PARTS) + len(NRMS_PARTS) + 1
+
+
+def test_nrms_title_counts_on_a_fixed_batch():
+    """On ``train.step.news``: ``nrms.titles.slots`` is B (H + C), ``.real``
+    the slots that are not padding, ``.distinct`` the distinct articles,
+    the last two kept as functions until the spans are read."""
+    model, step, state = nrms_stepper()
+    batch = nrms_batch()
+    with profiling.recording():
+        step(state, batch, AucHist.zeros("cpu"))
+    (kept,) = [s for s in profiling._store if s.name == "train.step.news"]
+    assert [k for k, v in kept.counts.items() if callable(v)] == ["nrms.titles.real",
+                                                                   "nrms.titles.distinct"]
+    (news,) = [s for s in profiling.recorded().spans if s.name == "train.step.news"]
+    ids = np.concatenate([batch["hist"].numpy(), batch["item_id"].numpy()], axis=1)
+    assert news.counts == {"nrms.titles.slots": 8 * 15,
+                           "nrms.titles.real": int((ids > 0).sum()),
+                           "nrms.titles.distinct": len(np.unique(ids[ids > 0]))}
+    assert news.counts == {"nrms.titles.slots": 120, "nrms.titles.real": 78,
+                           "nrms.titles.distinct": 39}
 
 
 def read_trace(log_dir):
