@@ -18,7 +18,7 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
 2. builds the CUDA kernels from ``news_recsys_tpu_torch/csrc`` (nvcc, sm_90a,
    one nvcc per source in parallel; PyTorch's own start-up on the card is
    paid meanwhile);
-3. holds each of the nine kernels against its plain PyTorch version on the
+3. holds each of the eleven kernels against its plain PyTorch version on the
    card at its path's shapes, and times both (device time from CUDA graph
    replays, and wall time per call with host overhead); beside them the bound (the
    least time the card could take: bytes moved over 3.35 TB/s or float32
@@ -35,7 +35,10 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    joint dedup), the FM forward at a request's B 6,400 and a step's B 512,
    the cross stack's training forward (with ``ss``) and backward at B 512
    and at the large batch's 8,192, the block's forward at B 6,400, 512 and
-   2,048 and its backward at 512 and 2,048;
+   2,048 and its backward at 512 and 2,048, NRMS's masked attention forward
+   and backward at the news encoder's 3,520 titles of 30 and the user
+   encoder's 64 histories of 50 (``F.scaled_dot_product_attention`` the
+   library call);
    the FM and cross stack backwards also against their own second run bit
    for bit, the cross backward against a CUDA-graph replay of itself too;
    and one empty kernel, the floor of a launch (``launch_floor_ms``);
@@ -66,7 +69,9 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    ``Trainer.fit`` for an epoch and a timed warm one);
 7. the rest of the zoo (LR, Deep, Wide&Deep, FM, DCN-v2 and the scoreboard
    attention recipe of zoo.mind_ranker_config): 2 steps each at full width,
-   card against CPU; the DSSM of configs/dssm.yaml (user 94,058 x 16, item
+   card against CPU; NRMS of zoo.mind_nrms_config() (``train_nrms``): 8
+   all-dense steps at batch 64, the attention's forward and backward once
+   for each encoder a step; the DSSM of configs/dssm.yaml (user 94,058 x 16, item
    65,239 x 16, ``hist`` of 30 pooled over the item table, rate 8, logQ) on
    32 batches of 512 clicked rows with histories of 0-30: 4 steps of its
    all-dense AdamW step and 4 of its rowwise AdaGrad variant, card against
@@ -143,15 +148,15 @@ profiling). Fails (non-zero exit, no result line) if any phase fails:
    process's;
 12. the roofline of each training path (``roofline``): the DCN, DeepFM,
    the attention ranker's sparse and dense steps and the all-dense DSSM at
-   batch 512, each from its seeded state: one warm step counted by
-   ``utils/roofline.py``'s ``step_cost`` (the matmuls' FLOPs and each
-   kernel's own count, by the units they run on; bytes op by op) on a copy
-   of the state on the card and on the CPU, the CPU's optimizers in the
-   card's foreach form, which must be equal; ``mfu_pct`` (each units' FLOPs
-   at its own peak) and ``hbm_bw_util_pct`` against the H100's published
-   peaks at the wall time of a step of a warm epoch and at its device time
-   from a ``torch.profiler`` trace, none over 100%; each of the nine
-   kernels counted on some path;
+   batch 512, and NRMS at its batch of 64, each from its seeded state: one
+   warm step counted by ``utils/roofline.py``'s ``step_cost`` (the matmuls'
+   FLOPs and each kernel's own count, by the units they run on; bytes op by
+   op) on a copy of the state on the card and on the CPU, the CPU's
+   optimizers in the card's foreach form, which must be equal; ``mfu_pct``
+   (each units' FLOPs at its own peak) and ``hbm_bw_util_pct`` against the
+   H100's published peaks at the wall time of a step of a warm epoch and at
+   its device time from a ``torch.profiler`` trace, none over 100%; each of
+   the eleven kernels counted on some path;
 13. traces one CUDA-graph replay of the cross backward with
    ``torch.profiler`` (after the timed phases of this process, before the
    ranks of ``parallel`` are spawned), which must run its two device kernels
@@ -985,6 +990,99 @@ def check_pool_backward(dev) -> dict:
     return main
 
 
+# NRMS's attention at the training cell's shapes: the news encoder's 64 x 55
+# titles of 30 words, the user encoder's 64 histories of 50; 16 heads of 16
+MHSA_SHAPES = {"news": (64 * 55, 30), "user": (64, 50)}
+MHSA_HEADS, MHSA_HEAD_DIM = 16, 16
+MHSA_TOL = 1e-5                    # rtol, and atol of the largest value
+
+
+def mhsa_case(N: int, L: int, seed: int, dev) -> tuple:
+    """qkv N(0, 1) (scores of order 1), dO, and the mask of the training
+    cell's slots: news rows half padding slots (no kept key), the rest
+    titles of 1 + Binomial(29, 10/29) words; histories of 0 to L clicks."""
+    rng = np.random.default_rng(seed)
+    H, hd = MHSA_HEADS, MHSA_HEAD_DIM
+    qkv = torch.from_numpy(rng.standard_normal((N, L, 3 * H * hd), np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((N, L, H * hd), np.float32)).to(dev)
+    if L == MHSA_SHAPES["news"][1]:
+        n = np.where(rng.random(N) < 0.5, 0, 1 + rng.binomial(L - 1, 10 / 29, N))
+    else:
+        n = rng.integers(0, L + 1, N)
+    mask = torch.from_numpy(np.arange(L)[None, :] < n[:, None]).to(dev)
+    return qkv, mask, g
+
+
+def sdpa_views(qkv, H: int):
+    N, L, width = qkv.shape
+    return qkv.view(N, L, 3, H, width // (3 * H)).permute(2, 0, 3, 1, 4)
+
+
+def sdpa_ms(qkv, mask, g=None) -> float:
+    """Device time of ``F.scaled_dot_product_attention`` on the same q, k, v
+    views with the mask as ``attn_mask``: the forward, or (``g``) its backward
+    by ``torch.autograd.grad`` after one forward outside the timing, on the
+    forward's stream. A yardstick only: nothing in the port calls it."""
+    import torch.nn.functional as F
+
+    attn_mask = mask[:, None, None, :]
+    if g is None:
+        q, k, v = sdpa_views(qkv, MHSA_HEADS)
+        with torch.inference_mode():
+            return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
+                             **DEEP)
+    x = qkv.detach().clone().requires_grad_()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        q, k, v = sdpa_views(x, MHSA_HEADS)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        dy = g.view(*g.shape[:2], MHSA_HEADS, -1).transpose(1, 2)
+    return device_ms(lambda: torch.autograd.grad(out, x, dy, retain_graph=True), stream=stream,
+                     **DEEP)
+
+
+def check_mhsa_kernels(dev) -> list:
+    """``masked_mhsa`` and its backward at the news and the user encoder's
+    shapes against the plain chain, two runs bit-identical; device times of
+    kernel, plain and ``F.scaled_dot_product_attention``. Returns the two
+    entries (the news shape's, the user shape's under ``at_user_shape``)."""
+    from news_recsys_tpu_torch.ops.mhsa import (masked_mhsa, masked_mhsa_bwd,
+                                                masked_mhsa_bwd_plain, masked_mhsa_plain,
+                                                mhsa_bwd_cost, mhsa_cost, plan_mhsa)
+    H, hd = MHSA_HEADS, MHSA_HEAD_DIM
+    source = "news_recsys_tpu_torch/csrc/nrms_attention.cu"
+    entries = {}
+    for part, (N, L) in MHSA_SHAPES.items():
+        qkv, mask, g = mhsa_case(N, L, SEED + 40 + L, dev)
+        log(f"  masked_mhsa [{part}: N={N} L={L}]: plan {plan_mhsa(N, L, H, hd)._asdict()}; "
+            f"rows with no kept key {int((~mask.any(dim=1)).sum())} of {N}")
+        cases = (("masked_mhsa", lambda: masked_mhsa(qkv, mask, H),
+                  lambda: masked_mhsa_plain(qkv, mask, H), mhsa_cost, None),
+                 ("masked_mhsa_bwd", lambda: masked_mhsa_bwd(qkv, mask, g, H),
+                  lambda: masked_mhsa_bwd_plain(qkv, mask, g, H), mhsa_bwd_cost, g))
+        for name, kernel, plain, cost, upstream in cases:
+            with torch.inference_mode(upstream is None):
+                got, again, want = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                tol = dict(rtol=MHSA_TOL, atol=MHSA_TOL * max(1.0, float(want.abs().max())))
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} [{part}]: {m}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} [{part}]: two runs gave different bits")
+                t = [device_ms(f, **DEEP) for f in (plain, kernel, kernel, plain)]
+                calls = [call_ms(f, **DEEP) for f in (kernel, plain)]
+            entry = report_kernel(
+                name, source, "none: NRMS has no JAX counterpart", float((got - want).abs().max()),
+                f"rtol {MHSA_TOL}, atol {MHSA_TOL} of the largest value; two runs bit-identical",
+                t, calls, "cuda_graph", f"N={N} L={L} H={H} hd={hd}",
+                least_time(cost(N, L, H, hd)), sdpa_ms(qkv, mask, upstream))
+            if part == "news":
+                entries[name] = entry
+            else:
+                entries[name]["at_user_shape"] = {k: entry[k] for k in SHAPE_KEYS}
+    return list(entries.values())
+
+
 BLOCK_LARGE_BATCH = 2048          # the block of ``attention@b2048``
 BLOCK_SHAPE_KEYS = SHAPE_KEYS + ("peak_flops", "kernel_route", "general_ms",
                                  "general_max_abs_err")
@@ -1257,7 +1355,7 @@ def build_kernels(dev: torch.device) -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s (PyTorch's start-up on the card meanwhile: "
         f"{start_s:.2f} s) -> {lib}; ptxas: {len(regs)} kernels, "
         f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
-    for part in ("fm_bwd", "dcn_cross_bwd"):
+    for part in ("fm_bwd", "dcn_cross_bwd", "mhsa"):
         kernels = ptxas_report(report, part)
         log(f"  {part} kernels (registers, spilled bytes): " + "; ".join(
             f"{n[:70]} {r} {s}" for n, (r, s) in kernels.items()))
@@ -1542,6 +1640,64 @@ def train_phase(dev: torch.device, name: str, smi: str, ranker: str = "dcn") -> 
         f"({smi}): batch {TRAIN_BATCH}, a warm epoch of {warm_epoch['steps']} steps: "
         f"{rate / TRAIN_BATCH:.1f} steps/s ({TRAIN_BATCH / rate * 1e3:.3f} ms a step), "
         f"{rate:.0f} examples/s")
+    return launches
+
+
+NRMS_STEPS = 8
+
+
+def nrms_arrays(cfg, rows: int, seed: int) -> tuple:
+    """NRMS's title table (1 + Binomial(29, 10/29) words a title) and
+    ``rows`` training rows (histories of 0 to 50 clicks, 1 + 4 candidates,
+    the positive first)."""
+    rng = np.random.default_rng(seed)
+    c = cfg.extra("nrms_cfg")
+    A, L, H = c["articles"], c["title_len"], c["history_len"]
+    titles = rng.integers(1, c["vocab"], (A, L)).astype(np.int32)
+    titles[np.arange(L)[None, :] > rng.binomial(L - 1, 10 / 29, A)[:, None]] = 0
+    titles[0] = 0
+    hist = rng.integers(1, A, (rows, H)).astype(np.int32)
+    hist[np.arange(H)[None, :] >= rng.integers(0, H + 1, rows)[:, None]] = 0
+    label = np.zeros((rows, 1 + c["npratio"]), np.float32)
+    label[:, 0] = 1
+    return titles, {"hist": hist, "label": label,
+                    "item_id": rng.integers(1, A, (rows, 1 + c["npratio"])).astype(np.int32),
+                    "user_id": np.arange(1, rows + 1, dtype=np.int32)}
+
+
+def train_nrms_phase(dev: torch.device, name: str) -> dict:
+    """NRMS_STEPS all-dense steps of NRMS at its published widths and the
+    training cell's batch (64 rows of 1 + 4 candidates); returns their
+    kernel launches: the attention's forward and backward once for each
+    encoder a step."""
+    from news_recsys_tpu_torch import zoo
+    from news_recsys_tpu_torch.models.rankers import build_ranker
+    from news_recsys_tpu_torch.training import dense_step
+    from news_recsys_tpu_torch.training.trainer import AucHist
+
+    cfg = zoo.mind_nrms_config()
+    B = cfg.dataset.batch_size
+    titles, arrays = nrms_arrays(cfg, B * NRMS_STEPS, SEED + 50)
+    batches = [{k: torch.from_numpy(arrays[k][i * B:(i + 1) * B]).to(dev)
+                for k in ("hist", "item_id", "label")} for i in range(NRMS_STEPS)]
+    model = build_ranker(cfg, seed=SEED + 51, device=dev)
+    model.set_titles(torch.from_numpy(titles))
+    state = dense_step.init_dense_state(model, cfg)
+    step = dense_step.make_train_step(model, cfg)
+    hist = AucHist.zeros(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(state, b, hist)[0] for b in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / NRMS_STEPS * 1e3
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"NRMS steps: losses {losses}")
+    log(f"NRMS on {name}: {NRMS_STEPS} steps of batch {cfg.dataset.batch_size}, {ms:.2f} ms a "
+        f"step (the first included); losses {losses[0]:.6f} .. {losses[-1]:.6f}; launches "
+        f"{launches}")
     return launches
 
 
@@ -3234,11 +3390,12 @@ def counted_kernels() -> dict:
                                                            fused_transformer_block_bwd)
     from news_recsys_tpu_torch.ops.fused_lookup_pool import (fused_lookup_pool,
                                                              fused_lookup_pool_bwd)
+    from news_recsys_tpu_torch.ops.mhsa import masked_mhsa, masked_mhsa_bwd
     from news_recsys_tpu_torch.ops.scatter_rows import scatter_rows_set
     return {f.__name__: f for f in (dcn_cross_stack, fused_lookup_pool, dcn_cross_bwd,
                                     scatter_rows_set, fm_second_order, fm_second_order_bwd,
                                     fused_transformer_block, fused_transformer_block_bwd,
-                                    fused_lookup_pool_bwd)}
+                                    fused_lookup_pool_bwd, masked_mhsa, masked_mhsa_bwd)}
 
 
 def launch_empty() -> None:
@@ -3256,10 +3413,11 @@ def launch_floor_ms() -> float:
 
 
 ROOFLINE_PATHS = {"train": "dcn", "train_deepfm": "deepfm", "train_attention": "attention",
-                  "train_attention_dense": "attention@adamw", "train_dssm": "dssm"}
+                  "train_attention_dense": "attention@adamw", "train_dssm": "dssm",
+                  "train_nrms": "nrms"}
 ROOFLINE_EPOCH_STEPS = {"dcn": EARLIER_TRAIN_STEPS, "deepfm": EARLIER_TRAIN_STEPS,
                         "attention": TRAIN_STEPS, "attention@adamw": DENSE_STEPS,
-                        "dssm": DSSM_STEPS}
+                        "dssm": DSSM_STEPS, "nrms": DENSE_STEPS}
 ROOFLINE_TRACED_STEPS = 4
 
 
@@ -3268,6 +3426,7 @@ def roofline_trainer(recipe: str, dev: torch.device, workdir: str, ds):
     from the path's seed (drawn on the host, so the card and the CPU start
     from the same weights), prepared for ``ds`` as ``fit`` prepares it (the
     DSSM's logQ table)."""
+    from news_recsys_tpu_torch import zoo
     from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.retrieval import DSSMTrainer
@@ -3277,6 +3436,11 @@ def roofline_trainer(recipe: str, dev: torch.device, workdir: str, ds):
         cfg = dssm_config()
         trainer = DSSMTrainer(cfg, build_dssm(cfg, seed=SEED + 25, device=dev),
                               workdir=workdir, device=dev)
+    elif recipe == "nrms":
+        cfg = zoo.mind_nrms_config()
+        model = build_ranker(cfg, seed=SEED + 6, device=dev)
+        model.set_titles(torch.from_numpy(nrms_arrays(cfg, 1, SEED + 52)[0]))
+        trainer = Trainer(cfg, model, workdir=workdir, device=dev)
     else:
         cfg = train_config(recipe)
         trainer = Trainer(cfg, build_ranker(cfg, seed=SEED + 6, device=dev), workdir=workdir,
@@ -3286,10 +3450,14 @@ def roofline_trainer(recipe: str, dev: torch.device, workdir: str, ds):
 
 
 def roofline_dataset(recipe: str):
+    from news_recsys_tpu_torch import zoo
     from news_recsys_tpu_torch.training.trainer import PackedDataset
     steps = ROOFLINE_EPOCH_STEPS[recipe]
     if recipe == "dssm":
         return PackedDataset(dssm_arrays(TRAIN_BATCH * steps, SEED + 20))
+    if recipe == "nrms":
+        cfg = zoo.mind_nrms_config()
+        return PackedDataset(nrms_arrays(cfg, cfg.dataset.batch_size * steps, SEED + 52)[1])
     return PackedDataset(training_arrays(train_config(recipe), TRAIN_BATCH * steps, SEED + 9))
 
 
@@ -3377,7 +3545,8 @@ def roofline_path(dev: torch.device, name: str, smi: str, path: str) -> tuple:
         trainer, state = trainers["card"], states["card"]
         trainer.train_epoch(state, ds, epoch=0)
         _, epoch = trainer.train_epoch(state, ds, epoch=1)
-        wall_s = TRAIN_BATCH / epoch["examples_per_sec"]
+        batch = trainer.cfg.dataset.batch_size
+        wall_s = batch / epoch["examples_per_sec"]
         device_s = traced_step_ms(trainer, state,
                                   roofline_batches(trainer, ds, ROOFLINE_TRACED_STEPS)) / 1e3
     cost = costs["card"]
@@ -3390,7 +3559,7 @@ def roofline_path(dev: torch.device, name: str, smi: str, path: str) -> tuple:
         if util["mfu_pct"] > 100 or util["hbm_bw_util_pct"] > 100:
             raise AssertionError(f"roofline {path}: a share over 100% at the {at} time: {util} "
                                  f"(the count or the time is wrong)")
-    log(f"roofline {path} ({recipe}, batch {TRAIN_BATCH}) on {name} ({smi}): flops_per_step "
+    log(f"roofline {path} ({recipe}, batch {batch}) on {name} ({smi}): flops_per_step "
         f"{cost['flops']} (by units {cost['flops_by_units']}), hbm_bytes_per_step "
         f"{cost['bytes']} (the CPU's count equal); peak {shares['wall']['peak_flops']:.4g} "
         f"FLOP/s ({shares['wall']['peak_units']}); wall {wall_s * 1e3:.4f} ms a step (warm "
@@ -3412,8 +3581,8 @@ def roofline_path(dev: torch.device, name: str, smi: str, path: str) -> tuple:
 
 def roofline_phase(dev: torch.device, name: str, smi: str) -> tuple:
     """Each training path's roofline (:func:`roofline_path`); fails unless
-    each of the nine kernels was counted on a path. Returns ({path: entry},
-    {roofline_<path>: the counted step's launches})."""
+    each kernel of :func:`counted_kernels` was counted on a path. Returns
+    ({path: entry}, {roofline_<path>: the counted step's launches})."""
     torch.backends.cuda.matmul.allow_tf32 = False        # the card is held to the CPU
     entries, paths = {}, {}
     for path in ROOFLINE_PATHS:
@@ -3640,6 +3809,9 @@ PATH_KERNELS = {
     "serve_deepfm": {"fm_second_order": None, "fused_lookup_pool": None},
     "train_deepfm": {"fm_second_order": None, "fm_second_order_bwd": None,
                      "scatter_rows_set": None},
+    # NRMS: the attention's forward and backward once for each encoder a step
+    "train_nrms": {"masked_mhsa": 2 * NRMS_STEPS, "masked_mhsa_bwd": 2 * NRMS_STEPS,
+                   "fused_transformer_block": 0, "fused_lookup_pool": 0},
     "train_zoo": {"fm_second_order": None, "fm_second_order_bwd": None,
                   "scatter_rows_set": None, "fused_transformer_block": ZOO_CHECK_STEPS,
                   "fused_transformer_block_bwd": ZOO_CHECK_STEPS},
@@ -3712,6 +3884,7 @@ PATH_KERNELS = {
                                        "fused_lookup_pool_bwd": 1, "scatter_rows_set": 0},
     "roofline_train_dssm": {"fused_lookup_pool": 1, "fused_lookup_pool_bwd": 1,
                             "scatter_rows_set": 0},
+    "roofline_train_nrms": {"masked_mhsa": 2, "masked_mhsa_bwd": 2, "scatter_rows_set": 0},
     # the full-scale scripts' cascade evaluation of 256 queries in one chunk:
     # the DSSM's user tower pools ``hist`` for recall alone and again for the
     # cascade, the DCN scores the 256 x 100 candidates in one forward; the
@@ -3762,12 +3935,14 @@ def run(dev: torch.device) -> None:
     kernels += timed("kernels of the attention ranker", check_attention_kernels, dev)
     kernels.insert(1, timed("the pool's forward", check_pool_forward, dev))
     kernels.append(timed("the pool's backward", check_pool_backward, dev))
+    kernels += timed("NRMS's attention", check_mhsa_kernels, dev)
     floor = timed("launch floor", launch_floor_ms)
     paths = {"serve": timed("serve", serve_phase, dev, name, smi),
              "train": timed("train", train_phase, dev, name, smi),
              "serve_deepfm": timed("serve_deepfm", serve_phase, dev, name, smi, "deepfm"),
              "train_deepfm": timed("train_deepfm", train_phase, dev, name, smi, "deepfm"),
              "train_zoo": timed("train_zoo", zoo_phase, dev),
+             "train_nrms": timed("train_nrms", train_nrms_phase, dev, name),
              "serve_attention": timed("serve_attention", serve_phase, dev, name, smi,
                                       "attention"),
              "train_attention": timed("train_attention", train_phase, dev, name, smi,

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
+from ..ops.mhsa import masked_mhsa
 from ..training.sparse_step import distinct_real_rows
 from ..utils.profiling import active, count, span
 
@@ -70,7 +71,9 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention without bias: ``wqkv`` is ``[Q | K | V]``,
-    (dim_in, 3 heads head_dim), (in, out) as the port's attention layers."""
+    (dim_in, 3 heads head_dim), (in, out) as the port's attention layers;
+    its core on the packed ``x @ wqkv`` is :func:`..ops.mhsa.masked_mhsa`
+    (a kernel pair on the card, the library chain on the CPU)."""
 
     def __init__(self, dim_in: int, heads: int, head_dim: int, generator=None):
         super().__init__()
@@ -79,11 +82,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """(N, L, dim_in), mask (N, L) -> (N, L, heads head_dim)."""
-        N, L, _ = x.shape
-        q, k, v = (x @ self.wqkv).view(N, L, 3, self.heads, self.head_dim).permute(2, 0, 3, 1, 4)
-        scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.head_dim)
-        alpha = masked_softmax(scores, mask[:, None, None, :])
-        return (alpha @ v).transpose(1, 2).reshape(N, L, self.heads * self.head_dim)
+        return masked_mhsa(x @ self.wqkv, mask, self.heads)
 
 
 class AdditivePool(nn.Module):

@@ -126,5 +126,10 @@ def forward_only(*tensors: torch.Tensor) -> None:
                            "torch.inference_mode() or torch.no_grad()")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, at an address that kernels' 16-byte copies take."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream

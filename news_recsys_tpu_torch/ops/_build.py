@@ -27,7 +27,7 @@ LIB_NAME = "libnrt_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     # x0, ws, bs, out, ss, B, D, NL, vector, group, slots, warps, blocks, stream
@@ -54,6 +54,10 @@ SIGNATURES = {
     "nrt_fused_block_tiled_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, mask, dy, params, dx, dflat, partial, B, L, nblk, stream
     "nrt_fused_block_tiled_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # qkv, mask, out, N, L, H, hd, heads a block, warps a head, 1 / sqrt(hd), stream
+    "nrt_mhsa_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, dout, dqkv, N, L, H, hd, heads a block, warps a head, 1 / sqrt(hd), stream
+    "nrt_mhsa_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # stream: one empty kernel, the floor of a launch
     "nrt_empty": [_P],
 }

@@ -46,8 +46,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from . import (KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock,
-               open_counter, stream_ptr)
+from . import (KernelCost, aligned16, check_tensor, kernel_device, kernel_scope,
+               launch_count_lock, open_counter, stream_ptr)
 
 NEG = -1e9          # score of an invalid key
 LN_EPS = 1e-6       # flax nn.LayerNorm's default
@@ -250,11 +250,6 @@ def _plan(x: torch.Tensor, L, D, F, H, backward: bool, route) -> Plan:
     return plan_shape(x.shape[0], L, D, F, H, sms, backward, route)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it, at an address the tiled kernels' 16-byte copies take."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _param_pointers(params):
     """The parameters' device addresses as a C array (kept alive by the caller)."""
     return (ctypes.c_void_p * len(params))(*(p.data_ptr() for p in params))
@@ -270,7 +265,7 @@ def _fwd_kernel(params, x, mask, num_heads: int, route=None) -> torch.Tensor:
         return out
     plan = _plan(x, L, D, F, num_heads, False, route)
     if plan.route == "tiled":
-        x, params = _aligned(x), tuple(map(_aligned, params))
+        x, params = aligned16(x), tuple(map(aligned16, params))
         ptrs = _param_pointers(params)
         launch("nrt_fused_block_tiled_fwd", x.data_ptr(), mask.data_ptr(),
                ctypes.addressof(ptrs), out.data_ptr(), B, L, plan.blocks, stream_ptr(x))
@@ -315,7 +310,7 @@ def _bwd_kernel(params, x, mask, dy, num_heads: int, route, B, L, D, F):
         plan = _plan(x, L, D, F, num_heads, True, route)
         partial = x.new_empty((plan.blocks * n_params,))
         if plan.route == "tiled":
-            x, dy, params = _aligned(x), _aligned(dy), tuple(map(_aligned, params))
+            x, dy, params = aligned16(x), aligned16(dy), tuple(map(aligned16, params))
             ptrs = _param_pointers(params)
             launch("nrt_fused_block_tiled_bwd", x.data_ptr(), mask.data_ptr(), dy.data_ptr(),
                    ctypes.addressof(ptrs), dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(),

@@ -2152,3 +2152,122 @@ def test_nrms_step_on_cuda_matches_cpu(cuda):
     assert abs(card["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"])
     assert max(gaps(card["grads"], cpu["grads"], lambda t: t.abs().max()).values()) <= 2e-5
     assert max(gaps(card["change"], cpu["change"], torch.linalg.vector_norm).values()) <= 1e-2
+
+
+# NRMS's masked attention (ops/mhsa.py): the news encoder's and the user
+# encoder's shapes, the domain's corners (L 128 with head_dim 64, L 1), a
+# row of 33 (two warps a head) with 3 heads of 8
+MHSA_SHAPES = [(3520, 30, 16, 16), (64, 50, 16, 16), (6, 128, 4, 64), (9, 1, 16, 16),
+               (7, 33, 3, 8)]
+
+
+def mhsa_inputs(N, L, H, hd, dev, seed=0):
+    """qkv N(0, 1) (scores of order 1), dO, and a mask with trailing padding,
+    interior padding (row 2) and a row with no kept key (row 3)."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((N, L, 3 * H * hd)).astype(np.float32)
+    g = rng.standard_normal((N, L, H * hd)).astype(np.float32)
+    n = rng.integers(1, L + 1, N)
+    n[0] = L
+    mask = np.arange(L)[None, :] < n[:, None]
+    if N > 3:
+        mask[2] = rng.random(L) < 0.5
+        mask[2, 0] = True
+        mask[3] = False
+    qkv, g = on(dev, qkv, g)
+    return qkv, torch.from_numpy(mask).to(dev), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MHSA_SHAPES)
+def test_mhsa_kernels_match_plain(cuda, shape):
+    """Forward and backward against the plain chain on the card, each twice
+    with the same bits, one launch each."""
+    from news_recsys_tpu_torch.ops.mhsa import (masked_mhsa, masked_mhsa_bwd,
+                                                masked_mhsa_bwd_plain, masked_mhsa_plain)
+
+    N, L, H, hd = shape
+    qkv, mask, g = mhsa_inputs(*shape, cuda)
+    n = masked_mhsa.launches, masked_mhsa_bwd.launches
+    with torch.no_grad():
+        out = masked_mhsa(qkv, mask, H)
+    dqkv = masked_mhsa_bwd(qkv, mask, g, H)
+    assert (masked_mhsa.launches - n[0], masked_mhsa_bwd.launches - n[1]) == (1, 1)
+    assert_close_to_scale(out, masked_mhsa_plain(qkv, mask, H), "out")
+    assert_close_to_scale(dqkv, masked_mhsa_bwd_plain(qkv, mask, g, H), "dqkv")
+    with torch.no_grad():
+        assert torch.equal(masked_mhsa(qkv, mask, H), out)
+    assert torch.equal(masked_mhsa_bwd(qkv, mask, g, H), dqkv)
+
+
+@pytest.mark.cuda
+def test_mhsa_module_adds_no_wait(cuda):
+    """``SelfAttention``'s forward and backward on the card, the kernels'
+    path, under the sync debug mode's errors: nothing waits for the device."""
+    from news_recsys_tpu_torch.models.nrms import SelfAttention
+
+    attn = SelfAttention(300, 16, 16, torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(1)
+    (x,) = on(cuda, rng.standard_normal((64, 30, 300)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((64, 30)) < 0.6).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        attn(x, mask).square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert attn.wqkv.grad is not None and bool(torch.isfinite(attn.wqkv.grad).all())
+
+
+@pytest.mark.cuda
+def test_mhsa_refuses_what_the_kernels_do_not_take(cuda):
+    from news_recsys_tpu_torch.ops.mhsa import masked_mhsa
+
+    for shape in ((2, 129, 2, 16), (2, 30, 2, 12)):
+        qkv, mask, _ = mhsa_inputs(*shape, cuda)
+        with pytest.raises(ValueError):
+            masked_mhsa(qkv, mask, shape[2])
+    qkv, mask, _ = mhsa_inputs(2, 30, 2, 16, cuda)
+    with pytest.raises(TypeError):
+        masked_mhsa(qkv.double(), mask, 2)
+
+
+@pytest.mark.cuda
+def test_nrms_step_launches_mhsa_twice(cuda):
+    """One NRMS training step on the card: the attention's forward and
+    backward once for each encoder, and no bmm or softmax in the step."""
+    from news_recsys_tpu_torch import zoo
+    from news_recsys_tpu_torch.config import config_to_dict
+    from news_recsys_tpu_torch.ops.mhsa import masked_mhsa, masked_mhsa_bwd
+    from news_recsys_tpu_torch.training import dense_step
+
+    raw = config_to_dict(zoo.mind_nrms_config(batch_size=8))
+    raw["nrms_cfg"]["articles"] = 500
+    cfg = config_from_dict(raw)
+    rng = np.random.default_rng(2)
+    titles = rng.integers(1, 40000, (500, 30)).astype(np.int32)
+    titles[np.arange(30)[None, :] >= rng.integers(1, 31, 500)[:, None]] = 0
+    titles[0] = 0
+    label = np.zeros((8, 5), np.float32)
+    label[:, 0] = 1
+    batch = {"hist": rng.integers(0, 500, (8, 50)).astype(np.int32),
+             "item_id": rng.integers(1, 500, (8, 5)).astype(np.int32), "label": label}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    model = build_ranker(cfg, seed=3, device=cuda)
+    model.set_titles(torch.from_numpy(titles))
+    state = dense_step.init_dense_state(model, cfg)
+    step = dense_step.make_train_step(model, cfg)
+    step(state, batch, AucHist.zeros(cuda))                 # warm-up
+    torch.cuda.synchronize()
+    n = masked_mhsa.launches, masked_mhsa_bwd.launches
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        step(state, batch, AucHist.zeros(cuda))
+        torch.cuda.synchronize()
+    assert (masked_mhsa.launches - n[0], masked_mhsa_bwd.launches - n[1]) == (2, 2)
+    # the chain's scores were (N, 16, L, L) and its products (16 N, L, L):
+    # no op of the step sees an L x L tensor of either encoder
+    scores = [(e.name, e.input_shapes) for e in prof.events()
+              if any(len(s) >= 3 and s[-2:] in ([30, 30], [50, 50]) for s in e.input_shapes)]
+    assert not scores, scores
