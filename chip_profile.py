@@ -12,39 +12,34 @@ port, on one CUDA GPU.
 Builds the full-width MIND cascades of ``chip_smoke.py`` (seeded weights,
 65,238 items, fetch 100; a DCN and an attention ranker over the same
 recall) on the card and, for each request size, calls
-``CascadeRecommender.recommend`` directly (no HTTP), in three separate runs
+``CascadeRecommender.recommend`` directly (no HTTP), in two separate runs
 over the same requests after two warm-up requests:
 
 1. plain: wall time per request of parsing the request JSON, ``recommend``
    and encoding the answer, with nothing added to the code;
-2. layers: wall time of the user tower, the top-k search, the recall stage
-   and the ranker's forward, from wrappers that synchronise the card around each
-   (removed again before the next run);
-3. traced: a ``torch.profiler`` trace of 5 requests, for the device kernel
+2. traced: a ``torch.profiler`` trace of 5 requests, for the device kernel
    time per request and the top kernels.
 
 The device-busy share is the traced device time per request over the
-plain run's ``recommend`` time, so neither the tracer's nor the wrappers'
-overhead enters it.
+plain run's ``recommend`` time, so the tracer's overhead does not enter it.
+A layer's time is not read here: the program records its own spans
+(``utils/profiling.py``), and ``benchmark/run.py --trace 1`` reports them.
 
 Training: the full-width DCN, DeepFM and attention rankers of
 ``chip_smoke.py``'s training phases (``mind_config("dcn",
 embedding_optimizer="rowwise_adagrad")``, ``mind_ranker_config("deepfm")``,
 ``attention_config()``, and ``mind_ranker_config("attention@adamw")`` on the
-all-dense step, whose spans are forward, backward, AdamW over every
-parameter and the AUC; batch 512) under ``Trainer.train_epoch``, and the
+all-dense step; batch 512) under ``Trainer.train_epoch``, and the
 DSSM of configs/dssm.yaml (``chip_smoke.dssm_config()``, the all-dense
 step: towers, loss, backward, AdamW; and its rowwise AdaGrad variant,
 ``dssm@rowwise``) under ``DSSMTrainer.train_epoch``, and the optimizer
 variants of ``chip_smoke.py``'s ``train_variants`` phase (the DCN on
 ``sparse_adamw``, with K-step write-back without its step checkpoints, with
 bfloat16 tables and towers at batch 512 and 8,192; the DSSM on
-``sparse_adamw``), after a warm-up epoch, in the same three runs over epochs of TRAIN_STEPS
-(24) steps: plain (ms per step, nothing added), layers (gather, fields,
-forward, backward, dense AdamW, dedup, rowwise update + scatter, AUC, each
-wrapped with card syncs), traced (device time per step, top kernels). The
-device-busy share of a step is the traced device time per step over the
-plain run's. For the training paths of ``chip_smoke.py``'s ``roofline``
+``sparse_adamw``), after a warm-up epoch, in the same two runs over epochs of
+TRAIN_STEPS (24) steps: plain (ms per step, nothing added) and traced
+(device time per step, top kernels). The device-busy share of a step is the
+traced device time per step over the plain run's. For the training paths of ``chip_smoke.py``'s ``roofline``
 phase, one step counted by ``utils/roofline.py``'s ``step_cost`` gives
 ``mfu_pct`` and ``hbm_bw_util_pct`` at the plain step and at the device time.
 
@@ -143,38 +138,6 @@ def plain_times(casc, reqs) -> dict:
     return {k: v / len(reqs) * 1e3 for k, v in totals.items()}
 
 
-def sync_timer(fn, label, totals):
-    """``fn`` with the card synchronised around it and its wall time added
-    to ``totals[label]``."""
-    def timed(*args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        totals[label] += time.perf_counter() - t
-        return out
-    return timed
-
-
-def layer_times(casc, reqs) -> dict:
-    """Mean wall ms per request of each layer, the card synchronised around each."""
-    totals = collections.defaultdict(float)
-    spans = [(casc.recall, "_encode", "recall: user tower"),
-             (casc.recall.searcher, "search", "recall: matmul + topk + copy"),
-             (casc.recall, "recommend", "recall: total (incl. history dedup)"),
-             (casc.ranker_model, "forward", f"rank: {casc.ranker_cfg.name} forward")]
-    for obj, name, label in spans:
-        setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
-    try:
-        for req in reqs:
-            casc.recommend(_user_batch_from_json(casc, req["users"]), k=chip_smoke.K,
-                           histories=req["histories"])
-    finally:
-        for obj, name, _ in spans:
-            delattr(obj, name)          # back to the class's own method
-    return {k: v / len(reqs) * 1e3 for k, v in totals.items()}
-
-
 def device_events(prof) -> list:
     """A ``torch.profiler`` trace's device kernels and copies, by name; user
     annotations (``Optimizer.step#...`` ranges), which span other kernels,
@@ -199,74 +162,6 @@ FORWARD_KERNELS = {"dcn": "cross", "deepfm": "FM", "attention": "fused block",
                    "attention@adamw": "fused block", "dssm": "pool",
                    "dssm@rowwise": "no", "dcn@sparse_adamw": "cross", "dcn@K4": "cross",
                    "dcn@bf16": "cross", "dcn_b8192@bf16": "cross", "dssm@sparse_adamw": "no"}
-
-
-def rowwise_spans(cfg) -> list:
-    """The rowwise update's two spans for ``cfg``: its dedup (the sorted or
-    the unique-row layout) and its optimizer (AdaGrad or Adam, with the
-    row scatter kernel or a plain write). K-step write-back runs both inside
-    its flush, every K steps."""
-    from news_recsys_tpu_torch.training import sparse_step
-
-    adam = cfg.train_hparams.embedding_optimizer == "sparse_adamw"
-    bf16 = cfg.mesh.param_dtype == "bfloat16"
-    write = "plain write" if bf16 else "scatter kernel"
-    return [(sparse_step, "_unique_rows" if bf16 else "_joint_dedup",
-             f"dedup ({'unique rows' if bf16 else 'sort'} + segment sum)"),
-            (sparse_step, "rowwise_adam_update" if adam else "rowwise_adagrad_update",
-             f"rowwise {'Adam' if adam else 'AdaGrad'} + {write}")]
-
-
-def train_spans(trainer, state, ranker: str) -> list:
-    """(object, attribute, label) of each layer of the ranker's step."""
-    from news_recsys_tpu_torch.models import dssm
-    from news_recsys_tpu_torch.training import dense_step, retrieval, sparse_step
-
-    kernel = FORWARD_KERNELS[ranker]
-    if ranker == "dssm":
-        return [(trainer.model, "forward", "towers (embed, pool kernel, MLPs)"),
-                (dssm, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
-                (torch.Tensor, "backward", "backward (incl. the pool bwd kernel)"),
-                (state.opt, "step", "AdamW over every parameter")]
-    if ranker.startswith("dssm@"):
-        return [(retrieval, "gather_large_rows", "gather (large-table rows)"),
-                (retrieval, "fields_from_rows", "fields (small-table gathers, pooling)"),
-                (trainer.model, "towers_from_fields", "towers (MLPs)"),
-                (retrieval, "dssm_loss_from_embeddings", "loss (normalise, negatives, InfoNCE)"),
-                (torch.Tensor, "backward", "backward"),
-                (state.dense_opt, "step", "dense AdamW"),
-                *rowwise_spans(trainer.cfg)]
-    if not trainer.sparse_embeddings:
-        return [(trainer.model, "forward", f"forward (embed, pool, {kernel} kernel, MLP)"),
-                (torch.Tensor, "backward", f"backward (incl. {kernel} and pool bwd kernels)"),
-                (state.opt, "step", "AdamW over every parameter"),
-                (dense_step, "binned_auc_update", "AUC histogram")]
-    return [(sparse_step, "gather_large_rows", "gather (large-table rows)"),
-            (sparse_step, "fields_from_rows", "fields (small-table gathers, masks)"),
-            (trainer.model, "forward_from_fields", f"forward ({kernel} kernel + MLP)"),
-            (torch.Tensor, "backward", f"backward (incl. {kernel} bwd kernel)"),
-            (state.dense_opt, "step", "dense AdamW"),
-            *rowwise_spans(trainer.cfg),
-            (sparse_step, "binned_auc_update", "AUC histogram")]
-
-
-def train_layer_times(trainer, state, ds, epoch, ranker: str) -> dict:
-    """Mean wall ms per step of each layer of the step, the card
-    synchronised around each."""
-    totals = collections.defaultdict(float)
-    spans = train_spans(trainer, state, ranker)
-    saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in spans]
-    for obj, name, label in spans:
-        setattr(obj, name, sync_timer(getattr(obj, name), label, totals))
-    try:
-        _, metrics = trainer.train_epoch(state, ds, epoch)
-    finally:
-        for obj, name, old in saved:
-            if old is None:
-                delattr(obj, name)          # back to the class's own method
-            else:
-                setattr(obj, name, old)
-    return {k: v / metrics["steps"] * 1e3 for k, v in totals.items()}
 
 
 def profile_training(smi: str, ranker: str = "dcn") -> None:
@@ -303,18 +198,15 @@ def profile_training(smi: str, ranker: str = "dcn") -> None:
         state, _ = trainer.train_epoch(state, ds, 0)                     # warm-up
         _, plain = trainer.train_epoch(state, ds, 1)
         step_ms = bs / plain["examples_per_sec"] * 1e3
-        layers = train_layer_times(trainer, state, ds, 2, ranker)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.train_epoch(state, ds, 3)
+            trainer.train_epoch(state, ds, 2)
             torch.cuda.synchronize()
     kernels = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    print(f"\n== training {ranker}, batch {bs}, epochs of {steps} steps ({smi})")
+    print(f"\n== training {ranker} ({FORWARD_KERNELS[ranker]} kernel), batch {bs}, epochs of "
+          f"{steps} steps ({smi})")
     print(f"  {'plain: step (train_epoch wall / steps)':44s} {step_ms:9.3f} ms")
-    for k, v in layers.items():
-        print(f"  {'layers: ' + k:44s} {v:9.3f} ms")
-    print(f"  {'layers: sum of the spans above':44s} {sum(layers.values()):9.3f} ms")
     print(f"  {'steps/s, examples/s (plain)':44s} {1e3 / step_ms:9.1f} "
           f"{plain['examples_per_sec']:.0f}")
     print(f"  device kernels (profiler, {steps} steps) {dev_ms:.3f} ms/step, {launches:.0f} "
@@ -978,13 +870,12 @@ def profile_serving(smi: str, ranker: str, args) -> None:
             casc.recommend(_user_batch_from_json(casc, req["users"]), k=chip_smoke.K,
                            histories=req["histories"])
         plain = plain_times(casc, reqs[2:])
-        layers = layer_times(casc, reqs[2:])
         traced = reqs[2:7]
         kernels = traced_kernels(casc, traced)
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(traced)
         print(f"\n== {ranker} cascade, {users} users/request, {args.requests} requests, "
               f"no HTTP ({smi})")
-        for k, v in {**plain, **layers}.items():
+        for k, v in plain.items():
             print(f"  {k:36s} {v:9.3f} ms")
         print(f"  {'users served per second':36s} "
               f"{users / plain['whole request, no HTTP'] * 1e3:9.0f}")

@@ -1506,7 +1506,8 @@ def compare_training_with_cpu(dev: torch.device, cfg, ds, n_steps: int = CHECK_S
     from news_recsys_tpu_torch.training.dense_step import init_dense_state, make_train_step
     from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
                                                             make_sparse_train_step)
-    from news_recsys_tpu_torch.training.trainer import AucHist, BatchPacker, unpack_batch
+    from news_recsys_tpu_torch.training.metrics_device import AucHist
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, unpack_batch
 
     dense = cfg.train_hparams.embedding_optimizer == "adamw"
     init, make_step = ((init_dense_state, make_train_step) if dense
@@ -1673,7 +1674,7 @@ def train_nrms_phase(dev: torch.device, name: str) -> dict:
     from news_recsys_tpu_torch import zoo
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training import dense_step
-    from news_recsys_tpu_torch.training.trainer import AucHist
+    from news_recsys_tpu_torch.training.metrics_device import AucHist
 
     cfg = zoo.mind_nrms_config()
     B = cfg.dataset.batch_size
@@ -2060,7 +2061,8 @@ def compare_variant_with_cpu(dev: torch.device, cfg, ds, n_steps: int) -> None:
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training.sparse_step import (init_sparse_state,
                                                             make_sparse_train_step)
-    from news_recsys_tpu_torch.training.trainer import AucHist, BatchPacker, unpack_batch
+    from news_recsys_tpu_torch.training.metrics_device import AucHist
+    from news_recsys_tpu_torch.training.trainer import BatchPacker, unpack_batch
 
     cpu_model = build_ranker(cfg, seed=SEED + 31, device="cpu")
     models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
@@ -3014,7 +3016,7 @@ def stepper(kind: str, cfg, weights: dict, dev: torch.device, mesh):
     sparse step (carry: the AUC histogram) or the DSSM's all-dense step
     (carry: the negatives of PARALLEL_DSSM_STEPS steps of the global batch)."""
     from news_recsys_tpu_torch.parallel.sharded_embedding import shard_parameters
-    from news_recsys_tpu_torch.training.trainer import AucHist
+    from news_recsys_tpu_torch.training.metrics_device import AucHist
 
     if kind == "dssm":
         from news_recsys_tpu_torch.models.dssm import build_dssm
@@ -3356,7 +3358,7 @@ def check_hist_2x1(probs, want_probs, hist, want_hist) -> tuple:
     land in the next bin. The sums must be equal, every example binned
     apart must lie that close to an edge, and the histograms may differ
     only by those examples."""
-    from news_recsys_tpu_torch.training.trainer import AUC_BINS
+    from news_recsys_tpu_torch.training.metrics_device import AUC_BINS
 
     for h, w in zip(hist, want_hist):
         if float(h.sum()) != float(w.sum()):

@@ -39,8 +39,6 @@ from .utils.logging import get_logger
 
 logger = get_logger("cli")
 
-EXPORT_SCRIPT = "scripts/export_torch_checkpoint.py"
-
 
 def _require_device(device: str) -> None:
     if device.startswith("cuda") and not torch.cuda.is_available():
@@ -201,27 +199,6 @@ def _history_ids(history: str) -> list:
     return [int(x) for x in history.split(" ")] if history else []
 
 
-def _refuse_msgpack(path: str) -> None:
-    raise SystemExit(f"{path}: a checkpoint of the JAX package (flax msgpack); convert it "
-                     f"with {EXPORT_SCRIPT} (where JAX is installed) and pass the .pt it writes")
-
-
-def _resolve_ckpt(ckpt: str) -> str:
-    """A checkpoint file, or an experiment dir's newest ``epoch_*.pt``."""
-    if os.path.isdir(ckpt):
-        cands = sorted(glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.pt"))
-                       or glob.glob(os.path.join(ckpt, "epoch_*.pt")))
-        if cands:
-            return cands[-1]
-        if (glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.msgpack"))
-                or glob.glob(os.path.join(ckpt, "epoch_*.msgpack"))):
-            _refuse_msgpack(ckpt)
-        raise FileNotFoundError(f"No epoch_*.pt under {ckpt}")
-    if ckpt.endswith(".msgpack"):
-        _refuse_msgpack(ckpt)
-    return ckpt
-
-
 def _row_decoder(cfg, ds, decode: bool):
     """(row-index -> feature dict) with optional FeatureIdMapper decode."""
     import numpy as np
@@ -260,11 +237,12 @@ def cmd_predict(args) -> None:
     from .config import load_config
     from .data.packed_dataset import PackedDataset
     from .models.rankers import build_ranker
+    from .training.checkpoint import resolve_ckpt
     from .training.trainer import Trainer
 
     cfg = load_config(args.config)
     name = args.model or cfg.name
-    ckpt = _resolve_ckpt(args.checkpoint)
+    ckpt = resolve_ckpt(args.checkpoint)
     ds = (PackedDataset.load(args.input) if args.input
           else PackedDataset.open_split(cfg, args.split))
     if name == "dssm":
@@ -396,10 +374,12 @@ def cmd_serve(args) -> None:
 def cmd_convert_ckpt(args) -> None:
     """Convert an ``epoch_*.pt`` checkpoint between the per-table and arena
     embedding layouts (``embeddings.arena_tables``)."""
-    if args.input.endswith(".msgpack"):
-        _refuse_msgpack(args.input)
     from .config import load_config
     from .training.arena_convert import convert_checkpoint
+    from .training.checkpoint import refuse_msgpack
+
+    if args.input.endswith(".msgpack"):
+        refuse_msgpack(args.input)
     convert_checkpoint(load_config(args.config), args.input, args.output,
                        to_arena=args.to == "arena")
     print(f"Converted {args.input} -> {args.output} ({args.to} layout)")

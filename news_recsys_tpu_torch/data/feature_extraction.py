@@ -38,6 +38,7 @@ import yaml
 from ..config import Config
 from ..utils.logging import get_logger
 from .preprocess import NEWS_COLS, read_tsv
+from .text_format import write_text_features
 
 logger = get_logger("feature_extraction")
 
@@ -469,7 +470,6 @@ class FeatureExtractionPipeline:
     def _write_split(self, name: str, feats: Dict[str, np.ndarray], names: List[str]) -> None:
         self._save_npz(self.out_dir / f"{name}_features.npz", feats)
         if self.write_text:
-            from .text_format import write_text_features
             write_text_features(self.out_dir / f"{name}_features.txt", feats, names)
 
     def run(self) -> None:

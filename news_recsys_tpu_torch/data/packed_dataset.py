@@ -19,7 +19,9 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config import Config
+from ..native import parse_text_features_native
 from ..utils.logging import get_logger
+from .text_format import read_text_features
 
 logger = get_logger("packed_dataset")
 
@@ -71,9 +73,7 @@ class PackedDataset:
         (``native``; a failed build raises), else in Python. Multi-value
         labels yield an (N, k) float32 'label' array."""
         if native:
-            from ..native import parse_text_features_native
             return cls(parse_text_features_native(path, cfg, n_labels=cls._sniff_n_labels(path)))
-        from .text_format import read_text_features
         return cls(read_text_features(path, cfg))
 
     @classmethod

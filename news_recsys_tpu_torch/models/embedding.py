@@ -6,7 +6,8 @@ Port of :mod:`news_recsys_tpu.models.embedding`, with the same contracts:
 - table rows are ``padded_vocab(vocab)`` (a multiple of 128), so parameters
   convert one to one from the JAX package;
 - row 0 is the padding row: lookups multiply by ``(ids != 0)``, so id 0
-  reads as zeros;
+  reads as zeros; the real rows are 1 to ``vocab - 1``, which
+  :func:`real_titles` and :func:`distinct_real_rows` count for the spans;
 - arena members (``arena_d<D>`` tables) shift real ids by their offset and
   clamp ids outside ``[1, member_vocab)`` to padding (:func:`offset_ids`);
 - array features are masked-mean pooled with the ``+1e-8`` denominator,
@@ -68,6 +69,18 @@ def offset_ids(spec, ids: torch.Tensor) -> torch.Tensor:
         ok = (ids > 0) & (ids < spec.member_vocab)
         return torch.where(ok, ids + spec.id_offset, torch.zeros_like(ids))
     return ids
+
+
+def distinct_real_rows(ids: torch.Tensor, vocab: int) -> int:
+    """The distinct real rows (1 to ``vocab - 1``) among ``ids``: a wait for
+    the device."""
+    return int(torch.unique(ids[(ids >= 1) & (ids < vocab)]).numel())
+
+
+def real_titles(ids: torch.Tensor, articles: int) -> int:
+    """The slots of ``ids`` that hold an article (1 to ``articles - 1``): a
+    wait for the device."""
+    return int(((ids >= 1) & (ids < articles)).sum())
 
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -7,17 +7,25 @@ kernel is (in, out) where a torch weight is (out, in), which
 :mod:`news_recsys_tpu_torch.convert` transposes. The attention layers keep
 their kernels (in, out), as flax does: the fused block's CUDA kernels read
 them that way (:mod:`news_recsys_tpu_torch.ops.fused_attention`).
+
+:class:`RankerBase` (the JAX package keeps it in its ``models/rankers.py``)
+is here too, below :mod:`.rankers` and :mod:`.seq_ranker`, which both
+subclass it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..config import FeatureSchema
 from ..ops.fused_attention import fused_transformer_block, mhsa_plain
+from .embedding import EmbeddingCollection
+
+DEFAULT_HIDDEN = (128, 128, 128, 64, 1)
 
 
 class Linear(nn.Linear):
@@ -132,3 +140,38 @@ class TransformerBlock(nn.Module):
             mask = x.new_ones(x.shape[:2])
         return fused_transformer_block(self, x.contiguous(),
                                        mask.to(torch.float32).contiguous(), self.num_heads)
+
+
+class RankerBase(nn.Module):
+    """Embedding collection + rank-feature schema. ``tables`` maps each
+    physical table to its (vocab, dim), as the JAX module's field does; the
+    sparse train step reads it."""
+
+    # array features a subclass consumes as raw (B, L, D) sequences instead
+    # of mean-pooled vectors (their masks travel via the ``masks`` argument)
+    unpooled_arrays: Tuple[str, ...] = ()
+
+    def __init__(self, tables: Mapping[str, Tuple[int, int]], schema: FeatureSchema,
+                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
+                 table_dtype: str = "float32", compute_dtype: str = "float32"):
+        super().__init__()
+        self.tables = dict(tables)
+        self.schema = schema
+        # mesh.compute_dtype: the MLP towers' matmul dtype (None: float32)
+        self.tower_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
+        self.embedder = EmbeddingCollection(tables, init_scale, generator, table_dtype)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        fields = self.embedder.embed_fields(batch, self.schema,
+                                            unpooled=set(self.unpooled_arrays))
+        return self.forward_from_fields(fields, self._collect_masks(batch))
+
+    def _collect_masks(self, batch) -> Dict[str, torch.Tensor]:
+        masks = {}
+        for name in self.unpooled_arrays:
+            m = batch.get(f"{name}_mask")
+            masks[name] = (batch[name] != 0 if m is None else m).to(torch.float32)
+        return masks
+
+    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
+        raise NotImplementedError

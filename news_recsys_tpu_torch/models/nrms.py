@@ -51,22 +51,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
-from ..ops.mhsa import masked_mhsa
-from ..training.sparse_step import distinct_real_rows
+from ..ops.mhsa import masked_mhsa, masked_softmax
 from ..utils.profiling import active, count, span
+from .embedding import distinct_real_rows, real_titles
 
-NEG = -1e9
 NOTHING = contextlib.nullcontext()
 
 
 def _uniform(shape, bound: float, generator) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
-
-
-def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis, a masked position at -1e9 (``mask``
-    broadcasts to ``scores``; True keeps)."""
-    return torch.softmax(torch.where(mask, scores, NEG), dim=-1)
 
 
 class SelfAttention(nn.Module):
@@ -131,12 +124,6 @@ class UserEncoder(nn.Module):
     def forward(self, news: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The history's news vectors (B, H, D), mask (B, H) -> (B, D)."""
         return self.pool(self.attn(news, mask), mask)
-
-
-def real_titles(ids: torch.Tensor, articles: int) -> int:
-    """The slots of ``ids`` that hold an article (1 to ``articles - 1``): a
-    wait for the device."""
-    return int(((ids >= 1) & (ids < articles)).sum())
 
 
 class NRMSRanker(nn.Module):

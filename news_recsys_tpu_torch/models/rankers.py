@@ -21,55 +21,19 @@ map one to one onto the JAX package's flax paths
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import Config, FeatureSchema, build_schema, table_specs
-
 from ..ops.dcn_kernel import dcn_cross_stack
 from ..ops.fm_kernel import fm_second_order
-from .embedding import EmbeddingCollection
-from .layers import MLP, Linear
+from .layers import DEFAULT_HIDDEN, MLP, Linear, RankerBase
+from .nrms import build_nrms
+from .seq_ranker import build_attention_ranker
 
-DEFAULT_HIDDEN = (128, 128, 128, 64, 1)
 RANKER_NAMES = ("lr", "deep", "widedeep", "fm", "deepfm", "dcn", "attention", "nrms")
-
-
-class RankerBase(nn.Module):
-    """Embedding collection + rank-feature schema. ``tables`` maps each
-    physical table to its (vocab, dim), as the JAX module's field does; the
-    sparse train step reads it."""
-
-    # array features a subclass consumes as raw (B, L, D) sequences instead
-    # of mean-pooled vectors (their masks travel via the ``masks`` argument)
-    unpooled_arrays: Tuple[str, ...] = ()
-
-    def __init__(self, tables: Mapping[str, Tuple[int, int]], schema: FeatureSchema,
-                 init_scale: float = 1.0, generator: Optional[torch.Generator] = None,
-                 table_dtype: str = "float32", compute_dtype: str = "float32"):
-        super().__init__()
-        self.tables = dict(tables)
-        self.schema = schema
-        # mesh.compute_dtype: the MLP towers' matmul dtype (None: float32)
-        self.tower_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
-        self.embedder = EmbeddingCollection(tables, init_scale, generator, table_dtype)
-
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        fields = self.embedder.embed_fields(batch, self.schema,
-                                            unpooled=set(self.unpooled_arrays))
-        return self.forward_from_fields(fields, self._collect_masks(batch))
-
-    def _collect_masks(self, batch) -> Dict[str, torch.Tensor]:
-        masks = {}
-        for name in self.unpooled_arrays:
-            m = batch.get(f"{name}_mask")
-            masks[name] = (batch[name] != 0 if m is None else m).to(torch.float32)
-        return masks
-
-    def forward_from_fields(self, fields, masks=None) -> torch.Tensor:
-        raise NotImplementedError
 
 
 class LRRanker(RankerBase):
@@ -215,12 +179,8 @@ def build_ranker(cfg: Config, name: Optional[str] = None, *, seed: int = 0,
     if name not in RANKER_NAMES:
         raise ValueError(f"Unknown ranker: {name!r}")
     if name == "attention":
-        from .seq_ranker import build_attention_ranker
-
         return build_attention_ranker(cfg, seed=seed).to(device).eval()
     if name == "nrms":
-        from .nrms import build_nrms
-
         return build_nrms(cfg, seed=seed).to(device).eval()
     schema = build_schema(cfg)
     common = dict(tables=table_specs(cfg), schema=schema,

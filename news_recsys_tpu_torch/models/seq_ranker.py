@@ -26,8 +26,7 @@ import torch
 from torch import nn
 
 from ..config import Config, FeatureSchema, build_schema, table_specs
-from .layers import MLP, TransformerBlock
-from .rankers import DEFAULT_HIDDEN, RankerBase
+from .layers import DEFAULT_HIDDEN, MLP, RankerBase, TransformerBlock
 
 NEG = -1e9
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock, stream_ptr
+from ._build import launch
 
 MAX_D = 256                    # a row in at most 32 lanes of 8 floats
 FWD_SMEM_BYTES = 48 * 1024     # the forward's weights in shared memory
@@ -194,8 +195,6 @@ def _cross_fwd_kernel(x0, ws, bs, residuals: bool):
     B, D = x0.shape
     NL = ws.shape[0]
     _check_limits(D, NL, residuals)
-    from ._build import launch
-
     out = torch.empty_like(x0)
     ss = x0.new_empty((NL, B)) if residuals else None
     plan = _plan(x0, NL, _aligned(x0, ws, bs, out), False)
@@ -229,8 +228,6 @@ def dcn_cross_bwd(x0, ws, bs, ss, g):
         if on_cpu:
             return cross_bwd_rebuild_plain(x0, ws, bs, ss, g)
         _check_limits(D, NL, backward=True)
-        from ._build import launch
-
         out = _launch_cross_bwd(lambda *a: launch("nrt_dcn_cross_bwd", *a), x0, ws, bs, ss, g)
     with launch_count_lock:
         dcn_cross_bwd.launches += 1

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from . import KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock, stream_ptr
+from ._build import launch
 
 # the forward as csrc/fm_second_order.cu launches it: (F, D) of DeepFM take
 # the staged path, a block of FM_ROWS rows of FM_LANES lanes; other shapes
@@ -119,8 +120,6 @@ def _kernel_shape(v: torch.Tensor):
 
 
 def _fm_fwd_kernel(v: torch.Tensor) -> torch.Tensor:
-    from ._build import launch
-
     B, F, D = _kernel_shape(v)
     out = v.new_empty((B,))
     if B == 0:
@@ -142,8 +141,6 @@ def fm_second_order_bwd(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     with kernel_scope("fm_second_order_bwd", lambda: fm_bwd_cost(*v.shape)):
         if on_cpu:
             return fm_bwd_plain(v, g)
-        from ._build import launch
-
         B, F, D = _kernel_shape(v)
         dv = torch.empty_like(v)
         if B == 0:

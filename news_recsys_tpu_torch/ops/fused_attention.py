@@ -48,6 +48,7 @@ import torch
 
 from . import (KernelCost, aligned16, check_tensor, kernel_device, kernel_scope,
                launch_count_lock, open_counter, stream_ptr)
+from ._build import launch
 
 NEG = -1e9          # score of an invalid key
 LN_EPS = 1e-6       # flax nn.LayerNorm's default
@@ -256,8 +257,6 @@ def _param_pointers(params):
 
 
 def _fwd_kernel(params, x, mask, num_heads: int, route=None) -> torch.Tensor:
-    from ._build import launch
-
     B, L, D, F = _check(params, x, mask, num_heads)
     _kernel_shape(B, L, D, F)
     out = torch.empty_like(x)
@@ -300,8 +299,6 @@ def fused_transformer_block_bwd(params: Sequence[torch.Tensor], x, mask, dy, num
 
 
 def _bwd_kernel(params, x, mask, dy, num_heads: int, route, B, L, D, F):
-    from ._build import launch
-
     _kernel_shape(B, L, D, F)
     dx = torch.empty_like(x)
     n_params = param_floats(D, F)

@@ -39,6 +39,7 @@ import torch
 
 from . import (KernelCost, check_tensor, kernel_device, kernel_scope, launch_count_lock,
                open_counter, stream_ptr)
+from ._build import launch
 
 EPS = 1e-8
 MAX_D = 256
@@ -104,8 +105,6 @@ def _kernel_limits(D: int, V: int):
 
 
 def _fwd_kernel(table, ids, mask) -> torch.Tensor:
-    from ._build import launch
-
     (V, D), (B, L) = table.shape, ids.shape
     _kernel_limits(D, V)
     out = torch.empty((B, D), dtype=torch.float32, device=table.device)
@@ -148,8 +147,6 @@ def fused_lookup_pool_bwd(ids: torch.Tensor, mask: torch.Tensor, g: torch.Tensor
     with kernel_scope("fused_lookup_pool_bwd", lambda: pool_bwd_cost(B, L, D, V)):
         if on_cpu:
             return pool_bwd_plain(ids, mask, g, V)
-        from ._build import launch
-
         _kernel_limits(D, V)
         if B * L * D >= 2 ** 31:
             raise ValueError(f"the fused_lookup_pool backward takes B*L*D < 2**31; got "

@@ -36,7 +36,9 @@ import torch
 
 from . import (KernelCost, aligned16, check_tensor, kernel_device, kernel_scope,
                launch_count_lock, open_counter, stream_ptr)
+from ._build import launch
 
+NEG = -1e9              # a masked position's score before the softmax
 MAX_LEN = 128
 HEAD_DIMS = (8, 16, 32, 64)
 MAX_WARPS = 4           # a block's warps at most
@@ -70,17 +72,21 @@ def plan_mhsa(N: int, L: int, H: int, hd: int) -> MhsaPlan:
                     16 * -(-(4 * rows + 3 * G * L * 4 + L) // 16))
 
 
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis, a masked position at -1e9 (``mask``
+    broadcasts to ``scores``; True keeps)."""
+    return torch.softmax(torch.where(mask, scores, NEG), dim=-1)
+
+
 def masked_mhsa_plain(qkv: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tensor:
     """The forward in plain PyTorch, the chain of library calls NRMS ran
-    before the kernel (the masked softmax ``models/nrms.py::masked_softmax``):
-    the CPU path and the kernels' oracle."""
-    from ..models import nrms
-
+    before the kernel (the masked softmax :func:`masked_softmax`): the CPU
+    path and the kernels' oracle."""
     N, L, width = qkv.shape
     hd = width // (3 * heads)
     q, k, v = qkv.reshape(N, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-    alpha = nrms.masked_softmax(scores, mask[:, None, None, :])
+    alpha = masked_softmax(scores, mask[:, None, None, :])
     return (alpha @ v).transpose(1, 2).reshape(N, L, heads * hd)
 
 
@@ -125,8 +131,6 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, heads: int):
 
 def _fwd_kernel(qkv: torch.Tensor, mask: torch.Tensor, N: int, L: int, H: int,
                 hd: int) -> torch.Tensor:
-    from ._build import launch
-
     check_tensor(qkv, "qkv", torch.float32, 3)
     plan = plan_mhsa(N, L, H, hd)
     out = qkv.new_empty((N, L, H * hd))
@@ -151,8 +155,6 @@ def masked_mhsa_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     with kernel_scope("masked_mhsa_bwd", lambda: mhsa_bwd_cost(N, L, H, hd)):
         if on_cpu:
             return masked_mhsa_bwd_plain(qkv, mask, g, heads)
-        from ._build import launch
-
         check_tensor(qkv, "qkv", torch.float32, 3)
         check_tensor(g, "g", torch.float32, 3)
         plan = plan_mhsa(N, L, H, hd)

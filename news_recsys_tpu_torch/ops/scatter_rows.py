@@ -32,6 +32,7 @@ import torch
 
 from . import (KernelCost, check_tensor, forward_only, kernel_device, kernel_scope,
                launch_count_lock, stream_ptr)
+from ._build import launch
 
 
 def last_of_run(rows: torch.Tensor) -> torch.Tensor:
@@ -100,8 +101,6 @@ def scatter_rows_set(table: torch.Tensor, rows: torch.Tensor,
             raise ValueError(f"scatter_rows_set kernel takes V < 2**31; got V={V}")
         if S == 0 or D == 0:
             return table
-        from ._build import launch
-
         launch("nrt_scatter_rows_set", table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
                S, D, V, stream_ptr(table))
     with launch_count_lock:

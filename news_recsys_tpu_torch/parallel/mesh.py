@@ -19,6 +19,11 @@ model coordinate), made with ``dist.new_group`` on every rank in one order,
 and the :class:`~.distributed.CommStats` of its collectives. Without a
 started process group a mesh only knows its coordinates (``rank`` and
 ``world`` given): what the placement tests read.
+
+The train steps' data-axis collectives live here too: the gradients summed
+in one flat buffer (:func:`sum_over_data`), the rows' slots gathered in
+batch order (:func:`gather_slots`) and the loss's denominator
+(:func:`global_weight_sum`); without a data axis none of them moves data.
 """
 
 from __future__ import annotations
@@ -145,3 +150,51 @@ def all_gather_with_grad(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor
     backward sums the gradient over the axis and returns the rank's rows:
     the DSSM's in-batch negatives over the global batch."""
     return _GatherWithGrad.apply(t, mesh, axis)
+
+
+def sum_over_data(mesh, params, *scalars: torch.Tensor) -> list:
+    """Sum the gradients of ``params`` (those that have one: the same ones on
+    every rank) and the 0-dim ``scalars`` over the data axis, in place, in
+    one flat buffer; returns the summed scalars. Without a data axis:
+    nothing moves."""
+    if mesh is None or mesh.data == 1:
+        return list(scalars)
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [x.detach().reshape(1).to(torch.float32) for x in scalars])
+    mesh.all_reduce_(flat, "data")
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return list(flat[off:])
+
+
+def gather_slots(per_table, mesh):
+    """The global batch's ``per_table``: every (ids, row grads, offset) entry
+    of every rank gathered over the data axis in rank order, which is batch
+    order, in one flat buffer (the int32 ids travel as float32 bits).
+    Without a data axis: ``per_table`` itself."""
+    entries = [(t, e) for t in sorted(per_table) for e in per_table[t]]
+    if mesh is None or mesh.data == 1 or not entries:
+        return per_table
+    flat = torch.cat([x for _, (ids, g, *_) in entries
+                      for x in (ids.to(torch.int32).view(torch.float32), g.reshape(-1))])
+    ranks = mesh.all_gather(flat, "data").view(mesh.data, -1)
+    out: Dict[str, list] = {}
+    off = 0
+    for t, (ids, g, *rest) in entries:
+        gi = ranks[:, off:off + ids.numel()].contiguous().view(torch.int32).reshape(-1)
+        off += ids.numel()
+        gg = ranks[:, off:off + g.numel()].reshape(-1, g.shape[-1])
+        off += g.numel()
+        out.setdefault(t, []).append((gi.to(ids.dtype), gg, *rest))
+    return out
+
+
+def global_weight_sum(weights: torch.Tensor, mesh) -> torch.Tensor:
+    """The batch's weight sum over the data axis (the loss's denominator)."""
+    total = weights.sum()
+    if mesh is None or mesh.data == 1:
+        return total
+    return mesh.all_reduce_(total.clone(), "data")

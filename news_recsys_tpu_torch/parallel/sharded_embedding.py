@@ -61,6 +61,17 @@ def active_mesh(embedder: nn.Module) -> Optional[Mesh]:
     return getattr(embedder, "mesh", None)
 
 
+def sharded_tables(model: nn.Module, mesh):
+    """The mesh whose model axis shards ``model``'s tables (its lookups go
+    through the id exchange), or None; raises where ``mesh`` has a model
+    axis and the tables were not cut to it (:func:`shard_parameters`)."""
+    embedder = getattr(model, "embedder", None)         # NRMS has no embedding collection
+    if mesh is not None and mesh.model > 1 and active_mesh(embedder) is not mesh:
+        raise ValueError(f"{mesh} shards the tables: cut the model to it "
+                         "(shard_parameters) before making its step")
+    return active_mesh(embedder)
+
+
 class _ExchangeLookup(torch.autograd.Function):
     """rows (N, D) of the global ids (N,) from this rank's shard (Vl, D)."""
 

@@ -33,12 +33,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import DENSE, Config, config_from_dict, config_to_dict
+from .config import DENSE, Config, config_from_dict, config_to_dict, load_config
 from .convert import params_from_flax, params_to_flax
 from .data.packed_dataset import Batch, PackedDataset
 from .models.dssm import DSSM, _l2, build_dssm
 from .models.rankers import build_ranker
+from .native import HostTopKSearcher
 from .ops.topk import TopKSearcher
+from .training.checkpoint import load_state, resolve_ckpt
 from .utils.logging import get_logger
 from .utils.profiling import active, count, span
 
@@ -161,7 +163,6 @@ class Recommender:
             backend = "host" if self.device.type == "cpu" else "device"
         self.backend = backend
         if backend == "host":
-            from .native import HostTopKSearcher
             self.searcher = HostTopKSearcher(normalize=False)
             self.searcher.update_embedding(self.corpus)
         else:
@@ -376,10 +377,6 @@ def build_cascade(recall_bundle: str, ranker_ckpt: str, ranker_config: str,
     extracted item split. A cascade bundle is refused before anything loads
     (the JAX package's ``serve`` reads ``--ranker-ckpt`` first and fails
     later on such a bundle)."""
-    from .cli import _resolve_ckpt
-    from .config import load_config
-    from .training.checkpoint import load_state
-
     if _read_meta(recall_bundle).get("kind") == "cascade":
         raise ValueError(f"{recall_bundle} is a cascade bundle, which brings its own ranker: "
                          "serve it without --ranker-ckpt, or pass the recall bundle "
@@ -387,7 +384,7 @@ def build_cascade(recall_bundle: str, ranker_ckpt: str, ranker_config: str,
     recall = Recommender.load(recall_bundle, device=device, backend=backend)
     rcfg = load_config(ranker_config)
     model = build_ranker(rcfg, rcfg.name, device=device)
-    model.load_state_dict(load_state(_resolve_ckpt(ranker_ckpt))["model"], strict=True)
+    model.load_state_dict(load_state(resolve_ckpt(ranker_ckpt))["model"], strict=True)
     item_ds = PackedDataset.open_split(rcfg, "item")
     return CascadeRecommender(recall, rcfg, model, item_ds, fetch=fetch)
 

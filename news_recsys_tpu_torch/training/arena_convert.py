@@ -35,8 +35,11 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..config import Config, arena_layout, table_specs
+from ..models.dssm import build_dssm
 from ..models.embedding import padded_vocab
+from ..models.rankers import build_ranker
 from .checkpoint import load_state, save_state_dict
+from .sparse_step import dense_parameters
 
 ADAMW_MOMENTS = ("exp_avg", "exp_avg_sq")
 
@@ -150,9 +153,7 @@ def _build_model(cfg: Config):
     """The model a checkpoint of ``cfg`` belongs to, on the CPU (its
     parameters' names and order; the values are not used)."""
     if cfg.name == "dssm":
-        from ..models.dssm import build_dssm
         return build_dssm(cfg, device="cpu")
-    from ..models.rankers import build_ranker
     return build_ranker(cfg, cfg.name, device="cpu")
 
 
@@ -161,7 +162,6 @@ def adamw_names(model, kind: str) -> List[str]:
     an all-dense state, all but the large tables in a sparse one."""
     if kind == "dense":
         return [n for n, _ in model.named_parameters()]
-    from .sparse_step import dense_parameters
     return [n for n, _ in dense_parameters(model)]
 
 

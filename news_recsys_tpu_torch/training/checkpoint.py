@@ -28,6 +28,9 @@ refuses them: "state_steps should not be CUDA tensors").
 
 :class:`CheckpointManager` keeps step-indexed files under one directory and
 deletes none, as the JAX package's ``max_to_keep=None`` keeps every step.
+:func:`resolve_ckpt` finds the checkpoint that a command names: a file, or
+an experiment dir's newest ``ckpts/epoch_<NNN>.pt``; a JAX ``.msgpack`` is
+refused with the script that converts it.
 
 Under a mesh whose model axis shards the tables (``mesh=``), every rank
 gathers the sharded tensors (the tables, their rowwise optimizer state and
@@ -40,6 +43,7 @@ the mesh that wrote them; its epoch files are host-format).
 
 from __future__ import annotations
 
+import glob
 import os
 import re
 from typing import List, Optional
@@ -48,8 +52,10 @@ import torch
 
 from ..parallel.mesh import sharded_names
 from ..parallel.sharded_embedding import full_state_dict, shard_state_dict
+from .sparse_step import sparse_state_shardings
 
 STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+EXPORT_SCRIPT = "scripts/export_torch_checkpoint.py"
 MOMENTS = ("emb_acc", "emb_mu", "emb_nu")       # a sparse state's rowwise optimizer state
 
 
@@ -62,8 +68,6 @@ def state_shardings(state, mesh) -> dict:
     """The sharded tensors of ``state``'s checkpoint, by part: the model's
     parameter names, AdamW's parameter indices and the rowwise optimizer's
     tables (:func:`~.sparse_step.sparse_state_shardings`)."""
-    from .sparse_step import sparse_state_shardings    # the steps import the trainer, which imports us
-
     if state_kind(state) == "sparse":
         return sparse_state_shardings(state, mesh)
     sharded = sharded_names(state.model, mesh)
@@ -253,3 +257,24 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+
+def refuse_msgpack(path: str) -> None:
+    raise SystemExit(f"{path}: a checkpoint of the JAX package (flax msgpack); convert it "
+                     f"with {EXPORT_SCRIPT} (where JAX is installed) and pass the .pt it writes")
+
+
+def resolve_ckpt(ckpt: str) -> str:
+    """A checkpoint file, or an experiment dir's newest ``epoch_*.pt``."""
+    if os.path.isdir(ckpt):
+        cands = sorted(glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.pt"))
+                       or glob.glob(os.path.join(ckpt, "epoch_*.pt")))
+        if cands:
+            return cands[-1]
+        if (glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.msgpack"))
+                or glob.glob(os.path.join(ckpt, "epoch_*.msgpack"))):
+            refuse_msgpack(ckpt)
+        raise FileNotFoundError(f"No epoch_*.pt under {ckpt}")
+    if ckpt.endswith(".msgpack"):
+        refuse_msgpack(ckpt)
+    return ckpt

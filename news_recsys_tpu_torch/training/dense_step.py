@@ -40,10 +40,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
+from ..parallel.mesh import global_weight_sum, sum_over_data
+from ..parallel.sharded_embedding import sharded_tables
 from ..utils.profiling import span
+from .metrics_device import AucHist, binned_auc_update
 from .schedule import hold_cosine_floor
-from .sparse_step import ADAM_EPS, global_weight_sum, sharded_tables, sum_over_data
-from .trainer import AucHist, binned_auc_update
+from .sparse_step import ADAM_EPS
 
 
 @dataclass

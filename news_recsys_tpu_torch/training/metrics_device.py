@@ -20,16 +20,56 @@ a fixed order. No float sum goes through atomics (``index_add_`` on the card
 adds in any order). Pooled AUC and LogLoss are finalised on the host in
 float64 with :func:`.metrics.pooled_auc` / :func:`.metrics.pooled_logloss`,
 as JAX does: at MIND-dev scale the pooled rank sums reach ~1e12.
+
+The streaming train AUC lives here too: :class:`AucHist`, the epoch's binned
+(pos, neg) score histograms on the device, which the train steps fill
+(:func:`binned_auc_update`) and the trainer reads once an epoch
+(:func:`binned_auc_value`).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Set
 
 import numpy as np
 import torch
 
 from .metrics import K_DEFAULT, _idcg_table, compute_user_metrics, pooled_auc, pooled_logloss
+
+AUC_BINS = 4096
+
+
+@dataclass
+class AucHist:
+    """Binned (pos, neg) score histograms for the streaming train AUC."""
+
+    pos: torch.Tensor
+    neg: torch.Tensor
+
+    @staticmethod
+    def zeros(device) -> "AucHist":
+        return AucHist(torch.zeros(AUC_BINS, device=device),
+                       torch.zeros(AUC_BINS, device=device))
+
+
+def binned_auc_update(hist: AucHist, probs, labels, weights) -> AucHist:
+    """Add a batch to ``hist`` in place (and return it): bin = floor(p * BINS)
+    clipped, weighted by ``weights * labels`` and ``weights * (1 - labels)``.
+    ``index_add_`` rather than ``torch.bincount``, whose CUDA path reads the
+    largest bin back to the host on every call."""
+    bins = (probs * AUC_BINS).to(torch.int32).clamp(0, AUC_BINS - 1)
+    hist.pos.index_add_(0, bins, weights * labels)
+    hist.neg.index_add_(0, bins, weights * (1.0 - labels))
+    return hist
+
+
+def binned_auc_value(hist: AucHist) -> float:
+    """AUC estimate: P(score_pos > score_neg) + 0.5 P(equal bin)."""
+    cum_neg = torch.cumsum(hist.neg, 0) - hist.neg      # negatives strictly below bin
+    wins = torch.sum(hist.pos * (cum_neg + 0.5 * hist.neg))
+    total = torch.sum(hist.pos) * torch.sum(hist.neg)
+    return float(wins / total) if float(total) > 0 else 0.0
 
 
 def _segment_sum(x: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:

@@ -43,14 +43,14 @@ from ..data.packed_dataset import PackedDataset
 from ..models.dssm import (DSSM, _l2, draw_negative_permutations, dssm_loss_from_embeddings,
                            dssm_train_loss, item_log_q)
 from ..ops.topk import TopKSearcher
-from ..parallel.mesh import all_gather_with_grad
+from ..parallel.mesh import all_gather_with_grad, gather_slots, sum_over_data
+from ..parallel.sharded_embedding import sharded_tables
 from ..utils.logging import get_logger
 from .checkpoint import load_state, load_weights, save_weights
 from .dense_step import check_dense
 from .schedule import hold_cosine_floor
 from .sparse_step import (_large_tables, check_sparse, collect_per_table, fields_from_rows,
-                          gather_large_rows, gather_slots, make_table_updater, sharded_tables,
-                          sum_over_data)
+                          gather_large_rows, make_table_updater)
 from .trainer import Trainer
 
 logger = get_logger("retrieval")

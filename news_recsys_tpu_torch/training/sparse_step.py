@@ -55,14 +55,15 @@ Under a :class:`~news_recsys_tpu_torch.parallel.mesh.Mesh` (``mesh=``):
 - the loss is the global batch's mean: each rank divides its sum by the
   global weight sum, and the gradients of the replicated parameters (and
   of a small table's shard) are summed over the data axis in one flat
-  buffer (:func:`sum_over_data`), the step's loss with them;
+  buffer (:func:`~news_recsys_tpu_torch.parallel.mesh.sum_over_data`), the
+  step's loss with them;
 - each rank's (ids, row grads) slots are gathered over the data axis in
-  batch order (:func:`gather_slots`), so every rank dedups the global
-  batch's slots as one device does; a sharded table's update then writes
-  only its own rows (:func:`make_sharded_adagrad_update`,
-  :func:`make_sharded_rowwise_update`) with no collective: the slots
-  translate to shard-local rows, and the foreign ones fall outside the
-  shard and are dropped. In the sorted layout the row scatter kernel is
+  batch order (:func:`~news_recsys_tpu_torch.parallel.mesh.gather_slots`),
+  so every rank dedups the global batch's slots as one device does; a
+  sharded table's update then writes only its own rows
+  (:func:`make_sharded_adagrad_update`, :func:`make_sharded_rowwise_update`)
+  with no collective: the slots translate to shard-local rows, and the
+  foreign ones fall outside the shard and are dropped. In the sorted layout the row scatter kernel is
   that shard-local write (it drops rows outside ``[0, V)``, and sorted rows
   minus a constant stay sorted): one launch a table a step on each rank,
   three for ``sparse_adamw``. JAX keeps its Pallas scatter off this route
@@ -96,14 +97,15 @@ from torch import nn
 
 from ..config import ARRAY, DENSE, SPARSE, Config
 
-from ..models.embedding import SMALL_VOCAB_THRESHOLD, offset_ids, padded_vocab, take_rows
+from ..models.embedding import (SMALL_VOCAB_THRESHOLD, distinct_real_rows, offset_ids,
+                               padded_vocab, take_rows)
 from ..ops.scatter_rows import scatter_rows_set, write_kept
-from ..parallel.mesh import sharded_names
-from ..parallel.sharded_embedding import active_mesh
+from ..parallel.mesh import gather_slots, global_weight_sum, sharded_names, sum_over_data
+from ..parallel.sharded_embedding import sharded_tables
 from ..utils.logging import get_logger
 from ..utils.profiling import active, count, span
+from .metrics_device import AucHist, binned_auc_update
 from .schedule import hold_cosine_floor
-from .trainer import AucHist, binned_auc_update
 
 EPS_POOL = 1e-8
 ADAGRAD_INIT_ACC = 0.1   # TF/TPUEmbedding default initial accumulator
@@ -379,12 +381,6 @@ def _joint_dedup(per_table, table_vocab, spare, sharded: bool = False) -> Dict[s
                 else local.clamp(0, spare[t]))
         out[t] = (rows.to(torch.int32), torch.where(mine[:, None], grads_j[:, :d], 0.0))
     return out
-
-
-def distinct_real_rows(ids: torch.Tensor, vocab: int) -> int:
-    """The distinct real rows (1 to ``vocab - 1``) among ``ids``: a wait for
-    the device."""
-    return int(torch.unique(ids[(ids >= 1) & (ids < vocab)]).numel())
 
 
 def stochastic_round_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -685,66 +681,6 @@ def sparse_state_shardings(state: SparseTrainState, mesh) -> dict:
                for k in ("emb_acc", "emb_mu", "emb_nu")}
     return {"model": sharded, "dense_opt": {i for i, n in enumerate(names) if n in sharded},
             **rowwise}
-
-
-def sum_over_data(mesh, params, *scalars: torch.Tensor) -> list:
-    """Sum the gradients of ``params`` (those that have one: the same ones on
-    every rank) and the 0-dim ``scalars`` over the data axis, in place, in
-    one flat buffer; returns the summed scalars. Without a data axis:
-    nothing moves."""
-    if mesh is None or mesh.data == 1:
-        return list(scalars)
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads]
-                     + [x.detach().reshape(1).to(torch.float32) for x in scalars])
-    mesh.all_reduce_(flat, "data")
-    off = 0
-    for g in grads:
-        g.copy_(flat[off:off + g.numel()].view_as(g))
-        off += g.numel()
-    return list(flat[off:])
-
-
-def gather_slots(per_table, mesh):
-    """The global batch's ``per_table``: every (ids, row grads, offset) entry
-    of every rank gathered over the data axis in rank order, which is batch
-    order, in one flat buffer (the int32 ids travel as float32 bits).
-    Without a data axis: ``per_table`` itself."""
-    entries = [(t, e) for t in sorted(per_table) for e in per_table[t]]
-    if mesh is None or mesh.data == 1 or not entries:
-        return per_table
-    flat = torch.cat([x for _, (ids, g, *_) in entries
-                      for x in (ids.to(torch.int32).view(torch.float32), g.reshape(-1))])
-    ranks = mesh.all_gather(flat, "data").view(mesh.data, -1)
-    out: Dict[str, list] = {}
-    off = 0
-    for t, (ids, g, *rest) in entries:
-        gi = ranks[:, off:off + ids.numel()].contiguous().view(torch.int32).reshape(-1)
-        off += ids.numel()
-        gg = ranks[:, off:off + g.numel()].reshape(-1, g.shape[-1])
-        off += g.numel()
-        out.setdefault(t, []).append((gi.to(ids.dtype), gg, *rest))
-    return out
-
-
-def sharded_tables(model: nn.Module, mesh):
-    """The mesh whose model axis shards ``model``'s tables (its lookups go
-    through the id exchange), or None; raises where ``mesh`` has a model
-    axis and the tables were not cut to it
-    (:func:`~news_recsys_tpu_torch.parallel.sharded_embedding.shard_parameters`)."""
-    embedder = getattr(model, "embedder", None)         # NRMS has no embedding collection
-    if mesh is not None and mesh.model > 1 and active_mesh(embedder) is not mesh:
-        raise ValueError(f"{mesh} shards the tables: cut the model to it "
-                         "(shard_parameters) before making its step")
-    return active_mesh(embedder)
-
-
-def global_weight_sum(weights: torch.Tensor, mesh) -> torch.Tensor:
-    """The batch's weight sum over the data axis (the loss's denominator)."""
-    total = weights.sum()
-    if mesh is None or mesh.data == 1:
-        return total
-    return mesh.all_reduce_(total.clone(), "data")
 
 
 def _pending_rows(per_table, K: int) -> PendingRows:

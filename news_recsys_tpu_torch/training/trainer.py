@@ -1,7 +1,8 @@
-"""Training runtime for the rankers: the binned train AUC, the epoch loop,
-prediction, validation, checkpoints and resume (NRMS too, on the all-dense
-step with its listwise loss: a training row carries 1 + K candidates and
-the AUC takes each; ``predict`` and ``validate`` score one a row).
+"""Training runtime for the rankers: the epoch loop (its carry the binned
+train AUC of :mod:`.metrics_device`), prediction, validation, checkpoints
+and resume (NRMS too, on the all-dense step with its listwise loss: a
+training row carries 1 + K candidates and the AUC takes each; ``predict``
+and ``validate`` score one a row).
 
 Port of :mod:`news_recsys_tpu.training.trainer`, on the sparse step path
 (``embedding_optimizer`` ``"rowwise_adagrad"`` or ``"sparse_adamw"``, with
@@ -48,13 +49,13 @@ import contextlib
 import json
 import os
 import time
-from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..convert import flax_arrays
 from ..data.packed_dataset import BatchPacker, PackedDataset, unpack_batch
 from ..parallel.distributed import broadcast_str, process_count, process_index
 from ..parallel.mesh import mesh_from_config
@@ -63,48 +64,15 @@ from ..utils.logging import get_logger
 from ..utils.profiling import span, trace
 from ..utils.tensorboard import SummaryWriter
 from .checkpoint import CheckpointManager, load_state, load_state_dict, save_state
+from .dense_step import init_dense_state, make_train_step
 from .metrics import compute_user_metrics, format_validation_block
-from .metrics_device import compute_user_metrics_device
+# AUC_BINS and AucHist also for the callers that import them from the trainer
+from .metrics_device import AUC_BINS, AucHist, binned_auc_value, compute_user_metrics_device
+from .sparse_step import init_sparse_state, make_sparse_train_step
 
-__all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer",
-           "binned_auc_update", "binned_auc_value", "unpack_batch"]
+__all__ = ["AUC_BINS", "AucHist", "BatchPacker", "PackedDataset", "Trainer", "unpack_batch"]
 
 logger = get_logger("trainer")
-
-AUC_BINS = 4096
-
-
-@dataclass
-class AucHist:
-    """Binned (pos, neg) score histograms for the streaming train AUC."""
-
-    pos: torch.Tensor
-    neg: torch.Tensor
-
-    @staticmethod
-    def zeros(device) -> "AucHist":
-        return AucHist(torch.zeros(AUC_BINS, device=device),
-                       torch.zeros(AUC_BINS, device=device))
-
-
-def binned_auc_update(hist: AucHist, probs, labels, weights) -> AucHist:
-    """Add a batch to ``hist`` in place (and return it): bin = floor(p * BINS)
-    clipped, weighted by ``weights * labels`` and ``weights * (1 - labels)``.
-    ``index_add_`` rather than ``torch.bincount``, whose CUDA path reads the
-    largest bin back to the host on every call."""
-    bins = (probs * AUC_BINS).to(torch.int32).clamp(0, AUC_BINS - 1)
-    hist.pos.index_add_(0, bins, weights * labels)
-    hist.neg.index_add_(0, bins, weights * (1.0 - labels))
-    return hist
-
-
-def binned_auc_value(hist: AucHist) -> float:
-    """AUC estimate: P(score_pos > score_neg) + 0.5 P(equal bin)."""
-    cum_neg = torch.cumsum(hist.neg, 0) - hist.neg      # negatives strictly below bin
-    wins = torch.sum(hist.pos * (cum_neg + 0.5 * hist.neg))
-    total = torch.sum(hist.pos) * torch.sum(hist.neg)
-    return float(wins / total) if float(total) > 0 else 0.0
-
 
 class Trainer:
     """Epoch-driven trainer with the JAX package's experiment-dir logs.
@@ -151,9 +119,6 @@ class Trainer:
     def _make_train_step(self):
         """``step(state, batch, carry) -> (loss, aux)``: the ranker's sparse
         or all-dense step, its carry the epoch's AUC histogram."""
-        from .dense_step import make_train_step
-        from .sparse_step import make_sparse_train_step
-
         return (make_sparse_train_step if self.sparse_embeddings
                 else make_train_step)(self.model, self.cfg, mesh=self.mesh)
 
@@ -162,9 +127,6 @@ class Trainer:
         return self.cfg.train_hparams.embedding_optimizer in ("sparse_adamw", "rowwise_adagrad")
 
     def init_state(self):
-        from .dense_step import init_dense_state
-        from .sparse_step import init_sparse_state
-
         init = init_sparse_state if self.sparse_embeddings else init_dense_state
         state = init(self.model, self.cfg)
         self._write_model_info()
@@ -177,8 +139,6 @@ class Trainer:
         (sorted) order, a sharded table under its whole shape. Process 0
         writes it. A model the JAX package lacks (``flax_paths`` False: NRMS)
         lists its parameters under the port's names, dots as slashes."""
-        from ..convert import flax_arrays     # convert imports the steps, which import us
-
         if not self.is_main:
             return
         named = {n: np.broadcast_to(np.float32(0), shape)

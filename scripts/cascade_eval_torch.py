@@ -52,13 +52,12 @@ def dev_queries(cfg, max_queries: int = 0):
 
 def build(args):
     """(recall, cascade) on ``args.device``."""
-    from news_recsys_tpu_torch.cli import _resolve_ckpt
     from news_recsys_tpu_torch.config import load_config
     from news_recsys_tpu_torch.data.packed_dataset import PackedDataset
     from news_recsys_tpu_torch.models.dssm import build_dssm
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.serving import CascadeRecommender, Recommender
-    from news_recsys_tpu_torch.training.checkpoint import load_state, load_weights
+    from news_recsys_tpu_torch.training.checkpoint import load_state, load_weights, resolve_ckpt
 
     rc_cfg = load_config(args.recall_cfg)
     dssm = load_weights(build_dssm(rc_cfg, device=args.device), load_state(args.recall_ckpt))
@@ -67,7 +66,7 @@ def build(args):
 
     rk_cfg = load_config(args.ranker_cfg)
     ranker = build_ranker(rk_cfg, rk_cfg.name, device=args.device)
-    ranker.load_state_dict(load_state(_resolve_ckpt(args.ranker_ckpt))["model"], strict=True)
+    ranker.load_state_dict(load_state(resolve_ckpt(args.ranker_ckpt))["model"], strict=True)
     casc = CascadeRecommender(recall, rk_cfg, ranker, PackedDataset.open_split(rk_cfg, "item"),
                               fetch=args.fetch)
     return rc_cfg, dssm, recall, casc

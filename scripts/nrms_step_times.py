@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     from news_recsys_tpu_torch import zoo
     from news_recsys_tpu_torch.models.rankers import build_ranker
     from news_recsys_tpu_torch.training import dense_step
-    from news_recsys_tpu_torch.training.trainer import AucHist
+    from news_recsys_tpu_torch.training.metrics_device import AucHist
     from traffic import train_impressions as ti
 
     dev = torch.device("cuda")

@@ -35,7 +35,7 @@ def chain(x, wqkv, mask, heads, hd):
     N, L, _ = x.shape
     q, k, v = (x @ wqkv).view(N, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-    alpha = nrms.masked_softmax(scores, mask[:, None, None, :])
+    alpha = mhsa.masked_softmax(scores, mask[:, None, None, :])
     return (alpha @ v).transpose(1, 2).reshape(N, L, heads * hd)
 
 

@@ -313,6 +313,89 @@ def test_port_imports_no_jax():
                      "news_recsys_tpu")], path
 
 
+PORT = "news_recsys_tpu_torch"
+# (importer's layer, layers it must not import): a layer imports only below it
+UPWARD = {"ops": ("models", "training", "serving", "cli"),
+          "models": ("training", "serving", "cli"),
+          "training": ("serving", "cli"),
+          "serving": ("cli",)}
+# the one module that may import port modules inside its functions: the CLI
+# defers each command's imports to the command
+DEFERRING = (f"{PORT}.cli",)
+
+
+def port_import_graph():
+    """{module: {(imported port module, line, inside a function)}} of every
+    module of the port, read with ``ast``."""
+    files = {}
+    for root, _, names in os.walk(os.path.join(REPO, PORT)):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(root, n)
+                mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+                files[mod.removesuffix(".__init__")] = path
+    graph = {}
+    for mod, path in files.items():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        inner = {id(x) for fn in ast.walk(tree)
+                 if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                 for x in ast.walk(fn) if isinstance(x, (ast.Import, ast.ImportFrom))}
+        edges = graph.setdefault(mod, set())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                targets = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    package = mod.split(".")[:len(mod.split(".")) - node.level
+                                             + path.endswith("__init__.py")]
+                    base = ".".join(package + ([base] if base else []))
+                targets = [f"{base}.{a.name}" if f"{base}.{a.name}" in files else base
+                           for a in node.names]
+            else:
+                continue
+            for t in targets:
+                while t not in files and "." in t:
+                    t = t.rsplit(".", 1)[0]
+                if t in files and t != mod:
+                    edges.add((t, node.lineno, id(node) in inner))
+    return graph
+
+
+def test_port_imports_form_no_cycle():
+    """The port's imports point one way, those inside functions counted: no
+    cycle, no import of a higher layer (ops < models < training < serving <
+    cli), and no port module imported inside a function but by the CLI."""
+    graph = port_import_graph()
+    deps = {m: {t for t, _, _ in edges} for m, edges in graph.items()}
+    state, cycles = {}, []
+
+    def visit(m, path):
+        state[m] = "open"
+        for t in sorted(deps[m]):
+            if state.get(t) == "open":
+                cycles.append(path[path.index(t):] + [t])
+            elif t not in state:
+                visit(t, path + [t])
+        state[m] = "done"
+
+    for m in sorted(deps):
+        if m not in state:
+            visit(m, [m])
+    assert not cycles, cycles
+
+    def layer(m):
+        return m.removeprefix(PORT + ".").split(".")[0]
+
+    upward = sorted((m, t, line) for m, edges in graph.items() for t, line, _ in edges
+                    if layer(t) in UPWARD.get(layer(m), ()))
+    assert not upward, upward
+    deferred = sorted((m, t, line) for m, edges in graph.items() for t, line, inside in edges
+                      if inside and m not in DEFERRING)
+    assert not deferred, deferred
+
+
 def test_serve_cli_refuses_missing_gpu(stacks, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: serve --device cuda would start serving")

@@ -38,9 +38,10 @@ from news_recsys_tpu_torch.models.embedding import padded_vocab
 from news_recsys_tpu_torch.models.rankers import build_ranker
 from news_recsys_tpu_torch.ops.dcn_kernel import cross_bwd_plain, dcn_cross_stack
 from news_recsys_tpu_torch.training import sparse_step as tss
+from news_recsys_tpu_torch.training.metrics_device import (AucHist, binned_auc_update,
+                                                           binned_auc_value)
 from news_recsys_tpu_torch.training.schedule import hold_cosine_floor
-from news_recsys_tpu_torch.training.trainer import (AucHist, Trainer, binned_auc_update,
-                                                    binned_auc_value)
+from news_recsys_tpu_torch.training.trainer import Trainer
 
 from tests.test_torch_cuda import cross_inputs, train_cfg, train_dataset
 from tests.test_torch_models import jax_init
